@@ -1,0 +1,512 @@
+"""Smoke run of the PyTorch/CUDA port (`surel_plus_tpu_torch`) on one
+NVIDIA GPU. Run from the repository root:
+
+    python3 chip_smoke.py
+
+1. Builds the CUDA kernels from `surel_plus_tpu_torch/csrc/` (one nvcc per
+   source, started together) and prints the build time.
+2. Holds each kernel against its plain PyTorch version on the card, on
+   sets sampled from the main path's graph at the main path's shapes:
+   the fused key hidden set sum (K1) in the lo-only layout (M=100, S'=3,
+   L=301) and the lead-in-hi layout (M=200, S'=4, L=801), fp32 at
+   rtol 1e-4 / atol 1e-3; the merge (K2) at [4096, 301] x 2, at
+   [4096, 801] x 2 and at odd widths, exactly. Times each kernel, its
+   plain version and, for the merge, `torch.sort` as a yardstick.
+3. Drives the serving path at the bench width: an RMAT graph of 250k
+   nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
+   S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
+   32 x 4096 query edges, then the MRR of 4096 sources against 1000
+   negatives each. Checks the sets' invariants, the fused route's logits
+   against the plain (unfused) route's on one batch (bf16, rtol = atol =
+   5e-2), and the card against the port's CPU path on 256 queries (fp32
+   scores, rtol = atol = 1e-4). Profiles a few predict batches (device
+   time by kernel, and the device's busy share).
+4. Requires every kernel to have launched during the main path, prints
+   one JSON line describing each kernel, the card's name and power
+   limit, and, last, the result line.
+
+Exits non-zero, printing no result line, when there is no CUDA device or
+any phase fails.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from surel_plus_tpu_torch.graph import rmat_graph
+from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import walk as walk_ops
+from surel_plus_tpu_torch.ops.join import join_gathered_keys, make_keys_join
+from surel_plus_tpu_torch.ops.kernels import build, hidden_sum, merge
+from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
+from surel_plus_tpu_torch.ops.sampler import sample_gsets_device_keys
+from surel_plus_tpu_torch.spg import SpGKeys
+from surel_plus_tpu_torch.train import TrainConfig
+from surel_plus_tpu_torch.train.device import device_mrr, trainer_from_keys
+
+DEVICE = "cuda"
+N_NODES, N_EDGES = 250_000, 2_500_000           # bench.py:114-115
+NUM_WALKS, NUM_STEPS = 100, 3                   # bench.py:116
+WIDE_WALKS, WIDE_STEPS = 200, 4                 # lead-in-hi layout
+HIDDEN, BATCH, N_BATCHES = 96, 4096, 32         # bench.py:117-118, 154
+SAMPLE_BLOCK = 65536                            # bench.py:126
+N_SRC, K_NEG = 4096, 1000                       # bench.py:241
+N_REF = 256                                     # queries held to the CPU
+K1_RTOL, K1_ATOL = 1e-4, 1e-3
+ROUTE_TOL = 5e-2
+CPU_TOL = 1e-4
+TIMED_ITERS = 20
+
+# NVIDIA's H100 SXM data sheet: HBM3 rate, fp32 peak of the CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12      # CUDA cores, outside the tensor cores
+
+KERNELS = {
+    "hidden_sum_fwd": dict(
+        module=hidden_sum, source="surel_plus_tpu_torch/csrc/hidden_sum.cu",
+        replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:169"),
+    "merge_pairs": dict(
+        module=merge, source="surel_plus_tpu_torch/csrc/merge.cu",
+        replaces="surel_plus_tpu/ops/pallas/bitonic_merge.py:44"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(ok, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def card_label() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def time_ms(fn, iters: int = TIMED_ITERS) -> float:
+    """Median device time of `fn` in ms, L2 flushed before each run."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
+    fn()
+    sync()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    sync()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(bytes_moved: float, ops: float):
+    """(bound_ms, bound_by): the larger of the memory and the op time."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------- phase 2
+def joined_batch(g, num_walks, num_steps, seed):
+    """Sets for BATCH random query edges of `g`, sampled on the card, and
+    their slot-order join (the fused route's inputs)."""
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, g.num_nodes, size=2 * BATCH)
+    spgk = sample_gsets_device_keys(g, seeds, num_walks, num_steps,
+                                    seed=seed, block_size=SAMPLE_BLOCK,
+                                    device=DEVICE)
+    rows = torch.arange(2 * BATCH, device=DEVICE).reshape(2, BATCH)
+    joined = join_gathered_keys(spgk.nodes[rows], spgk.khi[rows],
+                                spgk.klo[rows], spgk.sizes[rows],
+                                num_walks, num_steps, aligned=False)
+    return spgk, rows, joined
+
+
+def k1_inputs(joined, num_walks, num_steps, gen):
+    w1 = torch.randn(num_steps + 1, HIDDEN, generator=gen) * 0.5
+    b1 = torch.randn(HIDDEN, generator=gen) * 0.1
+    u_ext = torch.cat([u_core_rows(w1, num_walks, num_steps),
+                       torch.full((1, HIDDEN), NEG), b1[None]]).to(DEVICE)
+    return (joined.kown, joined.mask, joined.kcross, joined.kcross_mask,
+            u_ext.contiguous(), int(num_walks).bit_length(),
+            joined.kown_root, joined.kcross_root)
+
+
+def k1_bound(args):
+    kown, mown, kcross, mcross, u_ext, _, rown, rcross = args
+    q, b, _ = kown.shape
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    moved = nbytes(kown, mown, kcross, mcross, u_ext, rown, rcross) \
+        + q * b * h * 4
+    # the kernel computes a slot's activation once if any endpoint
+    # selects it: ncol multiply-adds and a max per channel, then one add
+    # per selecting endpoint
+    computed = int(mown.sum()) + int(mcross.any(dim=0).sum())
+    selected = int(mown.sum()) + int(mcross.sum())
+    ops = computed * h * (2 * ncol + 1) + selected * h
+    return bound(moved, ops)
+
+
+def k1_compare(args, label):
+    got = hidden_sum.fused_key_hidden_sum_cuda(*args)
+    want = hidden_sum.fused_key_hidden_sum_plain(*args)
+    sync()
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"K1 {label}: bad output")
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL)
+    say(f"K1 {label}: Q,B,L,Lc={tuple(args[0].shape)},{args[2].shape[1]} "
+        f"valid own slots {float(args[1].float().mean()):.3f}, selected "
+        f"cross slots {float(args[3].any(dim=0).float().mean()):.3f}; "
+        f"max_abs_err={err:.3e} max|plain|={float(want.abs().max()):.3e} "
+        f"(rtol {K1_RTOL}, atol {K1_ATOL}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"K1 {label} disagrees with its plain version")
+    return err
+
+
+def merge_rows(nodes, pays):
+    """The join's merge operands from a batch's rows [2, B, L], as the
+    join forms them: (v keys, v payload, u keys, u payload)."""
+    nu, nv = nodes[0].to(torch.int64), nodes[1].to(torch.int64)
+    return (walk_ops.to_bits(nv << 1), pays[1].contiguous(),
+            walk_ops.to_bits((nu << 1) | 1), pays[0].contiguous())
+
+
+def random_merge_rows(rng, rows, la, lb):
+    ka = np.sort(rng.integers(0, 1 << 31, size=(rows, la)) * 2, axis=1)
+    kb = np.sort(rng.integers(0, 1 << 31, size=(rows, lb)) * 2 + 1, axis=1)
+    ka[:, la // 2:] = 0xFFFFFFFE            # padded tail, payload 0
+    pa = rng.integers(-(1 << 31), 1 << 31, size=(rows, la))
+    pa[:, la // 2:] = 0
+    pb = rng.integers(-(1 << 31), 1 << 31, size=(rows, lb))
+    t = lambda x: walk_ops.to_bits(torch.as_tensor(x).to(DEVICE))
+    return t(ka), torch.as_tensor(pa, dtype=torch.int32).to(DEVICE), \
+        t(kb), torch.as_tensor(pb, dtype=torch.int32).to(DEVICE)
+
+
+def k2_compare(args, label):
+    kg, pg = merge.merge_pairs_cuda(*args)
+    kw, pw = merge.merge_pairs_plain(*args)
+    sync()
+    err = max(int((walk_ops.u32(kg) - walk_ops.u32(kw)).abs().max()),
+              int((pg.to(torch.int64) - pw.to(torch.int64)).abs().max()))
+    say(f"K2 {label}: [{args[0].shape[0]}, {args[0].shape[1]}] + "
+        f"[{args[2].shape[0]}, {args[2].shape[1]}] max_abs_err={err} "
+        f"{'exact' if err == 0 else 'FAIL'}")
+    require(err == 0, f"K2 {label} differs from its plain version")
+    return err
+
+
+def k2_bound(args):
+    ka, _, kb, _ = args
+    rows, la = ka.shape
+    lb = kb.shape[1]
+    moved = 2 * nbytes(*args)                    # inputs once, outputs once
+    # one binary search per element in the other row
+    ops = rows * (la * math.ceil(math.log2(lb + 1))
+                  + lb * math.ceil(math.log2(la + 1)))
+    return bound(moved, ops)
+
+
+def kernels_vs_plain(g):
+    gen = torch.Generator().manual_seed(1)
+    stats = {}
+    # lo-only layout, the main path's shapes
+    spl, rows, jlo = joined_batch(g, NUM_WALKS, NUM_STEPS, seed=11)
+    a_lo = k1_inputs(jlo, NUM_WALKS, NUM_STEPS, gen)
+    err1 = k1_compare(a_lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}")
+    # lead-in-hi layout: root planes
+    spw, _, jhi = joined_batch(g, WIDE_WALKS, WIDE_STEPS, seed=12)
+    require(jhi.kown_root is not None, "lead-in-hi join lost its roots")
+    a_hi = k1_inputs(jhi, WIDE_WALKS, WIDE_STEPS, gen)
+    err1 = max(err1, k1_compare(a_hi, f"lead-in-hi M={WIDE_WALKS} "
+                                      f"S'={WIDE_STEPS}"))
+
+    m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
+    err2 = k2_compare(m_main, "join rows, lo-only")
+    err2 = max(err2, k2_compare(merge_rows(spw.nodes[rows], spw.klo[rows]),
+                                "join rows, lead-in-hi"))
+    rng = np.random.default_rng(5)
+    for la, lb in ((37, 5), (1, 9), (301, 300)):
+        err2 = max(err2, k2_compare(random_merge_rows(rng, 257, la, lb),
+                                    f"random odd widths {la}+{lb}"))
+
+    # times at the main path's shapes
+    ka, _, kb, _ = m_main
+    cat64 = torch.cat([walk_ops.u32(ka), walk_ops.u32(kb)], dim=1)
+    k1_ms = time_ms(lambda: hidden_sum.fused_key_hidden_sum_cuda(*a_lo))
+    k1_plain = time_ms(lambda: hidden_sum.fused_key_hidden_sum_plain(*a_lo),
+                       iters=5)
+    k2_ms = time_ms(lambda: merge.merge_pairs_cuda(*m_main))
+    k2_plain = time_ms(lambda: merge.merge_pairs_plain(*m_main))
+    k2_lib = time_ms(lambda: torch.sort(cat64, dim=1, stable=True))
+    k1_hi_ms = time_ms(lambda: hidden_sum.fused_key_hidden_sum_cuda(*a_hi))
+    say(f"K1 lead-in-hi (L=801) kernel: {k1_hi_ms:.4f} ms")
+    stats["hidden_sum_fwd"] = dict(
+        max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
+        bound=k1_bound(a_lo))
+    stats["merge_pairs"] = dict(
+        max_abs_err=float(err2), ms=k2_ms, plain_ms=k2_plain,
+        library_ms=k2_lib, bound=k2_bound(m_main))
+    for name, st in stats.items():
+        say(f"{name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} "
+            f"ms, library {st['library_ms']}, bound {st['bound'][0]:.4f} ms "
+            f"({st['bound'][1]})")
+    return stats
+
+
+# --------------------------------------------------------------- phase 3
+def check_sets(spgk: SpGKeys, seeds: torch.Tensor) -> None:
+    """The sampler's invariants (tests/test_sampler.py) on the card."""
+    nodes, sizes = spgk.nodes, spgk.sizes.to(torch.int64)
+    L = nodes.shape[1]
+    valid = torch.arange(L, device=nodes.device)[None, :] < sizes[:, None]
+    require(bool((sizes >= 1).all()), "a set without its root")
+    require(bool((nodes[~valid] == walk_ops.INT32_MAX).all()),
+            "padding is not INT32_MAX")
+    require(bool((spgk.klo[~valid] == 0).all()), "padded keys are not 0")
+    inc = nodes[:, 1:] > nodes[:, :-1]
+    require(bool((inc | ~valid[:, 1:]).all()), "rows are not ascending")
+    shift, starts, lead_bit = walk_ops.enc_field_layout(spgk.num_walks,
+                                                        spgk.num_steps)
+    lo = walk_ops.u32(spgk.klo)
+    root = ((lo >> lead_bit) & 1).bool() & valid
+    require(bool((root.sum(dim=1) == 1).all()), "not one root per set")
+    require(bool((nodes[root] == seeds).all()), "root is not the seed")
+    for j in range(1, spgk.num_steps + 1):
+        col = ((lo >> starts[j]) & ((1 << shift) - 1)) * valid
+        require(bool((col.sum(dim=1) == spgk.num_walks).all()),
+                f"step {j} does not conserve the walk mass")
+
+
+def main_path(g, label):
+    seeds_np = np.arange(g.num_nodes)
+    t0 = time.perf_counter()
+    spgk = sample_gsets_device_keys(g, seeds_np, NUM_WALKS, NUM_STEPS,
+                                    seed=0, block_size=SAMPLE_BLOCK,
+                                    device=DEVICE)
+    sync()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spgk = sample_gsets_device_keys(g, seeds_np, NUM_WALKS, NUM_STEPS,
+                                    seed=1, shuffle_seed=0,
+                                    block_size=SAMPLE_BLOCK, device=DEVICE)
+    sync()
+    warm = time.perf_counter() - t0
+    say(f"sampling: {g.num_nodes} sets, L={spgk.nodes.shape[1]}, cold "
+        f"{cold:.3f} s (shuffle + tables), warm {warm:.3f} s -> "
+        f"{g.num_nodes / warm:.1f} sets/s [{label}]")
+    check_sets(spgk, torch.arange(g.num_nodes, device=DEVICE))
+
+    net = Net(NUM_STEPS + 1, HIDDEN, aggrs="mean", dropout=0.1,
+              dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+              device=DEVICE)
+    trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
+    rng = np.random.default_rng(0)
+    edges = torch.as_tensor(rng.integers(
+        0, g.num_nodes, size=(2, N_BATCHES * BATCH))).to(DEVICE)
+    trainer.predict(edges[:, :BATCH])
+    sync()
+    t0 = time.perf_counter()
+    scores = trainer.predict(edges)
+    sync()
+    dt = time.perf_counter() - t0
+    require(scores.shape == (N_BATCHES * BATCH,)
+            and bool(torch.isfinite(scores).all())
+            and bool(((scores >= 0) & (scores <= 1)).all()),
+            "predict gave bad scores")
+    say(f"inference: {N_BATCHES} x {BATCH} queries in {dt:.4f} s -> "
+        f"{N_BATCHES * BATCH / dt:.1f} queries/s [{label}]")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    src = torch.randint(0, g.num_nodes, (N_SRC,), generator=gen,
+                        device=DEVICE)
+    dst = torch.randint(0, g.num_nodes, (N_SRC,), generator=gen,
+                        device=DEVICE)
+    sync()
+    t0 = time.perf_counter()
+    pos = trainer.predict(torch.stack([src, dst]))
+    ns = src.repeat_interleave(K_NEG)
+    nd = torch.randint(0, g.num_nodes, ns.shape, generator=gen,
+                       device=DEVICE)
+    neg = trainer.predict(torch.stack([ns, nd])).reshape(N_SRC, K_NEG)
+    mrr = float(device_mrr(pos, neg))
+    dt = time.perf_counter() - t0
+    pairs = N_SRC * (K_NEG + 1)
+    require(math.isfinite(mrr) and 0 < mrr <= 1, f"MRR {mrr} out of range")
+    say(f"mrr eval: {N_SRC} sources x {K_NEG} negatives, {pairs} pairs in "
+        f"{dt:.4f} s -> {pairs / dt:.1f} pairs/s, MRR={mrr:.6f} [{label}]")
+    return spgk, net, edges
+
+
+def check_routes(spgk, net, edges) -> None:
+    """The fused route against the plain route on one batch (both on the
+    card), and the card against the port's CPU path on a few queries."""
+    state = net.state_dict()
+    be = edges[:, :BATCH]
+    plain = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, dtype="bfloat16",
+                fused_hidden=False, device=DEVICE)
+    plain.load_state_dict(state)
+    rows_be = (spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, be)
+    with torch.inference_mode():
+        got = net.eval()(make_keys_join(NUM_WALKS, NUM_STEPS,
+                                        aligned=False)(*rows_be))
+        want = plain.eval()(make_keys_join(NUM_WALKS, NUM_STEPS,
+                                           aligned=True)(*rows_be))
+    require(got.shape == (BATCH,) and bool(torch.isfinite(got).all()),
+            "fused route gave bad logits")
+    err = float((got - want).abs().max())
+    say(f"fused vs plain route, one batch of {BATCH} (bf16): max |d logit| "
+        f"= {err:.3e}, max |logit| = {float(want.abs().max()):.3e} "
+        f"(rtol = atol = {ROUTE_TOL})")
+    require(torch.allclose(got, want, rtol=ROUTE_TOL, atol=ROUTE_TOL),
+            "fused route disagrees with the plain route")
+
+    sub = be[:, :N_REF].contiguous()
+    rows = torch.unique(sub)
+    remap = torch.searchsorted(rows, sub)
+    small = SpGKeys(nodes=spgk.nodes[rows], khi=spgk.khi[rows],
+                    klo=spgk.klo[rows], sizes=spgk.sizes[rows],
+                    num_walks=spgk.num_walks, num_steps=spgk.num_steps)
+    cpu_small = SpGKeys(*(t.cpu() for t in (small.nodes, small.khi,
+                                            small.klo, small.sizes)),
+                        num_walks=small.num_walks,
+                        num_steps=small.num_steps)
+    cfg = TrainConfig(batch_size=N_REF)
+    f32_gpu = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, device=DEVICE)
+    f32_gpu.load_state_dict(state)
+    f32_cpu = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, device="cpu")
+    f32_cpu.load_state_dict(state)
+    got = trainer_from_keys(f32_gpu, small, cfg).predict(remap)
+    want = trainer_from_keys(f32_cpu, cpu_small, cfg).predict(remap.cpu())
+    err = float((got.cpu() - want).abs().max())
+    say(f"card vs CPU path, {N_REF} queries (fp32): max |d score| = "
+        f"{err:.3e} (rtol = atol = {CPU_TOL})")
+    require(torch.allclose(got.cpu(), want, rtol=CPU_TOL, atol=CPU_TOL),
+            "the card disagrees with the port's CPU path")
+
+
+def profile_predict(spgk, net, edges, batches: int = 8) -> None:
+    """Where a predict batch spends its device time: torch.profiler over
+    a few batches, kernels summed by name, and the device's busy share of
+    the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
+    be = edges[:, :batches * BATCH]
+    trainer.predict(be)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.predict(be)
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us()
+            by_name[e.name][1] += 1
+    busy_us = sum(t for t, _ in by_name.values())
+    say(f"profile: {batches} predict batches, wall {wall_us / 1e3:.3f} ms, "
+        f"kernel time {busy_us / 1e3:.3f} ms (device busy "
+        f"{100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel names")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        say(f"  {t / batches / 1e3:.4f} ms/batch  x{n // batches:<3d} "
+            f"{name[:100]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    label = card_label()
+    say(f"card: {label}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    # phase 1: build
+    t0 = time.perf_counter()
+    logs = build.build_all(sorted({k["module"].KERNEL.source
+                                   for k in KERNELS.values()}))
+    say(f"build: {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill", log))
+        say(f"  ptxas {name}: {len(regs)} entries, at most {max(regs)} "
+            f"registers, {spills} bytes spilled")
+
+    t0 = time.perf_counter()
+    g = rmat_graph(N_NODES, N_EDGES, seed=0)
+    say(f"graph: N={g.num_nodes} E={g.num_edges} (host, "
+        f"{time.perf_counter() - t0:.2f} s)")
+
+    # phase 2: every kernel against its plain version on the card
+    stats = kernels_vs_plain(g)
+
+    # phase 3: the main path, counting launches
+    for k in KERNELS.values():
+        k["module"].KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    spgk, net, edges = main_path(g, label)
+    launches = {name: k["module"].KERNEL.launches
+                for name, k in KERNELS.items()}
+    say(f"launches on the main path: {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_routes(spgk, net, edges)
+    profile_predict(spgk, net, edges)
+
+    # phase 4
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} never launched on the main path")
+    rows = []
+    for name, k in KERNELS.items():
+        st = stats[name]
+        rows.append(dict(
+            name=name, route="cuda", source=k["source"],
+            replaces=k["replaces"], launches=launches[name],
+            max_abs_err=st["max_abs_err"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=st["bound"][0],
+            bound_by=st["bound"][1], library_ms=st["library_ms"]))
+    say(json.dumps({"kernels": rows}))
+    say(label)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,100 @@
+"""Immutable CSR graph container (port of surel_plus_tpu/graph/csr.py).
+
+Host arrays are numpy; `to(device)` places (indptr, indices) on a torch
+device. Node ids are int32 on the host, as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRGraph:
+    """Compressed sparse row adjacency.
+
+    indptr:  int32[N+1]
+    indices: int32[E]   (column ids; sorted within each row)
+    data:    optional float32[E] edge weights (None => unweighted)
+    """
+
+    indptr: np.ndarray
+    indices: np.ndarray
+    data: Optional[np.ndarray] = None
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self.indptr) - 1
+
+    @property
+    def num_edges(self) -> int:
+        return len(self.indices)
+
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    def neighbors(self, u: int) -> np.ndarray:
+        return self.indices[self.indptr[u]:self.indptr[u + 1]]
+
+    def to(self, device):
+        """Return (indptr, indices) as int64 torch tensors on `device`
+        (int64 so that they index directly)."""
+        return (torch.as_tensor(self.indptr, dtype=torch.int64).to(device),
+                torch.as_tensor(self.indices, dtype=torch.int64).to(device))
+
+
+def csr_from_edges(
+    edges: np.ndarray,
+    num_nodes: Optional[int] = None,
+    weights: Optional[np.ndarray] = None,
+    symmetrize: bool = True,
+    coalesce: bool = True,
+    drop_self_loops: bool = True,
+) -> CSRGraph:
+    """Build a CSR graph from an edge list of shape [E, 2].
+
+    `G = A + A^T` with the diagonal dropped: symmetrize sums the weights
+    of (u, v) and (v, u); coalesce sums duplicate entries. numpy only.
+    """
+    edges = np.asarray(edges, dtype=np.int64)
+    if edges.ndim != 2 or edges.shape[1] != 2:
+        raise ValueError(f"edges must be [E, 2], got {edges.shape}")
+    if num_nodes is None:
+        num_nodes = int(edges.max()) + 1 if len(edges) else 0
+    if weights is None:
+        weights = np.ones(len(edges), dtype=np.float32)
+    else:
+        weights = np.asarray(weights, dtype=np.float32)
+
+    src, dst, w = edges[:, 0], edges[:, 1], weights
+    if symmetrize:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        w = np.concatenate([w, w])
+    if drop_self_loops:
+        keep = src != dst
+        src, dst, w = src[keep], dst[keep], w[keep]
+
+    # sort by (src, dst) once; CSR rows come out column-sorted.
+    order = np.lexsort((dst, src))
+    src, dst, w = src[order], dst[order], w[order]
+
+    if coalesce and len(src):
+        key_new = np.empty(len(src), dtype=bool)
+        key_new[0] = True
+        key_new[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+        seg = np.cumsum(key_new) - 1
+        w = np.bincount(seg, weights=w).astype(np.float32)
+        src, dst = src[key_new], dst[key_new]
+
+    indptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.add.at(indptr, src + 1, 1)
+    indptr = np.cumsum(indptr)
+    return CSRGraph(
+        indptr=indptr.astype(np.int32),
+        indices=dst.astype(np.int32),
+        data=w,
+    )

@@ -1,0 +1,3 @@
+from surel_plus_tpu_torch.models.net import Net
+
+__all__ = ["Net"]

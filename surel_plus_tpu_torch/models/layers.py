@@ -1,0 +1,97 @@
+"""Shared model layers (port of surel_plus_tpu/models/layers.py: MLP2,
+MergeLayer, masked_mean).
+
+Parameters stay float32; `dtype` is the compute precision of the hot
+layers (bfloat16 at the bench width), applied by casting at call time as
+flax's `Dense(dtype=...)` does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import math
+
+import torch
+from torch import nn
+
+
+def xavier_normal_(weight: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> None:
+    """flax's xavier_normal: N(0, 2 / (fan_in + fan_out))."""
+    fan_out, fan_in = weight.shape
+    with torch.no_grad():
+        weight.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
+                       generator=generator)
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
+    return nn.functional.linear(x.to(dtype), layer.weight.to(dtype),
+                                layer.bias.to(dtype))
+
+
+class MLP2(nn.Module):
+    """Linear -> ReLU -> Linear (the reference's pe_embedding /
+    feature_embedding). `hidden` and `project` expose the two halves so
+    that callers can reduce between them: sums and means commute with the
+    second, linear layer."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc0 = nn.Linear(in_dim, hidden_dim)
+        self.fc1 = nn.Linear(hidden_dim, out_dim)
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None) -> None:
+        for layer in (self.fc0, self.fc1):
+            xavier_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x):
+        return self.project(self.hidden(x))
+
+    def hidden(self, x):
+        """First layer + relu, in the compute dtype."""
+        return torch.relu(_dense(x, self.fc0, self.dtype))
+
+    def hidden_raw(self):
+        """fc0's (kernel [in, hidden], bias) in flax's orientation,
+        uncast: callers pick the compute dtype."""
+        return self.fc0.weight.t(), self.fc0.bias
+
+    def project(self, h):
+        """Second (linear) layer, in the compute dtype."""
+        return _dense(h, self.fc1, self.dtype)
+
+
+class MergeLayer(nn.Module):
+    """Two-layer scorer over concatenated endpoint embeddings. The first
+    layer runs in the compute dtype, the last in float32 for a stable
+    logit."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int = 1,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc0 = nn.Linear(in_dim, hidden_dim)
+        self.fc1 = nn.Linear(hidden_dim, out_dim)
+        self.drop = nn.Dropout(dropout)
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None) -> None:
+        for layer in (self.fc0, self.fc1):
+            xavier_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        x = torch.cat(list(xs), dim=-1)
+        h = self.drop(torch.relu(_dense(x, self.fc0, self.dtype)))
+        return self.fc1(h.to(torch.float32))
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the set axis (-2) honoring the mask; empty sets give 0."""
+    m = mask[..., None].to(x.dtype)
+    s = (x * m).sum(dim=-2)
+    cnt = m.sum(dim=-2).clamp(min=1.0)
+    return s / cnt

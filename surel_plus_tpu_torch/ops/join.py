@@ -1,0 +1,212 @@
+"""SpJoin over packed-key sets (port of the keys join of
+surel_plus_tpu/ops/join.py).
+
+For a query (u, v) every node x of S_u is paired with its key w.r.t. u
+and its key w.r.t. v (0 when x is not in S_v), and symmetrically for
+S_v. Rows are node-sorted, so both directions come out of ONE merge of
+the two rows (`_cross_lookup_bidir_multi`).
+
+Eager PyTorch runs whatever it is given, where XLA drops dead code: the
+slot-aligned outputs (the un-sort sort, the unpacked feature pairs and
+the aligned cross keys) are built only when the caller asks for them
+(`aligned=True`). The fused mean path needs only the merged-order planes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from surel_plus_tpu_torch.ops.merge_net import merge_pairs
+from surel_plus_tpu_torch.ops.walk import (
+    INT32_MAX,
+    enc_field_layout,
+    to_bits,
+    u32,
+)
+
+
+class JoinedBatch(NamedTuple):
+    """Join output for a batch of B queries with Q endpoints each.
+
+    eidx:  float32 [Q, B, L, 2, ncol] unpacked feature pairs: [..., 0, :]
+           the anchor side's encoding, [..., 1, :] the partner's (zeros if
+           absent). None unless the join was asked for aligned outputs.
+    mask:  bool  [Q, B, L] validity of each set slot.
+    sizes: int32 [Q, B] true set sizes.
+    kown:  int32 bits [Q, B, L] of the packed lo keys, slot order.
+    kcross: int32 bits [B, 2L], ONE shared plane in merged order holding
+           every endpoint's partner keys at disjoint positions, selected
+           per endpoint by kcross_mask [Q, B, 2L].
+    kcross_al: int32 bits [Q, B, L] slot-aligned partner lo keys
+           (aligned joins only).
+    *_root: int32 0/1 root-indicator planes, same shapes as the key
+           planes, for the lead-in-hi layout only (the root bit is the
+           hi word's bit 0; a slot is the root iff its node is the seed).
+    """
+
+    eidx: Optional[torch.Tensor]
+    mask: torch.Tensor
+    sizes: torch.Tensor
+    kown: Optional[torch.Tensor] = None
+    kcross: Optional[torch.Tensor] = None
+    kcross_mask: Optional[torch.Tensor] = None
+    kcross_al: Optional[torch.Tensor] = None
+    kown_root: Optional[torch.Tensor] = None
+    kcross_root: Optional[torch.Tensor] = None
+    kcross_al_root: Optional[torch.Tensor] = None
+
+
+def _cross_lookup_bidir_multi(nodes_u, nodes_v, pays_u, pays_v,
+                              want_sorted: bool = False,
+                              aligned: bool = True):
+    """BOTH cross directions of one payload from ONE merge.
+
+    Keys are node << 1 | tag (v copies tag 0, u copies tag 1), so a node
+    present on both sides sorts as [v copy, u copy]: each u slot reads its
+    match from its LEFT neighbor, each v slot from its RIGHT one.
+
+    Returns (cross_u, cross_v), each a 1-tuple of int32 [B, L]: for every
+    u slot the v payload of the same node (0 if absent), and vice versa;
+    (None,) each when `aligned` is False. With `want_sorted` it also returns
+    the merged-order planes (su_cross, su_mask, sv_cross, sv_mask, snode,
+    stag), each [B, 2L].
+    """
+    if len(pays_u) != 1 or len(pays_v) != 1:
+        raise NotImplementedError("the multi-payload merge is not ported")
+    B, L = nodes_u.shape
+    nv = nodes_v.to(torch.int64)
+    nu = nodes_u.to(torch.int64)
+    spk, sp = merge_pairs(to_bits(nv << 1), pays_v[0],
+                          to_bits((nu << 1) | 1), pays_u[0])
+    spk = u32(spk)
+    snode = spk >> 1
+    st = spk & 1
+    zero = torch.zeros_like(sp[:, :1])
+    # u slot (tag 1) matches when its left neighbor is the v copy
+    hit_u = torch.zeros_like(snode, dtype=torch.bool)
+    hit_u[:, 1:] = ((snode[:, 1:] == snode[:, :-1]) & (st[:, 1:] == 1)
+                    & (st[:, :-1] == 0) & (snode[:, 1:] != INT32_MAX))
+    cu = torch.where(hit_u, torch.cat([zero, sp[:, :-1]], dim=1), 0)
+    # v slot (tag 0) matches when its right neighbor is the u copy
+    hit_v = torch.zeros_like(hit_u)
+    hit_v[:, :-1] = ((snode[:, :-1] == snode[:, 1:]) & (st[:, :-1] == 0)
+                     & (st[:, 1:] == 1) & (snode[:, :-1] != INT32_MAX))
+    cv = torch.where(hit_v, torch.cat([sp[:, 1:], zero], dim=1), 0)
+    out = ((None,), (None,))
+    if aligned:
+        # un-sort: the original [v block | u block] layout is (tag, node)
+        # ascending, rebuilt from the merged keys
+        order = torch.sort((st << 31) | snode, dim=1, stable=True).indices
+        out = ((torch.gather(cu, 1, order)[:, L:],),
+               (torch.gather(cv, 1, order)[:, :L],))
+    if not want_sorted:
+        return out
+    pad = snode != INT32_MAX
+    return out + ((cu,), (st == 1) & pad, (cv,), (st == 0) & pad,
+                  snode, st)
+
+
+def unpack_key_features(khi: torch.Tensor, klo: torch.Tensor,
+                        num_walks: int, num_steps: int) -> torch.Tensor:
+    """Packed keys (int32 bits) -> normalized float32 features
+    [..., num_steps+1] (counts / num_walks)."""
+    shift, starts, lead_bit = enc_field_layout(num_walks, num_steps)
+    mask = (1 << shift) - 1
+    hi, lo = u32(khi), u32(klo)
+
+    def field(start_bit):
+        if start_bit < 32:
+            return (lo >> start_bit) & mask
+        return (hi >> (start_bit - 32)) & mask
+
+    if lead_bit < 32:
+        root = (lo >> lead_bit) & 1
+    else:
+        root = (hi >> (lead_bit - 32)) & 1
+    cols = [root * num_walks] + [field(starts[j])
+                                 for j in range(1, num_steps + 1)]
+    feats = torch.stack(cols, dim=-1).to(torch.float32)
+    return feats / num_walks
+
+
+def make_keys_join(num_walks: int, num_steps: int, impl: str = "merge",
+                   aligned: bool = True):
+    """Join function over SpGKeys rows: join(nodes, khi, klo, sizes, edges)
+    with edges [2, B] row indices."""
+
+    def join(nodes, khi, klo, sizes, edges):
+        edges = edges.to(torch.int64)
+        return join_gathered_keys(nodes[edges], khi[edges], klo[edges],
+                                  sizes[edges], num_walks, num_steps,
+                                  impl=impl, aligned=aligned)
+
+    return join
+
+
+def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
+                       num_walks: int, num_steps: int, impl: str = "merge",
+                       aligned: bool = True) -> JoinedBatch:
+    """Keys join over pre-gathered rows ([2, B, L] each).
+
+    Layouts: lo-only (every field and the root bit in the lo word) and
+    lead-in-hi (fields fill the lo word, the root bit is the hi word's
+    bit 0). The general hi/lo layout and impl="pallas" are not ported.
+    """
+    if impl != "merge":
+        raise NotImplementedError(f"join impl {impl!r} is not ported")
+    lead_bit = enc_field_layout(num_walks, num_steps)[2]
+    lo_only = lead_bit < 32
+    lead_hi = lead_bit == 32
+    if not (lo_only or lead_hi):
+        raise NotImplementedError(
+            "the general hi/lo key layout (lead bit "
+            f"{lead_bit}) is not ported")
+    nu, nv = rows_nodes[0], rows_nodes[1]
+    ((cross_lo_u,), (cross_lo_v,), (scu,), su_mask, (scv,), sv_mask,
+     snode, stag) = _cross_lookup_bidir_multi(
+        nu, nv, (rows_lo[0],), (rows_lo[1],), want_sorted=True,
+        aligned=aligned)
+    kown_root = kcross_root = None
+    if lead_hi:
+        # the root indicator follows from node ids: a slot is the root iff
+        # its node is the set's seed, a partner iff it is the other seed
+        rbit_u = rows_hi[0] & 1
+        rbit_v = rows_hi[1] & 1
+        u_b = torch.where(rbit_u > 0, nu, -1).amax(dim=1)
+        v_b = torch.where(rbit_v > 0, nv, -1).amax(dim=1)
+        kown_root = torch.stack([rbit_u, rbit_v])
+        kcross_root = (((stag == 1) & (snode == v_b[:, None]))
+                       | ((stag == 0) & (snode == u_b[:, None]))
+                       ).to(torch.int32)
+    mask = rows_nodes != INT32_MAX
+    kown = torch.stack([rows_lo[0], rows_lo[1]])
+    # disjoint (tag-separated) positions: the sum is a select
+    kcross = scu + scv
+    kcross_mask = torch.stack([su_mask, sv_mask])
+    feats = kcross_al = kcross_al_root = None
+    if aligned:
+        if lead_hi:
+            cross_hi_u = ((nu == v_b[:, None])
+                          & (nu != INT32_MAX)).to(torch.int32)
+            cross_hi_v = ((nv == u_b[:, None])
+                          & (nv != INT32_MAX)).to(torch.int32)
+            kcross_al_root = torch.stack([cross_hi_u, cross_hi_v])
+        else:
+            cross_hi_u = torch.zeros_like(cross_lo_u)
+            cross_hi_v = torch.zeros_like(cross_lo_v)
+        khi_pairs = torch.stack([
+            torch.stack([rows_hi[0], cross_hi_u], dim=-1),
+            torch.stack([rows_hi[1], cross_hi_v], dim=-1)])   # [2, B, L, 2]
+        klo_pairs = torch.stack([
+            torch.stack([rows_lo[0], cross_lo_u], dim=-1),
+            torch.stack([rows_lo[1], cross_lo_v], dim=-1)])
+        feats = unpack_key_features(khi_pairs, klo_pairs, num_walks,
+                                    num_steps)
+        kcross_al = torch.stack([cross_lo_u, cross_lo_v])
+    return JoinedBatch(eidx=feats, mask=mask, sizes=rows_sizes, kown=kown,
+                       kcross=kcross, kcross_mask=kcross_mask,
+                       kcross_al=kcross_al, kown_root=kown_root,
+                       kcross_root=kcross_root,
+                       kcross_al_root=kcross_al_root)

@@ -1,0 +1,135 @@
+"""Fused key unpack + hidden layer + masked set sum, forward: the CUDA
+kernel `csrc/hidden_sum.cu` and its plain PyTorch version.
+
+Replaces surel_plus_tpu/ops/pallas/hidden_sum_kernel.py
+(`fused_key_hidden_sum`, `_fwd_kernel`). The function:
+
+    out[q, b] = sum_l  mask_own[q, b, l]   * relu(f(kown[q, b, l]) @ U + b1)
+              + sum_l' mask_cross[q, b, l'] * relu(f(kcross[b, l']) @ U + b1)
+
+with f() unpacking a packed key into its count fields and U = W1's rows
+permuted and scaled to the field order (`u_core_rows`). kcross is ONE
+shared [B, Lc] plane (the join's merged order) whose positions each
+endpoint selects with its mask_cross row. The port issues one launch per
+batch: the TPU's VMEM gating and lane padding do not apply.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from surel_plus_tpu_torch.ops.kernels.build import CudaKernel, check_cuda, ptr
+from surel_plus_tpu_torch.ops.walk import enc_field_layout
+
+NEG = -1e9      # masked-slot logit offset (relu clamps to 0)
+
+KERNEL = CudaKernel("hidden_sum", "hidden_sum_fwd_launch",
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                    + [ctypes.c_void_p])
+MAX_Q, MAX_NCOL, MAX_H = 4, 8, 1024
+
+
+def u_core_rows(w1: torch.Tensor, num_walks: int,
+                num_steps: int) -> torch.Tensor:
+    """W1 [ncol, H] (rows in encoding-column order) permuted and scaled to
+    the kernel's field order: field i < num_steps is column num_steps-i,
+    the last field is the root column. The 1/num_walks feature
+    normalization rides on the rows; the root column's cancels."""
+    _, _, lead_bit = enc_field_layout(num_walks, num_steps)
+    if lead_bit > 32:
+        raise ValueError(
+            "u_core_rows requires the count fields in the lo word")
+    perm = list(range(num_steps, 0, -1))
+    return torch.cat([w1[perm, :].to(torch.float32) / num_walks,
+                      w1[0:1, :].to(torch.float32)], dim=0)
+
+
+def _fields_ext(keys, inv, shift: int, ncol: int, root=None):
+    """[..., ncol+2] float32: unpacked fields | invalid-slot | always-one."""
+    ku = keys.to(torch.int64) & 0xFFFFFFFF
+    nf = ncol if root is None else ncol - 1
+    fm = (1 << shift) - 1
+    cols = [(ku >> (i * shift)) & (1 if root is None and i == ncol - 1
+                                   else fm) for i in range(nf)]
+    if root is not None:
+        cols.append(root.to(torch.int64))
+    fields = torch.stack(cols, dim=-1).to(torch.float32)
+    return torch.cat([fields, inv[..., None].to(torch.float32),
+                      torch.ones_like(fields[..., :1])], dim=-1)
+
+
+def fused_key_hidden_sum_plain(kown, mask_own, kcross, mask_cross, u_ext,
+                               shift: int, root_own=None, root_cross=None):
+    """The set sum in plain fp32 PyTorch: materializes every slot's
+    hidden row, as the JAX package's XLA reference does."""
+    ncol = u_ext.shape[0] - 2
+    zc = torch.relu(_fields_ext(kcross, torch.zeros_like(kcross), shift,
+                                ncol, root_cross) @ u_ext)      # [B, Lc, H]
+    zo = torch.relu(_fields_ext(kown, ~mask_own, shift, ncol, root_own)
+                    @ u_ext)                                     # [Q,B,Lo,H]
+    return (zo.sum(dim=-2)
+            + (zc[None] * mask_cross[..., None].to(zc.dtype)).sum(dim=-2))
+
+
+def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
+                              shift: int, root_own=None, root_cross=None):
+    """Launch the set-sum kernel; see csrc/hidden_sum.cu."""
+    q, b, lo = kown.shape
+    lc = kcross.shape[1]
+    nbx, h = u_ext.shape
+    ncol = nbx - 2
+    dev = kown.device
+    check_cuda("kown", kown, torch.int32, (q, b, lo), dev)
+    check_cuda("mask_own", mask_own, torch.bool, (q, b, lo), dev)
+    check_cuda("kcross", kcross, torch.int32, (b, lc), dev)
+    check_cuda("mask_cross", mask_cross, torch.bool, (q, b, lc), dev)
+    check_cuda("u_ext", u_ext, torch.float32, (nbx, h), dev)
+    if (root_own is None) != (root_cross is None):
+        raise ValueError("pass both root planes or neither")
+    if root_own is not None:
+        check_cuda("root_own", root_own, torch.int32, (q, b, lo), dev)
+        check_cuda("root_cross", root_cross, torch.int32, (b, lc), dev)
+    nshift = ncol - 1 if root_own is not None else ncol
+    if not (1 <= q <= MAX_Q and 2 <= ncol <= MAX_NCOL and 1 <= h <= MAX_H):
+        raise ValueError(f"unsupported shape: Q={q} ncol={ncol} H={h}")
+    if (nshift - 1) * shift >= 32 or (root_own is not None
+                                      and nshift * shift > 32):
+        raise ValueError(f"{ncol} fields of {shift} bits do not fit the "
+                         "lo word")
+    out = torch.empty(q, b, h, dtype=torch.float32, device=dev)
+    if b:
+        null = ctypes.c_void_p(None)
+        KERNEL(dev, ptr(kown), ptr(mask_own), ptr(kcross), ptr(mask_cross),
+               null if root_own is None else ptr(root_own),
+               null if root_cross is None else ptr(root_cross),
+               ptr(u_ext), ptr(out), q, b, lo, lc, h, ncol, shift)
+    return out
+
+
+def fused_key_hidden_sum(kown: torch.Tensor, mask_own: torch.Tensor,
+                         kcross: torch.Tensor, mask_cross: torch.Tensor,
+                         u_ext: torch.Tensor, shift: int,
+                         root_own: Optional[torch.Tensor] = None,
+                         root_cross: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Masked set sum of both sides' hidden activations -> [Q, B, H] fp32.
+
+    kown [Q, B, Lo]: int32 bits of the packed lo keys, mask_own bool.
+    kcross [B, Lc]: the shared cross plane, selected per endpoint by
+    mask_cross [Q, B, Lc]. u_ext float32 [ncol + 2, H] =
+    concat(u_core_rows(W1), [NEG row], [b1 row]). root_own / root_cross:
+    int32 0/1 planes replacing the key's root bit (lead-in-hi layout).
+    On CUDA tensors this launches the kernel, on CPU tensors it takes the
+    plain version."""
+    if kown.device.type == "cuda":
+        return fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross,
+                                         u_ext, shift, root_own, root_cross)
+    if kown.device.type == "cpu":
+        return fused_key_hidden_sum_plain(kown, mask_own, kcross,
+                                          mask_cross, u_ext, shift,
+                                          root_own, root_cross)
+    raise ValueError(f"fused_key_hidden_sum: no kernel for device "
+                     f"{kown.device}")

@@ -1,0 +1,249 @@
+"""Walk-based node-set sampling with packed landing-count keys
+(port of surel_plus_tpu/ops/walk.py: the edge-table walk and the packed
+set builder).
+
+The random bits are an argument of the walk: `walk_bits` draws them
+from a `torch.Generator`, and `walk_block_tables` walks from given bits,
+so a test can feed it the JAX package's bits and compare exactly.
+
+Unsigned 32-bit words (keys, random bits) are held in int64 tensors with
+values in [0, 2^32) while they are computed, and stored as int32 bit
+patterns (`to_bits` / `u32`).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+INT32_MAX = int(np.iinfo(np.int32).max)
+U32 = 0xFFFFFFFF
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns (or int64 words) -> int64 values in [0, 2^32)."""
+    return x.to(torch.int64) & U32
+
+
+def to_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor with the same bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def enc_field_layout(num_walks: int, num_steps: int):
+    """Bit layout of the packed landing-count key: (shift, starts, lead_bit).
+
+    Columns 1..S hold SHIFT bits each, column S at the bottom, with a root
+    (LEAD) bit above them; field starts are padded so that no field
+    straddles the 32-bit word boundary, which lets the key live in a
+    (hi, lo) word pair and makes a segment's key the modular sum of its
+    visits' field contributions.
+    """
+    shift = int(num_walks).bit_length()
+    starts = {}
+    bit = 0
+    for j in range(num_steps, 0, -1):
+        if bit < 32 < bit + shift:
+            bit = 32  # pad past the word boundary
+        starts[j] = bit
+        bit += shift
+    if bit < 32 < bit + 1:
+        bit = 32
+    lead_bit = bit
+    total = lead_bit + 1
+    if total > 62:  # reserve top bits for the dedup sentinel
+        raise ValueError(
+            f"encoding key needs {total} bits > 62 "
+            f"(num_walks={num_walks}, num_steps={num_steps})")
+    return shift, starts, lead_bit
+
+
+def build_walk_tables(indptr: torch.Tensor, indices: torch.Tensor,
+                      shuffled_indices: torch.Tensor):
+    """Edge tables for the one-gather-per-step walk, int64 [E, 3]:
+
+    etab[j] = (indices[j],  start[indices[j]],  deg[indices[j]])
+    stab[j] = (shuffled[j], start[shuffled[j]], deg[shuffled[j]])
+    """
+    start_deg = torch.stack([indptr[:-1], indptr[1:] - indptr[:-1]], dim=-1)
+    etab = torch.cat([indices[:, None], start_deg[indices]], dim=1)
+    stab = torch.cat([shuffled_indices[:, None], start_deg[shuffled_indices]],
+                     dim=1)
+    return etab, stab
+
+
+def walk_bits(generator: torch.Generator, num_seeds: int, num_walks: int,
+              num_steps: int) -> torch.Tensor:
+    """Uniform 32-bit draws for the steps after the first hop:
+    int64 [num_steps - 1, num_seeds, num_walks] with values in [0, 2^32),
+    on the generator's device."""
+    return torch.randint(0, 1 << 32,
+                         (max(num_steps - 1, 0), num_seeds, num_walks),
+                         generator=generator, dtype=torch.int64,
+                         device=generator.device)
+
+
+def walk_block_tables(indptr: torch.Tensor, etab: torch.Tensor,
+                      stab: torch.Tensor, seeds: torch.Tensor,
+                      num_walks: int, num_steps: int,
+                      bits: torch.Tensor) -> torch.Tensor:
+    """Run `num_walks` walks of `num_steps` steps from each seed.
+
+    The first hop takes the (m % deg)-th entry of the seed's shuffled row
+    (without replacement, round robin when deg <= num_walks); later hops
+    pick `bits[t] % deg` uniformly. Walkers on a degree-0 node stay.
+    Returns int64 [B, num_walks, num_steps] node ids.
+    """
+    last = etab.shape[0] - 1
+    seeds = seeds.to(torch.int64)
+    start = indptr[seeds]
+    deg = indptr[seeds + 1] - start
+    m = torch.arange(num_walks, device=seeds.device)
+    offs = m[None, :] % deg[:, None].clamp(min=1)
+    # gather indices are clamped like XLA's: a degree-0 row's slot may sit
+    # one past the end, and its value is discarded below
+    row0 = stab[(start[:, None] + offs).clamp(max=last)]
+    live0 = deg[:, None] > 0
+    w0 = torch.where(live0, row0[..., 0], seeds[:, None])
+    if num_steps == 1:
+        return w0[:, :, None]
+
+    # stuck walkers (deg-0 seed) carry d=0 and stay in place forever
+    st = row0[..., 1]
+    d = torch.where(live0, row0[..., 2], 0)
+    cur = w0
+    out = [w0]
+    for t in range(num_steps - 1):
+        pick = bits[t] % d.clamp(min=1)
+        rowt = etab[(st + pick).clamp(max=last)]
+        live = d > 0
+        cur = torch.where(live, rowt[..., 0], cur)
+        st = torch.where(live, rowt[..., 1], st)
+        d = torch.where(live, rowt[..., 2], d)
+        out.append(cur)
+    return torch.stack(out, dim=-1)
+
+
+def build_sets_packed_block(seeds: torch.Tensor, walks: torch.Tensor,
+                            num_walks: int, num_steps: int, bucket: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """Dedup each seed's visits into a sorted set and pack every slot's
+    landing counts into a (hi, lo) key pair.
+
+    Per-visit field contributions (1 << start_bit[col]) are prefix-summed
+    along the node-sorted visit list; each set slot's key is the
+    difference of the prefix sums at its segment's bounds. When a set has
+    more than `bucket` distinct nodes, the smallest ids are kept and the
+    rest of the counts dropped.
+
+    Returns (nodes int32 [B, bucket] pad INT32_MAX, sizes int32 [B],
+    hi, lo int32 bits [B, bucket]).
+    """
+    block = seeds.shape[0]
+    dev = seeds.device
+    visits = 1 + num_walks * num_steps
+    _, starts, lead_bit = enc_field_layout(num_walks, num_steps)
+    use_hi = lead_bit >= 32
+    seeds = seeds.to(torch.int64)
+
+    nodes = torch.cat([seeds[:, None],
+                       walks.reshape(block, num_walks * num_steps)], dim=1)
+    # sort visits by node, ties by visit position: (node, vpos) packed
+    # into one int64 key sorts like a stable sort by node
+    vbits = max((visits - 1).bit_length(), 1)
+    vpos0 = torch.arange(visits, device=dev)
+    spacked = torch.sort((nodes << vbits) | vpos0[None, :], dim=1).values
+    snodes = spacked >> vbits
+    svpos = spacked & ((1 << vbits) - 1)
+
+    # position 0 is the root (col 0); positions 1.. are the flattened
+    # [num_walks, num_steps] walk matrix -> col = (p-1) % S + 1
+    scols = torch.where(svpos == 0, 0, (svpos - 1) % num_steps + 1)
+    s_lo = torch.zeros_like(snodes)
+    s_hi = torch.zeros_like(snodes) if use_hi else None
+    for j in range(1, num_steps + 1):
+        if starts[j] < 32:
+            s_lo = torch.where(scols == j, 1 << starts[j], s_lo)
+        else:
+            s_hi = torch.where(scols == j, 1 << (starts[j] - 32), s_hi)
+
+    first = torch.ones_like(snodes, dtype=torch.bool)
+    first[:, 1:] = snodes[:, 1:] != snodes[:, :-1]
+    n_uniq = first.sum(dim=1)
+    sizes = n_uniq.clamp(max=bucket)
+
+    # exclusive prefix sums of the contributions, modulo 2^32 like the
+    # reference's uint32 cumsum (exact per segment: fields never overflow)
+    pre_lo = torch.cumsum(s_lo, dim=1) & U32
+    excl_lo = (pre_lo - s_lo) & U32
+    if use_hi:
+        pre_hi = torch.cumsum(s_hi, dim=1) & U32
+        excl_hi = (pre_hi - s_hi) & U32
+
+    # compaction: segment starts to the front in node order, carrying
+    # each start's exclusive prefix
+    key2 = torch.where(first, snodes, INT32_MAX)
+    k2, order = torch.sort(key2, dim=1, stable=True)
+    p_lo = torch.gather(excl_lo, 1, order)
+    p_hi = torch.gather(excl_hi, 1, order) if use_hi else None
+    if visits < bucket:
+        padw = bucket - visits
+        k2 = torch.cat([k2, k2.new_full((block, padw), INT32_MAX)], dim=1)
+        p_lo = torch.cat([p_lo, p_lo.new_zeros(block, padw)], dim=1)
+        if use_hi:
+            p_hi = torch.cat([p_hi, p_hi.new_zeros(block, padw)], dim=1)
+    # next-start prefixes taken BEFORE truncation: a truncated row's last
+    # kept slot ends where the first dropped segment starts
+    if p_lo.shape[1] > bucket:
+        next_lo = p_lo[:, 1:bucket + 1]
+        next_hi = p_hi[:, 1:bucket + 1] if use_hi else None
+    else:
+        next_lo = torch.cat([p_lo[:, 1:], pre_lo[:, -1:]], dim=1)
+        next_hi = (torch.cat([p_hi[:, 1:], pre_hi[:, -1:]], dim=1)
+                   if use_hi else None)
+    nodes_out = k2[:, :bucket]
+    p_lo = p_lo[:, :bucket]
+
+    slots = torch.arange(bucket, device=dev)
+    valid = slots[None, :] < sizes[:, None]
+    nodes_out = torch.where(valid, nodes_out, INT32_MAX)
+
+    # the last real slot of an untruncated row ends at the visit total
+    is_last_untrunc = ((slots[None, :] == sizes[:, None] - 1)
+                       & (n_uniq <= bucket)[:, None])
+    next_lo = torch.where(is_last_untrunc, pre_lo[:, -1:], next_lo)
+    lo_keys = torch.where(valid, (next_lo - p_lo) & U32, 0)
+
+    is_root = (nodes_out == seeds[:, None]).to(torch.int64)
+    if use_hi:
+        p_hi = p_hi[:, :bucket]
+        next_hi = torch.where(is_last_untrunc, pre_hi[:, -1:], next_hi)
+        hi_keys = torch.where(valid, (next_hi - p_hi) & U32, 0)
+        hi_keys = hi_keys | (is_root << (lead_bit - 32))
+        hi_keys = torch.where(valid, hi_keys, 0)
+    else:
+        hi_keys = torch.zeros_like(lo_keys)
+    if lead_bit < 32:
+        lo_keys = lo_keys | (is_root << lead_bit)
+    lo_keys = torch.where(valid, lo_keys, 0)
+    return (nodes_out.to(torch.int32), sizes.to(torch.int32),
+            to_bits(hi_keys), to_bits(lo_keys))
+
+
+def sample_block(indptr: torch.Tensor, etab: torch.Tensor,
+                 stab: torch.Tensor, seeds: torch.Tensor, *,
+                 num_walks: int, num_steps: int, bucket: int,
+                 generator: torch.Generator):
+    """Per-block pipeline: walk bits from `generator` -> walks -> sets ->
+    packed keys.
+
+    Returns (nodes [B, bucket], sizes [B], hi [B, bucket], lo [B, bucket]).
+    """
+    bits = walk_bits(generator, seeds.shape[0], num_walks, num_steps)
+    walks = walk_block_tables(indptr, etab, stab, seeds, num_walks,
+                              num_steps, bits)
+    return build_sets_packed_block(seeds, walks, num_walks, num_steps,
+                                   bucket)
