@@ -9,9 +9,12 @@ NVIDIA GPU. Run from the repository root:
    sets sampled from the main path's graph at the main path's shapes:
    the fused key hidden set sum (K1) in the lo-only layout (M=100, S'=3,
    L=301) and the lead-in-hi layout (M=200, S'=4, L=801), fp32 at
-   rtol 1e-4 / atol 1e-3; the merge (K2) at [4096, 301] x 2, at
-   [4096, 801] x 2 and at odd widths, exactly. Times each kernel, its
-   plain version and, for the merge, `torch.sort` as a yardstick.
+   rtol 1e-4 / atol 1e-3; its backward (K1 bwd) in both layouts and at a
+   small Q=4 shape with an all-masked set, fp32 within 1e-4 of each dU
+   row's largest magnitude, and two launches bit for bit; the merge (K2)
+   at [4096, 301] x 2, at [4096, 801] x 2 and at odd widths, exactly.
+   Times each kernel, its plain version and, for the merge, `torch.sort`
+   as a yardstick.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
    S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
@@ -21,9 +24,21 @@ NVIDIA GPU. Run from the repository root:
    5e-2), and the card against the port's CPU path on 256 queries (fp32
    scores, rtol = atol = 1e-4). Profiles a few predict batches (device
    time by kernel, and the device's busy share).
-4. Requires every kernel to have launched during the main path, prints
-   one JSON line describing each kernel, the card's name and power
-   limit, and, last, the result line.
+   Then drives the training path at the bench width (bench.py:153-186):
+   `DeviceTrainer.fit` over 32 x 4096 random query edges with random 0/1
+   labels, lr 1e-3, grad_clip 1.0, one cold 8-epoch fit (which must make
+   no synchronizing CUDA call) and a timed one. Checks the fused route's
+   parameter gradients against the plain route's on one batch at the
+   initial weights (fp32 within 1e-3, bf16 with all-one labels within
+   5e-2, of each tensor's largest gradient), the fit's losses and AUCs,
+   that the parameters moved, and a few training steps on the card
+   against the port's CPU path on 256 queries (fp32, dropout 0, the same
+   permutation; parameters at rtol 1e-4, atol 1e-5). Profiles a few
+   train steps.
+4. Requires every kernel of each path to have launched while that path
+   ran (the counts are set to 0 just before the path and read just
+   after), prints one JSON line describing each kernel, the card's name
+   and power limit, and, last, the result line.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.
@@ -38,6 +53,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -51,7 +67,11 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.sampler import sample_gsets_device_keys
 from surel_plus_tpu_torch.spg import SpGKeys
 from surel_plus_tpu_torch.train import TrainConfig
-from surel_plus_tpu_torch.train.device import device_mrr, trainer_from_keys
+from surel_plus_tpu_torch.train.device import (
+    batch_loss,
+    device_mrr,
+    trainer_from_keys,
+)
 
 DEVICE = "cuda"
 N_NODES, N_EDGES = 250_000, 2_500_000           # bench.py:114-115
@@ -62,9 +82,14 @@ SAMPLE_BLOCK = 65536                            # bench.py:126
 N_SRC, K_NEG = 4096, 1000                       # bench.py:241
 N_REF = 256                                     # queries held to the CPU
 K1_RTOL, K1_ATOL = 1e-4, 1e-3
+K1B_TOL = 1e-4          # of each dU row's largest magnitude
 ROUTE_TOL = 5e-2
+GRAD_ROUTE_TOL = {"float32": 1e-3, "bfloat16": ROUTE_TOL}   # of tensor max
 CPU_TOL = 1e-4
+CPU_TRAIN_RTOL, CPU_TRAIN_ATOL = 1e-4, 1e-5
 TIMED_ITERS = 20
+N_EPOCHS, LR, GRAD_CLIP = 8, 1e-3, 1.0          # bench.py:153, 167
+REF_STEPS, REF_BATCH = 4, 64                    # card vs CPU training
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, fp32 peak of the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
@@ -72,12 +97,20 @@ FP32_OPS_PER_S = 67e12      # CUDA cores, outside the tensor cores
 
 KERNELS = {
     "hidden_sum_fwd": dict(
-        module=hidden_sum, source="surel_plus_tpu_torch/csrc/hidden_sum.cu",
+        kernel=hidden_sum.KERNEL,
+        source="surel_plus_tpu_torch/csrc/hidden_sum.cu",
         replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:169"),
+    "hidden_sum_bwd": dict(
+        kernel=hidden_sum.BWD_KERNEL,
+        source="surel_plus_tpu_torch/csrc/hidden_sum_bwd.cu",
+        replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:199"),
     "merge_pairs": dict(
-        module=merge, source="surel_plus_tpu_torch/csrc/merge.cu",
+        kernel=merge.KERNEL, source="surel_plus_tpu_torch/csrc/merge.cu",
         replaces="surel_plus_tpu/ops/pallas/bitonic_merge.py:44"),
 }
+# the kernels each main path must launch
+PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
+         "train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs")}
 
 
 class SmokeFailure(RuntimeError):
@@ -194,6 +227,71 @@ def k1_compare(args, label):
     return err
 
 
+def k1b_call(fn, args, g):
+    """A K1 backward version on the forward's operands `args`."""
+    return fn(*args[:5], g, *args[5:])
+
+
+def k1b_compare(args, g, label):
+    got = k1b_call(hidden_sum.fused_key_hidden_sum_bwd_cuda, args, g)
+    again = k1b_call(hidden_sum.fused_key_hidden_sum_bwd_cuda, args, g)
+    want = k1b_call(hidden_sum.fused_key_hidden_sum_bwd_plain, args, g)
+    sync()
+    ncol = args[4].shape[0] - 2
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"K1 bwd {label}: bad output")
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    err = float((got - want).abs().max())
+    scale = want.abs().amax(dim=1, keepdim=True)
+    ok = bool(((got - want).abs() <= K1B_TOL * scale).all())
+    say(f"K1 bwd {label}: Q,B,L,Lc={tuple(args[0].shape)},"
+        f"{args[2].shape[1]} max_abs_err={err:.3e} max|dU|="
+        f"{float(scale.max()):.3e}, worst row err/row max="
+        f"{float(((got - want).abs() / scale.clamp(min=1e-30)).max()):.3e} "
+        f"(tol {K1B_TOL}); masking row zero: "
+        f"{bool((got[ncol] == 0).all())}; repeat bit-identical: {same} "
+        f"{'ok' if ok and same else 'FAIL'}")
+    require(ok, f"K1 bwd {label} disagrees with its plain version")
+    require(bool((got[ncol] == 0).all()), f"K1 bwd {label}: masking row")
+    require(same, f"K1 bwd {label}: two launches differ")
+    return err
+
+
+def k1b_bound(args, g):
+    kown, mown, kcross, mcross, u_ext, shift, rown, rcross = args
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    moved = nbytes(kown, mown, kcross, mcross, u_ext, rown, rcross, g) \
+        + u_ext.numel() * 4
+    # a slot's activation is recomputed once if any endpoint selects it
+    # (ncol multiply-adds and a compare per channel); where it passes the
+    # relu, ncol + 1 multiply-adds go into dU (this run's data decides)
+    csel = mcross.any(dim=0)
+    zo = hidden_sum._fields_ext(kown, ~mown, shift, ncol, rown) @ u_ext
+    zc = hidden_sum._fields_ext(kcross, torch.zeros_like(kcross), shift,
+                                ncol, rcross) @ u_ext
+    passed = int(((zo > 0) & mown[..., None]).sum()) \
+        + int(((zc > 0) & csel[..., None]).sum())
+    del zo, zc
+    computed = int(mown.sum()) + int(csel.sum())
+    ops = computed * h * (2 * ncol + 1) + passed * 2 * (ncol + 1)
+    return bound(moved, ops)
+
+
+def q4_inputs(joined, u_ext, shift, gen, b=256):
+    """A small Q=4 case (HONet's endpoint count) from a lo-only batch:
+    endpoints 2, 3 reuse other queries' rows, every endpoint selects a
+    random half of the cross plane, and set 0 is all masked."""
+    b = min(b, joined.kown.shape[1])
+    pair = lambda t: torch.cat([t, t.roll(1, dims=1)])[:, :b].contiguous()
+    kown, mown = pair(joined.kown), pair(joined.mask)
+    kcross = joined.kcross[:b].contiguous()
+    mcross = (torch.rand(4, b, kcross.shape[1], generator=gen) < 0.5).to(
+        DEVICE)
+    mown[:, 0] = False
+    mcross[:, 0] = False
+    return kown, mown, kcross, mcross, u_ext, shift, None, None
+
+
 def merge_rows(nodes, pays):
     """The join's merge operands from a batch's rows [2, B, L], as the
     join forms them: (v keys, v payload, u keys, u payload)."""
@@ -251,6 +349,13 @@ def kernels_vs_plain(g):
     a_hi = k1_inputs(jhi, WIDE_WALKS, WIDE_STEPS, gen)
     err1 = max(err1, k1_compare(a_hi, f"lead-in-hi M={WIDE_WALKS} "
                                       f"S'={WIDE_STEPS}"))
+    g2 = torch.randn(2, BATCH, HIDDEN, generator=gen).to(DEVICE)
+    err1b = k1b_compare(a_lo, g2, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}")
+    err1b = max(err1b, k1b_compare(a_hi, g2, f"lead-in-hi M={WIDE_WALKS} "
+                                             f"S'={WIDE_STEPS}"))
+    a_q4 = q4_inputs(jlo, a_lo[4], a_lo[5], gen)
+    g4 = torch.randn(4, a_q4[0].shape[1], HIDDEN, generator=gen).to(DEVICE)
+    err1b = max(err1b, k1b_compare(a_q4, g4, "Q=4, lo-only, all-masked set"))
 
     m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
     err2 = k2_compare(m_main, "join rows, lo-only")
@@ -272,9 +377,19 @@ def kernels_vs_plain(g):
     k2_lib = time_ms(lambda: torch.sort(cat64, dim=1, stable=True))
     k1_hi_ms = time_ms(lambda: hidden_sum.fused_key_hidden_sum_cuda(*a_hi))
     say(f"K1 lead-in-hi (L=801) kernel: {k1_hi_ms:.4f} ms")
+    k1b_ms = time_ms(lambda: k1b_call(
+        hidden_sum.fused_key_hidden_sum_bwd_cuda, a_lo, g2))
+    k1b_plain = time_ms(lambda: k1b_call(
+        hidden_sum.fused_key_hidden_sum_bwd_plain, a_lo, g2), iters=5)
+    k1b_hi_ms = time_ms(lambda: k1b_call(
+        hidden_sum.fused_key_hidden_sum_bwd_cuda, a_hi, g2))
+    say(f"K1 bwd lead-in-hi (L=801) kernel: {k1b_hi_ms:.4f} ms")
     stats["hidden_sum_fwd"] = dict(
         max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
         bound=k1_bound(a_lo))
+    stats["hidden_sum_bwd"] = dict(
+        max_abs_err=err1b, ms=k1b_ms, plain_ms=k1b_plain, library_ms=None,
+        bound=k1b_bound(a_lo, g2))
     stats["merge_pairs"] = dict(
         max_abs_err=float(err2), ms=k2_ms, plain_ms=k2_plain,
         library_ms=k2_lib, bound=k2_bound(m_main))
@@ -309,7 +424,7 @@ def check_sets(spgk: SpGKeys, seeds: torch.Tensor) -> None:
                 f"step {j} does not conserve the walk mass")
 
 
-def main_path(g, label):
+def serve_path(g, label):
     seeds_np = np.arange(g.num_nodes)
     t0 = time.perf_counter()
     spgk = sample_gsets_device_keys(g, seeds_np, NUM_WALKS, NUM_STEPS,
@@ -369,6 +484,21 @@ def main_path(g, label):
     return spgk, net, edges
 
 
+def subset(spgk: SpGKeys, edges: torch.Tensor):
+    """The rows of the sets that `edges` [2, n] name, on the card and on
+    the CPU, and the edges renumbered to them."""
+    rows = torch.unique(edges)
+    remap = torch.searchsorted(rows, edges.contiguous())
+    small = SpGKeys(nodes=spgk.nodes[rows], khi=spgk.khi[rows],
+                    klo=spgk.klo[rows], sizes=spgk.sizes[rows],
+                    num_walks=spgk.num_walks, num_steps=spgk.num_steps)
+    cpu_small = SpGKeys(*(t.cpu() for t in (small.nodes, small.khi,
+                                            small.klo, small.sizes)),
+                        num_walks=small.num_walks,
+                        num_steps=small.num_steps)
+    return small, cpu_small, remap
+
+
 def check_routes(spgk, net, edges) -> None:
     """The fused route against the plain route on one batch (both on the
     card), and the card against the port's CPU path on a few queries."""
@@ -392,16 +522,7 @@ def check_routes(spgk, net, edges) -> None:
     require(torch.allclose(got, want, rtol=ROUTE_TOL, atol=ROUTE_TOL),
             "fused route disagrees with the plain route")
 
-    sub = be[:, :N_REF].contiguous()
-    rows = torch.unique(sub)
-    remap = torch.searchsorted(rows, sub)
-    small = SpGKeys(nodes=spgk.nodes[rows], khi=spgk.khi[rows],
-                    klo=spgk.klo[rows], sizes=spgk.sizes[rows],
-                    num_walks=spgk.num_walks, num_steps=spgk.num_steps)
-    cpu_small = SpGKeys(*(t.cpu() for t in (small.nodes, small.khi,
-                                            small.klo, small.sizes)),
-                        num_walks=small.num_walks,
-                        num_steps=small.num_steps)
+    small, cpu_small, remap = subset(spgk, be[:, :N_REF])
     cfg = TrainConfig(batch_size=N_REF)
     f32_gpu = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, device=DEVICE)
     f32_gpu.load_state_dict(state)
@@ -416,35 +537,198 @@ def check_routes(spgk, net, edges) -> None:
             "the card disagrees with the port's CPU path")
 
 
-def profile_predict(spgk, net, edges, batches: int = 8) -> None:
-    """Where a predict batch spends its device time: torch.profiler over
-    a few batches, kernels summed by name, and the device's busy share of
-    the window's wall time."""
+def profile(run, steps: int, what: str) -> None:
+    """Where `run` (`steps` steps of `what`) spends its device time:
+    torch.profiler over one call after a warm call, kernels summed by
+    name, and the device's busy share of the window's wall time (kernel
+    time over wall time; the kernels run on one stream)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
-    be = edges[:, :batches * BATCH]
-    trainer.predict(be)
+    run()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.predict(be)
+        run()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # kernels only: a record_function range (the optimizer's step)
+        # also shows on the device, around the kernels it contains
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
     busy_us = sum(t for t, _ in by_name.values())
-    say(f"profile: {batches} predict batches, wall {wall_us / 1e3:.3f} ms, "
-        f"kernel time {busy_us / 1e3:.3f} ms (device busy "
-        f"{100 * busy_us / wall_us:.1f}%), {len(by_name)} kernel names")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        say(f"  {t / batches / 1e3:.4f} ms/batch  x{n // batches:<3d} "
+    launched = sum(n for _, n in by_name.values())
+    say(f"profile: {steps} {what}, wall {wall_us / 1e3:.3f} ms, kernel "
+        f"time {busy_us / 1e3:.3f} ms (device busy "
+        f"{100 * busy_us / wall_us:.1f}%), {launched / steps:.1f} kernel "
+        f"launches per step in {len(by_name)} kernel names")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        say(f"  {t / steps / 1e3:.4f} ms/step  x{n // steps:<3d} "
             f"{name[:100]}")
+
+
+def profile_predict(spgk, net, edges, batches: int = 8) -> None:
+    trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
+    be = edges[:, :batches * BATCH]
+    profile(lambda: trainer.predict(be), batches, "predict batches")
+
+
+def train_setup(spgk: SpGKeys):
+    """bench.py:153-165 on the port: the bench Net from a seeded
+    generator, its trainer, 32 x 4096 random query edges with random 0/1
+    labels, and the generator of the permutations and dropout masks."""
+    net = Net(NUM_STEPS + 1, HIDDEN, aggrs="mean", dropout=0.1,
+              dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+              device=DEVICE)
+    trainer = trainer_from_keys(net, spgk, TrainConfig(
+        batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
+    rng = np.random.default_rng(0)
+    n = N_BATCHES * BATCH
+    edges = torch.as_tensor(rng.integers(
+        0, spgk.nodes.shape[0], size=(2, n))).to(DEVICE)
+    labels = torch.as_tensor((rng.random(n) < 0.5).astype(
+        np.float32)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    return trainer, edges, labels, gen
+
+
+def fit_cold(trainer, edges, labels, gen) -> None:
+    """The first fit, under CUDA's sync debug mode: the epoch loop must
+    never wait for the device (the losses and AUCs stay on it)."""
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses, _ = trainer.fit(edges, labels, N_EPOCHS, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = collections.Counter(
+        str(w.message) for w in caught
+        if "synchronizing" in str(w.message)
+        and "prototype" not in str(w.message))
+    last = float(losses[-1])
+    say(f"fit cold: {N_EPOCHS} epochs, last loss {last:.6f}, "
+        f"{time.perf_counter() - t0:.3f} s; {sum(syncs.values())} "
+        f"synchronizing calls inside the fit {dict(syncs)}")
+    require(not syncs, "the fit waits for the device")
+
+
+def fit_timed(trainer, edges, labels, gen, label) -> None:
+    """The timed 8-epoch fit (bench.py:178-186), with its checks."""
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    sync()
+    t0 = time.perf_counter()
+    losses, aucs = trainer.fit(edges, labels, N_EPOCHS, gen)
+    sync()
+    dt = time.perf_counter() - t0
+    losses, aucs = losses.cpu(), aucs.cpu()
+    n = N_EPOCHS * edges.shape[1]
+    say(f"train: {N_EPOCHS} epochs x {edges.shape[1]} queries in {dt:.4f} "
+        f"s -> {n / dt:.1f} queries/s ({N_EPOCHS * N_BATCHES} steps, "
+        f"{1e3 * dt / (N_EPOCHS * N_BATCHES):.4f} ms/step) [{label}]")
+    say(f"  epoch losses {[round(float(x), 6) for x in losses]}")
+    say(f"  epoch AUCs   {[round(float(x), 6) for x in aucs]}")
+    require(bool(torch.isfinite(losses).all()), "a loss is not finite")
+    require(bool(((aucs >= 0) & (aucs <= 1)).all()), "an AUC is not in "
+            "[0, 1]")
+    still = [k for k, v in trainer.model.state_dict().items()
+             if torch.equal(v, start[k])]
+    require(not still, f"parameters did not move: {still}")
+
+
+def check_train_routes(spgk, net, edges, labels) -> None:
+    """One bench batch's parameter gradients at the seeded initial
+    weights: the fused route (K1 forward and backward) against the plain
+    route, with the same dropout mask. Each tensor's largest difference
+    is held to a share of its largest gradient (GRAD_ROUTE_TOL).
+
+    float32 uses the batch's random labels. With random labels the
+    gradient is a sum of per-query terms of either sign that nearly
+    cancel, and the two bf16 routes round the logits apart by about
+    1e-3, systematically, which is no longer small against that sum; so
+    bfloat16 uses labels of all ones, a cotangent that does not cancel
+    across the batch."""
+    be = edges[:, :BATCH]
+    w = torch.ones(BATCH, device=DEVICE)
+    for dtype, tol in GRAD_ROUTE_TOL.items():
+        bl = labels[:BATCH] if dtype == "float32" else w
+        grads = {}
+        for fused in (True, False):
+            m = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, dtype=dtype,
+                    fused_hidden=fused, key_layout=(NUM_WALKS, NUM_STEPS),
+                    device=DEVICE)
+            m.load_state_dict(net.state_dict())
+            joined = make_keys_join(NUM_WALKS, NUM_STEPS,
+                                    aligned=not fused)(
+                spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, be)
+            drop = torch.Generator(device=DEVICE).manual_seed(3)
+            loss = batch_loss(m.train()(joined, generator=drop), bl, w)
+            loss.backward()
+            grads[fused] = (float(loss.detach()),
+                            {k: p.grad for k, p in m.named_parameters()})
+        rels = {}
+        for k, want in grads[False][1].items():
+            got = grads[True][1][k]
+            require(bool(torch.isfinite(got).all()), f"grad {k} not finite")
+            rels[k] = float((got - want).abs().max() / want.abs().max())
+        worst = max(rels.values())
+        say(f"fused vs plain route gradients, one batch of {BATCH} "
+            f"({dtype}, {'random' if dtype == 'float32' else 'all-one'} "
+            f"labels): loss {grads[True][0]:.6f} vs {grads[False][0]:.6f}"
+            f"; max|fused - plain| / max|plain| by tensor "
+            f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} }, worst "
+            f"{worst:.3e} (tol {tol})")
+        require(worst <= tol, f"fused route gradients ({dtype}) disagree "
+                "with the plain route's")
+
+
+def check_train_cpu(spgk, net, edges, labels) -> None:
+    """A few training steps on the card (fused route, kernels) against
+    the port's CPU path (unfused route), fp32, dropout 0, one shared
+    permutation."""
+    n = REF_STEPS * REF_BATCH
+    small, cpu_small, remap = subset(spgk, edges[:, :n])
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(4))
+    cfg = TrainConfig(batch_size=REF_BATCH, lr=LR, grad_clip=GRAD_CLIP)
+    out = {}
+    for dev, sets in ((DEVICE, small), ("cpu", cpu_small)):
+        m = Net(NUM_STEPS + 1, HIDDEN, dropout=0.0, device=dev)
+        m.load_state_dict(net.state_dict())
+        losses, _ = trainer_from_keys(m, sets, cfg).fit(
+            remap.to(dev), labels[:n].to(dev), 1, torch.Generator(device=dev),
+            perms=[perm.reshape(REF_STEPS, REF_BATCH)])
+        out[dev] = (losses.cpu(), {k: v.cpu() for k, v in
+                                   m.state_dict().items()})
+    (lg, pg), (lc, pc) = out[DEVICE], out["cpu"]
+    err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    ok = all(torch.allclose(pg[k], pc[k], rtol=CPU_TRAIN_RTOL,
+                            atol=CPU_TRAIN_ATOL) for k in pc)
+    say(f"card vs CPU training, {REF_STEPS} steps x {REF_BATCH} queries "
+        f"(fp32): loss {float(lg[0]):.6f} vs {float(lc[0]):.6f}, max "
+        f"|d param| = {err:.3e} (rtol {CPU_TRAIN_RTOL}, atol "
+        f"{CPU_TRAIN_ATOL}) {'ok' if ok else 'FAIL'}")
+    require(ok and torch.allclose(lg, lc, rtol=1e-5),
+            "training on the card disagrees with the port's CPU path")
+
+
+def profile_train(trainer, edges, labels, gen, steps: int = 8) -> None:
+    be, bl = edges[:, :steps * BATCH], labels[:steps * BATCH]
+    profile(lambda: trainer.train_epoch(be, bl, gen), steps, "train steps")
+
+
+def counts():
+    return {name: k["kernel"].launches for name, k in KERNELS.items()}
+
+
+def zero_counts() -> None:
+    for k in KERNELS.values():
+        k["kernel"].launches = 0
 
 
 def main() -> int:
@@ -459,7 +743,7 @@ def main() -> int:
 
     # phase 1: build
     t0 = time.perf_counter()
-    logs = build.build_all(sorted({k["module"].KERNEL.source
+    logs = build.build_all(sorted({k["kernel"].source
                                    for k in KERNELS.values()}))
     say(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
@@ -476,27 +760,44 @@ def main() -> int:
     # phase 2: every kernel against its plain version on the card
     stats = kernels_vs_plain(g)
 
-    # phase 3: the main path, counting launches
-    for k in KERNELS.values():
-        k["module"].KERNEL.launches = 0
+    # phase 3: the main paths, counting launches
+    launches = {}
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    spgk, net, edges = main_path(g, label)
-    launches = {name: k["module"].KERNEL.launches
-                for name, k in KERNELS.items()}
-    say(f"launches on the main path: {launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    spgk, net, edges = serve_path(g, label)
+    launches["serve"] = counts()
+    say(f"launches on the serving path: {launches['serve']}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_routes(spgk, net, edges)
     profile_predict(spgk, net, edges)
 
+    trainer, tedges, tlabels, tgen = train_setup(spgk)
+    check_train_routes(spgk, trainer.model, tedges, tlabels)
+    fit_cold(trainer, tedges, tlabels, tgen)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fit_timed(trainer, tedges, tlabels, tgen, label)
+    launches["train"] = counts()
+    say(f"launches on the training path (timed fit): {launches['train']}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_train_cpu(spgk, trainer.model, tedges, tlabels)
+    profile_train(trainer, tedges, tlabels, tgen)
+
     # phase 4
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
+    for path, names in PATHS.items():
+        for name in names:
+            require(launches[path][name] > 0,
+                    f"kernel {name} never launched on the {path} path")
     rows = []
     for name, k in KERNELS.items():
         st = stats[name]
         rows.append(dict(
             name=name, route="cuda", source=k["source"],
-            replaces=k["replaces"], launches=launches[name],
+            replaces=k["replaces"], launches=launches["train"][name],
+            launches_by_path={path: launches[path][name]
+                              for path, names in PATHS.items()
+                              if name in names},
             max_abs_err=st["max_abs_err"], ms=st["ms"],
             plain_ms=st["plain_ms"], bound_ms=st["bound"][0],
             bound_by=st["bound"][1], library_ms=st["library_ms"]))

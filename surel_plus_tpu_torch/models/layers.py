@@ -18,11 +18,14 @@ from torch import nn
 
 def xavier_normal_(weight: torch.Tensor,
                    generator: Optional[torch.Generator] = None) -> None:
-    """flax's xavier_normal: N(0, 2 / (fan_in + fan_out))."""
+    """flax's xavier_normal: N(0, 2 / (fan_in + fan_out)), drawn on the
+    CPU from `generator` (a CPU generator or None) and copied to the
+    weight's device, so one seed gives the same weights everywhere."""
     fan_out, fan_in = weight.shape
+    w = torch.empty(weight.shape).normal_(
+        0.0, math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
     with torch.no_grad():
-        weight.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)),
-                       generator=generator)
+        weight.copy_(w)
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
@@ -68,14 +71,18 @@ class MLP2(nn.Module):
 class MergeLayer(nn.Module):
     """Two-layer scorer over concatenated endpoint embeddings. The first
     layer runs in the compute dtype, the last in float32 for a stable
-    logit."""
+    logit. In training mode, dropout after the first layer keeps each
+    activation with probability 1 - dropout and scales it by
+    1 / (1 - dropout), as flax's Dropout does; its mask is drawn from the
+    `generator` given to forward (one on the activations' device), or
+    from the device's default generator."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int = 1,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc0 = nn.Linear(in_dim, hidden_dim)
         self.fc1 = nn.Linear(hidden_dim, out_dim)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
         self.dtype = dtype
 
     def reset_parameters(self, generator=None) -> None:
@@ -83,9 +90,15 @@ class MergeLayer(nn.Module):
             xavier_normal_(layer.weight, generator)
             nn.init.zeros_(layer.bias)
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, xs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = torch.cat(list(xs), dim=-1)
-        h = self.drop(torch.relu(_dense(x, self.fc0, self.dtype)))
+        h = torch.relu(_dense(x, self.fc0, self.dtype))
+        if self.training and self.dropout > 0:
+            keep = 1.0 - self.dropout
+            draw = torch.rand(h.shape, generator=generator, device=h.device)
+            h = torch.where(draw < keep, h / keep, 0.0)
         return self.fc1(h.to(torch.float32))
 
 

@@ -16,7 +16,8 @@ Two routes compute the same logits:
   the JAX package's XLA path does; needs an aligned join.
 
 `fused_hidden=None` picks the fused route on CUDA and the unfused one on
-the CPU.
+the CPU. Both routes are differentiable: the fused route's gradient for
+W1 and b1 flows through the kernel's autograd Function into u_ext.
 """
 
 from __future__ import annotations
@@ -76,9 +77,14 @@ class Net(nn.Module):
             width += hidden_dim
         self.affinity_score = MergeLayer(2 * width, hidden_dim, out_dim,
                                          dropout, self.dtype)
+        self.reset_parameters(generator)
+        self.to(device)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None
+                         ) -> None:
+        """Xavier-normal weights from the CPU `generator`, zero biases."""
         for m in self.children():
             m.reset_parameters(generator)
-        self.to(device)
 
     def fused_on(self, device: torch.device) -> bool:
         """Whether forward takes the fused route for tensors on `device`."""
@@ -87,9 +93,11 @@ class Net(nn.Module):
         return torch.device(device).type == "cuda"
 
     def forward(self, joined: JoinedBatch,
-                feature: Optional[torch.Tensor] = None) -> torch.Tensor:
+                feature: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """joined: JoinedBatch over [2, B, L] rows; feature: optional raw
-        endpoint features [2, B, x_dim]. Returns logits [B] float32."""
+        endpoint features [2, B, x_dim]; generator: the dropout mask's
+        generator in training mode. Returns logits [B] float32."""
         pe = self.pe_embedding
         cd = self.dtype
         if self.fused_on(joined.mask.device):
@@ -118,10 +126,10 @@ class Net(nn.Module):
             mean = masked_mean(hsum, joined.mask)
         b2v = pe.project(mean.new_zeros(1, self.hidden_dim))
         agg = pe.project(mean) + b2v
-        return self._score(agg, feature)
+        return self._score(agg, feature, generator)
 
-    def _score(self, agg: torch.Tensor,
-               feature: Optional[torch.Tensor]) -> torch.Tensor:
+    def _score(self, agg: torch.Tensor, feature: Optional[torch.Tensor],
+               generator: Optional[torch.Generator]) -> torch.Tensor:
         """Endpoint concat + optional raw-feature branch + MergeLayer."""
         agg = agg.to(torch.float32)
         xl, xr = agg[0], agg[1]                              # [B, h]
@@ -131,4 +139,4 @@ class Net(nn.Module):
             femb = self.feature_embedding(feature).to(torch.float32)
             xl = torch.cat([xl, femb[0]], dim=-1)
             xr = torch.cat([xr, femb[1]], dim=-1)
-        return self.affinity_score([xl, xr]).squeeze(-1)
+        return self.affinity_score([xl, xr], generator).squeeze(-1)

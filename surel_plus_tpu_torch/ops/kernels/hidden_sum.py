@@ -1,8 +1,10 @@
-"""Fused key unpack + hidden layer + masked set sum, forward: the CUDA
-kernel `csrc/hidden_sum.cu` and its plain PyTorch version.
+"""Fused key unpack + hidden layer + masked set sum: the CUDA kernels
+`csrc/hidden_sum.cu` (forward) and `csrc/hidden_sum_bwd.cu` (backward),
+their plain PyTorch versions, and the autograd Function that joins them.
 
 Replaces surel_plus_tpu/ops/pallas/hidden_sum_kernel.py
-(`fused_key_hidden_sum`, `_fwd_kernel`). The function:
+(`fused_key_hidden_sum`, `_fwd_kernel`, `_bwd_kernel` and the custom VJP
+`_fused`). The function:
 
     out[q, b] = sum_l  mask_own[q, b, l]   * relu(f(kown[q, b, l]) @ U + b1)
               + sum_l' mask_cross[q, b, l'] * relu(f(kcross[b, l']) @ U + b1)
@@ -10,8 +12,10 @@ Replaces surel_plus_tpu/ops/pallas/hidden_sum_kernel.py
 with f() unpacking a packed key into its count fields and U = W1's rows
 permuted and scaled to the field order (`u_core_rows`). kcross is ONE
 shared [B, Lc] plane (the join's merged order) whose positions each
-endpoint selects with its mask_cross row. The port issues one launch per
-batch: the TPU's VMEM gating and lane padding do not apply.
+endpoint selects with its mask_cross row. Its gradient with respect to
+u_ext recomputes the activations from the keys. The port issues one
+launch per batch and direction: the TPU's VMEM gating and lane padding do
+not apply.
 """
 
 from __future__ import annotations
@@ -29,7 +33,11 @@ NEG = -1e9      # masked-slot logit offset (relu clamps to 0)
 KERNEL = CudaKernel("hidden_sum", "hidden_sum_fwd_launch",
                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                     + [ctypes.c_void_p])
+BWD_KERNEL = CudaKernel("hidden_sum_bwd", "hidden_sum_bwd_launch",
+                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                        + [ctypes.c_void_p])
 MAX_Q, MAX_NCOL, MAX_H = 4, 8, 1024
+BWD_PARTS = 2048   # row groups of the backward, each one partial dU
 
 
 def u_core_rows(w1: torch.Tensor, num_walks: int,
@@ -42,9 +50,10 @@ def u_core_rows(w1: torch.Tensor, num_walks: int,
     if lead_bit > 32:
         raise ValueError(
             "u_core_rows requires the count fields in the lo word")
-    perm = list(range(num_steps, 0, -1))
-    return torch.cat([w1[perm, :].to(torch.float32) / num_walks,
-                      w1[0:1, :].to(torch.float32)], dim=0)
+    # rows num_steps, ..., 1: a flip, not an index list (which would be
+    # copied to the device, and waited for, on every call)
+    return torch.cat([w1[1:num_steps + 1].flip(0).to(torch.float32)
+                      / num_walks, w1[0:1].to(torch.float32)], dim=0)
 
 
 def _fields_ext(keys, inv, shift: int, ncol: int, root=None):
@@ -74,9 +83,28 @@ def fused_key_hidden_sum_plain(kown, mask_own, kcross, mask_cross, u_ext,
             + (zc[None] * mask_cross[..., None].to(zc.dtype)).sum(dim=-2))
 
 
-def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
-                              shift: int, root_own=None, root_cross=None):
-    """Launch the set-sum kernel; see csrc/hidden_sum.cu."""
+def fused_key_hidden_sum_bwd_plain(kown, mask_own, kcross, mask_cross,
+                                   u_ext, g, shift: int, root_own=None,
+                                   root_cross=None):
+    """dU [ncol+2, H] fp32 for the cotangent g [Q, B, H], by the explicit
+    formula: fields_ext^T @ where(z > 0, g, 0) per side, a cross slot's
+    cotangent being the sum of g over the endpoints that select it."""
+    ncol = u_ext.shape[0] - 2
+    g = g.to(torch.float32)
+    fo = _fields_ext(kown, ~mask_own, shift, ncol, root_own)   # [Q,B,Lo,C]
+    dz = torch.where(fo @ u_ext > 0, g[:, :, None, :], 0.0)    # [Q,B,Lo,H]
+    fc = _fields_ext(kcross, torch.zeros_like(kcross), shift, ncol,
+                     root_cross)                                # [B,Lc,C]
+    gc = torch.einsum("qbl,qbh->blh", mask_cross.to(torch.float32), g)
+    dzc = torch.where(fc @ u_ext > 0, gc, 0.0)                  # [B,Lc,H]
+    return (fo.reshape(-1, ncol + 2).T @ dz.reshape(-1, dz.shape[-1])
+            + fc.reshape(-1, ncol + 2).T @ dzc.reshape(-1, dzc.shape[-1]))
+
+
+def _check_operands(kown, mask_own, kcross, mask_cross, u_ext, shift,
+                    root_own, root_cross):
+    """Raise unless the operands are what the CUDA kernels take; returns
+    (Q, B, Lo, Lc, H, ncol)."""
     q, b, lo = kown.shape
     lc = kcross.shape[1]
     nbx, h = u_ext.shape
@@ -99,14 +127,87 @@ def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
                                       and nshift * shift > 32):
         raise ValueError(f"{ncol} fields of {shift} bits do not fit the "
                          "lo word")
-    out = torch.empty(q, b, h, dtype=torch.float32, device=dev)
+    return q, b, lo, lc, h, ncol
+
+
+def _roots(root_own, root_cross):
+    null = ctypes.c_void_p(None)
+    return (null if root_own is None else ptr(root_own),
+            null if root_cross is None else ptr(root_cross))
+
+
+def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
+                              shift: int, root_own=None, root_cross=None):
+    """Launch the set-sum kernel; see csrc/hidden_sum.cu."""
+    q, b, lo, lc, h, ncol = _check_operands(
+        kown, mask_own, kcross, mask_cross, u_ext, shift, root_own,
+        root_cross)
+    out = torch.empty(q, b, h, dtype=torch.float32, device=kown.device)
     if b:
-        null = ctypes.c_void_p(None)
-        KERNEL(dev, ptr(kown), ptr(mask_own), ptr(kcross), ptr(mask_cross),
-               null if root_own is None else ptr(root_own),
-               null if root_cross is None else ptr(root_cross),
-               ptr(u_ext), ptr(out), q, b, lo, lc, h, ncol, shift)
+        KERNEL(kown.device, ptr(kown), ptr(mask_own), ptr(kcross),
+               ptr(mask_cross), *_roots(root_own, root_cross), ptr(u_ext),
+               ptr(out), q, b, lo, lc, h, ncol, shift)
     return out
+
+
+def fused_key_hidden_sum_bwd_cuda(kown, mask_own, kcross, mask_cross, u_ext,
+                                  g, shift: int, root_own=None,
+                                  root_cross=None):
+    """Launch the backward kernel and its reduction pass; see
+    csrc/hidden_sum_bwd.cu. g: contiguous fp32 [Q, B, H]."""
+    q, b, lo, lc, h, ncol = _check_operands(
+        kown, mask_own, kcross, mask_cross, u_ext, shift, root_own,
+        root_cross)
+    dev = kown.device
+    check_cuda("g", g, torch.float32, (q, b, h), dev)
+    du = torch.zeros(ncol + 2, h, dtype=torch.float32, device=dev)
+    if b:
+        parts = min(b, BWD_PARTS)
+        scratch = torch.empty((ncol + 1) * h * parts, dtype=torch.float32,
+                              device=dev)
+        BWD_KERNEL(dev, ptr(kown), ptr(mask_own), ptr(kcross),
+                   ptr(mask_cross), *_roots(root_own, root_cross),
+                   ptr(u_ext), ptr(g), ptr(scratch), ptr(du), q, b, lo, lc,
+                   h, ncol, shift, parts)
+    return du
+
+
+def _pick(kind: str, t: torch.Tensor, cuda_fn, plain_fn):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if t.device.type == "cuda":
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"fused_key_hidden_sum {kind}: no kernel for device "
+                     f"{t.device}")
+
+
+class FusedKeyHiddenSum(torch.autograd.Function):
+    """The set sum with its gradient for u_ext only (the custom VJP
+    `_fused` of the JAX kernel): the backward recomputes the activations
+    from the saved keys, on the card with the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, kown, mask_own, kcross, mask_cross, u_ext, shift,
+                root_own, root_cross):
+        ctx.shift = shift
+        ctx.save_for_backward(kown, mask_own, kcross, mask_cross, u_ext,
+                              root_own, root_cross)
+        fwd = _pick("forward", kown, fused_key_hidden_sum_cuda,
+                    fused_key_hidden_sum_plain)
+        return fwd(kown, mask_own, kcross, mask_cross, u_ext, shift,
+                   root_own, root_cross)
+
+    @staticmethod
+    def backward(ctx, g):
+        kown, mask_own, kcross, mask_cross, u_ext, root_own, root_cross = \
+            ctx.saved_tensors
+        bwd = _pick("backward", kown, fused_key_hidden_sum_bwd_cuda,
+                    fused_key_hidden_sum_bwd_plain)
+        du = bwd(kown, mask_own, kcross, mask_cross, u_ext,
+                 g.to(torch.float32).contiguous(), ctx.shift, root_own,
+                 root_cross)
+        return None, None, None, None, du, None, None, None
 
 
 def fused_key_hidden_sum(kown: torch.Tensor, mask_own: torch.Tensor,
@@ -115,21 +216,15 @@ def fused_key_hidden_sum(kown: torch.Tensor, mask_own: torch.Tensor,
                          root_own: Optional[torch.Tensor] = None,
                          root_cross: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """Masked set sum of both sides' hidden activations -> [Q, B, H] fp32.
+    """Masked set sum of both sides' hidden activations -> [Q, B, H] fp32,
+    differentiable in u_ext.
 
     kown [Q, B, Lo]: int32 bits of the packed lo keys, mask_own bool.
     kcross [B, Lc]: the shared cross plane, selected per endpoint by
     mask_cross [Q, B, Lc]. u_ext float32 [ncol + 2, H] =
     concat(u_core_rows(W1), [NEG row], [b1 row]). root_own / root_cross:
     int32 0/1 planes replacing the key's root bit (lead-in-hi layout).
-    On CUDA tensors this launches the kernel, on CPU tensors it takes the
-    plain version."""
-    if kown.device.type == "cuda":
-        return fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross,
-                                         u_ext, shift, root_own, root_cross)
-    if kown.device.type == "cpu":
-        return fused_key_hidden_sum_plain(kown, mask_own, kcross,
-                                          mask_cross, u_ext, shift,
-                                          root_own, root_cross)
-    raise ValueError(f"fused_key_hidden_sum: no kernel for device "
-                     f"{kown.device}")
+    On CUDA tensors this launches the kernels (forward, and backward when
+    differentiated), on CPU tensors it takes the plain versions."""
+    return FusedKeyHiddenSum.apply(kown, mask_own, kcross, mask_cross,
+                                   u_ext, shift, root_own, root_cross)

@@ -1,20 +1,115 @@
-"""Device-resident scoring and ranking metrics (port of the inference half
-of surel_plus_tpu/train/device.py).
+"""Device-resident training, scoring and metrics (port of
+surel_plus_tpu/train/device.py).
 
-`DeviceTrainer.predict` scores query edges batch by batch: the join and
-the model run on the sets' device, one batch per step, with the tail
-batch padded with zero edges as in the reference.
+`DeviceTrainer` owns the model and its optimizer. `fit` trains epoch by
+epoch: each epoch shuffles the query edges with a riffle permutation
+(padded ids weigh 0), then runs a Python loop of steps (join, model,
+weighted BCE, backward, clip + Adam) on the sets' device, and keeps the
+epoch loss and the histogram AUC on the device: nothing in the loop
+waits for the device. `predict` scores query edges batch by batch, with
+the tail batch padded with zero edges as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch.nn import functional as F
 
 from surel_plus_tpu_torch.ops.join import make_keys_join
 from surel_plus_tpu_torch.spg.spg import SpGKeys
 from surel_plus_tpu_torch.train.loop import TrainConfig
+
+
+AUC_BINS = 512
+
+
+def _ordered_float_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> its bits as an unsigned 32-bit key (int64) that orders
+    as the floats do, so that the exclusive upper bound is key + 1."""
+    u = x.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    flip = torch.where(u >> 31 == 1, 0xFFFFFFFF, 0x80000000)
+    return u ^ flip
+
+
+def riffle_permutation(generator: torch.Generator, rows: int, cols: int,
+                       rounds: int = 2) -> torch.Tensor:
+    """Pseudorandom permutation of [0, rows*cols) as a [rows, cols] int64
+    batch matrix on the generator's device, from row-wise and column-wise
+    sorts of random 32-bit keys (the JAX package's epoch shuffle)."""
+    dev = generator.device
+    idx = torch.arange(rows * cols, device=dev).reshape(rows, cols)
+    for _ in range(rounds):
+        for dim in (1, 0):
+            bits = torch.randint(0, 1 << 32, (rows, cols),
+                                 generator=generator, device=dev)
+            order = torch.sort(bits, dim=dim, stable=True).indices
+            idx = torch.gather(idx, dim, order)
+    return idx
+
+
+def device_auc_hist(pos_hist: torch.Tensor,
+                    neg_hist: torch.Tensor) -> torch.Tensor:
+    """AUC from per-bin positive / negative score histograms (midrank
+    within a bin); the epoch training AUC."""
+    n_pos = pos_hist.sum()
+    n_neg = neg_hist.sum()
+    neg_below = torch.cumsum(neg_hist, dim=0) - neg_hist
+    wins = (pos_hist * (neg_below + 0.5 * neg_hist)).sum()
+    return wins / torch.clamp(n_pos * n_neg, min=1.0)
+
+
+def score_histogram(scores: torch.Tensor, weights: torch.Tensor,
+                    bins: int) -> torch.Tensor:
+    """Weighted histogram of scores in [0, 1] by broadcast comparison."""
+    b = torch.clamp((scores * bins).to(torch.int32), 0, bins - 1)
+    onehot = b[:, None] == torch.arange(bins, dtype=torch.int32,
+                                        device=b.device)[None, :]
+    return (onehot * weights[:, None]).sum(dim=0)
+
+
+def device_auc(labels: torch.Tensor, scores: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ROC-AUC with midrank ties (sklearn's roc_auc_score for binary
+    labels); entries of weight <= 0 are left out."""
+    if weights is None:
+        weights = torch.ones_like(scores)
+    w = weights > 0
+    keys = torch.where(w, _ordered_float_key(scores), 0)
+    k_sorted = torch.sort(keys).values
+    n_excl = (~w).sum()
+    lb = torch.searchsorted(k_sorted, keys)
+    ub = torch.searchsorted(k_sorted, keys + 1)
+    midrank = (lb + ub + 1).to(torch.float32) / 2.0 - n_excl
+    is_pos = (labels > 0.5) & w
+    is_neg = (labels <= 0.5) & w
+    n_pos = is_pos.sum().to(torch.float32)
+    n_neg = is_neg.sum().to(torch.float32)
+    r_pos = torch.where(is_pos, midrank, 0.0).sum()
+    return (r_pos - n_pos * (n_pos + 1) / 2.0) / torch.clamp(
+        n_pos * n_neg, min=1.0)
+
+
+def batch_loss(logits: torch.Tensor, labels: torch.Tensor,
+               weights: torch.Tensor) -> torch.Tensor:
+    """Weighted mean of the sigmoid BCE over max(sum of weights, 1)."""
+    per = F.binary_cross_entropy_with_logits(logits, labels,
+                                             reduction="none")
+    return (per * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Sequence[torch.Tensor],
+                         max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: with n the global L2 norm, each
+    gradient stays as it is if n < max_norm, else becomes g / n * max_norm
+    (no epsilon, unlike torch.nn.utils.clip_grad_norm_). Decided on the
+    device: no host sync."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
 def device_hits_at_k(pos: torch.Tensor, neg: torch.Tensor,
@@ -34,10 +129,13 @@ def device_mrr(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
 
 
 class DeviceTrainer:
-    """Scores query edges over a device-resident SpGKeys with a Net.
+    """Trains and scores a Net over a device-resident SpGKeys.
 
     join(nodes, khi, klo, sizes, edges) -> JoinedBatch; `feature`
-    optional raw node features [n, x_dim] on the sets' device."""
+    optional raw node features [n, x_dim] on the sets' device. The
+    optimizer is optax.chain(clip_by_global_norm(grad_clip), adam(lr)):
+    `clip_by_global_norm_` then torch.optim.Adam (eps 1e-8 outside the
+    square root, as optax's), fresh state from `init`."""
 
     def __init__(self, model: torch.nn.Module, spgk: SpGKeys,
                  config: TrainConfig, join: Callable,
@@ -47,13 +145,84 @@ class DeviceTrainer:
         self.config = config
         self.join = join
         self.feature = feature
+        self.optimizer = self._new_optimizer()
+
+    def _new_optimizer(self) -> torch.optim.Optimizer:
+        return torch.optim.Adam(self.model.parameters(), lr=self.config.lr,
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    def init(self, generator: Optional[torch.Generator] = None) -> None:
+        """Fresh weights from the CPU `generator` and fresh Adam state."""
+        self.model.reset_parameters(generator)
+        self.optimizer = self._new_optimizer()
+
+    def _batch(self, edges: torch.Tensor):
+        s = self.spgk
+        joined = self.join(s.nodes, s.khi, s.klo, s.sizes, edges)
+        feat = self.feature[edges] if self.feature is not None else None
+        return joined, feat
+
+    def train_epoch(self, edges: torch.Tensor, labels: torch.Tensor,
+                    generator: torch.Generator,
+                    perm: Optional[torch.Tensor] = None):
+        """One epoch over [Q, E] query edges with labels [E] float32, on
+        the sets' device. `generator` (on that device) draws the batch
+        permutation, unless `perm` [nsteps, batch_size] is given, and the
+        dropout masks. Returns (mean loss, histogram AUC) as device
+        scalars."""
+        bs = self.config.batch_size
+        num_edges = edges.shape[1]
+        nsteps = -(-num_edges // bs)
+        if perm is None:
+            perm = riffle_permutation(generator, nsteps, bs)
+        perm = perm.to(edges.device, torch.int64)
+        wmat = (perm < num_edges).to(torch.float32)
+        perm = torch.clamp(perm, max=num_edges - 1)
+        self.model.train()
+        pos_h = torch.zeros(AUC_BINS, device=edges.device)
+        neg_h = torch.zeros_like(pos_h)
+        loss_sum = torch.zeros((), device=edges.device)
+        w_sum = torch.zeros_like(loss_sum)
+        for idx, w in zip(perm, wmat):
+            bl = labels[idx]
+            joined, feat = self._batch(edges[:, idx])
+            logits = self.model(joined, feat, generator=generator)
+            loss = batch_loss(logits, bl, w)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            clip_by_global_norm_(
+                [p.grad for p in self.model.parameters()
+                 if p.grad is not None], self.config.grad_clip)
+            self.optimizer.step()
+            with torch.no_grad():
+                preds = torch.sigmoid(logits)
+                pos_h += score_histogram(preds, w * bl, AUC_BINS)
+                neg_h += score_histogram(preds, w * (1.0 - bl), AUC_BINS)
+                loss_sum += loss * w.sum()
+                w_sum += w.sum()
+        return (loss_sum / torch.clamp(w_sum, min=1.0),
+                device_auc_hist(pos_h, neg_h))
+
+    def fit(self, edges, labels, n_epochs: int,
+            generator: torch.Generator,
+            perms: Optional[Sequence[torch.Tensor]] = None):
+        """`n_epochs` epochs of `train_epoch`; `perms` optionally gives
+        each epoch's batch permutation. Returns (losses [n_epochs],
+        aucs [n_epochs]) as device tensors."""
+        dev = self.spgk.nodes.device
+        edges = torch.as_tensor(edges).to(dev, torch.int64)
+        labels = torch.as_tensor(labels).to(dev, torch.float32)
+        losses, aucs = zip(*(self.train_epoch(
+            edges, labels, generator, None if perms is None else perms[e])
+            for e in range(n_epochs)))
+        return torch.stack(losses), torch.stack(aucs)
 
     @torch.inference_mode()
     def predict(self, edges) -> torch.Tensor:
         """Score [Q, E] query edges (numpy or tensor of SpG row ids);
-        returns sigmoid scores [E] float32 on the sets' device."""
-        s = self.spgk
-        dev = s.nodes.device
+        returns sigmoid scores [E] float32 on the sets' device. Leaves
+        the model in eval mode."""
+        dev = self.spgk.nodes.device
         edges = torch.as_tensor(edges).to(dev, torch.int64)
         bs = self.config.batch_size
         E = edges.shape[1]
@@ -64,9 +233,7 @@ class DeviceTrainer:
         self.model.eval()
         out = []
         for i in range(0, E + pad, bs):
-            be = edges[:, i:i + bs]
-            joined = self.join(s.nodes, s.khi, s.klo, s.sizes, be)
-            feat = self.feature[be] if self.feature is not None else None
+            joined, feat = self._batch(edges[:, i:i + bs])
             out.append(torch.sigmoid(self.model(joined, feat)))
         return torch.cat(out)[:E]
 

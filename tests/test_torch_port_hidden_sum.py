@@ -1,9 +1,13 @@
-"""PyTorch port, the fused key hidden set sum: the plain version of the
-kernel held to the JAX Pallas kernel in interpret mode (the method of
-tests/test_pallas_hidden_sum.py), with and without root planes,
-including an all-masked set. Tolerance: fp32, rtol 1e-5, atol 1e-5 (the
-two sum the same fp32 terms in different orders)."""
+"""PyTorch port, the fused key hidden set sum: the plain versions of the
+forward and backward kernels held to the JAX Pallas kernel in interpret
+mode (the method of tests/test_pallas_hidden_sum.py; the backward against
+jax.grad through its custom VJP), with and without root planes, including
+an all-masked set, at Q=2 and Q=4. Tolerance: fp32, rtol 1e-5, atol 1e-5
+for the forward (the two sum the same fp32 terms in different orders);
+for dU, rtol 1e-5 and atol 1e-6 of the largest |dU| (sums of a few
+thousand products of counts up to 200 with cotangents of either sign)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +24,10 @@ from surel_plus_tpu.ops.walk import enc_field_layout
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     NEG,
     fused_key_hidden_sum,
+    fused_key_hidden_sum_bwd_cuda,
+    fused_key_hidden_sum_bwd_plain,
     fused_key_hidden_sum_cuda,
+    fused_key_hidden_sum_plain,
     u_core_rows,
 )
 
@@ -41,14 +48,21 @@ def _rand_keys(rng, shape, nw, ns):
     return k
 
 
-def _case(rng, nw, ns, Q, B, L, Lc, H):
+def _case(rng, nw, ns, Q, B, L, Lc, H, shared_cross=False):
+    """Random operands. A join puts each cross slot in at most one
+    endpoint's selection; `shared_cross` lets endpoints share slots, as
+    the kernels allow."""
     kown = _rand_keys(rng, (Q, B, L), nw, ns)
     kcross = _rand_keys(rng, (B, Lc), nw, ns)
     mask = rng.random((Q, B, L)) < 0.7
     mask[:, 0] = False                      # set 0: all masked ...
-    pick = rng.integers(0, Q + 1, size=(B, Lc))
-    pick[0] = Q                             # ... and selects no cross slot
-    mc = np.stack([pick == qi for qi in range(Q)])
+    if shared_cross:
+        mc = rng.random((Q, B, Lc)) < 0.5
+        mc[:, 0] = False
+    else:
+        pick = rng.integers(0, Q + 1, size=(B, Lc))
+        pick[0] = Q                         # ... and selects no cross slot
+        mc = np.stack([pick == qi for qi in range(Q)])
     w1 = rng.normal(size=(ns + 1, H)).astype(np.float32)
     b1 = rng.normal(size=(H,)).astype(np.float32)
     roots = None
@@ -92,3 +106,90 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         fused_key_hidden_sum_cuda(k, k.bool(), k[0], k.bool(),
                                   torch.zeros(6, 8), 7)
+
+
+def _u_ext(w1, b1, nw, ns):
+    t = torch.as_tensor(w1)
+    return torch.cat([u_core_rows(t, nw, ns),
+                      torch.full((1, w1.shape[1]), NEG),
+                      torch.as_tensor(b1)[None]])
+
+
+def _torch_args(kown, mask, kcross, mc, roots):
+    t = lambda x: torch.as_tensor(np.array(x))
+    return ((t(kown.view(np.int32)), t(mask), t(kcross.view(np.int32)),
+             t(mc)),
+            {} if roots is None else dict(root_own=t(roots[0]),
+                                          root_cross=t(roots[1])))
+
+
+def _assert_du_close(got, want):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("q", [2, 4])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_plain_backward_matches_jax_grad(layout, q):
+    nw, ns = LAYOUTS[layout]
+    rng = np.random.default_rng(2 + q)
+    H = 16
+    kown, mask, kcross, mc, w1, b1, roots = _case(
+        rng, nw, ns, q, 9, 19, 38, H, shared_cross=True)
+    g = rng.normal(size=(q, 9, H)).astype(np.float32)
+    shift = int(nw).bit_length()
+    u = _u_ext(w1, b1, nw, ns)
+    jr = {} if roots is None else dict(root_own=jnp.asarray(roots[0]),
+                                       root_cross=jnp.asarray(roots[1]))
+
+    def loss(uj):
+        out = jax_fused_key_hidden_sum(
+            jnp.asarray(kown), jnp.asarray(mask), jnp.asarray(kcross),
+            jnp.asarray(mc), uj, shift, interpret=True, **jr)
+        return jnp.sum(out * jnp.asarray(g))
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(u.numpy())))
+    args, tr = _torch_args(kown, mask, kcross, mc, roots)
+    got = fused_key_hidden_sum_bwd_plain(*args, u, torch.as_tensor(g),
+                                         shift, **tr).numpy()
+    assert got.shape == (ns + 3, H) and got.dtype == np.float32
+    _assert_du_close(got, want)
+    np.testing.assert_array_equal(got[ns + 1], 0.0)   # the masking row
+    # the all-masked set contributes nothing: its cotangent is irrelevant
+    g0 = g.copy()
+    g0[:, 0] = 1e3
+    got0 = fused_key_hidden_sum_bwd_plain(*args, u, torch.as_tensor(g0),
+                                          shift, **tr).numpy()
+    _assert_du_close(got0, want)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_function_gradient_matches_autograd_of_plain(layout):
+    nw, ns = LAYOUTS[layout]
+    rng = np.random.default_rng(7)
+    kown, mask, kcross, mc, w1, b1, roots = _case(rng, nw, ns, 2, 7, 15,
+                                                  30, 12)
+    g = torch.as_tensor(rng.normal(size=(2, 7, 12)).astype(np.float32))
+    shift = int(nw).bit_length()
+    args, tr = _torch_args(kown, mask, kcross, mc, roots)
+    grads = []
+    for fn in (fused_key_hidden_sum, fused_key_hidden_sum_plain):
+        u = _u_ext(w1, b1, nw, ns).requires_grad_()
+        out = fn(*args, u, shift, **tr)
+        (out * g).sum().backward()
+        grads.append(u.grad.numpy())
+    _assert_du_close(grads[0], grads[1])
+    # the Function's forward is the plain forward on CPU tensors
+    with torch.no_grad():
+        u = _u_ext(w1, b1, nw, ns)
+        np.testing.assert_array_equal(
+            fused_key_hidden_sum(*args, u, shift, **tr).numpy(),
+            fused_key_hidden_sum_plain(*args, u, shift, **tr).numpy())
+
+
+def test_cuda_backward_rejects_cpu_tensors():
+    k = torch.zeros(2, 3, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        fused_key_hidden_sum_bwd_cuda(k, k.bool(), k[0], k.bool(),
+                                      torch.zeros(6, 8),
+                                      torch.zeros(2, 3, 8), 7)
