@@ -11,10 +11,15 @@ NVIDIA GPU. Run from the repository root:
    L=301) and the lead-in-hi layout (M=200, S'=4, L=801), fp32 at
    rtol 1e-4 / atol 1e-3; its backward (K1 bwd) in both layouts and at a
    small Q=4 shape with an all-masked set, fp32 within 1e-4 of each dU
-   row's largest magnitude, and two launches bit for bit; the merge (K2)
-   at [4096, 301] x 2, at [4096, 801] x 2 and at odd widths, exactly.
+   row's largest magnitude, and two launches bit for bit; the attention
+   pool (K3) and its backward (K3 bwd) in both layouts, at an odd shape
+   (B=999, L=203) and at Q=4, the pooled rows and the softmax residuals
+   at rtol = atol = 1e-4, dU within 1e-4 of each row's largest
+   magnitude and dgvec, dgconst (sums that cancel) within 1e-6 of their
+   terms' sizes, two backward launches bit for bit; the merge (K2) at
+   [4096, 301] x 2, at [4096, 801] x 2 and at odd widths, exactly.
    Times each kernel, its plain version and, for the merge, `torch.sort`
-   as a yardstick.
+   as a yardstick, and prints the phase's peak device memory.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
    S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
@@ -29,12 +34,23 @@ NVIDIA GPU. Run from the repository root:
    labels, lr 1e-3, grad_clip 1.0, one cold 8-epoch fit (which must make
    no synchronizing CUDA call) and a timed one. Checks the fused route's
    parameter gradients against the plain route's on one batch at the
-   initial weights (fp32 within 1e-3, bf16 with all-one labels within
-   5e-2, of each tensor's largest gradient), the fit's losses and AUCs,
+   initial weights (fp32 within 1e-3, bf16 with all-one labels and bf16
+   with a random cotangent on the scorer's input within 5e-2, of each
+   tensor's largest gradient), the fit's losses and AUCs,
    that the parameters moved, and a few training steps on the card
    against the port's CPU path on 256 queries (fp32, dropout 0, the same
    permutation; parameters at rtol 1e-4, atol 1e-5). Profiles a few
    train steps.
+   Then the attention path, bench.py:203-234 on the same sets:
+   `Net(96, attn, dropout 0.1, bfloat16)` from a seeded generator,
+   `predict` on the 32 x 4096 edges, a cold 4-epoch fit (no synchronizing
+   call), a timed 4-epoch fit, a timed `predict`, and the same route,
+   gradient and card-vs-CPU checks, except that the bf16 gradient with
+   all-one labels is printed but not held (check_train_routes says
+   why). The attention gate's bias has a gradient of 0 up to rounding
+   (the softmax does not move when all gates of a set do), so that
+   tensor is held to absolute bounds (GATE_BIAS_*). Profiles a few
+   attention predict batches and train steps.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the card's name
@@ -62,7 +78,12 @@ from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import Net
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import join_gathered_keys, make_keys_join
-from surel_plus_tpu_torch.ops.kernels import build, hidden_sum, merge
+from surel_plus_tpu_torch.ops.kernels import (
+    attn_pool,
+    build,
+    hidden_sum,
+    merge,
+)
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.sampler import sample_gsets_device_keys
 from surel_plus_tpu_torch.spg import SpGKeys
@@ -89,7 +110,15 @@ CPU_TOL = 1e-4
 CPU_TRAIN_RTOL, CPU_TRAIN_ATOL = 1e-4, 1e-5
 TIMED_ITERS = 20
 N_EPOCHS, LR, GRAD_CLIP = 8, 1e-3, 1.0          # bench.py:153, 167
+ATTN_EPOCHS = 4                                 # bench.py:206
 REF_STEPS, REF_BATCH = 4, 64                    # card vs CPU training
+ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-4     # pooled rows, m and s, fp32
+ATTN_BWD_TOL = 1e-4     # of each dU row's largest magnitude
+ATTN_CANCEL_TOL = 1e-6  # of the summed terms' sizes (attn_bwd_scales)
+GATE_BIAS = "aggr.gate_nn.bias"
+GATE_BIAS_GRAD_ATOL = 1e-5                      # its gradient is noise
+# after n Adam steps on a noise gradient it may differ by up to ~lr a step
+GATE_BIAS_FIT_ATOL = 2 * LR * REF_STEPS
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, fp32 peak of the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
@@ -107,10 +136,24 @@ KERNELS = {
     "merge_pairs": dict(
         kernel=merge.KERNEL, source="surel_plus_tpu_torch/csrc/merge.cu",
         replaces="surel_plus_tpu/ops/pallas/bitonic_merge.py:44"),
+    "attn_pool_fwd": dict(
+        kernel=attn_pool.ATTN_KERNEL,
+        source="surel_plus_tpu_torch/csrc/attn_pool.cu",
+        replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:579"),
+    "attn_pool_bwd": dict(
+        kernel=attn_pool.ATTN_BWD_KERNEL,
+        source="surel_plus_tpu_torch/csrc/attn_pool_bwd.cu",
+        replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:598"),
 }
 # the kernels each main path must launch
 PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
-         "train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs")}
+         "train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs"),
+         "attn_serve": ("attn_pool_fwd", "merge_pairs"),
+         "attn_train": ("attn_pool_fwd", "attn_pool_bwd", "merge_pairs")}
+# the path whose count the kernels line reports
+MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
+             "merge_pairs": "train", "attn_pool_fwd": "attn_train",
+             "attn_pool_bwd": "attn_train"}
 
 
 class SmokeFailure(RuntimeError):
@@ -172,7 +215,8 @@ def bound(bytes_moved: float, ops: float):
 # --------------------------------------------------------------- phase 2
 def joined_batch(g, num_walks, num_steps, seed):
     """Sets for BATCH random query edges of `g`, sampled on the card, and
-    their slot-order join (the fused route's inputs)."""
+    their join: the merged-order planes (the fused mean route's inputs)
+    and the slot-aligned keys (the fused attention route's)."""
     rng = np.random.default_rng(seed)
     seeds = rng.integers(0, g.num_nodes, size=2 * BATCH)
     spgk = sample_gsets_device_keys(g, seeds, num_walks, num_steps,
@@ -181,7 +225,7 @@ def joined_batch(g, num_walks, num_steps, seed):
     rows = torch.arange(2 * BATCH, device=DEVICE).reshape(2, BATCH)
     joined = join_gathered_keys(spgk.nodes[rows], spgk.khi[rows],
                                 spgk.klo[rows], spgk.sizes[rows],
-                                num_walks, num_steps, aligned=False)
+                                num_walks, num_steps, features=False)
     return spgk, rows, joined
 
 
@@ -292,6 +336,146 @@ def q4_inputs(joined, u_ext, shift, gen, b=256):
     return kown, mown, kcross, mcross, u_ext, shift, None, None
 
 
+def attn_inputs(joined, u_ext, shift, gen):
+    """The attention pool's operands on a join: its slot-aligned planes,
+    u_ext, and gv = [gvec; gconst] at about the scale of the bench Net's
+    folded gate (W2 @ wg)."""
+    gv = torch.cat([torch.randn(HIDDEN, 1, generator=gen) * 0.3,
+                    torch.full((1, 1), 0.2)]).to(DEVICE)
+    return (joined.kown, joined.kcross_al, joined.mask, u_ext, gv, shift,
+            joined.kown_root, joined.kcross_al_root)
+
+
+def attn_odd(args, b=999, ell=203):
+    """B and L that are not multiples of 32: a corner of a batch (slot 0
+    of a set is valid whenever the set is, so no set goes empty)."""
+    cut = lambda t: None if t is None else t[:, :b, :ell].contiguous()
+    kown, kc, mask, u_ext, gv, shift, ro, rc = args
+    return (cut(kown), cut(kc), cut(mask), u_ext, gv, shift, cut(ro),
+            cut(rc))
+
+
+def attn_q4(args, b=256):
+    """Q=4 (HONet's endpoint count): endpoints 2, 3 reuse other queries'
+    rows."""
+    quad = lambda t: torch.cat([t, t.roll(1, dims=1)])[:, :b].contiguous()
+    kown, kc, mask, u_ext, gv, shift, _, _ = args
+    return quad(kown), quad(kc), quad(mask), u_ext, gv, shift, None, None
+
+
+def attn_label(args, label):
+    kown, mask = args[0], args[2]
+    return (f"{label}: Q,B,L={tuple(kown.shape)} valid slots "
+            f"{float(mask.float().mean()):.3f}")
+
+
+def attn_compare(args, label):
+    got, gm, gs = attn_pool.fused_attn_pool_cuda(*args)
+    want, wm, ws = attn_pool.fused_attn_pool_plain(*args)
+    sync()
+    require(got.shape == want.shape and bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(gs).all()), f"K3 {label}: bad output")
+    err = float((got - want).abs().max())
+    close = lambda x, y: torch.allclose(x, y, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+    ok = close(got, want) and close(gm, wm) and close(gs, ws)
+    say(f"K3 {attn_label(args, label)}; max_abs_err={err:.3e} "
+        f"max|plain|={float(want.abs().max()):.3e}, m err "
+        f"{float((gm - wm).abs().max()):.3e}, s err "
+        f"{float(((gs - ws) / ws).abs().max()):.3e} relative (rtol "
+        f"{ATTN_RTOL}, atol {ATTN_ATOL}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"K3 {label} disagrees with its plain version")
+    return err
+
+
+def attn_bwd_call(fn, args, g, m, s):
+    """An attention backward version on the forward's operands `args`."""
+    return fn(*args[:5], g, m, s, *args[5:])
+
+
+def attn_bwd_scales(args, g, m, s):
+    """The sizes of the terms whose sums give dgvec and dgconst. Both add
+    up dgate = a * (da - t), which sums to 0 over each set (the softmax's
+    VJP), so their rounding error follows the terms a * (|da| + |t|)
+    (times hs for dgvec), not the result: ([H], scalar)."""
+    *_, hs, gate = attn_pool.attn_slots_plain(*args)
+    a = torch.exp(gate - m[..., None]) / s[..., None]
+    da = (hs * g[:, :, None, :]).sum(dim=-1)
+    t = (a * da).sum(dim=-1, keepdim=True)
+    w = a * (da.abs() + t.abs())
+    return (w[..., None] * hs).sum(dim=(0, 1, 2)), w.sum()
+
+
+def attn_bwd_compare(args, g, label):
+    """Both versions on the kernel forward's residuals m, s: dU within
+    ATTN_BWD_TOL of each row's largest magnitude; dgvec and dgconst,
+    sums of terms that cancel, within ATTN_CANCEL_TOL of their terms'
+    sizes (attn_bwd_scales)."""
+    _, m, s = attn_pool.fused_attn_pool_cuda(*args)
+    got = attn_bwd_call(attn_pool.fused_attn_pool_bwd_cuda, args, g, m, s)
+    again = attn_bwd_call(attn_pool.fused_attn_pool_bwd_cuda, args, g, m, s)
+    want = attn_bwd_call(attn_pool.fused_attn_pool_bwd_plain, args, g, m, s)
+    sync()
+    h = args[3].shape[1]
+    require(all(x.shape == y.shape and bool(torch.isfinite(x).all())
+                for x, y in zip(got, want)), f"K3 bwd {label}: bad output")
+    same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(got, again))
+    row_max = want[0].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    du_rel = float(((got[0] - want[0]).abs() / row_max).max())
+    scale_v, scale_c = attn_bwd_scales(args, g, m, s)
+    dv = (got[1] - want[1]).abs()[:, 0]
+    v_rel = float((dv[:h] / scale_v.clamp(min=1e-30)).max())
+    c_rel = float(dv[h] / scale_c)
+    ok = (du_rel <= ATTN_BWD_TOL and v_rel <= ATTN_CANCEL_TOL
+          and c_rel <= ATTN_CANCEL_TOL)
+    err = max(float((got[0] - want[0]).abs().max()), float(dv.max()))
+    say(f"K3 bwd {attn_label(args, label)}; max_abs_err={err:.3e} "
+        f"max|dU|={float(want[0].abs().max()):.3e}, worst dU err/row max="
+        f"{du_rel:.3e} (tol {ATTN_BWD_TOL}); max|dgvec|="
+        f"{float(want[1][:h].abs().max()):.3e}, worst dgvec err/terms "
+        f"{v_rel:.3e}, dgconst {float(got[1][h]):.3e} vs "
+        f"{float(want[1][h]):.3e}, err/terms {c_rel:.3e} (tol "
+        f"{ATTN_CANCEL_TOL}); repeat bit-identical: {same} "
+        f"{'ok' if ok and same else 'FAIL'}")
+    require(ok, f"K3 bwd {label} disagrees with its plain version")
+    require(same, f"K3 bwd {label}: two launches differ")
+    return err
+
+
+def attn_bound(args):
+    """The forward's least time. A masked slot weighs exactly 0, so only
+    valid slots need their hidden row: per channel two z's of ncol
+    multiply-adds and a bias add each, two relus and their sum, the gate's
+    multiply-add and the pool's; per slot the exp and the sum."""
+    kown, kc, mask, u_ext, gv, _, ro, rc = args
+    q, b, _ = kown.shape
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    moved = nbytes(kown, kc, mask, u_ext, gv, ro, rc) + q * b * (h + 2) * 4
+    valid = int(mask.sum())
+    ops = valid * (h * (2 * (2 * ncol + 1) + 3 + 2 + 2) + 2)
+    return bound(moved, ops)
+
+
+def attn_bwd_bound(args, g):
+    """The backward's least time: per valid slot and channel, the hidden
+    row again, the gate's and da's multiply-adds, dhs (3) and dgvec's
+    multiply-add; where a side's z > 0, its 2 ncol + 1 operations into dU;
+    per valid slot the weight, t and dgate (8)."""
+    kown, kc, mask, u_ext, gv, shift, ro, rc = args
+    q, b, _ = kown.shape
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    moved = nbytes(kown, kc, mask, u_ext, gv, ro, rc, g) + 2 * q * b * 4 \
+        + (u_ext.numel() + gv.numel()) * 4
+    _, _, zo, zc, _, _ = attn_pool.attn_slots_plain(*args)
+    vm = mask[..., None]
+    passed = int(((zo > 0) & vm).sum()) + int(((zc > 0) & vm).sum())
+    del zo, zc
+    valid = int(mask.sum())
+    ops = valid * (h * (2 * (2 * ncol + 1) + 3 + 2 + 2 + 3 + 2) + 8) \
+        + passed * (2 * ncol + 1)
+    return bound(moved, ops)
+
+
 def merge_rows(nodes, pays):
     """The join's merge operands from a batch's rows [2, B, L], as the
     join forms them: (v keys, v payload, u keys, u payload)."""
@@ -357,6 +541,23 @@ def kernels_vs_plain(g):
     g4 = torch.randn(4, a_q4[0].shape[1], HIDDEN, generator=gen).to(DEVICE)
     err1b = max(err1b, k1b_compare(a_q4, g4, "Q=4, lo-only, all-masked set"))
 
+    # the attention pool (K3) and its backward: both layouts, an odd
+    # shape, Q=4
+    t_lo = attn_inputs(jlo, a_lo[4], a_lo[5], gen)
+    t_hi = attn_inputs(jhi, a_hi[4], a_hi[5], gen)
+    t_odd, t_q4 = attn_odd(t_lo), attn_q4(t_lo)
+    cases = ((t_lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}"),
+             (t_hi, f"lead-in-hi M={WIDE_WALKS} S'={WIDE_STEPS}"),
+             (t_odd, "odd B and L, lo-only"), (t_q4, "Q=4, lo-only"))
+    err3 = max(attn_compare(a, label) for a, label in cases)
+    err3b = 0.0
+    for a, label in cases:
+        ga = torch.randn(a[0].shape[0], a[0].shape[1], HIDDEN,
+                         generator=gen).to(DEVICE)
+        err3b = max(err3b, attn_bwd_compare(a, ga, label))
+    say(f"phase 2 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
     err2 = k2_compare(m_main, "join rows, lo-only")
     err2 = max(err2, k2_compare(merge_rows(spw.nodes[rows], spw.klo[rows]),
@@ -384,6 +585,37 @@ def kernels_vs_plain(g):
     k1b_hi_ms = time_ms(lambda: k1b_call(
         hidden_sum.fused_key_hidden_sum_bwd_cuda, a_hi, g2))
     say(f"K1 bwd lead-in-hi (L=801) kernel: {k1b_hi_ms:.4f} ms")
+    _, m_lo, s_lo = attn_pool.fused_attn_pool_cuda(*t_lo)
+    k3_ms = time_ms(lambda: attn_pool.fused_attn_pool_cuda(*t_lo))
+    k3_plain = time_ms(lambda: attn_pool.fused_attn_pool_plain(*t_lo),
+                       iters=5)
+    k3b_ms = time_ms(lambda: attn_bwd_call(
+        attn_pool.fused_attn_pool_bwd_cuda, t_lo, g2, m_lo, s_lo))
+    k3b_plain = time_ms(lambda: attn_bwd_call(
+        attn_pool.fused_attn_pool_bwd_plain, t_lo, g2, m_lo, s_lo), iters=5)
+    # L=801, where the TPU needs its slot-chunked kernels
+    _, m_hi, s_hi = attn_pool.fused_attn_pool_cuda(*t_hi)
+    wide = {
+        "K3": (lambda: attn_pool.fused_attn_pool_cuda(*t_hi),
+               lambda: attn_pool.fused_attn_pool_plain(*t_hi),
+               lambda: attn_bound(t_hi)),
+        "K3 bwd": (lambda: attn_bwd_call(attn_pool.fused_attn_pool_bwd_cuda,
+                                         t_hi, g2, m_hi, s_hi),
+                   lambda: attn_bwd_call(
+                       attn_pool.fused_attn_pool_bwd_plain, t_hi, g2, m_hi,
+                       s_hi),
+                   lambda: attn_bwd_bound(t_hi, g2))}
+    for name, (kernel, plain, bnd) in wide.items():
+        ms, plain_ms, (bound_ms, by) = time_ms(kernel), time_ms(
+            plain, iters=5), bnd()
+        say(f"{name} lead-in-hi (L=801): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+    stats["attn_pool_fwd"] = dict(
+        max_abs_err=err3, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
+        bound=attn_bound(t_lo))
+    stats["attn_pool_bwd"] = dict(
+        max_abs_err=err3b, ms=k3b_ms, plain_ms=k3b_plain, library_ms=None,
+        bound=attn_bwd_bound(t_lo, g2))
     stats["hidden_sum_fwd"] = dict(
         max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
         bound=k1_bound(a_lo))
@@ -424,6 +656,29 @@ def check_sets(spgk: SpGKeys, seeds: torch.Tensor) -> None:
                 f"step {j} does not conserve the walk mass")
 
 
+def make_net(aggrs: str, device=None, **kw) -> Net:
+    """A Net at the bench width (4 encoding columns, hidden 96), on the
+    card unless `device` says otherwise."""
+    return Net(NUM_STEPS + 1, HIDDEN, aggrs=aggrs,
+               device=DEVICE if device is None else device, **kw)
+
+
+def timed_predict(trainer, edges, label, what):
+    """`predict` on one batch (warm), then timed over all of `edges`."""
+    trainer.predict(edges[:, :BATCH])
+    sync()
+    t0 = time.perf_counter()
+    scores = trainer.predict(edges)
+    sync()
+    dt = time.perf_counter() - t0
+    n = edges.shape[1]
+    require(scores.shape == (n,) and bool(torch.isfinite(scores).all())
+            and bool(((scores >= 0) & (scores <= 1)).all()),
+            f"predict ({what}) gave bad scores")
+    say(f"inference ({what}): {n // BATCH} x {BATCH} queries in {dt:.4f} s "
+        f"-> {n / dt:.1f} queries/s [{label}]")
+
+
 def serve_path(g, label):
     seeds_np = np.arange(g.num_nodes)
     t0 = time.perf_counter()
@@ -443,25 +698,13 @@ def serve_path(g, label):
         f"{g.num_nodes / warm:.1f} sets/s [{label}]")
     check_sets(spgk, torch.arange(g.num_nodes, device=DEVICE))
 
-    net = Net(NUM_STEPS + 1, HIDDEN, aggrs="mean", dropout=0.1,
-              dtype="bfloat16", generator=torch.Generator().manual_seed(0),
-              device=DEVICE)
+    net = make_net("mean", dropout=0.1, dtype="bfloat16",
+                   generator=torch.Generator().manual_seed(0))
     trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
     rng = np.random.default_rng(0)
     edges = torch.as_tensor(rng.integers(
         0, g.num_nodes, size=(2, N_BATCHES * BATCH))).to(DEVICE)
-    trainer.predict(edges[:, :BATCH])
-    sync()
-    t0 = time.perf_counter()
-    scores = trainer.predict(edges)
-    sync()
-    dt = time.perf_counter() - t0
-    require(scores.shape == (N_BATCHES * BATCH,)
-            and bool(torch.isfinite(scores).all())
-            and bool(((scores >= 0) & (scores <= 1)).all()),
-            "predict gave bad scores")
-    say(f"inference: {N_BATCHES} x {BATCH} queries in {dt:.4f} s -> "
-        f"{N_BATCHES * BATCH / dt:.1f} queries/s [{label}]")
+    timed_predict(trainer, edges, label, "mean")
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     src = torch.randint(0, g.num_nodes, (N_SRC,), generator=gen,
@@ -502,37 +745,37 @@ def subset(spgk: SpGKeys, edges: torch.Tensor):
 def check_routes(spgk, net, edges) -> None:
     """The fused route against the plain route on one batch (both on the
     card), and the card against the port's CPU path on a few queries."""
-    state = net.state_dict()
+    aggrs, state = net.aggrs, net.state_dict()
     be = edges[:, :BATCH]
-    plain = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, dtype="bfloat16",
-                fused_hidden=False, device=DEVICE)
+    plain = make_net(aggrs, dropout=0.1, dtype="bfloat16",
+                     fused_hidden=False)
     plain.load_state_dict(state)
     rows_be = (spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, be)
     with torch.inference_mode():
-        got = net.eval()(make_keys_join(NUM_WALKS, NUM_STEPS,
-                                        aligned=False)(*rows_be))
-        want = plain.eval()(make_keys_join(NUM_WALKS, NUM_STEPS,
-                                           aligned=True)(*rows_be))
+        got = net.eval()(make_keys_join(
+            NUM_WALKS, NUM_STEPS, **net.join_outputs(DEVICE))(*rows_be))
+        want = plain.eval()(make_keys_join(
+            NUM_WALKS, NUM_STEPS, **plain.join_outputs(DEVICE))(*rows_be))
     require(got.shape == (BATCH,) and bool(torch.isfinite(got).all()),
-            "fused route gave bad logits")
+            f"fused route ({aggrs}) gave bad logits")
     err = float((got - want).abs().max())
-    say(f"fused vs plain route, one batch of {BATCH} (bf16): max |d logit| "
-        f"= {err:.3e}, max |logit| = {float(want.abs().max()):.3e} "
-        f"(rtol = atol = {ROUTE_TOL})")
+    say(f"fused vs plain route ({aggrs}), one batch of {BATCH} (bf16): max "
+        f"|d logit| = {err:.3e}, max |logit| = {float(want.abs().max()):.3e}"
+        f" (rtol = atol = {ROUTE_TOL})")
     require(torch.allclose(got, want, rtol=ROUTE_TOL, atol=ROUTE_TOL),
-            "fused route disagrees with the plain route")
+            f"fused route ({aggrs}) disagrees with the plain route")
 
     small, cpu_small, remap = subset(spgk, be[:, :N_REF])
     cfg = TrainConfig(batch_size=N_REF)
-    f32_gpu = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, device=DEVICE)
+    f32_gpu = make_net(aggrs, dropout=0.1)
     f32_gpu.load_state_dict(state)
-    f32_cpu = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, device="cpu")
+    f32_cpu = make_net(aggrs, dropout=0.1, device="cpu")
     f32_cpu.load_state_dict(state)
     got = trainer_from_keys(f32_gpu, small, cfg).predict(remap)
     want = trainer_from_keys(f32_cpu, cpu_small, cfg).predict(remap.cpu())
     err = float((got.cpu() - want).abs().max())
-    say(f"card vs CPU path, {N_REF} queries (fp32): max |d score| = "
-        f"{err:.3e} (rtol = atol = {CPU_TOL})")
+    say(f"card vs CPU path ({aggrs}), {N_REF} queries (fp32): max |d score|"
+        f" = {err:.3e} (rtol = atol = {CPU_TOL})")
     require(torch.allclose(got.cpu(), want, rtol=CPU_TOL, atol=CPU_TOL),
             "the card disagrees with the port's CPU path")
 
@@ -575,16 +818,17 @@ def profile(run, steps: int, what: str) -> None:
 def profile_predict(spgk, net, edges, batches: int = 8) -> None:
     trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
     be = edges[:, :batches * BATCH]
-    profile(lambda: trainer.predict(be), batches, "predict batches")
+    profile(lambda: trainer.predict(be), batches,
+            f"predict batches ({net.aggrs})")
 
 
-def train_setup(spgk: SpGKeys):
-    """bench.py:153-165 on the port: the bench Net from a seeded
-    generator, its trainer, 32 x 4096 random query edges with random 0/1
-    labels, and the generator of the permutations and dropout masks."""
-    net = Net(NUM_STEPS + 1, HIDDEN, aggrs="mean", dropout=0.1,
-              dtype="bfloat16", generator=torch.Generator().manual_seed(0),
-              device=DEVICE)
+def train_setup(spgk: SpGKeys, aggrs: str):
+    """bench.py:153-165 (and :208-212 for attn) on the port: the bench Net
+    of `aggrs` from a seeded generator, its trainer, 32 x 4096 random
+    query edges with random 0/1 labels, and the generator of the
+    permutations and dropout masks."""
+    net = make_net(aggrs, dropout=0.1, dtype="bfloat16",
+                   generator=torch.Generator().manual_seed(0))
     trainer = trainer_from_keys(net, spgk, TrainConfig(
         batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
     rng = np.random.default_rng(0)
@@ -597,7 +841,7 @@ def train_setup(spgk: SpGKeys):
     return trainer, edges, labels, gen
 
 
-def fit_cold(trainer, edges, labels, gen) -> None:
+def fit_cold(trainer, edges, labels, gen, epochs) -> None:
     """The first fit, under CUDA's sync debug mode: the epoch loop must
     never wait for the device (the losses and AUCs stay on it)."""
     t0 = time.perf_counter()
@@ -605,7 +849,7 @@ def fit_cold(trainer, edges, labels, gen) -> None:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            losses, _ = trainer.fit(edges, labels, N_EPOCHS, gen)
+            losses, _ = trainer.fit(edges, labels, epochs, gen)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = collections.Counter(
@@ -613,25 +857,27 @@ def fit_cold(trainer, edges, labels, gen) -> None:
         if "synchronizing" in str(w.message)
         and "prototype" not in str(w.message))
     last = float(losses[-1])
-    say(f"fit cold: {N_EPOCHS} epochs, last loss {last:.6f}, "
+    say(f"fit cold ({trainer.model.aggrs}): {epochs} epochs, last loss "
+        f"{last:.6f}, "
         f"{time.perf_counter() - t0:.3f} s; {sum(syncs.values())} "
         f"synchronizing calls inside the fit {dict(syncs)}")
     require(not syncs, "the fit waits for the device")
 
 
-def fit_timed(trainer, edges, labels, gen, label) -> None:
-    """The timed 8-epoch fit (bench.py:178-186), with its checks."""
+def fit_timed(trainer, edges, labels, gen, epochs, label) -> None:
+    """The timed fit (bench.py:178-186, :218-224), with its checks."""
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     sync()
     t0 = time.perf_counter()
-    losses, aucs = trainer.fit(edges, labels, N_EPOCHS, gen)
+    losses, aucs = trainer.fit(edges, labels, epochs, gen)
     sync()
     dt = time.perf_counter() - t0
     losses, aucs = losses.cpu(), aucs.cpu()
-    n = N_EPOCHS * edges.shape[1]
-    say(f"train: {N_EPOCHS} epochs x {edges.shape[1]} queries in {dt:.4f} "
-        f"s -> {n / dt:.1f} queries/s ({N_EPOCHS * N_BATCHES} steps, "
-        f"{1e3 * dt / (N_EPOCHS * N_BATCHES):.4f} ms/step) [{label}]")
+    n = epochs * edges.shape[1]
+    say(f"train ({trainer.model.aggrs}): {epochs} epochs x {edges.shape[1]}"
+        f" queries in {dt:.4f} s -> {n / dt:.1f} queries/s "
+        f"({epochs * N_BATCHES} steps, "
+        f"{1e3 * dt / (epochs * N_BATCHES):.4f} ms/step) [{label}]")
     say(f"  epoch losses {[round(float(x), 6) for x in losses]}")
     say(f"  epoch AUCs   {[round(float(x), 6) for x in aucs]}")
     require(bool(torch.isfinite(losses).all()), "a loss is not finite")
@@ -642,63 +888,130 @@ def fit_timed(trainer, edges, labels, gen, label) -> None:
     require(not still, f"parameters did not move: {still}")
 
 
+def route_grads(spgk, net, be, dtype, fused, labels=None, cot=None):
+    """(loss, {name: gradient}) of one batch `be` on one route of a copy
+    of `net`, with a fixed dropout mask: of the BCE loss with `labels`,
+    or, with `cot` [B, 2 H], of sum(cot * the scorer's input), which
+    leaves the scorer (MergeLayer) out of the gradient."""
+    m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=fused,
+                 key_layout=(NUM_WALKS, NUM_STEPS))
+    m.load_state_dict(net.state_dict())
+    joined = make_keys_join(NUM_WALKS, NUM_STEPS, **m.join_outputs(DEVICE))(
+        spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, be)
+    drop = torch.Generator(device=DEVICE).manual_seed(3)
+    seen = []
+    hook = m.affinity_score.register_forward_pre_hook(
+        lambda mod, args: seen.append(torch.cat(args[0], dim=-1)))
+    logits = m.train()(joined, generator=drop)
+    hook.remove()
+    if cot is None:
+        loss = batch_loss(logits, labels,
+                          torch.ones(be.shape[1], device=DEVICE))
+    else:
+        loss = (seen[0] * cot).sum() / be.shape[1]
+    loss.backward()
+    return float(loss.detach()), {k: p.grad for k, p in m.named_parameters()
+                                  if p.grad is not None}
+
+
+def rel_err(x, y) -> float:
+    return float((x - y).abs().max() / y.abs().max())
+
+
+def compare_grads(what, net, pair, tol, held=True):
+    """Print, and unless `held` is False require, each gradient's largest
+    fused - plain difference within `tol` of its largest entry. The
+    attention gate's bias is held to GATE_BIAS_GRAD_ATOL instead."""
+    (lf, gf), (lp, gp) = pair
+    rels, bias_err = {}, 0.0
+    for k, want in gp.items():
+        require(bool(torch.isfinite(gf[k]).all()), f"grad {k} not finite")
+        if k == GATE_BIAS:
+            bias_err = float((gf[k] - want).abs().max())
+        else:
+            rels[k] = rel_err(gf[k], want)
+    worst = max(rels.values())
+    ok = worst <= tol and bias_err <= GATE_BIAS_GRAD_ATOL
+    gate = ""
+    if GATE_BIAS in gp:
+        gate = (f"; {GATE_BIAS} {float(gf[GATE_BIAS]):.3e} vs "
+                f"{float(gp[GATE_BIAS]):.3e}, |diff| {bias_err:.3e} (atol "
+                f"{GATE_BIAS_GRAD_ATOL})")
+    verdict = ("ok" if ok else "FAIL") if held else "printed, not held"
+    say(f"fused vs plain route gradients ({net.aggrs}), one batch of "
+        f"{BATCH}, {what}: loss {lf:.6f} vs {lp:.6f}; max|fused - plain| / "
+        f"max|plain| by tensor "
+        f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} }, worst "
+        f"{worst:.3e} (tol {tol}){gate} {verdict}")
+    require(ok or not held, f"fused route gradients ({net.aggrs}, {what}) "
+            "disagree with the plain route's")
+
+
 def check_train_routes(spgk, net, edges, labels) -> None:
     """One bench batch's parameter gradients at the seeded initial
-    weights: the fused route (K1 forward and backward) against the plain
-    route, with the same dropout mask. Each tensor's largest difference
-    is held to a share of its largest gradient (GRAD_ROUTE_TOL).
+    weights: the fused route (the kernels forward and backward) against
+    the plain route, with the same dropout mask. Each tensor's largest
+    difference is held to a share of its largest gradient
+    (GRAD_ROUTE_TOL).
 
     float32 uses the batch's random labels. With random labels the
     gradient is a sum of per-query terms of either sign that nearly
     cancel, and the two bf16 routes round the logits apart by about
     1e-3, systematically, which is no longer small against that sum; so
     bfloat16 uses labels of all ones, a cotangent that does not cancel
-    across the batch."""
+    across the batch.
+
+    For the attention Net that bf16 loss gradient is printed but not
+    held: the bf16 scorer's relu decisions flip between the two routes'
+    roundings. On an H100 at the bench batch, `affinity_score.fc0.bias`,
+    whose gradient depends on the route only through those decisions and
+    the logits, moved by 6.4% of its largest entry where the logits moved
+    by 1.2% of theirs, and the plain route was the closer to the fp32
+    gradient; both distances are printed. What is held in
+    bf16, for both aggregators, is the gradient of a fixed random
+    cotangent on the scorer's input: every parameter upstream of the
+    scorer, through the kernels, without the scorer's relus.
+
+    The attention gate's bias has a gradient of 0 up to rounding (a shift
+    of every gate of a set leaves the softmax as it is): a share of its
+    largest entry would divide noise by noise, so it is held to
+    GATE_BIAS_GRAD_ATOL instead."""
     be = edges[:, :BATCH]
-    w = torch.ones(BATCH, device=DEVICE)
-    for dtype, tol in GRAD_ROUTE_TOL.items():
-        bl = labels[:BATCH] if dtype == "float32" else w
-        grads = {}
-        for fused in (True, False):
-            m = Net(NUM_STEPS + 1, HIDDEN, dropout=0.1, dtype=dtype,
-                    fused_hidden=fused, key_layout=(NUM_WALKS, NUM_STEPS),
-                    device=DEVICE)
-            m.load_state_dict(net.state_dict())
-            joined = make_keys_join(NUM_WALKS, NUM_STEPS,
-                                    aligned=not fused)(
-                spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, be)
-            drop = torch.Generator(device=DEVICE).manual_seed(3)
-            loss = batch_loss(m.train()(joined, generator=drop), bl, w)
-            loss.backward()
-            grads[fused] = (float(loss.detach()),
-                            {k: p.grad for k, p in m.named_parameters()})
-        rels = {}
-        for k, want in grads[False][1].items():
-            got = grads[True][1][k]
-            require(bool(torch.isfinite(got).all()), f"grad {k} not finite")
-            rels[k] = float((got - want).abs().max() / want.abs().max())
-        worst = max(rels.values())
-        say(f"fused vs plain route gradients, one batch of {BATCH} "
-            f"({dtype}, {'random' if dtype == 'float32' else 'all-one'} "
-            f"labels): loss {grads[True][0]:.6f} vs {grads[False][0]:.6f}"
-            f"; max|fused - plain| / max|plain| by tensor "
-            f"{ {k: float(f'{v:.3e}') for k, v in rels.items()} }, worst "
-            f"{worst:.3e} (tol {tol})")
-        require(worst <= tol, f"fused route gradients ({dtype}) disagree "
-                "with the plain route's")
+    ones = torch.ones(BATCH, device=DEVICE)
+    grads = lambda dtype, **kw: [route_grads(spgk, net, be, dtype, fused,
+                                             **kw) for fused in (True, False)]
+    tol32, tol16 = GRAD_ROUTE_TOL["float32"], GRAD_ROUTE_TOL["bfloat16"]
+    compare_grads("float32, random labels", net,
+                  grads("float32", labels=labels[:BATCH]), tol32)
+    pair = grads("bfloat16", labels=ones)
+    compare_grads("bfloat16, all-one labels", net, pair, tol16,
+                  held=net.aggrs == "mean")
+    if net.aggrs != "mean":
+        ref = route_grads(spgk, net, be, "float32", False, labels=ones)[1]
+        dist = {k: (rel_err(pair[0][1][k], ref[k]),
+                    rel_err(pair[1][1][k], ref[k]))
+                for k in ref if k != GATE_BIAS}
+        dist = {k: (float(f"{a:.2e}"), float(f"{b:.2e}"))
+                for k, (a, b) in dist.items()}
+        say(f"  distance to the fp32 plain gradient (fused, plain): {dist}")
+    cot = torch.randn(BATCH, 2 * HIDDEN,
+                      generator=torch.Generator().manual_seed(5)).to(DEVICE)
+    compare_grads("bfloat16, random cotangent on the scorer's input", net,
+                  grads("bfloat16", cot=cot), tol16)
 
 
 def check_train_cpu(spgk, net, edges, labels) -> None:
     """A few training steps on the card (fused route, kernels) against
     the port's CPU path (unfused route), fp32, dropout 0, one shared
-    permutation."""
+    permutation. The attention gate's bias is held to GATE_BIAS_FIT_ATOL:
+    Adam turns its noise gradient into steps of up to about lr."""
     n = REF_STEPS * REF_BATCH
     small, cpu_small, remap = subset(spgk, edges[:, :n])
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(4))
     cfg = TrainConfig(batch_size=REF_BATCH, lr=LR, grad_clip=GRAD_CLIP)
     out = {}
     for dev, sets in ((DEVICE, small), ("cpu", cpu_small)):
-        m = Net(NUM_STEPS + 1, HIDDEN, dropout=0.0, device=dev)
+        m = make_net(net.aggrs, dropout=0.0, device=dev)
         m.load_state_dict(net.state_dict())
         losses, _ = trainer_from_keys(m, sets, cfg).fit(
             remap.to(dev), labels[:n].to(dev), 1, torch.Generator(device=dev),
@@ -706,20 +1019,29 @@ def check_train_cpu(spgk, net, edges, labels) -> None:
         out[dev] = (losses.cpu(), {k: v.cpu() for k, v in
                                    m.state_dict().items()})
     (lg, pg), (lc, pc) = out[DEVICE], out["cpu"]
-    err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
-    ok = all(torch.allclose(pg[k], pc[k], rtol=CPU_TRAIN_RTOL,
-                            atol=CPU_TRAIN_ATOL) for k in pc)
-    say(f"card vs CPU training, {REF_STEPS} steps x {REF_BATCH} queries "
-        f"(fp32): loss {float(lg[0]):.6f} vs {float(lc[0]):.6f}, max "
-        f"|d param| = {err:.3e} (rtol {CPU_TRAIN_RTOL}, atol "
-        f"{CPU_TRAIN_ATOL}) {'ok' if ok else 'FAIL'}")
+    err = max(float((pg[k] - pc[k]).abs().max()) for k in pc
+              if k != GATE_BIAS)
+    ok = all(torch.allclose(pg[k], pc[k], rtol=CPU_TRAIN_RTOL, atol=(
+        GATE_BIAS_FIT_ATOL if k == GATE_BIAS else CPU_TRAIN_ATOL))
+        for k in pc)
+    gate = ""
+    if GATE_BIAS in pc:
+        gate = (f", {GATE_BIAS} |d| "
+                f"{float((pg[GATE_BIAS] - pc[GATE_BIAS]).abs().max()):.3e} "
+                f"(atol {GATE_BIAS_FIT_ATOL})")
+    say(f"card vs CPU training ({net.aggrs}), {REF_STEPS} steps x "
+        f"{REF_BATCH} queries (fp32): loss {float(lg[0]):.6f} vs "
+        f"{float(lc[0]):.6f}, max |d param| = {err:.3e} (rtol "
+        f"{CPU_TRAIN_RTOL}, atol {CPU_TRAIN_ATOL}){gate} "
+        f"{'ok' if ok else 'FAIL'}")
     require(ok and torch.allclose(lg, lc, rtol=1e-5),
             "training on the card disagrees with the port's CPU path")
 
 
 def profile_train(trainer, edges, labels, gen, steps: int = 8) -> None:
     be, bl = edges[:, :steps * BATCH], labels[:steps * BATCH]
-    profile(lambda: trainer.train_epoch(be, bl, gen), steps, "train steps")
+    profile(lambda: trainer.train_epoch(be, bl, gen), steps,
+            f"train steps ({trainer.model.aggrs})")
 
 
 def counts():
@@ -771,18 +1093,40 @@ def main() -> int:
     check_routes(spgk, net, edges)
     profile_predict(spgk, net, edges)
 
-    trainer, tedges, tlabels, tgen = train_setup(spgk)
+    trainer, tedges, tlabels, tgen = train_setup(spgk, "mean")
     check_train_routes(spgk, trainer.model, tedges, tlabels)
-    fit_cold(trainer, tedges, tlabels, tgen)
+    fit_cold(trainer, tedges, tlabels, tgen, N_EPOCHS)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    fit_timed(trainer, tedges, tlabels, tgen, label)
+    fit_timed(trainer, tedges, tlabels, tgen, N_EPOCHS, label)
     launches["train"] = counts()
     say(f"launches on the training path (timed fit): {launches['train']}; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_train_cpu(spgk, trainer.model, tedges, tlabels)
     profile_train(trainer, tedges, tlabels, tgen)
+
+    # the attention path (bench.py:203-234), on the same sets and edges
+    atrainer, _, _, agen = train_setup(spgk, "attn")
+    zero_counts()
+    timed_predict(atrainer, tedges, label, "attn")
+    launches["attn_serve"] = counts()
+    say(f"launches on the attention serving path: "
+        f"{launches['attn_serve']}")
+    check_routes(spgk, atrainer.model, tedges)
+    check_train_routes(spgk, atrainer.model, tedges, tlabels)
+    fit_cold(atrainer, tedges, tlabels, agen, ATTN_EPOCHS)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fit_timed(atrainer, tedges, tlabels, agen, ATTN_EPOCHS, label)
+    launches["attn_train"] = counts()
+    say(f"launches on the attention training path (timed fit): "
+        f"{launches['attn_train']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    timed_predict(atrainer, tedges, label, "attn, after the fit")
+    check_train_cpu(spgk, atrainer.model, tedges, tlabels)
+    profile_predict(spgk, atrainer.model, tedges)
+    profile_train(atrainer, tedges, tlabels, agen)
 
     # phase 4
     for path, names in PATHS.items():
@@ -794,7 +1138,8 @@ def main() -> int:
         st = stats[name]
         rows.append(dict(
             name=name, route="cuda", source=k["source"],
-            replaces=k["replaces"], launches=launches["train"][name],
+            replaces=k["replaces"],
+            launches=launches[MAIN_PATH[name]][name],
             launches_by_path={path: launches[path][name]
                               for path, names in PATHS.items()
                               if name in names},

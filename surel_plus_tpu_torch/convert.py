@@ -3,7 +3,10 @@
 `params_from_flax` turns a flax parameter tree of the link-prediction Net
 (nested dicts of numpy arrays, with or without the top-level "params"
 key) into a state_dict for `surel_plus_tpu_torch.models.Net`. flax Dense
-kernels are [in, out]; torch Linear weights are [out, in].
+kernels are [in, out]; torch Linear weights are [out, in]. The attention
+aggregator's Denses (`aggr`: Dense_0 the gate, Dense_1 the value) map to
+its gate_nn and value_nn; an LSTM aggregator's tree (wi, wh, bh) has no
+counterpart yet.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-# flax module -> torch module, and flax Dense name -> torch Linear name
-MODULES = ("pe_embedding", "affinity_score", "feature_embedding")
-DENSE = {"Dense_0": "fc0", "Dense_1": "fc1"}
+# flax module -> its flax Dense names -> torch Linear names
+MLP_DENSE = {"Dense_0": "fc0", "Dense_1": "fc1"}
+MODULES = {"pe_embedding": MLP_DENSE, "affinity_score": MLP_DENSE,
+           "feature_embedding": MLP_DENSE,
+           "aggr": {"Dense_0": "gate_nn", "Dense_1": "value_nn"}}
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -27,8 +32,12 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
                        f"{sorted(unknown)}")
     state = {}
     for mod, layers in tree.items():
+        unknown = set(layers) - set(MODULES[mod])
+        if unknown:
+            raise KeyError(f"flax parameters of {mod} without a torch "
+                           f"counterpart: {sorted(unknown)}")
         for dense, p in layers.items():
-            name = f"{mod}.{DENSE[dense]}"
+            name = f"{mod}.{MODULES[mod][dense]}"
             state[f"{name}.weight"] = torch.as_tensor(
                 np.asarray(p["kernel"], dtype=np.float32).T.copy())
             state[f"{name}.bias"] = torch.as_tensor(

@@ -1,5 +1,5 @@
 """Shared model layers (port of surel_plus_tpu/models/layers.py: MLP2,
-MergeLayer, masked_mean).
+MergeLayer, masked_mean, AttentionAggregation).
 
 Parameters stay float32; `dtype` is the compute precision of the hot
 layers (bfloat16 at the bench width), applied by casting at call time as
@@ -14,6 +14,8 @@ import math
 
 import torch
 from torch import nn
+
+from surel_plus_tpu_torch.ops.kernels.attn_pool import fused_attn_pool
 
 
 def xavier_normal_(weight: torch.Tensor,
@@ -67,6 +69,11 @@ class MLP2(nn.Module):
         """Second (linear) layer, in the compute dtype."""
         return _dense(h, self.fc1, self.dtype)
 
+    def project_raw(self):
+        """fc1's (kernel [hidden, out], bias) in flax's orientation,
+        uncast, for algebraic folds."""
+        return self.fc1.weight.t(), self.fc1.bias
+
 
 class MergeLayer(nn.Module):
     """Two-layer scorer over concatenated endpoint embeddings. The first
@@ -108,3 +115,48 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     s = (x * m).sum(dim=-2)
     cnt = m.sum(dim=-2).clamp(min=1.0)
     return s / cnt
+
+
+class AttentionAggregation(nn.Module):
+    """Gated attention pooling (PyG AttentionalAggregation with gate_nn =
+    Linear(h, 1) and fnn = Linear(h, h), reference model.py:59-62):
+    softmax of a scalar gate over each set, weighted sum of the
+    transformed elements. Both Linears compute in float32 whatever their
+    input's dtype, as flax's Dense without a dtype promotes a bfloat16
+    input against its float32 parameters."""
+
+    def __init__(self, hidden_dim: int):
+        super().__init__()
+        self.gate_nn = nn.Linear(hidden_dim, 1)
+        self.value_nn = nn.Linear(hidden_dim, hidden_dim)
+
+    def reset_parameters(self, generator=None) -> None:
+        for layer in (self.gate_nn, self.value_nn):
+            xavier_normal_(layer.weight, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x [..., L, h], mask bool [..., L] -> [..., h] float32."""
+        m = mask[..., None]
+        gate = _dense(x, self.gate_nn, torch.float32)          # [..., L, 1]
+        gate = torch.where(m, gate, -torch.inf)
+        attn = torch.where(m, torch.softmax(gate, dim=-2), 0.0)
+        return (attn * _dense(x, self.value_nn, torch.float32)).sum(dim=-2)
+
+    def folded_from_keys(self, kown, kcross_al, mask, u_ext, shift: int,
+                         w2, c2, root_own=None, root_cross=None
+                         ) -> torch.Tensor:
+        """The same pooling with the upstream projection x = hsum @ w2 + c2
+        and the value Linear folded past the softmax (both are affine and
+        the weights of a never-empty set sum to 1), and the rest fused to
+        the packed keys (`fused_attn_pool`): only the scalar gate is
+        computed per slot, from gvec = w2 @ wg and gconst = c2 @ wg + bg,
+        all in float32. Differentiable."""
+        w2f = w2.to(torch.float32)
+        wg = self.gate_nn.weight.t()                            # [h, 1]
+        gvec = w2f @ wg
+        gconst = c2 @ wg + self.gate_nn.bias
+        pooled = fused_attn_pool(kown, kcross_al, mask, u_ext, gvec, gconst,
+                                 shift, root_own=root_own,
+                                 root_cross=root_cross)         # [Q, B, h]
+        return _dense(pooled @ w2f + c2, self.value_nn, torch.float32)

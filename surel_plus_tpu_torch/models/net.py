@@ -1,23 +1,31 @@
-"""Link-prediction set encoder, mean aggregator (port of
+"""Link-prediction set encoder, mean and attention aggregators (port of
 surel_plus_tpu/models/net.py:Net over packed-key joins).
 
 Pipeline: packed keys -> pe_embedding hidden layer -> pair sum -> masked
-set mean -> pe_embedding projection -> optional raw-feature branch ->
-MergeLayer scorer. The set mean is taken BEFORE the (linear) projection:
+set aggregation -> optional raw-feature branch -> MergeLayer scorer.
+
+mean: the set mean is taken BEFORE the (linear) projection:
 masked_mean(pe(e).sum(-2)) == pe.project(masked_mean(hsum)) + b2, since
 every valid slot carries two second-layer biases.
 
+attn: AttentionAggregation over x = pe.project(hsum) + b2 per slot. Its
+fused form folds the projection and the value Linear past the softmax,
+so only a scalar gate per slot remains (x = hsum @ W2 + 2 b2).
+
 Two routes compute the same logits:
 
-* fused: the kernel `fused_key_hidden_sum` computes the hidden layer and
-  the set sums straight from the packed keys (CUDA kernel on the card,
-  its plain version on the CPU); needs the join's merged-order planes.
+* fused: a kernel reads the packed keys and never materializes a per-slot
+  hidden row (CUDA kernels on the card, their plain versions on the CPU):
+  `fused_key_hidden_sum` for mean, on the join's merged-order planes;
+  `fused_attn_pool` for attn, on the slot-aligned keys.
 * unfused: the hidden layer over the join's unpacked feature pairs, as
-  the JAX package's XLA path does; needs an aligned join.
+  the JAX package's XLA path does.
 
 `fused_hidden=None` picks the fused route on CUDA and the unfused one on
-the CPU. Both routes are differentiable: the fused route's gradient for
-W1 and b1 flows through the kernel's autograd Function into u_ext.
+the CPU. Both routes are differentiable: the fused routes' gradients for
+W1 and b1 flow through the kernels' autograd Functions into u_ext.
+`join_outputs` says which join outputs the route reads, so that the join
+builds only those (eager PyTorch does no dead-code elimination).
 """
 
 from __future__ import annotations
@@ -27,7 +35,12 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from surel_plus_tpu_torch.models.layers import MLP2, MergeLayer, masked_mean
+from surel_plus_tpu_torch.models.layers import (
+    AttentionAggregation,
+    MergeLayer,
+    MLP2,
+    masked_mean,
+)
 from surel_plus_tpu_torch.ops.join import JoinedBatch
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     NEG,
@@ -43,6 +56,7 @@ def _torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
 class Net(nn.Module):
     """Scores Q=2 endpoint sets per query; returns logits [B].
 
+    aggrs: "mean" or "attn" ("lstm" is not ported yet).
     input_dim: encoding columns (num_steps + 1). dtype: compute precision
     of the hot layers ("float32" or "bfloat16"); parameters stay float32.
     Weights are xavier-normal from `generator` (biases zero), made on the
@@ -60,9 +74,11 @@ class Net(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if aggrs != "mean":
+        if aggrs not in ("mean", "attn"):
             raise NotImplementedError(
-                f"aggregator {aggrs!r} is not ported yet (mean only)")
+                f"aggregator {aggrs!r} is not ported yet (mean and attn "
+                "only)")
+        self.aggrs = aggrs
         self.hidden_dim = hidden_dim
         self.dtype = _torch_dtype(dtype)
         self.fused_hidden = fused_hidden
@@ -70,6 +86,8 @@ class Net(nn.Module):
         self.use_feature = use_feature
         self.pe_embedding = MLP2(input_dim, hidden_dim, hidden_dim,
                                  self.dtype)
+        if aggrs == "attn":
+            self.aggr = AttentionAggregation(hidden_dim)
         width = hidden_dim
         if use_feature:
             self.feature_embedding = MLP2(x_dim, hidden_dim, hidden_dim,
@@ -92,6 +110,28 @@ class Net(nn.Module):
             return self.fused_hidden
         return torch.device(device).type == "cuda"
 
+    def join_outputs(self, device: torch.device) -> dict:
+        """The keyword arguments of `make_keys_join` that build what forward
+        reads on `device`: the fused mean route reads only the merged-order
+        planes, the fused attention route the slot-aligned keys but not the
+        unpacked feature pairs, the unfused routes the feature pairs."""
+        if not self.fused_on(device):
+            return dict(aligned=True, features=True)
+        if self.aggrs == "attn":
+            return dict(aligned=True, features=False)
+        return dict(aligned=False)
+
+    def _u_ext(self) -> torch.Tensor:
+        """u_ext [ncol + 2, H] fp32 for the fused kernels: W1's rows in the
+        kernels' field order, the masking row, b1."""
+        nw, ns = self.key_layout
+        w1, b1 = self.pe_embedding.hidden_raw()
+        return torch.cat([
+            u_core_rows(w1, nw, ns),
+            torch.full((1, self.hidden_dim), NEG, dtype=torch.float32,
+                       device=w1.device),
+            b1.to(torch.float32)[None]], dim=0).contiguous()
+
     def forward(self, joined: JoinedBatch,
                 feature: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -100,32 +140,47 @@ class Net(nn.Module):
         generator in training mode. Returns logits [B] float32."""
         pe = self.pe_embedding
         cd = self.dtype
+
+        def b2v(x):
+            """pe's second bias once more: each valid slot carries two."""
+            return pe.project(x.new_zeros(1, self.hidden_dim))
+
         if self.fused_on(joined.mask.device):
             if joined.kown is None or self.key_layout is None:
                 raise ValueError("the fused route needs a keys join and "
                                  "key_layout")
-            nw, ns = self.key_layout
-            w1, b1 = pe.hidden_raw()
-            # kernel compute stays fp32
-            u_ext = torch.cat([
-                u_core_rows(w1, nw, ns),
-                torch.full((1, self.hidden_dim), NEG, dtype=torch.float32,
-                           device=w1.device),
-                b1.to(torch.float32)[None]], dim=0).contiguous()
+            shift = int(self.key_layout[0]).bit_length()
+            u_ext = self._u_ext()              # kernel compute stays fp32
+            if self.aggrs == "attn":
+                if joined.kcross_al is None:
+                    raise ValueError("the fused attention route needs the "
+                                     "join's aligned keys (aligned=True)")
+                # the per-slot hidden rows are never formed: the pool
+                # reads the keys
+                w2, bias2 = pe.project_raw()
+                agg = self.aggr.folded_from_keys(
+                    joined.kown, joined.kcross_al, joined.mask, u_ext, shift,
+                    w2, 2.0 * bias2.to(torch.float32)[None],
+                    root_own=joined.kown_root,
+                    root_cross=joined.kcross_al_root)
+                return self._score(agg, feature, generator)
             sums = fused_key_hidden_sum(
                 joined.kown, joined.mask, joined.kcross, joined.kcross_mask,
-                u_ext, int(nw).bit_length(), root_own=joined.kown_root,
+                u_ext, shift, root_own=joined.kown_root,
                 root_cross=joined.kcross_root)
             cnt = joined.mask.sum(dim=-1).clamp(min=1)          # [Q, B]
             mean = (sums / cnt[..., None].to(torch.float32)).to(cd)
+            return self._score(pe.project(mean) + b2v(mean), feature,
+                               generator)
+        if joined.eidx is None:
+            raise ValueError("the unfused route needs the join's feature "
+                             "pairs (make_keys_join(..., aligned=True))")
+        hsum = pe.hidden(joined.eidx).sum(dim=-2)            # [2, B, L, h]
+        if self.aggrs == "attn":
+            agg = self.aggr(pe.project(hsum) + b2v(hsum), joined.mask)
         else:
-            if joined.eidx is None:
-                raise ValueError("the unfused route needs an aligned join "
-                                 "(make_keys_join(..., aligned=True))")
-            hsum = pe.hidden(joined.eidx).sum(dim=-2)        # [2, B, L, h]
             mean = masked_mean(hsum, joined.mask)
-        b2v = pe.project(mean.new_zeros(1, self.hidden_dim))
-        agg = pe.project(mean) + b2v
+            agg = pe.project(mean) + b2v(mean)
         return self._score(agg, feature, generator)
 
     def _score(self, agg: torch.Tensor, feature: Optional[torch.Tensor],

@@ -7,9 +7,12 @@ S_v. Rows are node-sorted, so both directions come out of ONE merge of
 the two rows (`_cross_lookup_bidir_multi`).
 
 Eager PyTorch runs whatever it is given, where XLA drops dead code: the
-slot-aligned outputs (the un-sort sort, the unpacked feature pairs and
-the aligned cross keys) are built only when the caller asks for them
-(`aligned=True`). The fused mean path needs only the merged-order planes.
+slot-aligned outputs (the un-sort sort and the aligned cross keys) are
+built only when the caller asks for them (`aligned=True`), and the
+unpacked feature pairs only when it also asks for `features`. The fused
+mean route reads only the merged-order planes, the fused attention route
+the aligned keys, the unfused routes the feature pairs
+(`Net.join_outputs`).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ class JoinedBatch(NamedTuple):
 
     eidx:  float32 [Q, B, L, 2, ncol] unpacked feature pairs: [..., 0, :]
            the anchor side's encoding, [..., 1, :] the partner's (zeros if
-           absent). None unless the join was asked for aligned outputs.
+           absent). None unless the join was asked for aligned outputs
+           with features.
     mask:  bool  [Q, B, L] validity of each set slot.
     sizes: int32 [Q, B] true set sizes.
     kown:  int32 bits [Q, B, L] of the packed lo keys, slot order.
@@ -132,7 +136,7 @@ def unpack_key_features(khi: torch.Tensor, klo: torch.Tensor,
 
 
 def make_keys_join(num_walks: int, num_steps: int, impl: str = "merge",
-                   aligned: bool = True):
+                   aligned: bool = True, features: bool = True):
     """Join function over SpGKeys rows: join(nodes, khi, klo, sizes, edges)
     with edges [2, B] row indices."""
 
@@ -140,15 +144,19 @@ def make_keys_join(num_walks: int, num_steps: int, impl: str = "merge",
         edges = edges.to(torch.int64)
         return join_gathered_keys(nodes[edges], khi[edges], klo[edges],
                                   sizes[edges], num_walks, num_steps,
-                                  impl=impl, aligned=aligned)
+                                  impl=impl, aligned=aligned,
+                                  features=features)
 
     return join
 
 
 def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
                        num_walks: int, num_steps: int, impl: str = "merge",
-                       aligned: bool = True) -> JoinedBatch:
-    """Keys join over pre-gathered rows ([2, B, L] each).
+                       aligned: bool = True,
+                       features: bool = True) -> JoinedBatch:
+    """Keys join over pre-gathered rows ([2, B, L] each). `aligned` adds
+    the slot-aligned cross keys (and their root planes), `features` with
+    it the unpacked feature pairs.
 
     Layouts: lo-only (every field and the root bit in the lo word) and
     lead-in-hi (fields fill the lo word, the root bit is the hi word's
@@ -187,24 +195,19 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
     kcross_mask = torch.stack([su_mask, sv_mask])
     feats = kcross_al = kcross_al_root = None
     if aligned:
-        if lead_hi:
-            cross_hi_u = ((nu == v_b[:, None])
-                          & (nu != INT32_MAX)).to(torch.int32)
-            cross_hi_v = ((nv == u_b[:, None])
-                          & (nv != INT32_MAX)).to(torch.int32)
-            kcross_al_root = torch.stack([cross_hi_u, cross_hi_v])
-        else:
-            cross_hi_u = torch.zeros_like(cross_lo_u)
-            cross_hi_v = torch.zeros_like(cross_lo_v)
-        khi_pairs = torch.stack([
-            torch.stack([rows_hi[0], cross_hi_u], dim=-1),
-            torch.stack([rows_hi[1], cross_hi_v], dim=-1)])   # [2, B, L, 2]
-        klo_pairs = torch.stack([
-            torch.stack([rows_lo[0], cross_lo_u], dim=-1),
-            torch.stack([rows_lo[1], cross_lo_v], dim=-1)])
-        feats = unpack_key_features(khi_pairs, klo_pairs, num_walks,
-                                    num_steps)
         kcross_al = torch.stack([cross_lo_u, cross_lo_v])
+        if lead_hi:
+            kcross_al_root = torch.stack([
+                ((nu == v_b[:, None]) & (nu != INT32_MAX)),
+                ((nv == u_b[:, None]) & (nv != INT32_MAX))]).to(torch.int32)
+            cross_hi = kcross_al_root
+        else:
+            cross_hi = torch.zeros_like(kcross_al)
+        if features:
+            feats = unpack_key_features(
+                torch.stack([rows_hi, cross_hi], dim=-1),
+                torch.stack([rows_lo, kcross_al], dim=-1), num_walks,
+                num_steps)                                  # [2, B, L, 2, C]
     return JoinedBatch(eidx=feats, mask=mask, sizes=rows_sizes, kown=kown,
                        kcross=kcross, kcross_mask=kcross_mask,
                        kcross_al=kcross_al, kown_root=kown_root,

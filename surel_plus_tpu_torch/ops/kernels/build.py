@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` compiles on first use into a shared library with a
 plain C interface, for `sm_90a` (Hopper), under `_build/` in the package
 (listed in .gitignore). The library's file name carries a hash of its
-source, so an edited source builds anew. `build_all` starts one nvcc per
-source, all at once.
+source and of the shared headers (`csrc/*.cuh`), so an edited source
+builds anew. `build_all` starts one nvcc per source, all at once.
 
 Every C entry point takes its pointers and the CUDA stream as
 `c_void_p`, its sizes as `c_int`, and returns `cudaGetLastError()`; a
@@ -41,8 +41,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library's path, named by a hash of its source and of every
+    shared header in csrc/."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Sequence[str]) -> Dict[str, str]:
@@ -111,6 +115,16 @@ class CudaKernel:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def pick(what: str, t: torch.Tensor, cuda_fn, plain_fn):
+    """The kernel for CUDA tensors, the plain version for CPU tensors;
+    raises for any other device (no fallback)."""
+    if t.device.type == "cuda":
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

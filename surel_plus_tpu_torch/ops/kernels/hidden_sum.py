@@ -25,7 +25,12 @@ from typing import Optional
 
 import torch
 
-from surel_plus_tpu_torch.ops.kernels.build import CudaKernel, check_cuda, ptr
+from surel_plus_tpu_torch.ops.kernels.build import (
+    CudaKernel,
+    check_cuda,
+    pick,
+    ptr,
+)
 from surel_plus_tpu_torch.ops.walk import enc_field_layout
 
 NEG = -1e9      # masked-slot logit offset (relu clamps to 0)
@@ -172,16 +177,6 @@ def fused_key_hidden_sum_bwd_cuda(kown, mask_own, kcross, mask_cross, u_ext,
     return du
 
 
-def _pick(kind: str, t: torch.Tensor, cuda_fn, plain_fn):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if t.device.type == "cuda":
-        return cuda_fn
-    if t.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"fused_key_hidden_sum {kind}: no kernel for device "
-                     f"{t.device}")
-
-
 class FusedKeyHiddenSum(torch.autograd.Function):
     """The set sum with its gradient for u_ext only (the custom VJP
     `_fused` of the JAX kernel): the backward recomputes the activations
@@ -193,8 +188,8 @@ class FusedKeyHiddenSum(torch.autograd.Function):
         ctx.shift = shift
         ctx.save_for_backward(kown, mask_own, kcross, mask_cross, u_ext,
                               root_own, root_cross)
-        fwd = _pick("forward", kown, fused_key_hidden_sum_cuda,
-                    fused_key_hidden_sum_plain)
+        fwd = pick("fused_key_hidden_sum forward", kown,
+                   fused_key_hidden_sum_cuda, fused_key_hidden_sum_plain)
         return fwd(kown, mask_own, kcross, mask_cross, u_ext, shift,
                    root_own, root_cross)
 
@@ -202,8 +197,9 @@ class FusedKeyHiddenSum(torch.autograd.Function):
     def backward(ctx, g):
         kown, mask_own, kcross, mask_cross, u_ext, root_own, root_cross = \
             ctx.saved_tensors
-        bwd = _pick("backward", kown, fused_key_hidden_sum_bwd_cuda,
-                    fused_key_hidden_sum_bwd_plain)
+        bwd = pick("fused_key_hidden_sum backward", kown,
+                   fused_key_hidden_sum_bwd_cuda,
+                   fused_key_hidden_sum_bwd_plain)
         du = bwd(kown, mask_own, kcross, mask_cross, u_ext,
                  g.to(torch.float32).contiguous(), ctx.shift, root_own,
                  root_cross)

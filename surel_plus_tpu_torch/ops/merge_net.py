@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from surel_plus_tpu_torch.ops.kernels.build import pick
 from surel_plus_tpu_torch.ops.kernels.merge import (
     merge_pairs_cuda,
     merge_pairs_plain,
@@ -23,8 +24,5 @@ def merge_pairs(keys_a: torch.Tensor, pay_a: torch.Tensor,
 
     keys_*: int32 bits of unsigned keys [B, L], ascending per row as
     unsigned values; pay_*: int32 [B, L]."""
-    if keys_a.device.type == "cuda":
-        return merge_pairs_cuda(keys_a, pay_a, keys_b, pay_b)
-    if keys_a.device.type == "cpu":
-        return merge_pairs_plain(keys_a, pay_a, keys_b, pay_b)
-    raise ValueError(f"merge_pairs: no kernel for device {keys_a.device}")
+    merge = pick("merge_pairs", keys_a, merge_pairs_cuda, merge_pairs_plain)
+    return merge(keys_a, pay_a, keys_b, pay_b)

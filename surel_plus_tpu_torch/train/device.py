@@ -243,10 +243,10 @@ def trainer_from_keys(model, spgk: SpGKeys, config: TrainConfig,
                       ) -> DeviceTrainer:
     """DeviceTrainer over a packed-key SpG: the join unpacks landing-count
     features on the fly. Fills in the model's key_layout when unset, and
-    asks the join for slot-aligned outputs only when the model takes its
-    unfused route on the sets' device."""
+    asks the join for what the model reads on the sets' device
+    (`Net.join_outputs`)."""
     if getattr(model, "key_layout", False) is None:
         model.key_layout = (spgk.num_walks, spgk.num_steps)
-    aligned = not model.fused_on(spgk.nodes.device)
-    join = make_keys_join(spgk.num_walks, spgk.num_steps, aligned=aligned)
+    join = make_keys_join(spgk.num_walks, spgk.num_steps,
+                          **model.join_outputs(spgk.nodes.device))
     return DeviceTrainer(model, spgk, config, join, feature=feature)

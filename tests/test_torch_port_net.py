@@ -101,12 +101,13 @@ def test_seeded_init_is_reproducible_and_shaped():
     assert torch.all(a.affinity_score.fc0.bias == 0)
 
 
-@pytest.mark.parametrize("aggrs", ["attn", "lstm"])
+@pytest.mark.parametrize("aggrs", ["lstm"])
 def test_unported_aggregators_raise(aggrs):
     with pytest.raises(NotImplementedError, match="not ported"):
         Net(4, H, aggrs=aggrs, device="cpu")
 
 
 def test_params_from_flax_rejects_unported_modules():
+    lstm = {k: np.zeros((2, 2), np.float32) for k in ("wi", "wh", "bh")}
     with pytest.raises(KeyError, match="aggr"):
-        params_from_flax({"params": {"aggr": {}}})
+        params_from_flax({"params": {"aggr": lstm}})

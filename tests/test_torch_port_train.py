@@ -1,6 +1,7 @@
 """PyTorch port, the training slice: one step's loss and gradients, the
 optimizer, the epoch metrics and a short fit, each against the JAX
-package on the same inputs, in float32 with dropout 0.
+package on the same inputs, in float32 with dropout 0, for the mean and
+the attention aggregators.
 
 Tolerances, with their reasons:
 - loss and gradients of one step: rtol 1e-4, atol 1e-6 (fp32 sums over
@@ -16,7 +17,14 @@ Tolerances, with their reasons:
   fit's parameters agree to about 1e-6. Losses rtol 1e-5; histogram AUCs
   atol 1e-6 (a score a rounding away from a bin edge would change it by
   a whole pair);
-- metrics on tied scores: histograms exactly, AUCs to float32 rounding.
+- metrics on tied scores: histograms exactly, AUCs to float32 rounding;
+- the attention gate's bias (`aggr.gate_nn.bias`): its gradient is 0 in
+  exact arithmetic (a shift of every gate of a set leaves the softmax as
+  it is), so both frameworks give rounding noise there, held to atol 1e-5
+  alone as JAX's own test holds it (tests/test_pallas_hidden_sum.py:
+  488-490). Adam turns that noise into steps of up to about lr either
+  way, and the bias does not change the function, so after a fit it is
+  held to 2 lr per step.
 """
 
 import jax
@@ -54,6 +62,8 @@ from surel_plus_tpu_torch.train.device import (
 H, N, BS, E, EPOCHS, LR = 16, 120, 8, 21, 2, 1e-2   # E % BS != 0
 LAYOUTS = {"lo_only": (100, 3), "lead_in_hi": (200, 4)}
 ROUTES = {"fused": True, "unfused": False}
+AGGRS = ("attn", "mean")
+GATE_BIAS = "aggr.gate_nn.bias"   # gradient 0 up to rounding (see above)
 
 
 def _c(x):
@@ -77,8 +87,9 @@ def _grads_by_name(net):
     return {n: p.grad.numpy() for n, p in net.named_parameters()}
 
 
+@pytest.mark.parametrize("aggrs", AGGRS)
 @pytest.mark.parametrize("route", sorted(ROUTES))
-def test_train_step_loss_and_grads_match_jax(sampled, route):
+def test_train_step_loss_and_grads_match_jax(sampled, route, aggrs):
     nw, ns, spgk, tspgk = sampled
     fused = ROUTES[route]
     rng = np.random.default_rng(32)
@@ -88,7 +99,7 @@ def test_train_step_loss_and_grads_match_jax(sampled, route):
     w[-3:] = 0.0                                   # padded ids weigh 0
     jj = jax.jit(jax_make_keys_join(nw, ns))(
         spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, jnp.asarray(edges))
-    jnet = JaxNet(input_dim=ns + 1, hidden_dim=H, dropout=0.0,
+    jnet = JaxNet(input_dim=ns + 1, hidden_dim=H, aggrs=aggrs, dropout=0.0,
                   key_layout=(nw, ns), fused_hidden=fused)
     enc = jnp.zeros((1, 1), jnp.float32)
     params = jnet.init(jax.random.PRNGKey(4), enc, jj)
@@ -101,11 +112,12 @@ def test_train_step_loss_and_grads_match_jax(sampled, route):
     want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
     want = params_from_flax(jax.tree.map(np.asarray, want_grads))
 
-    net = Net(ns + 1, H, dropout=0.0, key_layout=(nw, ns),
+    net = Net(ns + 1, H, aggrs=aggrs, dropout=0.0, key_layout=(nw, ns),
               fused_hidden=fused, device="cpu")
     net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
-    tj = make_keys_join(nw, ns)(tspgk.nodes, tspgk.khi, tspgk.klo,
-                                tspgk.sizes, torch.as_tensor(edges))
+    tj = make_keys_join(nw, ns, **net.join_outputs(torch.device("cpu")))(
+        tspgk.nodes, tspgk.khi, tspgk.klo, tspgk.sizes,
+        torch.as_tensor(edges))
     loss = batch_loss(net.train()(tj), torch.as_tensor(labels),
                       torch.as_tensor(w))
     loss.backward()
@@ -113,8 +125,12 @@ def test_train_step_loss_and_grads_match_jax(sampled, route):
     got = _grads_by_name(net)
     assert set(got) == set(want)
     for name, gw in want.items():
-        np.testing.assert_allclose(got[name], gw.numpy(), rtol=1e-4,
-                                   atol=1e-6, err_msg=name)
+        if name == GATE_BIAS:
+            np.testing.assert_allclose(got[name], gw.numpy(), rtol=0,
+                                       atol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_allclose(got[name], gw.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=name)
 
 
 def _tree(rng, scale):
@@ -203,15 +219,18 @@ def test_epoch_metrics_match_jax_on_ties():
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
-@pytest.fixture(scope="module")
-def jax_fit(sampled):
+@pytest.fixture(scope="module", params=AGGRS)
+def jax_fit(sampled, request):
     """JAX trainer_from_keys(...).fit over EPOCHS epochs of E queries, with
-    the parameters before and after and each epoch's permutation."""
+    the aggregator, the parameters before and after and each epoch's
+    permutation."""
     nw, ns, spgk, tspgk = sampled
+    aggrs = request.param
     rng = np.random.default_rng(33)
     edges = rng.integers(0, N, size=(2, E)).astype(np.int32)
     labels = (rng.random(E) < 0.5).astype(np.float32)
-    jtr = jax_trainer(JaxNet(input_dim=ns + 1, hidden_dim=H, dropout=0.0),
+    jtr = jax_trainer(JaxNet(input_dim=ns + 1, hidden_dim=H, aggrs=aggrs,
+                             dropout=0.0),
                       spgk, JaxTrainConfig(batch_size=BS, lr=LR))
     params0, opt_state = jtr.init(jax.random.PRNGKey(0), edges[:, :BS])
     key = jax.random.PRNGKey(5)
@@ -223,16 +242,16 @@ def jax_fit(sampled):
         jax.random.split(k)[0], nsteps, BS)))
         for k in jax.random.split(key, EPOCHS)]
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
-    return (edges, labels, flat(params0), flat(params), np.asarray(losses),
-            np.asarray(aucs), perms)
+    return (aggrs, edges, labels, flat(params0), flat(params),
+            np.asarray(losses), np.asarray(aucs), perms)
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_fit_matches_jax(sampled, jax_fit, route):
     nw, ns, spgk, tspgk = sampled
-    edges, labels, state0, want, losses, aucs, perms = jax_fit
-    net = Net(ns + 1, H, dropout=0.0, fused_hidden=ROUTES[route],
-              device="cpu")
+    aggrs, edges, labels, state0, want, losses, aucs, perms = jax_fit
+    net = Net(ns + 1, H, aggrs=aggrs, dropout=0.0,
+              fused_hidden=ROUTES[route], device="cpu")
     net.load_state_dict(state0)
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS, lr=LR))
     got_losses, got_aucs = tr.fit(edges, labels, EPOCHS,
@@ -245,9 +264,11 @@ def test_fit_matches_jax(sampled, jax_fit, route):
     moved = max(float(np.abs(want[k].numpy() - state0[k].numpy()).max())
                 for k in want)
     assert moved > 3 * LR                    # the fit did train
+    steps = EPOCHS * -(-E // BS)
     for k, v in want.items():
+        atol = 2 * LR * steps if k == GATE_BIAS else 1e-5
         np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-4,
-                                   atol=1e-5, err_msg=k)
+                                   atol=atol, err_msg=k)
     tr.predict(edges)
     assert not net.training
 
