@@ -16,10 +16,17 @@ NVIDIA GPU. Run from the repository root:
    (B=999, L=203) and at Q=4, the pooled rows and the softmax residuals
    at rtol = atol = 1e-4, dU within 1e-4 of each row's largest
    magnitude and dgvec, dgconst (sums that cancel) within 1e-6 of their
-   terms' sizes, two backward launches bit for bit; the merge (K2) at
-   [4096, 301] x 2, at [4096, 801] x 2 and at odd widths, exactly.
-   Times each kernel, its plain version and, for the merge, `torch.sort`
-   as a yardstick, and prints the phase's peak device memory.
+   terms' sizes, two backward launches bit for bit; the keys-LSTM (K4)
+   in both layouts (L=301 and L=801), at an odd shape (B=999, L=203), at
+   Q=4, on masks with holes punched in, with an empty row and a row
+   valid only at its last slot, and at H=256 (its widest, with the
+   weights read from L2), fp32 at rtol = atol = 1e-4, two launches
+   and the unsorted row order bit for bit, the empty row exactly 0; the
+   merge (K2) at [4096, 301] x 2, at [4096, 801] x 2 and at odd widths,
+   exactly. Times each kernel, its plain version and, as yardsticks,
+   `torch.sort` for the merge and cuDNN's LSTM (`torch.nn.LSTM` over the
+   packed, materialized hidden rows: the recurrence alone) for K4, and
+   prints the phase's peak device memory.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
    S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
@@ -51,6 +58,12 @@ NVIDIA GPU. Run from the repository root:
    (the softmax does not move when all gates of a set do), so that
    tensor is held to absolute bounds (GATE_BIAS_*). Profiles a few
    attention predict batches and train steps.
+   Then the LSTM serving path, bench.py:207-209 and :225-231 on the same
+   sets: `Net(96, lstm, dropout 0.1, bfloat16)` from a seeded generator,
+   a cold and a timed `predict` on the 32 x 4096 edges, the same route
+   and card-vs-CPU checks, a check that the fused LSTM route raises
+   NotImplementedError under grad (its backward is not ported), and a
+   profile of a few predict batches.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the card's name
@@ -82,6 +95,7 @@ from surel_plus_tpu_torch.ops.kernels import (
     attn_pool,
     build,
     hidden_sum,
+    lstm_keys,
     merge,
 )
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
@@ -119,6 +133,10 @@ GATE_BIAS = "aggr.gate_nn.bias"
 GATE_BIAS_GRAD_ATOL = 1e-5                      # its gradient is noise
 # after n Adam steps on a noise gradient it may differ by up to ~lr a step
 GATE_BIAS_FIT_ATOL = 2 * LR * REF_STEPS
+LSTM_TOL = 1e-4         # K4 and cuDNN vs plain, fp32 over up to 801 steps
+# operations of one LSTM cell update per unit: three sigmoids (exp, add,
+# divide) and two tanh (counted as 3 each), the cell's 3 and the output's 1
+LSTM_CELL_OPS = 19
 
 # NVIDIA's H100 SXM data sheet: HBM3 rate, fp32 peak of the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
@@ -144,16 +162,21 @@ KERNELS = {
         kernel=attn_pool.ATTN_BWD_KERNEL,
         source="surel_plus_tpu_torch/csrc/attn_pool_bwd.cu",
         replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:598"),
+    "lstm_keys_fwd": dict(
+        kernel=lstm_keys.LSTM_KERNEL,
+        source="surel_plus_tpu_torch/csrc/lstm_keys.cu",
+        replaces="surel_plus_tpu/ops/pallas/lstm_kernel.py:882"),
 }
 # the kernels each main path must launch
 PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs"),
          "attn_serve": ("attn_pool_fwd", "merge_pairs"),
-         "attn_train": ("attn_pool_fwd", "attn_pool_bwd", "merge_pairs")}
+         "attn_train": ("attn_pool_fwd", "attn_pool_bwd", "merge_pairs"),
+         "lstm_serve": ("lstm_keys_fwd", "merge_pairs")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
-             "attn_pool_bwd": "attn_train"}
+             "attn_pool_bwd": "attn_train", "lstm_keys_fwd": "lstm_serve"}
 
 
 class SmokeFailure(RuntimeError):
@@ -476,6 +499,179 @@ def attn_bwd_bound(args, g):
     return bound(moved, ops)
 
 
+def lstm_inputs(joined, u_ext, shift, gen):
+    """K4's operands on a join: its slot-aligned planes, u_ext, and the
+    folded weights wi_eff [96, 384], wh [96, 384], bh_eff [384] at a scale
+    that keeps the gates out of saturation (|gate| about 0.5)."""
+    w = lambda *s: (torch.randn(*s, generator=gen) * 0.1).to(DEVICE)
+    return (joined.kown, joined.kcross_al, joined.mask, u_ext,
+            w(HIDDEN, 4 * HIDDEN), w(HIDDEN, 4 * HIDDEN), w(4 * HIDDEN),
+            shift, joined.kown_root, joined.kcross_al_root)
+
+
+def lstm_cut(args, b=None, ell=None, q4=False, holes=None, ends=False):
+    """A variant of K4's operands: the first b rows and ell slots; or Q=4
+    (endpoints 2, 3 reuse other queries' rows); or the mask with holes
+    punched in (`holes`, a generator); or, with `ends`, set (0, 0) empty
+    and set (0, 1) valid only at its last slot."""
+    kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc = args
+    b = kown.shape[1] if b is None else b
+    ell = kown.shape[2] if ell is None else ell
+    cut = lambda t: None if t is None else t[:, :b, :ell].contiguous()
+    if q4:
+        cut = lambda t: None if t is None else torch.cat(
+            [t, t.roll(1, dims=1)])[:, :b, :ell].contiguous()
+    kown, kc, mask, ro, rc = (cut(t) for t in (kown, kc, mask, ro, rc))
+    if holes is not None:
+        mask = mask & (torch.rand(mask.shape, generator=holes) < 0.7).to(
+            DEVICE)
+    if ends:
+        mask = mask.clone()
+        mask[0, :2] = False
+        mask[0, 1, -1] = True
+    return kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc
+
+
+def lstm_widen(args, gen, hh):
+    """K4's operands at LSTM width and input width hh: u_ext's columns
+    repeated, fresh weights at a scale that keeps |gate| about 0.5."""
+    kown, kc, mask, u_ext, _, _, _, shift, ro, rc = args
+    u = u_ext.repeat(1, -(-hh // u_ext.shape[1]))[:, :hh].contiguous()
+    w = lambda *s: (torch.randn(*s, generator=gen) * 0.05).to(DEVICE)
+    return (kown, kc, mask, u, w(hh, 4 * hh), w(hh, 4 * hh), w(4 * hh),
+            shift, ro, rc)
+
+
+def lstm_label(args, label):
+    kown, mask = args[0], args[2]
+    ell = mask.shape[-1]
+    prefix = torch.equal(mask, torch.arange(ell, device=mask.device)
+                         < mask.sum(dim=-1, keepdim=True))
+    return (f"{label}: Q,B,L,H={tuple(kown.shape)},{args[5].shape[0]} "
+            f"valid slots {float(mask.float().mean()):.3f}, prefix masks "
+            f"{prefix}")
+
+
+def lstm_compare(args, label):
+    """K4 against its plain version at LSTM_TOL; two launches, and a
+    launch in the rows' own order, bit for bit; a row with no valid slot
+    exactly 0."""
+    got = lstm_keys.lstm_from_keys_cuda(*args)
+    again = lstm_keys.lstm_from_keys_cuda(*args)
+    unsorted = lstm_keys.lstm_from_keys_cuda(*args, sort_rows=False)
+    want = lstm_keys.lstm_from_keys_plain(*args)
+    sync()
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"K4 {label}: bad output")
+    bits = lambda x: x.view(torch.int32)
+    same = torch.equal(bits(got), bits(again))
+    same_order = torch.equal(bits(got), bits(unsorted))
+    empty = ~args[2].any(dim=-1)
+    zero = bool((got[empty] == 0).all())
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=LSTM_TOL, atol=LSTM_TOL)
+    say(f"K4 {lstm_label(args, label)}; max_abs_err={err:.3e} max|plain|="
+        f"{float(want.abs().max()):.3e} (rtol = atol = {LSTM_TOL}); repeat "
+        f"bit-identical: {same}; unsorted rows bit-identical: {same_order};"
+        f" {int(empty.sum())} empty rows exactly 0: {zero} "
+        f"{'ok' if ok and same and same_order and zero else 'FAIL'}")
+    require(ok, f"K4 {label} disagrees with its plain version")
+    require(same and same_order, f"K4 {label}: launches differ")
+    require(zero, f"K4 {label}: an empty row is not 0")
+    return err
+
+
+def lstm_bound(args):
+    """K4's least time. Only a valid slot moves the carry, so only valid
+    (row, slot) pairs need work: the two hidden rows (per channel and side
+    ncol multiply-adds, the bias, the relu; their sum), the gate product
+    4H (h + H) multiply-adds, and the cell, LSTM_CELL_OPS per unit."""
+    kown, kc, mask, u_ext, wi, wh, bh, _, ro, rc = args
+    q, b, _ = kown.shape
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    hh = wh.shape[0]
+    moved = nbytes(kown, kc, mask, u_ext, wi, wh, bh, ro, rc) + q * b * hh * 4
+    per_slot = (h * (2 * (2 * ncol + 2) + 1) + 2 * 4 * hh * (h + hh)
+                + LSTM_CELL_OPS * hh)
+    return bound(moved, int(mask.sum()) * per_slot)
+
+
+def lstm_library(args):
+    """The yardstick: torch.nn.LSTM (cuDNN, TF32 off) with weight_ih =
+    wi^T, weight_hh = wh^T, bias_ih = 0, bias_hh = bh over the hidden rows,
+    materialized and packed by length beforehand: the recurrence alone,
+    with x given. Needs prefix masks. Returns a call giving [Q, B, H]."""
+    kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc = args
+    q, b, ell = kown.shape
+    rows = mask.reshape(q * b, ell)
+    lengths = rows.sum(dim=-1)
+    require(torch.equal(rows, torch.arange(ell, device=DEVICE)
+                        < lengths[:, None]), "the yardstick needs prefix masks")
+    x = lstm_keys.lstm_rows_plain(kown, kc, u_ext, shift, ro, rc)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x.reshape(q * b, ell, -1), lengths.cpu(), batch_first=True,
+        enforce_sorted=False)
+    del x
+    lstm = torch.nn.LSTM(u_ext.shape[1], wh.shape[0], batch_first=True).to(
+        DEVICE)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wi.T)
+        lstm.weight_hh_l0.copy_(wh.T)
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.copy_(bh)
+
+    @torch.no_grad()
+    def run():
+        return lstm(packed)[1][0][0].reshape(q, b, -1)
+
+    return run
+
+
+def lstm_vs_plain(jlo, jhi, u_lo, u_hi, shift_lo, shift_hi, gen):
+    """Phase 2 for K4: cases (a)-(f) against the plain version, and the
+    kernel, plain, cuDNN and bound times at L=301 and L=801."""
+    torch.cuda.reset_peak_memory_stats()
+    l_lo = lstm_inputs(jlo, u_lo, shift_lo, gen)
+    l_hi = lstm_inputs(jhi, u_hi, shift_hi, gen)
+    odd = lstm_cut(l_lo, b=999, ell=203)
+    cases = ((l_lo, f"(a) lo-only M={NUM_WALKS} S'={NUM_STEPS}"),
+             (l_hi, f"(b) lead-in-hi M={WIDE_WALKS} S'={WIDE_STEPS}"),
+             (odd, "(c) odd B and L, lo-only"),
+             (lstm_cut(l_lo, b=256, q4=True), "(d) Q=4, lo-only"),
+             (lstm_cut(l_lo, holes=torch.Generator().manual_seed(6)),
+              "(e) holes in the masks, lo-only"),
+             (lstm_cut(odd, ends=True),
+              "(f) an empty row, a row valid at its last slot only"),
+             (lstm_widen(lstm_cut(l_lo, b=512), gen, lstm_keys.MAX_H),
+              f"(g) H={lstm_keys.MAX_H}, lo-only"))
+    err = max(lstm_compare(a, label) for a, label in cases)
+    out = {}
+    for name, args in (("L=301", l_lo), ("L=801", l_hi)):
+        lib = lstm_library(args)
+        got, want = lib(), lstm_keys.lstm_from_keys_plain(*args)
+        lib_err = float((got - want).abs().max())
+        require(torch.allclose(got, want, rtol=LSTM_TOL, atol=LSTM_TOL),
+                f"cuDNN's LSTM disagrees with K4's plain version at {name}")
+        del got, want
+        ms = time_ms(lambda: lstm_keys.lstm_from_keys_cuda(*args))
+        ms_unsorted = time_ms(lambda: lstm_keys.lstm_from_keys_cuda(
+            *args, sort_rows=False))
+        plain_ms = time_ms(lambda: lstm_keys.lstm_from_keys_plain(*args),
+                           iters=5)
+        lib_ms = time_ms(lib)
+        bound_ms, by = lstm_bound(args)
+        say(f"K4 {name}: kernel {ms:.4f} ms (rows in their own order "
+            f"{ms_unsorted:.4f} ms), plain {plain_ms:.4f} ms, cuDNN LSTM "
+            f"(recurrence only, x given) {lib_ms:.4f} ms with max |d| "
+            f"{lib_err:.3e} from plain, bound {bound_ms:.4f} ms ({by})")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound=(bound_ms, by))
+        del lib
+    say(f"K4 checks peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(max_abs_err=err, **out["L=301"])
+
+
 def merge_rows(nodes, pays):
     """The join's merge operands from a batch's rows [2, B, L], as the
     join forms them: (v keys, v payload, u keys, u payload)."""
@@ -557,6 +753,9 @@ def kernels_vs_plain(g):
         err3b = max(err3b, attn_bwd_compare(a, ga, label))
     say(f"phase 2 peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the keys-LSTM (K4): cases (a)-(f), times at L=301 and L=801
+    stats["lstm_keys_fwd"] = lstm_vs_plain(jlo, jhi, a_lo[4], a_hi[4],
+                                           a_lo[5], a_hi[5], gen)
 
     m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
     err2 = k2_compare(m_main, "join rows, lo-only")
@@ -1038,6 +1237,42 @@ def check_train_cpu(spgk, net, edges, labels) -> None:
             "training on the card disagrees with the port's CPU path")
 
 
+def lstm_serve(spgk, edges, label):
+    """The LSTM serving path (bench.py:207-209, :225-231) on the port: the
+    bench Net from a seeded generator, a cold predict over `edges`, then
+    a timed one. Returns the trainer."""
+    net = make_net("lstm", dropout=0.1, dtype="bfloat16",
+                   generator=torch.Generator().manual_seed(0))
+    trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
+    sync()
+    t0 = time.perf_counter()
+    trainer.predict(edges)
+    sync()
+    dt = time.perf_counter() - t0
+    say(f"inference cold (lstm): {edges.shape[1] // BATCH} x {BATCH} "
+        f"queries in {dt:.4f} s [{label}]")
+    timed_predict(trainer, edges, label, "lstm")
+    return trainer
+
+
+def check_forward_only(spgk, net, edges) -> None:
+    """The fused LSTM route raises NotImplementedError in a training
+    forward: its backward kernel is not ported, and it never falls back
+    to differentiating the plain version."""
+    m = make_net(net.aggrs, dropout=0.1, dtype="bfloat16",
+                 key_layout=(NUM_WALKS, NUM_STEPS))
+    m.load_state_dict(net.state_dict())
+    joined = make_keys_join(NUM_WALKS, NUM_STEPS, **m.join_outputs(DEVICE))(
+        spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, edges[:, :BATCH])
+    try:
+        m.train()(joined, generator=torch.Generator(device=DEVICE))
+    except NotImplementedError as e:
+        say(f"fused lstm forward under grad raises NotImplementedError: "
+            f"{str(e)[:80]}... ok")
+        return
+    raise SmokeFailure("the fused lstm route ran under grad")
+
+
 def profile_train(trainer, edges, labels, gen, steps: int = 8) -> None:
     be, bl = edges[:, :steps * BATCH], labels[:steps * BATCH]
     profile(lambda: trainer.train_epoch(be, bl, gen), steps,
@@ -1127,6 +1362,18 @@ def main() -> int:
     check_train_cpu(spgk, atrainer.model, tedges, tlabels)
     profile_predict(spgk, atrainer.model, tedges)
     profile_train(atrainer, tedges, tlabels, agen)
+
+    # the LSTM serving path (bench.py:207-209, :225-231), same sets, edges
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ltrainer = lstm_serve(spgk, tedges, label)
+    launches["lstm_serve"] = counts()
+    say(f"launches on the LSTM serving path: {launches['lstm_serve']}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_routes(spgk, ltrainer.model, tedges)
+    check_forward_only(spgk, ltrainer.model, tedges)
+    profile_predict(spgk, ltrainer.model, tedges)
 
     # phase 4
     for path, names in PATHS.items():

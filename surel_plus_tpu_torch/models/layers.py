@@ -1,5 +1,5 @@
 """Shared model layers (port of surel_plus_tpu/models/layers.py: MLP2,
-MergeLayer, masked_mean, AttentionAggregation).
+MergeLayer, masked_mean, AttentionAggregation, LSTMAggregation).
 
 Parameters stay float32; `dtype` is the compute precision of the hot
 layers (bfloat16 at the bench width), applied by casting at call time as
@@ -16,6 +16,10 @@ import torch
 from torch import nn
 
 from surel_plus_tpu_torch.ops.kernels.attn_pool import fused_attn_pool
+from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
+    lstm_from_keys,
+    lstm_scan_plain,
+)
 
 
 def xavier_normal_(weight: torch.Tensor,
@@ -160,3 +164,71 @@ class AttentionAggregation(nn.Module):
                                  shift, root_own=root_own,
                                  root_cross=root_cross)         # [Q, B, h]
         return _dense(pooled @ w2f + c2, self.value_nn, torch.float32)
+
+
+class LSTMAggregation(nn.Module):
+    """LSTM over each set's slots in order, its final hidden state the set
+    embedding (PyG LSTMAggregation, reference model.py:63-65). A masked
+    slot leaves the carry as it is. Gates in (i, f, g, o) order, as
+    torch's nn.LSTM stacks them; the parameters keep flax's orientation
+    (wi [H, 4H], wh [H, 4H], bh [4H]: nn.LSTM's weight_ih is wi.T). The
+    input width is H, as in the Net (the JAX module sizes wi from its
+    input, or from the fold's w2).
+
+    Initialization: xavier-normal wi and wh with a zero bh, or with
+    `torch_init` torch's nn.LSTM uniform U(-1/sqrt(H), 1/sqrt(H)) on all
+    three, drawn on the CPU. The JAX module's `unroll` and `chunk` tune
+    its `lax.scan` and its rematerialization; eager PyTorch has neither,
+    so they have no counterpart here."""
+
+    def __init__(self, hidden_dim: int, torch_init: bool = False):
+        super().__init__()
+        h4 = 4 * hidden_dim
+        self.hidden_dim = hidden_dim
+        self.torch_init = torch_init
+        self.wi = nn.Parameter(torch.empty(hidden_dim, h4))
+        self.wh = nn.Parameter(torch.empty(hidden_dim, h4))
+        self.bh = nn.Parameter(torch.empty(h4))
+
+    def reset_parameters(self, generator=None) -> None:
+        if self.torch_init:
+            bound = self.hidden_dim ** -0.5
+            with torch.no_grad():
+                for p in (self.wi, self.wh, self.bh):
+                    p.copy_(torch.empty(p.shape).uniform_(
+                        -bound, bound, generator=generator))
+            return
+        xavier_normal_(self.wi, generator)
+        xavier_normal_(self.wh, generator)
+        nn.init.zeros_(self.bh)
+
+    def forward(self, x: Optional[torch.Tensor], mask: torch.Tensor,
+                fold=None, keys=None,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """x [..., L, H], mask bool [..., L] -> [..., H] in x's dtype.
+
+        fold=(w2, c2): x is the hidden rows before the upstream affine
+        projection x @ w2 + c2, which folds into the input weights:
+        wi_eff = w2 @ wi in x's dtype, bh_eff = bh + c2 @ wi in float32.
+
+        keys=(kown, kcross_al, mask, u_ext, shift, root_own, root_cross):
+        the recurrence runs from the packed keys (`lstm_from_keys`, with
+        the fold), and x may be None with `dtype` the compute dtype: the
+        per-slot rows are never formed."""
+        cd = x.dtype if x is not None else dtype
+        wi_eff, bh_eff = self.wi, self.bh.to(torch.float32)
+        if fold is not None:
+            w2, c2 = fold
+            wi_eff = w2.to(cd) @ self.wi.to(cd)
+            bh_eff = bh_eff + (c2 @ self.wi.to(c2.dtype)).reshape(-1)
+        if keys is not None:
+            kown, kcross_al, kmask, u_ext, shift, ro, rc = keys
+            hidden = lstm_from_keys(kown, kcross_al, kmask, u_ext, wi_eff,
+                                    self.wh, bh_eff, shift, root_own=ro,
+                                    root_cross=rc)
+            return hidden.to(cd)
+        *batch, ell, h = x.shape
+        hidden = lstm_scan_plain(x.reshape(-1, ell, h),
+                                 mask.reshape(-1, ell), wi_eff, self.wh,
+                                 bh_eff)
+        return hidden.reshape(*batch, self.hidden_dim).to(cd)

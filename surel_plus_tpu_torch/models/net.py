@@ -1,5 +1,5 @@
-"""Link-prediction set encoder, mean and attention aggregators (port of
-surel_plus_tpu/models/net.py:Net over packed-key joins).
+"""Link-prediction set encoder, mean, attention and LSTM aggregators (port
+of surel_plus_tpu/models/net.py:Net over packed-key joins).
 
 Pipeline: packed keys -> pe_embedding hidden layer -> pair sum -> masked
 set aggregation -> optional raw-feature branch -> MergeLayer scorer.
@@ -12,18 +12,25 @@ attn: AttentionAggregation over x = pe.project(hsum) + b2 per slot. Its
 fused form folds the projection and the value Linear past the softmax,
 so only a scalar gate per slot remains (x = hsum @ W2 + 2 b2).
 
+lstm: LSTMAggregation over x = pe.project(hsum) + b2 per slot. Its fused
+form folds the projection into the recurrence's input weights
+(wi_eff = W2 @ wi, bh_eff = bh + 2 b2 @ wi) and runs it from the keys.
+
 Two routes compute the same logits:
 
 * fused: a kernel reads the packed keys and never materializes a per-slot
   hidden row (CUDA kernels on the card, their plain versions on the CPU):
   `fused_key_hidden_sum` for mean, on the join's merged-order planes;
-  `fused_attn_pool` for attn, on the slot-aligned keys.
+  `fused_attn_pool` for attn and `lstm_from_keys` for lstm, on the
+  slot-aligned keys.
 * unfused: the hidden layer over the join's unpacked feature pairs, as
   the JAX package's XLA path does.
 
 `fused_hidden=None` picks the fused route on CUDA and the unfused one on
-the CPU. Both routes are differentiable: the fused routes' gradients for
-W1 and b1 flow through the kernels' autograd Functions into u_ext.
+the CPU. Both routes are differentiable (the fused routes' gradients for
+W1 and b1 flow through the kernels' autograd Functions into u_ext),
+except the fused lstm route: it is forward only until its backward
+kernel is ported, and raises NotImplementedError under grad.
 `join_outputs` says which join outputs the route reads, so that the join
 builds only those (eager PyTorch does no dead-code elimination).
 """
@@ -37,6 +44,7 @@ from torch import nn
 
 from surel_plus_tpu_torch.models.layers import (
     AttentionAggregation,
+    LSTMAggregation,
     MergeLayer,
     MLP2,
     masked_mean,
@@ -56,7 +64,7 @@ def _torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
 class Net(nn.Module):
     """Scores Q=2 endpoint sets per query; returns logits [B].
 
-    aggrs: "mean" or "attn" ("lstm" is not ported yet).
+    aggrs: "mean", "attn" or "lstm"; any other raises ValueError.
     input_dim: encoding columns (num_steps + 1). dtype: compute precision
     of the hot layers ("float32" or "bfloat16"); parameters stay float32.
     Weights are xavier-normal from `generator` (biases zero), made on the
@@ -74,10 +82,8 @@ class Net(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
-        if aggrs not in ("mean", "attn"):
-            raise NotImplementedError(
-                f"aggregator {aggrs!r} is not ported yet (mean and attn "
-                "only)")
+        if aggrs not in ("mean", "attn", "lstm"):
+            raise ValueError(f"unknown aggregator {aggrs!r}")
         self.aggrs = aggrs
         self.hidden_dim = hidden_dim
         self.dtype = _torch_dtype(dtype)
@@ -88,6 +94,8 @@ class Net(nn.Module):
                                  self.dtype)
         if aggrs == "attn":
             self.aggr = AttentionAggregation(hidden_dim)
+        elif aggrs == "lstm":
+            self.aggr = LSTMAggregation(hidden_dim)
         width = hidden_dim
         if use_feature:
             self.feature_embedding = MLP2(x_dim, hidden_dim, hidden_dim,
@@ -113,11 +121,12 @@ class Net(nn.Module):
     def join_outputs(self, device: torch.device) -> dict:
         """The keyword arguments of `make_keys_join` that build what forward
         reads on `device`: the fused mean route reads only the merged-order
-        planes, the fused attention route the slot-aligned keys but not the
-        unpacked feature pairs, the unfused routes the feature pairs."""
+        planes, the fused attention and lstm routes the slot-aligned keys but
+        not the unpacked feature pairs, the unfused routes the feature
+        pairs."""
         if not self.fused_on(device):
             return dict(aligned=True, features=True)
-        if self.aggrs == "attn":
+        if self.aggrs in ("attn", "lstm"):
             return dict(aligned=True, features=False)
         return dict(aligned=False)
 
@@ -151,18 +160,25 @@ class Net(nn.Module):
                                  "key_layout")
             shift = int(self.key_layout[0]).bit_length()
             u_ext = self._u_ext()              # kernel compute stays fp32
-            if self.aggrs == "attn":
+            if self.aggrs in ("attn", "lstm"):
                 if joined.kcross_al is None:
-                    raise ValueError("the fused attention route needs the "
-                                     "join's aligned keys (aligned=True)")
-                # the per-slot hidden rows are never formed: the pool
-                # reads the keys
+                    raise ValueError(f"the fused {self.aggrs} route needs "
+                                     "the join's aligned keys (aligned=True)")
+                # the per-slot hidden rows are never formed: the kernel
+                # reads the keys, with the projection x = hsum @ W2 + 2 b2
+                # folded in
                 w2, bias2 = pe.project_raw()
-                agg = self.aggr.folded_from_keys(
-                    joined.kown, joined.kcross_al, joined.mask, u_ext, shift,
-                    w2, 2.0 * bias2.to(torch.float32)[None],
-                    root_own=joined.kown_root,
-                    root_cross=joined.kcross_al_root)
+                c2 = 2.0 * bias2.to(torch.float32)[None]
+                if self.aggrs == "attn":
+                    agg = self.aggr.folded_from_keys(
+                        joined.kown, joined.kcross_al, joined.mask, u_ext,
+                        shift, w2, c2, root_own=joined.kown_root,
+                        root_cross=joined.kcross_al_root)
+                else:
+                    agg = self.aggr(None, joined.mask, fold=(w2, c2), keys=(
+                        joined.kown, joined.kcross_al, joined.mask, u_ext,
+                        shift, joined.kown_root, joined.kcross_al_root),
+                        dtype=cd)
                 return self._score(agg, feature, generator)
             sums = fused_key_hidden_sum(
                 joined.kown, joined.mask, joined.kcross, joined.kcross_mask,
@@ -176,7 +192,7 @@ class Net(nn.Module):
             raise ValueError("the unfused route needs the join's feature "
                              "pairs (make_keys_join(..., aligned=True))")
         hsum = pe.hidden(joined.eidx).sum(dim=-2)            # [2, B, L, h]
-        if self.aggrs == "attn":
+        if self.aggrs in ("attn", "lstm"):
             agg = self.aggr(pe.project(hsum) + b2v(hsum), joined.mask)
         else:
             mean = masked_mean(hsum, joined.mask)

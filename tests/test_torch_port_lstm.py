@@ -1,0 +1,346 @@
+"""PyTorch port, the keys-LSTM and the LSTM Net (serving only).
+
+The plain version of the keys-LSTM kernel is held to the JAX package's
+`lstm_from_keys` in Pallas interpret mode (as tests/test_pallas_hidden_sum.py
+runs it): impl "t2" (the default, which assumes prefix masks) on prefix
+masks, impl "t1" on masks with holes and an empty row, in the lo-only and
+the lead-in-hi (root planes) layouts and at Q=4. `LSTMAggregation` is held
+to JAX's scan with and without the projection fold, and the LSTM Net's
+logits, on both of the port's routes, to JAX's Net on both of its routes,
+with the same weights.
+
+Tolerances, with their reasons:
+- keys-LSTM and LSTMAggregation: rtol = atol = 1e-5 in fp32 (as JAX's own
+  test holds its kernel to its scan, tests/test_pallas_hidden_sum.py:
+  534-537: the same recurrence with sums in other orders);
+- Net logits: rtol = atol = 1e-4 in fp32; 3e-2 in bf16, where the
+  frameworks round to bf16 at different points (the fold's wi_eff and the
+  LSTM's output are bf16-rounded in both).
+
+The keys-LSTM is forward only in the port: under grad it raises, on every
+device, rather than let autograd differentiate the plain version.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surel_plus_tpu.graph.synthetic import rmat_graph
+from surel_plus_tpu.models import Net as JaxNet
+from surel_plus_tpu.models.layers import LSTMAggregation as JaxLSTM
+from surel_plus_tpu.ops.join import make_keys_join as jax_make_keys_join
+from surel_plus_tpu.ops.pallas.lstm_kernel import (
+    lstm_from_keys as jax_lstm_from_keys,
+)
+from surel_plus_tpu.ops.sampler import sample_gsets_device_keys
+from surel_plus_tpu_torch.convert import params_from_flax
+from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.models.layers import LSTMAggregation
+from surel_plus_tpu_torch.ops.join import join_gathered_keys
+from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
+from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
+    lstm_from_keys,
+    lstm_from_keys_cuda,
+    lstm_from_keys_plain,
+    row_order,
+)
+from surel_plus_tpu_torch.ops.walk import enc_field_layout
+from surel_plus_tpu_torch.spg import SpGKeys
+from surel_plus_tpu_torch.train import TrainConfig
+from surel_plus_tpu_torch.train.device import trainer_from_keys
+
+LAYOUTS = {"lo_only": (10, 3), "lead_in_hi": (200, 4)}
+CASES = {"lo_only-q2": ("lo_only", 2), "lead_in_hi-q2": ("lead_in_hi", 2),
+         "lo_only-q4": ("lo_only", 4)}
+B, L, H = 5, 11, 8
+
+
+def _case(name, seed=0, holes=False):
+    """Random operands at Q, B=5, L=11, H=8: keys with every field used,
+    prefix masks of random sizes >= 1 or, with `holes`, random masks with
+    row (0, 0) empty and row (0, 1) valid only at its last slot; the root
+    planes of the lead-in-hi layout; weights at the scale of a trained
+    LSTM's."""
+    layout, q = CASES[name]
+    nw, ns = LAYOUTS[layout]
+    shift, starts, lead_bit = enc_field_layout(nw, ns)
+    rng = np.random.default_rng(seed)
+
+    def keys():
+        k = np.zeros((q, B, L), np.uint32)
+        for j in range(1, ns + 1):
+            k |= rng.integers(0, nw + 1, size=k.shape).astype(
+                np.uint32) << np.uint32(starts[j])
+        if lead_bit < 32:
+            k |= rng.integers(0, 2, size=k.shape).astype(
+                np.uint32) << np.uint32(lead_bit)
+        return k
+
+    kown, kcross = keys(), keys()
+    if holes:
+        mask = rng.random((q, B, L)) < 0.6
+        mask[0, 0] = False
+        mask[0, 1] = False
+        mask[0, 1, L - 1] = True
+    else:
+        sizes = rng.integers(1, L + 1, size=(q, B))
+        mask = np.arange(L)[None, None, :] < sizes[..., None]
+    w1 = rng.normal(size=(ns + 1, H)).astype(np.float32)
+    b1 = (0.1 * rng.normal(size=H)).astype(np.float32)
+    u = torch.cat([u_core_rows(torch.as_tensor(w1), nw, ns),
+                   torch.full((1, H), NEG), torch.as_tensor(b1)[None]])
+    w = lambda *s: (0.3 * rng.normal(size=s)).astype(np.float32)
+    roots = None
+    if lead_bit == 32:
+        roots = tuple(rng.integers(0, 2, size=(q, B, L)).astype(np.int32)
+                      for _ in range(2))
+    return dict(kown=kown, kcross=kcross, mask=mask, u=u.numpy(),
+                wi=w(H, 4 * H), wh=w(H, 4 * H), bh=w(4 * H), roots=roots,
+                shift=int(nw).bit_length())
+
+
+def _jax(c, impl):
+    jr = {} if c["roots"] is None else dict(
+        root_own=jnp.asarray(c["roots"][0]),
+        root_cross=jnp.asarray(c["roots"][1]))
+    a = lambda k: jnp.asarray(c[k])
+    return np.asarray(jax_lstm_from_keys(
+        a("kown"), a("kcross"), a("mask"), a("u"), a("wi"), a("wh"),
+        a("bh"), c["shift"], interpret=True, impl=impl, **jr))
+
+
+def _port(c, fn=lstm_from_keys_plain):
+    t = lambda x: torch.as_tensor(np.array(x))
+    roots = {} if c["roots"] is None else dict(root_own=t(c["roots"][0]),
+                                               root_cross=t(c["roots"][1]))
+    return fn(t(c["kown"].view(np.int32)), t(c["kcross"].view(np.int32)),
+              t(c["mask"]), t(c["u"]), t(c["wi"]), t(c["wh"]), t(c["bh"]),
+              c["shift"], **roots)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_t2_on_prefix_masks(case):
+    c = _case(case)
+    got = _port(c)
+    assert got.shape == (CASES[case][1], B, H) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _jax(c, "t2"), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_t1_on_any_mask(case):
+    """t1 takes any mask; t2's sort-and-skip would be wrong here. A row
+    with no valid slot gives exactly 0, and a row valid only at its last
+    slot gives one cell step from a zero carry."""
+    c = _case(case, seed=1, holes=True)
+    got = _port(c, lstm_from_keys)
+    np.testing.assert_allclose(got.numpy(), _jax(c, "t1"), rtol=1e-5,
+                               atol=1e-5)
+    assert bool((got[0, 0] == 0).all())
+    assert bool((got[0, 1] != 0).any())
+
+
+def test_row_order_is_by_last_valid_slot_longest_first():
+    mask = torch.zeros(5, 6, dtype=torch.bool)
+    mask[0, :2] = True
+    mask[1, 4] = True           # a hole before its one valid slot
+    mask[3, :5] = True
+    mask[4, 1] = True
+    assert row_order(mask).tolist() == [1, 3, 0, 4, 2]
+    assert row_order(mask).dtype == torch.int32
+
+
+def _jax_lstm_pair(fold, seed=3):
+    """JAX's LSTMAggregation (its scan) and the port's, with the JAX
+    weights carried across, on x [2, 3, L, H] with random masks."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 3, L, H)).astype(np.float32)
+    mask = rng.random((2, 3, L)) < 0.7
+    fw = None
+    if fold:
+        fw = (jnp.asarray(0.4 * rng.normal(size=(H, H)), jnp.float32),
+              jnp.asarray(0.1 * rng.normal(size=(1, H)), jnp.float32))
+    jmod = JaxLSTM(H, chunk=4)
+    params = jmod.init(jax.random.PRNGKey(seed), x, mask, fold=fw)
+    p = jax.tree.map(np.asarray, params["params"])
+    p["bh"] = (0.2 * rng.normal(size=p["bh"].shape)).astype(np.float32)
+    want = np.asarray(jmod.apply({"params": p}, x, mask, fold=fw))
+    mod = LSTMAggregation(H)
+    mod.load_state_dict({k: torch.as_tensor(np.array(v))
+                         for k, v in p.items()})
+    tfold = None if fw is None else tuple(torch.as_tensor(np.array(a))
+                                          for a in fw)
+    with torch.no_grad():
+        got = mod(torch.as_tensor(x), torch.as_tensor(mask), fold=tfold)
+    return got, want
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["plain", "fold"])
+def test_lstm_aggregation_matches_jax_scan(fold):
+    got, want = _jax_lstm_pair(fold)
+    assert got.shape == (2, 3, H) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_lstm_aggregation_init():
+    gen = lambda: torch.Generator().manual_seed(0)
+    a, b = LSTMAggregation(H), LSTMAggregation(H)
+    a.reset_parameters(gen())
+    b.reset_parameters(gen())
+    assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                 b.parameters()))
+    assert a.wi.shape == (H, 4 * H) and a.wh.shape == (H, 4 * H)
+    assert torch.all(a.bh == 0)
+    t = LSTMAggregation(H, torch_init=True)
+    t.reset_parameters(gen())
+    bound = H ** -0.5
+    for p in t.parameters():
+        a = p.detach().abs()
+        assert float(a.max()) <= bound and float(a.min()) > 0
+
+
+# ------------------------------------------------------------ the Net
+NET_H = 16
+
+
+@pytest.fixture(scope="module", params=[(10, 3), (200, 4)],
+                ids=["lo_only", "lead_in_hi"])
+def joins(request):
+    """JAX-sampled sets, one batch joined by JAX, the gathered rows for
+    the port's join, and the LSTM Net's flax weights (with a nonzero
+    LSTM bias)."""
+    nw, ns = request.param
+    g = rmat_graph(120, 500, seed=41)
+    spgk = sample_gsets_device_keys(g, np.arange(120, dtype=np.int32),
+                                    num_walks=nw, num_steps=ns, seed=3,
+                                    block_size=64)
+    edges = np.random.default_rng(42).integers(0, 120, size=(2, 12))
+    jj = jax.jit(jax_make_keys_join(nw, ns))(
+        spgk.nodes, spgk.khi, spgk.klo, spgk.sizes,
+        jnp.asarray(edges, jnp.int32))
+    c = lambda x: torch.as_tensor(np.array(x).view(np.int32))
+    rows = [c(x)[torch.as_tensor(edges)] for x in (spgk.nodes, spgk.khi,
+                                                   spgk.klo, spgk.sizes)]
+    jnet = JaxNet(input_dim=ns + 1, hidden_dim=NET_H, aggrs="lstm",
+                  dropout=0.0, key_layout=(nw, ns), fused_hidden=False)
+    enc = jnp.zeros((1, 1), jnp.float32)
+    params = jax.tree.map(np.asarray, jnet.init(jax.random.PRNGKey(0), enc,
+                                                jj))
+    bh = params["params"]["aggr"]["bh"]
+    params["params"]["aggr"]["bh"] = np.random.default_rng(5).normal(
+        scale=0.2, size=bh.shape).astype(np.float32)
+    tspgk = SpGKeys(nodes=c(spgk.nodes), khi=c(spgk.khi), klo=c(spgk.klo),
+                    sizes=c(spgk.sizes), num_walks=nw, num_steps=ns)
+    return nw, ns, jj, rows, params, tspgk
+
+
+def _jax_logits(joins, dtype, fused):
+    nw, ns, jj, _, params, _ = joins
+    jnet = JaxNet(input_dim=ns + 1, hidden_dim=NET_H, aggrs="lstm",
+                  dropout=0.0, dtype=dtype, key_layout=(nw, ns),
+                  fused_hidden=fused)
+    return np.asarray(jnet.apply(params, jnp.zeros((1, 1), jnp.float32), jj))
+
+
+def _port_net(joins, dtype, fused):
+    nw, ns, _, rows, params, _ = joins
+    net = Net(ns + 1, NET_H, aggrs="lstm", dropout=0.0, dtype=dtype,
+              key_layout=(nw, ns), fused_hidden=fused, device="cpu")
+    net.load_state_dict(params_from_flax(params))
+    joined = join_gathered_keys(*rows, nw, ns,
+                                **net.join_outputs(torch.device("cpu")))
+    return net.eval(), joined
+
+
+def test_lstm_net_routes_match_jax_unfused(joins):
+    want = _jax_logits(joins, "float32", False)
+    for fused in (True, False):
+        net, joined = _port_net(joins, "float32", fused)
+        with torch.no_grad():
+            got = net(joined).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"fused={fused}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_lstm_net_matches_jax_fused(joins, dtype):
+    """The port's fused route against JAX's (its keys-LSTM, impl t2, in
+    interpret mode): both fold the projection and round wi_eff and the
+    LSTM's output to the compute dtype."""
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    net, joined = _port_net(joins, dtype, True)
+    with torch.no_grad():
+        got = net(joined).numpy()
+    np.testing.assert_allclose(got, _jax_logits(joins, dtype, True),
+                               rtol=tol, atol=tol)
+
+
+def test_fused_lstm_route_reads_only_the_aligned_keys(joins):
+    """The fused LSTM route's join carries the aligned keys but no
+    feature pairs, and the route never forms the per-slot hidden rows."""
+    nw, ns, _, rows, _, _ = joins
+    cpu = torch.device("cpu")
+    net = Net(ns + 1, NET_H, aggrs="lstm", key_layout=(nw, ns),
+              fused_hidden=True, device="cpu",
+              generator=torch.Generator().manual_seed(0))
+    assert net.join_outputs(cpu) == dict(aligned=True, features=False)
+    lean = join_gathered_keys(*rows, nw, ns, **net.join_outputs(cpu))
+    assert lean.eidx is None and lean.kcross_al is not None
+
+    def no_hidden(x):
+        raise AssertionError("the fused lstm route formed hsum")
+
+    net.pe_embedding.hidden = no_hidden
+    with torch.no_grad():
+        assert torch.isfinite(net.eval()(lean)).all()
+    unfused = Net(ns + 1, NET_H, aggrs="lstm", fused_hidden=False,
+                  device="cpu")
+    assert unfused.join_outputs(cpu) == dict(aligned=True, features=True)
+
+
+def test_keys_lstm_is_forward_only():
+    c = _case("lo_only-q2")
+    t = lambda x: torch.as_tensor(np.array(x))
+    args = (t(c["kown"].view(np.int32)), t(c["kcross"].view(np.int32)),
+            t(c["mask"]), t(c["u"]))
+    wi = t(c["wi"]).requires_grad_()
+    with pytest.raises(NotImplementedError, match="_klstm_t2_bwd_kernel"):
+        lstm_from_keys(*args, wi, t(c["wh"]), t(c["bh"]), c["shift"])
+    with torch.no_grad():
+        out = lstm_from_keys(*args, wi, t(c["wh"]), t(c["bh"]), c["shift"])
+    assert out.shape == (2, B, H)
+
+
+def test_fused_lstm_net_raises_under_grad_and_unfused_trains(joins):
+    nw, ns, _, _, _, tspgk = joins
+    net, joined = _port_net(joins, "float32", True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        net.train()(joined)
+    trainer = trainer_from_keys(net, tspgk, TrainConfig(batch_size=4))
+    edges = torch.as_tensor(np.random.default_rng(6).integers(
+        0, tspgk.nodes.shape[0], size=(2, 8)))
+    labels = torch.ones(8)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        trainer.fit(edges, labels, 1, torch.Generator())
+    plain, pj = _port_net(joins, "float32", False)
+    plain.train()(pj).sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in plain.aggr.parameters())
+
+
+def test_cuda_wrapper_rejects_cpu_tensors():
+    k = torch.zeros(2, 3, 4, dtype=torch.int32)
+    w = torch.zeros(8, 32)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        lstm_from_keys_cuda(k, k, k.bool(), torch.zeros(6, 8), w, w,
+                            torch.zeros(32), 4)
+
+
+def test_other_devices_raise():
+    """No fallback: a device with no kernel and no plain route raises."""
+    k = torch.zeros(2, 3, 4, dtype=torch.int32, device="meta")
+    z = lambda *s: torch.zeros(*s, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        lstm_from_keys(k, k, k.bool(), z(6, 8), z(8, 32), z(8, 32), z(32), 4)

@@ -101,13 +101,21 @@ def test_seeded_init_is_reproducible_and_shaped():
     assert torch.all(a.affinity_score.fc0.bias == 0)
 
 
-@pytest.mark.parametrize("aggrs", ["lstm"])
+@pytest.mark.parametrize("aggrs", ["sum"])
 def test_unported_aggregators_raise(aggrs):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown aggregator"):
         Net(4, H, aggrs=aggrs, device="cpu")
 
 
 def test_params_from_flax_rejects_unported_modules():
-    lstm = {k: np.zeros((2, 2), np.float32) for k in ("wi", "wh", "bh")}
-    with pytest.raises(KeyError, match="aggr"):
-        params_from_flax({"params": {"aggr": lstm}})
+    """An LSTM aggregator's tree maps onto aggr.wi/wh/bh as it is (flax's
+    orientation); a module with no torch counterpart raises."""
+    rng = np.random.default_rng(0)
+    lstm = {k: rng.normal(size=s).astype(np.float32)
+            for k, s in (("wi", (3, 8)), ("wh", (2, 8)), ("bh", (8,)))}
+    state = params_from_flax({"params": {"aggr": lstm}})
+    assert sorted(state) == ["aggr.bh", "aggr.wh", "aggr.wi"]
+    for k, v in lstm.items():
+        assert torch.equal(state[f"aggr.{k}"], torch.as_tensor(v))
+    with pytest.raises(KeyError, match="decoder"):
+        params_from_flax({"params": {"decoder": lstm}})
