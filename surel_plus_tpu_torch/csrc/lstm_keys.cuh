@@ -1,8 +1,10 @@
-// The keys-LSTM's step code, used by its forward (lstm_keys.cu) and kept
-// apart for its backward, which has to recompute the forward from the keys:
-// the operands, the block layout, the field extraction, the hidden rows, the
-// gate sums and the cell update. Both directions computing a step with this
-// one code get the same values bit for bit (same fmaf order).
+// The keys-LSTM's forward, shared by its serving kernel (lstm_keys.cu, K4)
+// and its backward (lstm_keys_bwd.cu), which recomputes the forward from the
+// keys: the operands, the block layout, the field extraction, the hidden
+// rows, the gate sums, the cell update and the step loop itself. Both
+// directions run this one code and get the same values bit for bit (same
+// fmaf order); the backward's instance also stashes each step's gates and
+// carries for its reverse sweep.
 
 #pragma once
 
@@ -152,11 +154,40 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// The gates after their activations: sigmoid(i), sigmoid(f), tanh(g),
+// sigmoid(o).
+struct Gates {
+  float i, f, g, o;
+};
+
+__device__ __forceinline__ Gates activate(float gi, float gf, float gg,
+                                          float go) {
+  return Gates{sigmoid(gi), sigmoid(gf), tanhf(gg), sigmoid(go)};
+}
+
 // c' = sigmoid(f) c + sigmoid(i) tanh(g), h' = sigmoid(o) tanh(c')
-__device__ __forceinline__ void cell(float gi, float gf, float gg, float go,
-                                     float& c, float& h) {
-  c = fmaf(sigmoid(gf), c, sigmoid(gi) * tanhf(gg));
-  h = sigmoid(go) * tanhf(c);
+__device__ __forceinline__ void cell(const Gates& a, float& c, float& h) {
+  c = fmaf(a.f, c, a.i * a.g);
+  h = a.o * tanhf(c);
+}
+
+// What the backward's forward keeps for its reverse sweep, per block b and
+// step t < tend[b], rows in the block's order, channels contiguous (so the
+// lanes of a warp, one unit each, write and read whole lines): the gates
+// after their activations [rb][4H] (0 where the slot is masked), and the
+// carries entering the step, c and h [rb][H]. All null in serving.
+struct Stash {
+  float* gates;  // [blocks][L][rb][4H]
+  float* cprev;  // [blocks][L][rb][H]
+  float* hprev;  // [blocks][L][rb][H]
+  int* tend;     // [blocks]: the block's last valid slot index + 1
+};
+
+// Offset of (block b, step t, row r, channel 0) in a stash plane of nch
+// channels.
+__host__ __device__ inline size_t stash_at(int b, int L, int t, int r,
+                                           int rb, int nch) {
+  return (((size_t)b * L + t) * rb + r) * nch;
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
@@ -166,6 +197,164 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// The forward over one block of rb rows (design in lstm_keys.cu). Serving
+// (STASH false) writes the final h to out[order[i]]; the backward's
+// instance (STASH true) writes the stash instead.
+template <int NCOL, bool ROOT, bool WHS, bool STASH>
+__global__ void __launch_bounds__(kMaxThreads)
+forward_kernel(Operands p, Layout lay, Smem sm, float* out, Stash st) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int srow[kMaxGroups * kRows];
+  __shared__ int tend;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int rb = lay.rb;
+  const int ld = lay.ld;
+  const int cs = rb + 1;
+  const int base = blockIdx.x * rb;
+  const int nrows = min(rb, p.rows - base);  // rows of this block
+  float* xs = smem + sm.xs;
+  float* hs = smem + sm.hs;
+  uint32_t* sko = reinterpret_cast<uint32_t*>(smem + sm.ko);
+  uint32_t* skc = reinterpret_cast<uint32_t*>(smem + sm.kc);
+  int32_t* smk = reinterpret_cast<int32_t*>(smem + sm.mk);
+  int32_t* sro = reinterpret_cast<int32_t*>(smem + sm.ro);
+  int32_t* src = reinterpret_cast<int32_t*>(smem + sm.rc);
+  float* su = smem + sm.u;
+  float* swh = smem + sm.wh;
+
+  for (int i = tid; i < (NCOL + 2) * p.h; i += nt) su[i] = p.u[i];
+  if (WHS)
+    for (int i = tid; i < 4 * p.H * p.H; i += nt) swh[i] = __ldg(p.wh + i);
+  for (int i = tid; i < p.H * ld; i += nt) hs[i] = 0.f;  // h0 = 0, buffer 0
+  if (tid < nrows) srow[tid] = p.order ? p.order[base + tid] : base + tid;
+  if (tid == 0) tend = 0;
+  __syncthreads();
+  // the block's last valid slot index + 1: later steps change no carry
+  int last = 0;
+  for (int i = tid; i < nrows * p.L; i += nt) {
+    const int r = i / p.L;
+    const int l = i - r * p.L;
+    if (p.mask[(size_t)srow[r] * p.L + l]) last = max(last, l + 1);
+  }
+  if (last) atomicMax(&tend, last);
+
+  const int j = tid % lay.hp;
+  const int g = tid / lay.hp;
+  const int r0 = g * kRows;
+  const bool on = j < p.H;
+  float bias[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bias[q] = on ? p.bh[q * p.H + j] : 0.f;
+  float c[kRows], hv[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) c[i] = hv[i] = 0.f;
+  __syncthreads();
+  const int steps = tend;
+  if (STASH && tid == 0) st.tend[blockIdx.x] = steps;
+
+  for (int t = 0; t < steps; ++t) {
+    const int tt = t % kChunk;
+    const int cur = t & 1;
+    if (tt == 0) {
+      __syncthreads();  // the previous chunk is consumed
+      for (int i = tid; i < rb * kChunk; i += nt) {
+        const int r = i / kChunk;
+        const int s = i - r * kChunk;
+        const bool in = r < nrows && t + s < p.L;
+        const size_t off = in ? (size_t)srow[r] * p.L + t + s : 0;
+        sko[s * cs + r] = in ? p.kown[off] : 0u;
+        skc[s * cs + r] = in ? p.kcross[off] : 0u;
+        smk[s * cs + r] = in ? (int32_t)(p.mask[off] != 0) : 0;
+        if (ROOT) {
+          sro[s * cs + r] = in ? p.rown[off] : 0;
+          src[s * cs + r] = in ? p.rcross[off] : 0;
+        }
+      }
+      __syncthreads();
+    }
+    // x of this slot for the block's rows, [h][ld]
+    float* x = xs + cur * p.h * ld;
+    for (int i = tid; i < rb * p.h; i += nt) {
+      const int k = i / rb;
+      const int r = i - k * rb;
+      float fo[NCOL], fc[NCOL];
+      fields<NCOL, ROOT>(sko[tt * cs + r], ROOT ? sro[tt * cs + r] : 0,
+                         p.shift, fo);
+      fields<NCOL, ROOT>(skc[tt * cs + r], ROOT ? src[tt * cs + r] : 0,
+                         p.shift, fc);
+      x[k * ld + r] = hidden(fo, fc, su, p.h, k);
+    }
+    __syncthreads();  // x ready; h of the previous step ready
+    float acc[4][kRows];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) acc[q][i] = bias[q];
+    gate_sum<false>(acc, p.wi, x, p.h, p.H, ld, j, on, r0);
+    gate_sum<WHS>(acc, WHS ? swh : p.wh, hs + cur * p.H * ld, p.H, p.H, ld,
+                  j, on, r0);
+    float* hn = hs + (cur ^ 1) * p.H * ld;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const bool valid = smk[tt * cs + r0 + i] != 0;
+      if (STASH && on) {
+        const size_t a1 = stash_at(blockIdx.x, p.L, t, r0 + i, rb, p.H) + j;
+        st.cprev[a1] = c[i];
+        st.hprev[a1] = hv[i];
+      }
+      Gates a{0.f, 0.f, 0.f, 0.f};
+      if (valid) {
+        a = activate(acc[0][i], acc[1][i], acc[2][i], acc[3][i]);
+        cell(a, c[i], hv[i]);
+      }
+      if (STASH && on) {
+        float* ga = st.gates + stash_at(blockIdx.x, p.L, t, r0 + i, rb,
+                                        4 * p.H) + j;
+        ga[0] = a.i;
+        ga[p.H] = a.f;
+        ga[2 * p.H] = a.g;
+        ga[3 * p.H] = a.o;
+      }
+      if (on) hn[j * ld + r0 + i] = hv[i];
+    }
+  }
+  if (!STASH && on) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if (r0 + i < nrows) out[(size_t)srow[r0 + i] * p.H + j] = hv[i];
+  }
+}
+
+template <int NCOL, bool STASH, bool WHS>
+cudaError_t launch_forward(const Operands& p, const Layout& lay,
+                           const Smem& sm, float* out, const Stash& st,
+                           cudaStream_t stream) {
+  const size_t bytes = (size_t)sm.words * sizeof(float);
+  void (*kernel)(Operands, Layout, Smem, float*, Stash) =
+      p.rown ? &forward_kernel<NCOL, true, WHS, STASH>
+             : &forward_kernel<NCOL, false, WHS, STASH>;
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.rows + lay.rb - 1) / lay.rb;
+  kernel<<<blocks, lay.hp * lay.groups, bytes, stream>>>(p, lay, sm, out, st);
+  return cudaGetLastError();
+}
+
+// The forward with wh in shared memory where it fits (H = 96), else read
+// through the read-only cache like wi.
+template <int NCOL, bool STASH>
+cudaError_t launch_forward(const Operands& p, float* out, const Stash& st,
+                           cudaStream_t stream) {
+  const Layout lay = layout_for(p.H);
+  const Smem with_wh = smem_for(lay, p.h, p.H, NCOL, true);
+  if ((size_t)with_wh.words * sizeof(float) <= (size_t)kMaxSmem)
+    return launch_forward<NCOL, STASH, true>(p, lay, with_wh, out, st,
+                                             stream);
+  return launch_forward<NCOL, STASH, false>(
+      p, lay, smem_for(lay, p.h, p.H, NCOL, false), out, st, stream);
 }
 
 }  // namespace lstm

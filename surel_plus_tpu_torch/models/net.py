@@ -27,10 +27,10 @@ Two routes compute the same logits:
   the JAX package's XLA path does.
 
 `fused_hidden=None` picks the fused route on CUDA and the unfused one on
-the CPU. Both routes are differentiable (the fused routes' gradients for
-W1 and b1 flow through the kernels' autograd Functions into u_ext),
-except the fused lstm route: it is forward only until its backward
-kernel is ported, and raises NotImplementedError under grad.
+the CPU. Both routes are differentiable: the fused routes' gradients for
+W1 and b1 flow through the kernels' autograd Functions into u_ext, and
+the fused lstm route's for W2, b2 and the LSTM's weights through the
+fold into wi_eff and bh_eff.
 `join_outputs` says which join outputs the route reads, so that the join
 builds only those (eager PyTorch does no dead-code elimination).
 """

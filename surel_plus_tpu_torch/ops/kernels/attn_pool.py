@@ -38,6 +38,7 @@ from surel_plus_tpu_torch.ops.kernels.build import (
     check_cuda,
     pick,
     ptr,
+    ptr_or_null,
 )
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     MAX_H,
@@ -151,12 +152,6 @@ def _check_operands(kown, kcross_al, mask, u_ext, gv, shift, root_own,
     return q, b, ell, h, ncol
 
 
-def _roots(root_own, root_cross):
-    null = ctypes.c_void_p(None)
-    return (null if root_own is None else ptr(root_own),
-            null if root_cross is None else ptr(root_cross))
-
-
 def fused_attn_pool_cuda(kown, kcross_al, mask, u_ext, gv, shift: int,
                          root_own=None, root_cross=None):
     """Launch the forward kernel; see csrc/attn_pool.cu. Returns
@@ -169,8 +164,9 @@ def fused_attn_pool_cuda(kown, kcross_al, mask, u_ext, gv, shift: int,
     s = torch.empty_like(m)
     if b:
         ATTN_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
-                    *_roots(root_own, root_cross), ptr(u_ext), ptr(gv),
-                    ptr(out), ptr(m), ptr(s), q, b, ell, h, ncol, shift)
+                    ptr_or_null(root_own), ptr_or_null(root_cross),
+                    ptr(u_ext), ptr(gv), ptr(out), ptr(m), ptr(s), q, b, ell,
+                    h, ncol, shift)
     return out, m, s
 
 
@@ -191,9 +187,10 @@ def fused_attn_pool_bwd_cuda(kown, kcross_al, mask, u_ext, gv, g, m, s,
         scratch = torch.empty(out.numel() * parts, dtype=torch.float32,
                               device=dev)
         ATTN_BWD_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
-                        *_roots(root_own, root_cross), ptr(u_ext), ptr(gv),
-                        ptr(g), ptr(m), ptr(s), ptr(scratch), ptr(out), q, b,
-                        ell, h, ncol, shift, parts)
+                        ptr_or_null(root_own), ptr_or_null(root_cross),
+                        ptr(u_ext), ptr(gv), ptr(g), ptr(m), ptr(s),
+                        ptr(scratch), ptr(out), q, b, ell, h, ncol, shift,
+                        parts)
     return (out[:(ncol + 2) * h].view(ncol + 2, h),
             out[(ncol + 2) * h:].view(h + 1, 1))
 

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -115,6 +115,11 @@ class CudaKernel:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_or_null(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """`ptr`, or a null pointer for an operand left out (None)."""
+    return ctypes.c_void_p(None) if t is None else ptr(t)
 
 
 def pick(what: str, t: torch.Tensor, cuda_fn, plain_fn):

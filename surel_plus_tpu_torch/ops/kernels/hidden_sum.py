@@ -30,6 +30,7 @@ from surel_plus_tpu_torch.ops.kernels.build import (
     check_cuda,
     pick,
     ptr,
+    ptr_or_null,
 )
 from surel_plus_tpu_torch.ops.walk import enc_field_layout
 
@@ -135,12 +136,6 @@ def _check_operands(kown, mask_own, kcross, mask_cross, u_ext, shift,
     return q, b, lo, lc, h, ncol
 
 
-def _roots(root_own, root_cross):
-    null = ctypes.c_void_p(None)
-    return (null if root_own is None else ptr(root_own),
-            null if root_cross is None else ptr(root_cross))
-
-
 def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
                               shift: int, root_own=None, root_cross=None):
     """Launch the set-sum kernel; see csrc/hidden_sum.cu."""
@@ -150,8 +145,9 @@ def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
     out = torch.empty(q, b, h, dtype=torch.float32, device=kown.device)
     if b:
         KERNEL(kown.device, ptr(kown), ptr(mask_own), ptr(kcross),
-               ptr(mask_cross), *_roots(root_own, root_cross), ptr(u_ext),
-               ptr(out), q, b, lo, lc, h, ncol, shift)
+               ptr(mask_cross), ptr_or_null(root_own),
+               ptr_or_null(root_cross), ptr(u_ext), ptr(out), q, b, lo, lc,
+               h, ncol, shift)
     return out
 
 
@@ -171,9 +167,9 @@ def fused_key_hidden_sum_bwd_cuda(kown, mask_own, kcross, mask_cross, u_ext,
         scratch = torch.empty((ncol + 1) * h * parts, dtype=torch.float32,
                               device=dev)
         BWD_KERNEL(dev, ptr(kown), ptr(mask_own), ptr(kcross),
-                   ptr(mask_cross), *_roots(root_own, root_cross),
-                   ptr(u_ext), ptr(g), ptr(scratch), ptr(du), q, b, lo, lc,
-                   h, ncol, shift, parts)
+                   ptr(mask_cross), ptr_or_null(root_own),
+                   ptr_or_null(root_cross), ptr(u_ext), ptr(g), ptr(scratch),
+                   ptr(du), q, b, lo, lc, h, ncol, shift, parts)
     return du
 
 

@@ -1,9 +1,12 @@
-"""Masked LSTM straight from the packed keys: the CUDA kernel
-`csrc/lstm_keys.cu` (K4, forward) and its plain PyTorch version.
+"""Masked LSTM straight from the packed keys: the CUDA kernels
+`csrc/lstm_keys.cu` (K4, forward) and `csrc/lstm_keys_bwd.cu` (K4 bwd,
+its BPTT), their plain PyTorch versions, and the autograd Function that
+joins them.
 
 Replaces surel_plus_tpu/ops/pallas/lstm_kernel.py `lstm_from_keys`: impl
-"t2" (`_klstm_t2_fwd_kernel`, the default) and impl "t1"
-(`_klstm_t_fwd_kernel`). For each row r = (q, b) and slot l in order:
+"t2" (`_klstm_t2_fwd_kernel`, `_klstm_t2_bwd_kernel`, the default) and
+impl "t1" (`_klstm_t_fwd_kernel`, `_klstm_t_bwd_kernel`). For each row
+r = (q, b) and slot l in order:
 
     x_l   = relu(fext(kown[l], 0) @ U) + relu(fext(kcross_al[l], 0) @ U)
     gates = x_l @ wi + h @ wh + bh              [4H], order (i, f, g, o)
@@ -13,15 +16,14 @@ Replaces surel_plus_tpu/ops/pallas/lstm_kernel.py `lstm_from_keys`: impl
 with fext(k, 0) = [f(k) | 0 | 1] (`_fields_ext`: the invalid field is 0 on
 BOTH sides here, unlike the attention pool's own side) and U = u_ext. A
 row with no valid slot gives 0. Any mask is allowed (t1's contract); t2's
-prefix-mask shortcut is not carried over.
+prefix-mask shortcut is not carried over, in either direction.
 
 The TPU kernels carry the mask as an extra lane of U and wi, keep the
 planes transposed and extract fields chunk by chunk, all for Mosaic's lane
-rules: none of that is here. The kernel reads the mask plane.
+rules: none of that is here. The kernels read the mask plane.
 
-Forward only: the gradient (`_klstm_t2_bwd_kernel`, a BPTT recomputed
-from the keys) is not ported yet, and `lstm_from_keys` raises rather than
-let autograd differentiate the plain version.
+The gradient is taken for u_ext, wi, wh and bh (the keys and the mask
+get none), recomputing the forward from the keys.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from surel_plus_tpu_torch.ops.kernels.build import (
     check_cuda,
     pick,
     ptr,
+    ptr_or_null,
 )
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     MAX_NCOL,
@@ -46,10 +49,12 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
 LSTM_KERNEL = CudaKernel("lstm_keys", "lstm_keys_fwd_launch",
                          [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
+LSTM_BWD_KERNEL = CudaKernel("lstm_keys_bwd", "lstm_keys_bwd_launch",
+                             [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
+                             + [ctypes.c_void_p])
 MAX_H = 256     # LSTM width H and input width h (csrc/lstm_keys.cuh kMaxH)
-BWD_TODO = ("the keys-LSTM backward (surel_plus_tpu/ops/pallas/"
-            "lstm_kernel.py:934 `_klstm_t2_bwd_kernel`) is not ported yet: "
-            "lstm_from_keys is forward only")
+BWD_PARTS = 64  # parts of the backward's weight-gradient tiles, one partial
+#                 sum each
 
 
 def lstm_scan_plain(x, mask, wi, wh, bh):
@@ -98,6 +103,65 @@ def lstm_from_keys_plain(kown, kcross_al, mask, u_ext, wi, wh, bh,
     return out.reshape(q, b, -1)
 
 
+def lstm_from_keys_bwd_plain(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
+                             shift: int, root_own=None, root_cross=None):
+    """(du [ncol+2, h], dwi [h, 4H], dwh [H, 4H], dbh [4H]) float32 for the
+    cotangent g [Q, B, H], by an explicit BPTT in plain PyTorch (the TPU
+    kernel's formulas): a forward that keeps the carries entering each
+    slot, then a reverse loop that recomputes each slot's gates from them.
+    A masked slot passes dh and dc on and contributes nothing."""
+    q, b, ell = kown.shape
+    r = q * b
+    ncol = u_ext.shape[0] - 2
+    zero = torch.zeros(kown.shape, dtype=torch.bool, device=kown.device)
+    fo = _fields_ext(kown, zero, shift, ncol, root_own).reshape(r, ell, -1)
+    fc = _fields_ext(kcross_al, zero, shift, ncol,
+                     root_cross).reshape(r, ell, -1)
+    zo, zc = fo @ u_ext, fc @ u_ext
+    x = torch.relu(zo) + torch.relu(zc)                        # [R, L, h]
+    keep = mask.reshape(r, ell, 1)
+
+    def activations(t, c, h):
+        gates = x[:, t] @ wi + h @ wh + bh
+        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        return (torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg),
+                torch.sigmoid(go))
+
+    c = torch.zeros(r, wh.shape[0], dtype=torch.float32, device=kown.device)
+    h = torch.zeros_like(c)
+    carries = []
+    for t in range(ell):
+        carries.append((c, h))
+        si, sf, tg, so = activations(t, c, h)
+        nc = sf * c + si * tg
+        c = torch.where(keep[:, t], nc, c)
+        h = torch.where(keep[:, t], so * torch.tanh(nc), h)
+
+    dh = g.reshape(r, -1).to(torch.float32)
+    dc = torch.zeros_like(dh)
+    du, dwi, dwh = (torch.zeros_like(u_ext), torch.zeros_like(wi),
+                    torch.zeros_like(wh))
+    dbh = torch.zeros_like(bh)
+    for t in reversed(range(ell)):
+        cp, hp = carries[t]
+        si, sf, tg, so = activations(t, cp, hp)
+        tc = torch.tanh(sf * cp + si * tg)
+        dnc = dc + dh * so * (1 - tc * tc)
+        k = keep[:, t]
+        dgates = torch.where(k, torch.cat(
+            [dnc * tg * si * (1 - si), dnc * cp * sf * (1 - sf),
+             dnc * si * (1 - tg * tg), dh * tc * so * (1 - so)], dim=-1), 0.0)
+        dwi += x[:, t].T @ dgates
+        dwh += hp.T @ dgates
+        dbh += dgates.sum(dim=0)
+        dx = dgates @ wi.T
+        du += (fo[:, t].T @ torch.where(zo[:, t] > 0, dx, 0.0)
+               + fc[:, t].T @ torch.where(zc[:, t] > 0, dx, 0.0))
+        dh = torch.where(k, dgates @ wh.T, dh)
+        dc = torch.where(k, dnc * sf, dc)
+    return du, dwi, dwh, dbh
+
+
 def row_order(mask: torch.Tensor) -> torch.Tensor:
     """int32 [R]: the rows of mask [R, L] by their last valid slot, the
     longest first (stable), so that a block's rows end together."""
@@ -142,25 +206,117 @@ def _check_operands(kown, kcross_al, mask, u_ext, wi, wh, bh, shift,
 
 def lstm_from_keys_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh,
                         shift: int, root_own=None, root_cross=None,
-                        sort_rows: bool = True):
+                        sort_rows: bool = True, order=None):
     """Launch K4; see csrc/lstm_keys.cu. wi [h, 4H], wh [H, 4H], bh [4H]:
-    contiguous float32. With `sort_rows` the rows run by their last valid
-    slot, longest first (`row_order`). Returns [Q, B, H] float32."""
+    contiguous float32. The rows run in `order` (int32 [Q * B]) if given,
+    else, with `sort_rows`, by their last valid slot, longest first
+    (`row_order`), else in their own order. Returns [Q, B, H] float32."""
     q, b, ell, h, hh, ncol = _check_operands(
         kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
         root_cross)
     dev = kown.device
     out = torch.empty(q, b, hh, dtype=torch.float32, device=dev)
     if b:
-        null = ctypes.c_void_p(None)
-        order = row_order(mask.reshape(q * b, ell)) if sort_rows else None
+        if order is None and sort_rows:
+            order = row_order(mask.reshape(q * b, ell))
         LSTM_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
-                    null if root_own is None else ptr(root_own),
-                    null if root_cross is None else ptr(root_cross),
-                    null if order is None else ptr(order), ptr(u_ext),
-                    ptr(wi), ptr(wh), ptr(bh), ptr(out), q * b, ell, h, hh,
-                    ncol, shift)
+                    ptr_or_null(root_own), ptr_or_null(root_cross),
+                    ptr_or_null(order), ptr(u_ext), ptr(wi), ptr(wh),
+                    ptr(bh), ptr(out), q * b, ell, h, hh, ncol, shift)
     return out
+
+
+def block_layout(hh: int):
+    """(threads per row group, row groups, rows per block) of the kernels'
+    blocks at LSTM width hh (csrc/lstm_keys.cuh `layout_for`)."""
+    hp = -(-hh // 32) * 32
+    groups = min(512 // hp, 4)
+    return hp, groups, 8 * groups
+
+
+def lstm_from_keys_bwd_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
+                            shift: int, root_own=None, root_cross=None,
+                            sort_rows: bool = True, order=None):
+    """Launch K4 bwd; see csrc/lstm_keys_bwd.cu. g: contiguous fp32
+    [Q, B, H]; the rows run in `order`, or as `lstm_from_keys_cuda` orders
+    them. Scratch is sized from the shapes alone (no host sync): the
+    forward's stash of gates and carries, padded rows x L x 6H fp32.
+    Returns (du [ncol+2, h], dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
+    q, b, ell, h, hh, ncol = _check_operands(
+        kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
+        root_cross)
+    dev = kown.device
+    check_cuda("g", g, torch.float32, (q, b, hh), dev)
+    hp, groups, rb = block_layout(hh)
+    if h > hp:
+        raise ValueError(f"the backward takes h <= {hp} at H={hh} (one "
+                         f"thread per input channel), got h={h}")
+    e1 = (ncol + 2) * h + 4 * hh
+    e2 = (h + hh) * 4 * hh
+    rows = q * b
+    if not rows:
+        out = torch.zeros(e1 + e2, dtype=torch.float32, device=dev)
+    else:
+        if order is None and sort_rows:
+            order = row_order(mask.reshape(rows, ell))
+        blocks = -(-rows // rb)
+        parts = min(BWD_PARTS, blocks * ell)
+        empty = lambda n, dt=torch.float32: torch.empty(n, dtype=dt,
+                                                        device=dev)
+        out = empty(e1 + e2)
+        wi_t, wh_t = wi.t().contiguous(), wh.t().contiguous()
+        stash = empty(blocks * rb * ell * 6 * hh)
+        tend = empty(blocks, torch.int32)
+        part1, part2 = empty(blocks * groups * e1), empty(parts * e2)
+        LSTM_BWD_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
+                        ptr_or_null(root_own), ptr_or_null(root_cross),
+                        ptr_or_null(order), ptr(u_ext), ptr(wi), ptr(wh),
+                        ptr(bh), ptr(g), ptr(wi_t), ptr(wh_t), ptr(stash),
+                        ptr(tend), ptr(part1), ptr(part2), ptr(out), rows,
+                        ell, h, hh, ncol, shift, parts)
+    n = (ncol + 2) * h
+    return (out[:n].view(ncol + 2, h), out[e1:e1 + h * 4 * hh].view(h, -1),
+            out[e1 + h * 4 * hh:].view(hh, -1), out[n:e1])
+
+
+class FusedKeysLSTM(torch.autograd.Function):
+    """The keys-LSTM with its gradient for u_ext, wi, wh and bh only (the
+    custom VJP `_klstmt2` of the JAX kernel). On the card the forward
+    orders the rows once (`row_order`) and saves the order; the backward
+    recomputes the forward from the saved keys, with K4 bwd."""
+
+    @staticmethod
+    def forward(ctx, kown, kcross_al, mask, u_ext, wi, wh, bh, shift,
+                root_own, root_cross):
+        fwd = pick("lstm_from_keys forward", kown, lstm_from_keys_cuda,
+                   lstm_from_keys_plain)
+        args = (kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
+                root_cross)
+        order = None
+        if fwd is lstm_from_keys_cuda:
+            order = row_order(mask.reshape(-1, mask.shape[-1]))
+            out = fwd(*args, order=order)
+        else:
+            out = fwd(*args)
+        ctx.shift = shift
+        ctx.save_for_backward(kown, kcross_al, mask, u_ext, wi, wh, bh,
+                              root_own, root_cross, order)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (kown, kcross_al, mask, u_ext, wi, wh, bh, root_own, root_cross,
+         order) = ctx.saved_tensors
+        bwd = pick("lstm_from_keys backward", kown, lstm_from_keys_bwd_cuda,
+                   lstm_from_keys_bwd_plain)
+        args = (kown, kcross_al, mask, u_ext, wi, wh, bh,
+                g.to(torch.float32).contiguous(), ctx.shift, root_own,
+                root_cross)
+        if bwd is lstm_from_keys_bwd_cuda:
+            du, dwi, dwh, dbh = bwd(*args, order=order)
+        else:
+            du, dwi, dwh, dbh = bwd(*args)
+        return None, None, None, du, dwi, dwh, dbh, None, None, None
 
 
 def lstm_from_keys(kown: torch.Tensor, kcross_al: torch.Tensor,
@@ -170,21 +326,16 @@ def lstm_from_keys(kown: torch.Tensor, kcross_al: torch.Tensor,
                    root_cross: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Masked LSTM final hidden state from the packed keys -> [Q, B, H]
-    float32.
+    float32, differentiable in u_ext, wi, wh and bh.
 
     kown, kcross_al [Q, B, L]: int32 bits of the own and the slot-aligned
     partner lo keys; mask bool [Q, B, L] (any pattern); u_ext
     [ncol + 2, h] as for `fused_key_hidden_sum`; wi [h, 4H] (the input
     weights, projection folded in), wh [H, 4H], bh [4H], cast to float32
     here. root_own / root_cross: int32 0/1 planes replacing the key's root
-    bit (lead-in-hi layout). On CUDA tensors this launches K4, on CPU
-    tensors it takes the plain version. Forward only: raises
-    NotImplementedError when grad mode is on and a weight requires grad."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (u_ext, wi, wh, bh)):
-        raise NotImplementedError(BWD_TODO)
-    fn = pick("lstm_from_keys", kown, lstm_from_keys_cuda,
-              lstm_from_keys_plain)
+    bit (lead-in-hi layout). On CUDA tensors this launches K4 (and K4 bwd
+    when differentiated), on CPU tensors it takes the plain versions."""
     f32 = lambda t: t.to(torch.float32).contiguous()
-    return fn(kown, kcross_al, mask, f32(u_ext), f32(wi), f32(wh),
-              f32(bh).reshape(-1), shift, root_own, root_cross)
+    return FusedKeysLSTM.apply(kown, kcross_al, mask, f32(u_ext), f32(wi),
+                               f32(wh), f32(bh).reshape(-1), shift, root_own,
+                               root_cross)

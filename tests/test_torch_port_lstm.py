@@ -1,24 +1,29 @@
-"""PyTorch port, the keys-LSTM and the LSTM Net (serving only).
+"""PyTorch port, the keys-LSTM and the LSTM Net, forward and gradient.
 
-The plain version of the keys-LSTM kernel is held to the JAX package's
+The plain versions of the keys-LSTM kernels are held to the JAX package's
 `lstm_from_keys` in Pallas interpret mode (as tests/test_pallas_hidden_sum.py
-runs it): impl "t2" (the default, which assumes prefix masks) on prefix
-masks, impl "t1" on masks with holes and an empty row, in the lo-only and
-the lead-in-hi (root planes) layouts and at Q=4. `LSTMAggregation` is held
-to JAX's scan with and without the projection fold, and the LSTM Net's
-logits, on both of the port's routes, to JAX's Net on both of its routes,
-with the same weights.
+runs it), the backward to `jax.grad` of it in u_ext, wi, wh and bh: impl
+"t2" (the default, which assumes prefix masks) on prefix masks, impl "t1"
+on masks with holes and an empty row, in the lo-only and the lead-in-hi
+(root planes) layouts and at Q=4. `FusedKeysLSTM` is held to torch's
+autograd of the plain forward. `LSTMAggregation` is held to JAX's scan
+with and without the projection fold, and the LSTM Net's logits, on both
+of the port's routes, to JAX's Net on both of its routes, with the same
+weights; both routes train, with gradients that agree.
 
 Tolerances, with their reasons:
 - keys-LSTM and LSTMAggregation: rtol = atol = 1e-5 in fp32 (as JAX's own
   test holds its kernel to its scan, tests/test_pallas_hidden_sum.py:
   534-537: the same recurrence with sums in other orders);
+- keys-LSTM gradients against JAX: rtol 1e-4, atol 1e-5 (JAX's own test
+  of its kernels' VJPs, tests/test_pallas_hidden_sum.py:320-351: sums over
+  every row and slot, and back through the recurrence, in other orders);
+  against torch's autograd of the same plain forward: rtol = atol = 1e-5;
 - Net logits: rtol = atol = 1e-4 in fp32; 3e-2 in bf16, where the
   frameworks round to bf16 at different points (the fold's wi_eff and the
-  LSTM's output are bf16-rounded in both).
-
-The keys-LSTM is forward only in the port: under grad it raises, on every
-device, rather than let autograd differentiate the plain version.
+  LSTM's output are bf16-rounded in both); the two routes' parameter
+  gradients in fp32: rtol 1e-4, atol 1e-6, as tests/test_torch_port_train.py
+  holds them to JAX's.
 """
 
 import jax
@@ -41,7 +46,10 @@ from surel_plus_tpu_torch.models.layers import LSTMAggregation
 from surel_plus_tpu_torch.ops.join import join_gathered_keys
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
+    block_layout,
     lstm_from_keys,
+    lstm_from_keys_bwd_cuda,
+    lstm_from_keys_bwd_plain,
     lstm_from_keys_cuda,
     lstm_from_keys_plain,
     row_order,
@@ -52,6 +60,7 @@ from surel_plus_tpu_torch.train import TrainConfig
 from surel_plus_tpu_torch.train.device import trainer_from_keys
 
 LAYOUTS = {"lo_only": (10, 3), "lead_in_hi": (200, 4)}
+WEIGHTS = ("u", "wi", "wh", "bh")
 CASES = {"lo_only-q2": ("lo_only", 2), "lead_in_hi-q2": ("lead_in_hi", 2),
          "lo_only-q4": ("lo_only", 4)}
 B, L, H = 5, 11, 8
@@ -101,23 +110,36 @@ def _case(name, seed=0, holes=False):
                 shift=int(nw).bit_length())
 
 
-def _jax(c, impl):
+def _jax_operands(c):
+    """JAX's operands of a case: the keys and mask, the root planes as
+    keywords."""
     jr = {} if c["roots"] is None else dict(
         root_own=jnp.asarray(c["roots"][0]),
         root_cross=jnp.asarray(c["roots"][1]))
-    a = lambda k: jnp.asarray(c[k])
+    return tuple(jnp.asarray(c[k]) for k in ("kown", "kcross", "mask")), jr
+
+
+def _jax(c, impl):
+    keys, jr = _jax_operands(c)
     return np.asarray(jax_lstm_from_keys(
-        a("kown"), a("kcross"), a("mask"), a("u"), a("wi"), a("wh"),
-        a("bh"), c["shift"], interpret=True, impl=impl, **jr))
+        *keys, *(jnp.asarray(c[k]) for k in WEIGHTS), c["shift"],
+        interpret=True, impl=impl, **jr))
+
+
+def _operands(c):
+    """The port's operands of a case: (kown, kcross, mask), [u, wi, wh,
+    bh] and the root planes as keywords."""
+    t = lambda x: torch.as_tensor(np.array(x))
+    keys = (t(c["kown"].view(np.int32)), t(c["kcross"].view(np.int32)),
+            t(c["mask"]))
+    roots = {} if c["roots"] is None else dict(root_own=t(c["roots"][0]),
+                                               root_cross=t(c["roots"][1]))
+    return keys, [t(c[k]) for k in WEIGHTS], roots
 
 
 def _port(c, fn=lstm_from_keys_plain):
-    t = lambda x: torch.as_tensor(np.array(x))
-    roots = {} if c["roots"] is None else dict(root_own=t(c["roots"][0]),
-                                               root_cross=t(c["roots"][1]))
-    return fn(t(c["kown"].view(np.int32)), t(c["kcross"].view(np.int32)),
-              t(c["mask"]), t(c["u"]), t(c["wi"]), t(c["wh"]), t(c["bh"]),
-              c["shift"], **roots)
+    keys, ws, roots = _operands(c)
+    return fn(*keys, *ws, c["shift"], **roots)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -140,6 +162,86 @@ def test_plain_matches_jax_t1_on_any_mask(case):
                                atol=1e-5)
     assert bool((got[0, 0] == 0).all())
     assert bool((got[0, 1] != 0).any())
+
+
+def _cotangent(c, seed=2):
+    q = c["kown"].shape[0]
+    return np.random.default_rng(seed).normal(size=(q, B, H)).astype(
+        np.float32)
+
+
+def _jax_grads(c, impl, g):
+    """jax.grad of sum(lstm_from_keys(...) * g) in u_ext, wi, wh, bh."""
+    keys, jr = _jax_operands(c)
+
+    def loss(*weights):
+        return (jax_lstm_from_keys(*keys, *weights, c["shift"],
+                                   interpret=True, impl=impl, **jr)
+                * g).sum()
+
+    grads = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(c[k]) for k in WEIGHTS))
+    return [np.asarray(x) for x in grads]
+
+
+def _port_bwd(c, g):
+    keys, ws, roots = _operands(c)
+    return lstm_from_keys_bwd_plain(*keys, *ws, torch.as_tensor(g),
+                                    c["shift"], **roots)
+
+
+def _assert_grads(got, want, rtol, atol):
+    for name, x, y in zip(WEIGHTS, got, want):
+        assert tuple(x.shape) == y.shape and x.dtype == torch.float32, name
+        np.testing.assert_allclose(x.numpy(), y, rtol=rtol, atol=atol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_bwd_matches_jax_t2_on_prefix_masks(case):
+    c = _case(case)
+    g = _cotangent(c)
+    got = _port_bwd(c, g)
+    _assert_grads(got, _jax_grads(c, "t2", g), rtol=1e-4, atol=1e-5)
+    ncol = c["u"].shape[0] - 2
+    assert bool((got[0][ncol] == 0).all())       # the masking row
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_bwd_matches_jax_t1_on_any_mask(case):
+    """Masks with holes, an empty row and a row valid only at its last
+    slot: dh and dc pass through the masked slots."""
+    c = _case(case, seed=1, holes=True)
+    g = _cotangent(c, seed=3)
+    _assert_grads(_port_bwd(c, g), _jax_grads(c, "t1", g), rtol=1e-4,
+                  atol=1e-5)
+
+
+@pytest.mark.parametrize("holes", [False, True], ids=["prefix", "holes"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_keys_lstm_grad_matches_autograd_of_plain(case, holes):
+    """FusedKeysLSTM on the CPU (the plain BPTT) against torch's autograd
+    through the plain forward's loop."""
+    c = _case(case, seed=4, holes=holes)
+    g = torch.as_tensor(_cotangent(c, seed=5))
+    grads = []
+    for fn in (lstm_from_keys, lstm_from_keys_plain):
+        keys, ws, roots = _operands(c)
+        for w in ws:
+            w.requires_grad_()
+        (fn(*keys, *ws, c["shift"], **roots) * g).sum().backward()
+        grads.append([w.grad for w in ws])
+    _assert_grads(grads[0], [x.numpy() for x in grads[1]], rtol=1e-5,
+                  atol=1e-5)
+
+
+def test_block_layout_mirrors_the_kernels():
+    """csrc/lstm_keys.cuh layout_for: whole warps of units, at most 512
+    threads and 4 groups of 8 rows."""
+    assert block_layout(96) == (96, 4, 32)
+    assert block_layout(8) == (32, 4, 32)
+    assert block_layout(256) == (256, 2, 16)
+    assert block_layout(200) == (224, 2, 16)
 
 
 def test_row_order_is_by_last_valid_slot_longest_first():
@@ -301,33 +403,52 @@ def test_fused_lstm_route_reads_only_the_aligned_keys(joins):
 
 
 def test_keys_lstm_is_forward_only():
+    """The keys-LSTM is differentiable (the name dates from when it was
+    not): in u_ext, wi, wh and bh (the plain BPTT's gradients, bit for bit,
+    on the CPU), not in the keys and the mask, and it gives the same
+    output with grad mode off."""
     c = _case("lo_only-q2")
-    t = lambda x: torch.as_tensor(np.array(x))
-    args = (t(c["kown"].view(np.int32)), t(c["kcross"].view(np.int32)),
-            t(c["mask"]), t(c["u"]))
-    wi = t(c["wi"]).requires_grad_()
-    with pytest.raises(NotImplementedError, match="_klstm_t2_bwd_kernel"):
-        lstm_from_keys(*args, wi, t(c["wh"]), t(c["bh"]), c["shift"])
+    keys, ws, _ = _operands(c)
+    for w in ws:
+        w.requires_grad_()
+    out = lstm_from_keys(*keys, *ws, c["shift"])
+    assert out.shape == (2, B, H) and out.requires_grad
+    out.sum().backward()
+    want = _port_bwd(c, np.ones((2, B, H), np.float32))
+    for name, w, x in zip(WEIGHTS, ws, want):
+        assert torch.equal(w.grad, x), name
+        assert bool((w.grad != 0).any()), name
+    assert not any(k.requires_grad for k in keys)
     with torch.no_grad():
-        out = lstm_from_keys(*args, wi, t(c["wh"]), t(c["bh"]), c["shift"])
-    assert out.shape == (2, B, H)
+        again = lstm_from_keys(*keys, *ws, c["shift"])
+    assert torch.equal(again, out.detach())
 
 
 def test_fused_lstm_net_raises_under_grad_and_unfused_trains(joins):
+    """Both routes train (the name dates from when the fused one raised
+    under grad): the same parameter gradients of the summed logits (fp32,
+    dropout 0), and a fit on the fused route moves every parameter."""
     nw, ns, _, _, _, tspgk = joins
-    net, joined = _port_net(joins, "float32", True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        net.train()(joined)
+    grads = []
+    for fused in (True, False):
+        net, joined = _port_net(joins, "float32", fused)
+        net.train()(joined).sum().backward()
+        grads.append({k: p.grad for k, p in net.named_parameters()})
+    assert set(grads[0]) == set(grads[1])
+    for k, want in grads[1].items():
+        assert bool(torch.isfinite(grads[0][k]).all()), k
+        np.testing.assert_allclose(grads[0][k].numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    assert bool((grads[0]["aggr.wh"] != 0).any())
+    net, _ = _port_net(joins, "float32", True)
+    start = {k: v.clone() for k, v in net.state_dict().items()}
     trainer = trainer_from_keys(net, tspgk, TrainConfig(batch_size=4))
     edges = torch.as_tensor(np.random.default_rng(6).integers(
         0, tspgk.nodes.shape[0], size=(2, 8)))
-    labels = torch.ones(8)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.fit(edges, labels, 1, torch.Generator())
-    plain, pj = _port_net(joins, "float32", False)
-    plain.train()(pj).sum().backward()
-    assert all(p.grad is not None and torch.isfinite(p.grad).all()
-               for p in plain.aggr.parameters())
+    losses, _ = trainer.fit(edges, torch.ones(8), 1, torch.Generator())
+    assert bool(torch.isfinite(losses).all())
+    assert all(not torch.equal(v, start[k])
+               for k, v in net.state_dict().items())
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
@@ -336,6 +457,9 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         lstm_from_keys_cuda(k, k, k.bool(), torch.zeros(6, 8), w, w,
                             torch.zeros(32), 4)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        lstm_from_keys_bwd_cuda(k, k, k.bool(), torch.zeros(6, 8), w, w,
+                                torch.zeros(32), torch.zeros(2, 3, 8), 4)
 
 
 def test_other_devices_raise():

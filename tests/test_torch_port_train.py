@@ -1,7 +1,7 @@
 """PyTorch port, the training slice: one step's loss and gradients, the
 optimizer, the epoch metrics and a short fit, each against the JAX
-package on the same inputs, in float32 with dropout 0, for the mean and
-the attention aggregators.
+package on the same inputs, in float32 with dropout 0, for the mean, the
+attention and the LSTM aggregators.
 
 Tolerances, with their reasons:
 - loss and gradients of one step: rtol 1e-4, atol 1e-6 (fp32 sums over
@@ -62,7 +62,7 @@ from surel_plus_tpu_torch.train.device import (
 H, N, BS, E, EPOCHS, LR = 16, 120, 8, 21, 2, 1e-2   # E % BS != 0
 LAYOUTS = {"lo_only": (100, 3), "lead_in_hi": (200, 4)}
 ROUTES = {"fused": True, "unfused": False}
-AGGRS = ("attn", "mean")
+AGGRS = ("attn", "lstm", "mean")
 GATE_BIAS = "aggr.gate_nn.bias"   # gradient 0 up to rounding (see above)
 
 
