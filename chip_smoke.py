@@ -26,11 +26,17 @@ NVIDIA GPU. Run from the repository root:
    of its largest entry with the rows sorted and unsorted, two launches
    bit for bit, dU's masking row exactly 0 and empty rows silent; the
    merge (K2) at [4096, 301] x 2, at [4096, 801] x 2 and at odd widths,
-   exactly. Times each kernel, its plain version and, as yardsticks,
-   `torch.sort` for the merge and cuDNN's LSTM (`torch.nn.LSTM` over the
-   packed, materialized hidden rows: the recurrence alone) forward for
-   K4 and backward for K4 bwd, and prints the phase's peak device
-   memory.
+   exactly; the masked LSTM over given rows (K5) on the encoding-table
+   path's real input (the pair-summed hidden rows of a table join, fp32
+   [8192, L, 96], with the join's prefix masks) at (a) L=301 and (b)
+   L=801, (c) at B=999, L=203, (d) on masks with holes, (e) with an
+   empty row and a row valid only at its last slot, and (f) at
+   h = H = 256, fp32 at rtol = atol = 1e-4, two launches and the
+   unsorted row order bit for bit, the empty row exactly 0. Times each
+   kernel, its plain version and, as yardsticks, `torch.sort` for the
+   merge and cuDNN's LSTM (`torch.nn.LSTM` over the packed rows: the
+   recurrence alone) forward for K4 and K5 and backward for K4 bwd, and
+   prints the phase's peak device memory.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
    S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
@@ -69,6 +75,20 @@ NVIDIA GPU. Run from the repository root:
    timed `predict`, the same route, gradient (the bf16 gradient with
    all-one labels held, unlike attn's) and card-vs-CPU checks, and
    profiles of a few predict batches and train steps.
+   Then the encoding-table path on the same graph: `sample_gsets_device`
+   (M=100, S'=3) cold (a fresh row shuffle) and warm with the keys
+   sampler's seed, whose nodes and sizes must equal the keys sampler's
+   and whose table rows, gathered by each valid slot's index, its
+   unpacked keys, exactly; `predict` on the 32 x 4096 edges through a
+   table `DeviceTrainer` for `Net(96, mean / attn / lstm, bfloat16)`
+   (lstm on K5), each with the fused route against the unfused one on
+   one batch (bf16, 5e-2), the table scores against the keys path's
+   with the same weights on N_REF queries (fp32, 1e-4) and the card
+   against the CPU on N_REF queries (fp32, 1e-4); a cold fit (no
+   synchronizing call) and a timed fit of the mean (8 epochs) and the
+   attention Net (4 epochs) with card-vs-CPU training checks; a check
+   that the table lstm route refuses to train; a profile of a few table
+   lstm predict batches.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the card's name
@@ -95,7 +115,12 @@ import torch
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import Net
 from surel_plus_tpu_torch.ops import walk as walk_ops
-from surel_plus_tpu_torch.ops.join import join_gathered_keys, make_keys_join
+from surel_plus_tpu_torch.ops.join import (
+    gather_join,
+    join_gathered_keys,
+    make_keys_join,
+    unpack_key_features,
+)
 from surel_plus_tpu_torch.ops.kernels import (
     attn_pool,
     build,
@@ -103,11 +128,17 @@ from surel_plus_tpu_torch.ops.kernels import (
     lstm_keys,
     merge,
 )
+from surel_plus_tpu_torch.ops.kernels import lstm as lstm_x
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
-from surel_plus_tpu_torch.ops.sampler import sample_gsets_device_keys
-from surel_plus_tpu_torch.spg import SpGKeys
+from surel_plus_tpu_torch.ops.sampler import (
+    dedup_device,
+    sample_gsets_device,
+    sample_gsets_device_keys,
+)
+from surel_plus_tpu_torch.spg import SpGDevice, SpGKeys
 from surel_plus_tpu_torch.train import TrainConfig
 from surel_plus_tpu_torch.train.device import (
+    DeviceTrainer,
     batch_loss,
     device_mrr,
     trainer_from_keys,
@@ -180,6 +211,10 @@ KERNELS = {
         kernel=lstm_keys.LSTM_BWD_KERNEL,
         source="surel_plus_tpu_torch/csrc/lstm_keys_bwd.cu",
         replaces="surel_plus_tpu/ops/pallas/lstm_kernel.py:934"),
+    "lstm_x_fwd": dict(
+        kernel=lstm_x.LSTM_X_KERNEL,
+        source="surel_plus_tpu_torch/csrc/lstm.cu",
+        replaces="surel_plus_tpu/ops/pallas/lstm_kernel.py:87"),
 }
 # the kernels each main path must launch
 PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
@@ -187,12 +222,16 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "attn_serve": ("attn_pool_fwd", "merge_pairs"),
          "attn_train": ("attn_pool_fwd", "attn_pool_bwd", "merge_pairs"),
          "lstm_serve": ("lstm_keys_fwd", "merge_pairs"),
-         "lstm_train": ("lstm_keys_fwd", "lstm_keys_bwd", "merge_pairs")}
+         "lstm_train": ("lstm_keys_fwd", "lstm_keys_bwd", "merge_pairs"),
+         "table_serve": ("merge_pairs",),
+         "table_lstm_serve": ("lstm_x_fwd", "merge_pairs"),
+         "table_train": ("merge_pairs",),
+         "table_attn_train": ("merge_pairs",)}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
              "attn_pool_bwd": "attn_train", "lstm_keys_fwd": "lstm_train",
-             "lstm_keys_bwd": "lstm_train"}
+             "lstm_keys_bwd": "lstm_train", "lstm_x_fwd": "table_lstm_serve"}
 
 
 class SmokeFailure(RuntimeError):
@@ -568,33 +607,39 @@ def lstm_label(args, label):
             f"{prefix}")
 
 
-def lstm_compare(args, label):
-    """K4 against its plain version at LSTM_TOL; two launches, and a
-    launch in the rows' own order, bit for bit; a row with no valid slot
-    exactly 0."""
-    got = lstm_keys.lstm_from_keys_cuda(*args)
-    again = lstm_keys.lstm_from_keys_cuda(*args)
-    unsorted = lstm_keys.lstm_from_keys_cuda(*args, sort_rows=False)
-    want = lstm_keys.lstm_from_keys_plain(*args)
+def lstm_check(name, cuda, plain, args, mask, label):
+    """A forward LSTM kernel (K4 or K5) against its plain version at
+    LSTM_TOL; two launches, and a launch in the rows' own order, bit for
+    bit; a row with no valid slot (mask) exactly 0."""
+    got = cuda(*args)
+    again = cuda(*args)
+    unsorted = cuda(*args, sort_rows=False)
+    want = plain(*args)
     sync()
     require(got.shape == want.shape and bool(torch.isfinite(got).all()),
-            f"K4 {label}: bad output")
+            f"{name} {label}: bad output")
     bits = lambda x: x.view(torch.int32)
     same = torch.equal(bits(got), bits(again))
     same_order = torch.equal(bits(got), bits(unsorted))
-    empty = ~args[2].any(dim=-1)
+    empty = ~mask.any(dim=-1)
     zero = bool((got[empty] == 0).all())
     err = float((got - want).abs().max())
     ok = torch.allclose(got, want, rtol=LSTM_TOL, atol=LSTM_TOL)
-    say(f"K4 {lstm_label(args, label)}; max_abs_err={err:.3e} max|plain|="
+    say(f"{name} {label}; max_abs_err={err:.3e} max|plain|="
         f"{float(want.abs().max()):.3e} (rtol = atol = {LSTM_TOL}); repeat "
         f"bit-identical: {same}; unsorted rows bit-identical: {same_order};"
         f" {int(empty.sum())} empty rows exactly 0: {zero} "
         f"{'ok' if ok and same and same_order and zero else 'FAIL'}")
-    require(ok, f"K4 {label} disagrees with its plain version")
-    require(same and same_order, f"K4 {label}: launches differ")
-    require(zero, f"K4 {label}: an empty row is not 0")
+    require(ok, f"{name} {label} disagrees with its plain version")
+    require(same and same_order, f"{name} {label}: launches differ")
+    require(zero, f"{name} {label}: an empty row is not 0")
     return err
+
+
+def lstm_compare(args, label):
+    return lstm_check("K4", lstm_keys.lstm_from_keys_cuda,
+                      lstm_keys.lstm_from_keys_plain, args, args[2],
+                      lstm_label(args, label))
 
 
 def lstm_bound(args):
@@ -613,23 +658,27 @@ def lstm_bound(args):
 
 
 def cudnn_lstm(args):
-    """torch.nn.LSTM (cuDNN, TF32 off) with weight_ih = wi^T, weight_hh =
-    wh^T, bias_ih = 0, bias_hh = bh, and K4's hidden rows, materialized
-    and packed by length: the yardsticks' recurrence alone, x given.
-    Needs prefix masks. Returns (the module, the packed rows)."""
+    """`cudnn_lstm_x` on K4's hidden rows, materialized."""
     kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc = args
     q, b, ell = kown.shape
-    rows = mask.reshape(q * b, ell)
+    x = lstm_keys.lstm_rows_plain(kown, kc, u_ext, shift, ro, rc)
+    return cudnn_lstm_x(x.reshape(q * b, ell, -1), mask.reshape(q * b, ell),
+                        wi, wh, bh)
+
+
+def cudnn_lstm_x(x, rows, wi, wh, bh):
+    """torch.nn.LSTM (cuDNN, TF32 off) with weight_ih = wi^T, weight_hh =
+    wh^T, bias_ih = 0, bias_hh = bh, and the rows x [R, L, h] packed by
+    length: the yardsticks' recurrence alone, x given. Needs prefix masks
+    `rows` [R, L]. Returns (the module, the packed rows)."""
+    ell = rows.shape[1]
     lengths = rows.sum(dim=-1)
     require(torch.equal(rows, torch.arange(ell, device=DEVICE)
                         < lengths[:, None]),
             "the yardstick needs prefix masks")
-    x = lstm_keys.lstm_rows_plain(kown, kc, u_ext, shift, ro, rc)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
-        x.reshape(q * b, ell, -1), lengths.cpu(), batch_first=True,
-        enforce_sorted=False)
-    del x
-    lstm = torch.nn.LSTM(u_ext.shape[1], wh.shape[0], batch_first=True).to(
+        x, lengths.cpu(), batch_first=True, enforce_sorted=False)
+    lstm = torch.nn.LSTM(x.shape[2], wh.shape[0], batch_first=True).to(
         DEVICE)
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(wi.T)
@@ -836,6 +885,128 @@ def lstm_bwd_vs_plain(cases, wide, gen):
     return dict(max_abs_err=err, **out["L=301"])
 
 
+def table_x(spgk, rows, gen):
+    """K5's operands on the encoding-table path's real input: the sets of
+    `spgk` deduplicated (`dedup_device`), the batch `rows` [2, B] joined
+    by `gather_join`, x = h[e_own] + h[e_cross] [2B, L, 96] fp32 with
+    h = relu(enc @ w1 + b1) a seeded hidden layer over the table, the
+    join's masks, and weights at a scale that keeps |gate| about 0.5."""
+    eidx, enc, _ = dedup_device(spgk.sizes, spgk.khi, spgk.klo,
+                                spgk.num_walks, spgk.num_steps)
+    joined = gather_join(spgk.nodes, eidx, spgk.sizes, rows)
+    w1 = (torch.randn(enc.shape[1], HIDDEN, generator=gen) * 0.5).to(DEVICE)
+    b1 = (torch.randn(HIDDEN, generator=gen) * 0.1).to(DEVICE)
+    htable = torch.relu(enc @ w1 + b1)
+    x = htable[joined.eidx[..., 0]] + htable[joined.eidx[..., 1]]
+    q, b, ell = joined.mask.shape
+    w = lambda *s: (torch.randn(*s, generator=gen) * 0.1).to(DEVICE)
+    return (x.reshape(q * b, ell, HIDDEN), joined.mask.reshape(q * b, ell),
+            w(HIDDEN, 4 * HIDDEN), w(HIDDEN, 4 * HIDDEN), w(4 * HIDDEN))
+
+
+def table_x_cut(args, b=None, ell=None, holes=None, ends=False):
+    """A variant of K5's operands: the first b queries of both endpoints
+    and ell slots; or the mask with holes punched in (`holes`, a
+    generator); or, with `ends`, row 0 empty and row 1 valid only at its
+    last slot."""
+    x, mask, wi, wh, bh = args
+    if b is not None or ell is not None:
+        r, full, h = x.shape
+        cut = lambda t: t.reshape(2, r // 2, full, -1)[:, :b, :ell]
+        x = cut(x).reshape(-1, ell or full, h).contiguous()
+        mask = cut(mask).reshape(x.shape[:2]).contiguous()
+    if holes is not None:
+        mask = mask & (torch.rand(mask.shape, generator=holes) < 0.7).to(
+            DEVICE)
+    if ends:
+        mask = mask.clone()
+        mask[:2] = False
+        mask[1, -1] = True
+    return x, mask, wi, wh, bh
+
+
+def table_x_widen(args, gen, hh, rows=1024):
+    """K5's operands at LSTM width and input width hh: the first `rows`
+    rows, x's channels repeated, fresh weights at a scale that keeps
+    |gate| about 0.5."""
+    x, mask = args[0][:rows], args[1][:rows].contiguous()
+    x = x.repeat(1, 1, -(-hh // x.shape[2]))[..., :hh].contiguous()
+    w = lambda *s: (torch.randn(*s, generator=gen) * 0.05).to(DEVICE)
+    return x, mask, w(hh, 4 * hh), w(hh, 4 * hh), w(4 * hh)
+
+
+def table_x_label(args, label):
+    x, mask = args[0], args[1]
+    return (f"{label}: R,L,h,H={tuple(x.shape)},{args[3].shape[0]} valid "
+            f"slots {float(mask.float().mean()):.3f}")
+
+
+def lstm_x_bound(args):
+    """K5's least time. Only a valid slot moves the carry, so only valid
+    (row, slot) pairs need work: the gate product 4H (h + H) multiply-adds
+    and the cell, LSTM_CELL_OPS per unit; and only their x rows need
+    reading, with the mask and the weights once and the output written."""
+    x, mask, wi, wh, bh = args
+    r, _, h = x.shape
+    hh = wh.shape[0]
+    valid = int(mask.sum())
+    moved = valid * h * 4 + nbytes(mask, wi, wh, bh) + r * hh * 4
+    return bound(moved, valid * (2 * 4 * hh * (h + hh) + LSTM_CELL_OPS * hh))
+
+
+def lstm_x_vs_plain(spl, spw, rows, gen):
+    """Phase 2 for K5: cases (a)-(f) against the plain version, and the
+    kernel, plain, cuDNN and bound times at L=301 and L=801."""
+    torch.cuda.reset_peak_memory_stats()
+    x_lo = table_x(spl, rows, gen)
+    x_hi = table_x(spw, rows, gen)
+    odd = table_x_cut(x_lo, b=999, ell=203)
+    cases = ((x_lo, f"(a) table path M={NUM_WALKS} S'={NUM_STEPS}"),
+             (x_hi, f"(b) table path M={WIDE_WALKS} S'={WIDE_STEPS}"),
+             (odd, "(c) odd B and L"),
+             (table_x_cut(x_lo, holes=torch.Generator().manual_seed(7)),
+              "(d) holes in the masks"),
+             (table_x_cut(odd, ends=True),
+              "(e) an empty row, a row valid at its last slot only"),
+             (table_x_widen(x_lo, gen, lstm_keys.MAX_H),
+              f"(f) h = H = {lstm_keys.MAX_H}"))
+    err = max(lstm_check("K5", lstm_x.lstm_final_hidden_cuda,
+                         lstm_x.lstm_final_hidden_plain, a, a[1],
+                         table_x_label(a, label)) for a, label in cases)
+    del cases, odd
+    out = {}
+    for name, args in (("L=301", x_lo), ("L=801", x_hi)):
+        lstm, packed = cudnn_lstm_x(*args)
+
+        @torch.no_grad()
+        def lib(lstm=lstm, packed=packed):
+            return lstm(packed)[1][0][0]
+
+        got, want = lib(), lstm_x.lstm_final_hidden_plain(*args)
+        lib_err = float((got - want).abs().max())
+        require(torch.allclose(got, want, rtol=LSTM_TOL, atol=LSTM_TOL),
+                f"cuDNN's LSTM disagrees with K5's plain version at {name}")
+        del got, want
+        ms = time_ms(lambda: lstm_x.lstm_final_hidden_cuda(*args))
+        ms_unsorted = time_ms(lambda: lstm_x.lstm_final_hidden_cuda(
+            *args, sort_rows=False))
+        plain_ms = time_ms(lambda: lstm_x.lstm_final_hidden_plain(*args),
+                           iters=5)
+        lib_ms = time_ms(lib)
+        bound_ms, by = lstm_x_bound(args)
+        say(f"K5 {name}: kernel {ms:.4f} ms (rows in their own order "
+            f"{ms_unsorted:.4f} ms), plain {plain_ms:.4f} ms, cuDNN LSTM "
+            f"(x given) {lib_ms:.4f} ms with max |d| {lib_err:.3e} from "
+            f"plain, bound {bound_ms:.4f} ms ({by}); valid slots "
+            f"{int(args[1].sum())}")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound=(bound_ms, by))
+        del lstm, packed, lib
+    say(f"K5 checks peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(max_abs_err=err, **out["L=301"])
+
+
 def merge_rows(nodes, pays):
     """The join's merge operands from a batch's rows [2, B, L], as the
     join forms them: (v keys, v payload, u keys, u payload)."""
@@ -924,6 +1095,8 @@ def kernels_vs_plain(g):
     stats["lstm_keys_fwd"] = lstm_vs_plain(cases, wide)
     stats["lstm_keys_bwd"] = lstm_bwd_vs_plain(cases, wide, gen)
     del cases, wide
+    # the masked LSTM over given rows (K5) on the table path's input
+    stats["lstm_x_fwd"] = lstm_x_vs_plain(spl, spw, rows, gen)
 
     m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
     err2 = k2_compare(m_main, "join rows, lo-only")
@@ -1094,14 +1267,34 @@ def serve_path(g, label):
     return spgk, net, edges
 
 
-def subset(spgk: SpGKeys, edges: torch.Tensor):
+def trainer_for(net, sets, cfg):
+    """The trainer of `net` over either store of sets: a table
+    DeviceTrainer over an SpGDevice, `trainer_from_keys` over an SpGKeys."""
+    if isinstance(sets, SpGDevice):
+        return DeviceTrainer(net, sets, cfg)
+    return trainer_from_keys(net, sets, cfg)
+
+
+def path_name(trainer) -> str:
+    """The aggregator, and which store the trainer reads."""
+    table = isinstance(trainer.sets, SpGDevice)
+    return f"{trainer.model.aggrs}{', table' if table else ''}"
+
+
+def subset(sets, edges: torch.Tensor):
     """The rows of the sets that `edges` [2, n] name, on the card and on
     the CPU, and the edges renumbered to them."""
     rows = torch.unique(edges)
     remap = torch.searchsorted(rows, edges.contiguous())
-    small = SpGKeys(nodes=spgk.nodes[rows], khi=spgk.khi[rows],
-                    klo=spgk.klo[rows], sizes=spgk.sizes[rows],
-                    num_walks=spgk.num_walks, num_steps=spgk.num_steps)
+    if isinstance(sets, SpGDevice):
+        small = SpGDevice(nodes=sets.nodes[rows], eidx=sets.eidx[rows],
+                          sizes=sets.sizes[rows], enc=sets.enc)
+        cpu_small = SpGDevice(*(t.cpu() for t in (
+            small.nodes, small.eidx, small.sizes, small.enc)))
+        return small, cpu_small, remap
+    small = SpGKeys(nodes=sets.nodes[rows], khi=sets.khi[rows],
+                    klo=sets.klo[rows], sizes=sets.sizes[rows],
+                    num_walks=sets.num_walks, num_steps=sets.num_steps)
     cpu_small = SpGKeys(*(t.cpu() for t in (small.nodes, small.khi,
                                             small.klo, small.sizes)),
                         num_walks=small.num_walks,
@@ -1182,26 +1375,26 @@ def profile(run, steps: int, what: str) -> None:
             f"{name[:100]}")
 
 
-def profile_predict(spgk, net, edges, batches: int = 8) -> None:
-    trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
+def profile_predict(sets, net, edges, batches: int = 8) -> None:
+    trainer = trainer_for(net, sets, TrainConfig(batch_size=BATCH))
     be = edges[:, :batches * BATCH]
     profile(lambda: trainer.predict(be), batches,
-            f"predict batches ({net.aggrs})")
+            f"predict batches ({path_name(trainer)})")
 
 
-def train_setup(spgk: SpGKeys, aggrs: str):
+def train_setup(sets, aggrs: str):
     """bench.py:153-165 (and :206-212 for attn and lstm) on the port: the
-    bench Net of `aggrs` from a seeded generator, its trainer, 32 x 4096
-    random query edges with random 0/1 labels, and the generator of the
-    permutations and dropout masks."""
+    bench Net of `aggrs` from a seeded generator, its trainer over `sets`
+    (SpGKeys or SpGDevice), 32 x 4096 random query edges with random 0/1
+    labels, and the generator of the permutations and dropout masks."""
     net = make_net(aggrs, dropout=0.1, dtype="bfloat16",
                    generator=torch.Generator().manual_seed(0))
-    trainer = trainer_from_keys(net, spgk, TrainConfig(
+    trainer = trainer_for(net, sets, TrainConfig(
         batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
     rng = np.random.default_rng(0)
     n = N_BATCHES * BATCH
     edges = torch.as_tensor(rng.integers(
-        0, spgk.nodes.shape[0], size=(2, n))).to(DEVICE)
+        0, sets.nodes.shape[0], size=(2, n))).to(DEVICE)
     labels = torch.as_tensor((rng.random(n) < 0.5).astype(
         np.float32)).to(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -1224,7 +1417,7 @@ def fit_cold(trainer, edges, labels, gen, epochs) -> None:
         if "synchronizing" in str(w.message)
         and "prototype" not in str(w.message))
     last = float(losses[-1])
-    say(f"fit cold ({trainer.model.aggrs}): {epochs} epochs, last loss "
+    say(f"fit cold ({path_name(trainer)}): {epochs} epochs, last loss "
         f"{last:.6f}, "
         f"{time.perf_counter() - t0:.3f} s; {sum(syncs.values())} "
         f"synchronizing calls inside the fit {dict(syncs)}")
@@ -1241,7 +1434,7 @@ def fit_timed(trainer, edges, labels, gen, epochs, label) -> None:
     dt = time.perf_counter() - t0
     losses, aucs = losses.cpu(), aucs.cpu()
     n = epochs * edges.shape[1]
-    say(f"train ({trainer.model.aggrs}): {epochs} epochs x {edges.shape[1]}"
+    say(f"train ({path_name(trainer)}): {epochs} epochs x {edges.shape[1]}"
         f" queries in {dt:.4f} s -> {n / dt:.1f} queries/s "
         f"({epochs * N_BATCHES} steps, "
         f"{1e3 * dt / (epochs * N_BATCHES):.4f} ms/step) [{label}]")
@@ -1370,20 +1563,22 @@ def check_train_routes(spgk, net, edges, labels) -> None:
                   grads("bfloat16", cot=cot), tol16)
 
 
-def check_train_cpu(spgk, net, edges, labels) -> None:
+def check_train_cpu(sets, net, edges, labels) -> None:
     """A few training steps on the card (fused route, kernels) against
     the port's CPU path (unfused route), fp32, dropout 0, one shared
-    permutation. The attention gate's bias is held to GATE_BIAS_FIT_ATOL:
-    Adam turns its noise gradient into steps of up to about lr."""
+    permutation, over `sets` (SpGKeys or SpGDevice). The attention gate's
+    bias is held to GATE_BIAS_FIT_ATOL: Adam turns its noise gradient into
+    steps of up to about lr."""
     n = REF_STEPS * REF_BATCH
-    small, cpu_small, remap = subset(spgk, edges[:, :n])
+    small, cpu_small, remap = subset(sets, edges[:, :n])
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(4))
     cfg = TrainConfig(batch_size=REF_BATCH, lr=LR, grad_clip=GRAD_CLIP)
     out = {}
-    for dev, sets in ((DEVICE, small), ("cpu", cpu_small)):
+    for dev, part in ((DEVICE, small), ("cpu", cpu_small)):
         m = make_net(net.aggrs, dropout=0.0, device=dev)
         m.load_state_dict(net.state_dict())
-        losses, _ = trainer_from_keys(m, sets, cfg).fit(
+        trainer = trainer_for(m, part, cfg)
+        losses, _ = trainer.fit(
             remap.to(dev), labels[:n].to(dev), 1, torch.Generator(device=dev),
             perms=[perm.reshape(REF_STEPS, REF_BATCH)])
         out[dev] = (losses.cpu(), {k: v.cpu() for k, v in
@@ -1399,7 +1594,7 @@ def check_train_cpu(spgk, net, edges, labels) -> None:
         gate = (f", {GATE_BIAS} |d| "
                 f"{float((pg[GATE_BIAS] - pc[GATE_BIAS]).abs().max()):.3e} "
                 f"(atol {GATE_BIAS_FIT_ATOL})")
-    say(f"card vs CPU training ({net.aggrs}), {REF_STEPS} steps x "
+    say(f"card vs CPU training ({path_name(trainer)}), {REF_STEPS} steps x "
         f"{REF_BATCH} queries (fp32): loss {float(lg[0]):.6f} vs "
         f"{float(lc[0]):.6f}, max |d param| = {err:.3e} (rtol "
         f"{CPU_TRAIN_RTOL}, atol {CPU_TRAIN_ATOL}){gate} "
@@ -1416,15 +1611,156 @@ def lstm_serve(trainer, edges, label) -> None:
     trainer.predict(edges)
     sync()
     dt = time.perf_counter() - t0
-    say(f"inference cold (lstm): {edges.shape[1] // BATCH} x {BATCH} "
-        f"queries in {dt:.4f} s [{label}]")
-    timed_predict(trainer, edges, label, "lstm")
+    say(f"inference cold ({path_name(trainer)}): {edges.shape[1] // BATCH} "
+        f"x {BATCH} queries in {dt:.4f} s [{label}]")
+    timed_predict(trainer, edges, label, path_name(trainer))
 
 
 def profile_train(trainer, edges, labels, gen, steps: int = 8) -> None:
     be, bl = edges[:, :steps * BATCH], labels[:steps * BATCH]
     profile(lambda: trainer.train_epoch(be, bl, gen), steps,
-            f"train steps ({trainer.model.aggrs})")
+            f"train steps ({path_name(trainer)})")
+
+
+def table_sets(g, spgk: SpGKeys, label) -> SpGDevice:
+    """`sample_gsets_device` at the bench width: cold (a fresh row shuffle
+    and walk tables), then warm with the keys sampler's seeds, whose sets
+    must be the keys sampler's `spgk`: the same nodes and sizes, and each
+    valid slot's table row its key unpacked, exactly."""
+    seeds_np = np.arange(g.num_nodes)
+    kw = dict(block_size=SAMPLE_BLOCK, device=DEVICE)
+    sync()
+    t0 = time.perf_counter()
+    sample_gsets_device(g, seeds_np, NUM_WALKS, NUM_STEPS, seed=2, **kw)
+    sync()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev, u = sample_gsets_device(g, seeds_np, NUM_WALKS, NUM_STEPS, seed=1,
+                                 shuffle_seed=0, **kw)
+    sync()
+    warm = time.perf_counter() - t0
+    n = g.num_nodes
+    say(f"table sampling: {n} sets, L={dev.nodes.shape[1]}, u={u} unique "
+        f"encodings, table width {dev.enc.shape[0] - 1}; cold {cold:.3f} s "
+        f"(shuffle + tables) -> {n / cold:.1f} sets/s, warm {warm:.3f} s "
+        f"-> {n / warm:.1f} sets/s [{label}]")
+    require(torch.equal(dev.nodes, spgk.nodes)
+            and torch.equal(dev.sizes, spgk.sizes),
+            "the table sampler's sets differ from the keys sampler's")
+    valid = (torch.arange(dev.nodes.shape[1], device=DEVICE)[None, :]
+             < dev.sizes[:, None].to(torch.int64))
+    rows = dev.enc[dev.eidx][valid]
+    keys = unpack_key_features(spgk.khi, spgk.klo, NUM_WALKS,
+                               NUM_STEPS)[valid]
+    require(torch.equal(rows, keys), "a table row is not its slot's key")
+    require(bool((dev.eidx[~valid] == 0).all()), "a padded slot indexes "
+            "a table row")
+    say(f"table sets: nodes and sizes equal the keys sampler's; enc[eidx] "
+        f"equals the unpacked keys on all {rows.shape[0]} valid slots")
+    return dev
+
+
+def check_table_routes(dev: SpGDevice, spgk: SpGKeys, net, edges) -> None:
+    """The table Net's fused route against its unfused route on one batch
+    (bf16, both on the card); its scores against the keys path's with the
+    same weights on N_REF queries (fp32, both on the card: the same
+    function by two routes); and the card against the port's CPU path on
+    those queries (fp32)."""
+    aggrs, state = net.aggrs, net.state_dict()
+    be = edges[:, :BATCH]
+    plain = make_net(aggrs, dropout=0.1, dtype="bfloat16",
+                     fused_hidden=False)
+    plain.load_state_dict(state)
+    joined = gather_join(dev.nodes, dev.eidx, dev.sizes, be)
+    with torch.inference_mode():
+        got = net.eval()(joined, enc_table=dev.enc)
+        want = plain.eval()(joined, enc_table=dev.enc)
+    require(got.shape == (BATCH,) and bool(torch.isfinite(got).all()),
+            f"table fused route ({aggrs}) gave bad logits")
+    err = float((got - want).abs().max())
+    say(f"table fused vs plain route ({aggrs}), one batch of {BATCH} "
+        f"(bf16): max |d logit| = {err:.3e}, max |logit| = "
+        f"{float(want.abs().max()):.3e} (rtol = atol = {ROUTE_TOL})")
+    require(torch.allclose(got, want, rtol=ROUTE_TOL, atol=ROUTE_TOL),
+            f"table fused route ({aggrs}) disagrees with the plain route")
+
+    q = be[:, :N_REF]
+    cfg = TrainConfig(batch_size=N_REF)
+    f32 = lambda device=None: make_net(aggrs, dropout=0.1, device=device)
+    table_net, keys_net, cpu_net = f32(), f32(), f32("cpu")
+    for m in (table_net, keys_net, cpu_net):
+        m.load_state_dict(state)
+    got = DeviceTrainer(table_net, dev, cfg).predict(q)
+    want = trainer_from_keys(keys_net, spgk, cfg).predict(q)
+    err = float((got - want).abs().max())
+    say(f"table vs keys path ({aggrs}), {N_REF} queries (fp32): max "
+        f"|d score| = {err:.3e} (rtol = atol = {CPU_TOL})")
+    require(torch.allclose(got, want, rtol=CPU_TOL, atol=CPU_TOL),
+            f"the table path ({aggrs}) disagrees with the keys path")
+    small, cpu_small, remap = subset(dev, q)
+    got = DeviceTrainer(table_net, small, cfg).predict(remap)
+    want = DeviceTrainer(cpu_net, cpu_small, cfg).predict(remap.cpu())
+    err = float((got.cpu() - want).abs().max())
+    say(f"card vs CPU path ({aggrs}, table), {N_REF} queries (fp32): max "
+        f"|d score| = {err:.3e} (rtol = atol = {CPU_TOL})")
+    require(torch.allclose(got.cpu(), want, rtol=CPU_TOL, atol=CPU_TOL),
+            "the card disagrees with the port's CPU path (table)")
+
+
+def check_table_lstm_forward_only(dev: SpGDevice, edges, labels) -> None:
+    """The table lstm route serves on K5 but has no backward kernel yet:
+    a fit must raise NotImplementedError, not train another way."""
+    net = make_net("lstm", dropout=0.1, dtype="bfloat16")
+    trainer = DeviceTrainer(net, dev, TrainConfig(batch_size=BATCH))
+    try:
+        trainer.fit(edges[:, :BATCH], labels[:BATCH], 1,
+                    torch.Generator(device=DEVICE))
+    except NotImplementedError as e:
+        say(f"table lstm route refuses to train: {e}")
+        return
+    raise SmokeFailure("the table lstm route trained without its backward")
+
+
+def table_path(g, spgk: SpGKeys, edges, labels, label, launches) -> None:
+    """The encoding-table path on the keys path's graph, sets and edges:
+    sampling, serving (mean, attn; lstm on K5) and training (mean, attn),
+    with their checks; the launch counts go into `launches`."""
+    dev = table_sets(g, spgk, label)
+    nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
+                        generator=torch.Generator().manual_seed(0))
+            for a in ("mean", "attn", "lstm")}
+    serve = {a: DeviceTrainer(n, dev, TrainConfig(batch_size=BATCH))
+             for a, n in nets.items()}
+    zero_counts()
+    for a in ("mean", "attn"):
+        timed_predict(serve[a], edges, label, f"{a}, table")
+    launches["table_serve"] = counts()
+    say(f"launches on the table serving path (mean, attn): "
+        f"{launches['table_serve']}")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    lstm_serve(serve["lstm"], edges, label)
+    launches["table_lstm_serve"] = counts()
+    say(f"launches on the table LSTM serving path: "
+        f"{launches['table_lstm_serve']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for net in nets.values():
+        check_table_routes(dev, spgk, net, edges)
+    profile_predict(dev, nets["lstm"], edges)
+    check_table_lstm_forward_only(dev, edges, labels)
+    for aggrs, epochs in (("mean", N_EPOCHS), ("attn", ATTN_EPOCHS)):
+        trainer, _, _, gen = train_setup(dev, aggrs)
+        fit_cold(trainer, edges, labels, gen, epochs)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        fit_timed(trainer, edges, labels, gen, epochs, label)
+        path = "table_train" if aggrs == "mean" else "table_attn_train"
+        launches[path] = counts()
+        say(f"launches on the table training path ({aggrs}, timed fit): "
+            f"{launches[path]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_train_cpu(dev, trainer.model, edges, labels)
+    profile_train(trainer, edges, labels, gen)
 
 
 def counts():
@@ -1534,6 +1870,9 @@ def main() -> int:
     check_train_cpu(spgk, ltrainer.model, tedges, tlabels)
     profile_predict(spgk, ltrainer.model, tedges)
     profile_train(ltrainer, tedges, tlabels, lgen)
+
+    # the encoding-table path, on the same graph, sets and edges
+    table_path(g, spgk, tedges, tlabels, label, launches)
 
     # phase 4
     for path, names in PATHS.items():

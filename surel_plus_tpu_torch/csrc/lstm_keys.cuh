@@ -4,7 +4,8 @@
 // rows, the gate sums, the cell update and the step loop itself. Both
 // directions run this one code and get the same values bit for bit (same
 // fmaf order); the backward's instance also stashes each step's gates and
-// carries for its reverse sweep.
+// carries for its reverse sweep. The same step loop also runs over given
+// input rows x in place of the keys (NCOL = kXRows: lstm.cu, K5).
 
 #pragma once
 
@@ -21,6 +22,9 @@ constexpr int kMaxH = 256;        // LSTM width H and input width h
 constexpr int kChunk = 32;        // slots staged per chunk
 // dynamic shared memory a block may have: 227 KB less the static arrays
 constexpr int kMaxSmem = 232448 - 1024;
+// NCOL of the kernels that read the input rows x [R, L, h] (K5) instead of
+// computing them from keys of NCOL count fields (K4)
+constexpr int kXRows = 0;
 
 struct Operands {
   const uint32_t* kown;    // [R, L] own lo keys
@@ -34,6 +38,7 @@ struct Operands {
   const float* wh;         // [H, 4H]
   const float* bh;         // [4H]
   int rows, L, h, H, shift;
+  const float* x;          // [R, L, h] input rows (kXRows), else null
 };
 
 // One thread per hidden unit j < hp (H rounded up to whole warps) and row
@@ -58,7 +63,8 @@ __host__ __device__ inline Layout layout_for(int H) {
 // Offsets, in 4-byte words, of the dynamic shared memory: x and h double
 // buffered ([2][h][ld], [2][H][ld]), then a chunk of staged key, mask and
 // root planes ([kChunk][rb + 1] each), U, and wh [H][4H] where it fits
-// (`wh_smem`: at H = 96 it takes 147,456 of the 226,176 bytes).
+// (`wh_smem`: at H = 96 it takes 147,456 of the 226,176 bytes). The
+// kernels that read x (ncol = kXRows) stage the mask plane only, and no U.
 struct Smem {
   int xs, hs, ko, kc, mk, ro, rc, u, wh, words;
 };
@@ -67,15 +73,16 @@ __host__ __device__ inline Smem smem_for(const Layout& l, int h, int H,
                                          int ncol, bool wh_smem) {
   Smem s;
   const int plane = kChunk * (l.rb + 1);
+  const int kplane = ncol == kXRows ? 0 : plane;  // key and root planes
   s.xs = 0;
   s.hs = s.xs + 2 * h * l.ld;
   s.ko = s.hs + 2 * H * l.ld;
-  s.kc = s.ko + plane;
-  s.mk = s.kc + plane;
+  s.kc = s.ko + kplane;
+  s.mk = s.kc + kplane;
   s.ro = s.mk + plane;
-  s.rc = s.ro + plane;
-  s.u = s.rc + plane;
-  s.wh = s.u + (ncol + 2) * h;
+  s.rc = s.ro + kplane;
+  s.u = s.rc + kplane;
+  s.wh = s.u + (ncol == kXRows ? 0 : (ncol + 2) * h);
   s.words = s.wh + (wh_smem ? 4 * H * H : 0);
   return s;
 }
@@ -190,6 +197,36 @@ __host__ __device__ inline size_t stash_at(int b, int L, int t, int r,
   return (((size_t)b * L + t) * rb + r) * nch;
 }
 
+// A 4-byte copy from device to shared memory that runs while the thread goes
+// on (cp.async); `copies_wait` waits for the thread's copies.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Slot t of the block's rows into x [h][ld] (kXRows kernels): each row's h
+// inputs are contiguous in device memory, read by neighbouring threads;
+// rows past the block's end get 0.
+__device__ __forceinline__ void stage_x(const Operands& p, const int* srow,
+                                        int nrows, int rb, int ld, int t,
+                                        float* x, int tid, int nt) {
+  for (int i = tid; i < rb * p.h; i += nt) {
+    const int r = i / p.h;
+    const int k = i - r * p.h;
+    float* dst = x + k * ld + r;
+    if (r < nrows)
+      copy_async(dst, p.x + ((size_t)srow[r] * p.L + t) * p.h + k);
+    else
+      *dst = 0.f;
+  }
+}
+
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -201,7 +238,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 // The forward over one block of rb rows (design in lstm_keys.cu). Serving
 // (STASH false) writes the final h to out[order[i]]; the backward's
-// instance (STASH true) writes the stash instead.
+// instance (STASH true) writes the stash instead. With NCOL = kXRows the
+// step's x rows are copied from p.x (lstm.cu) instead of computed from the
+// keys: slot t + 1's copy runs while slot t's gate sums do.
 template <int NCOL, bool ROOT, bool WHS, bool STASH>
 __global__ void __launch_bounds__(kMaxThreads)
 forward_kernel(Operands p, Layout lay, Smem sm, float* out, Stash st) {
@@ -225,7 +264,8 @@ forward_kernel(Operands p, Layout lay, Smem sm, float* out, Stash st) {
   float* su = smem + sm.u;
   float* swh = smem + sm.wh;
 
-  for (int i = tid; i < (NCOL + 2) * p.h; i += nt) su[i] = p.u[i];
+  if constexpr (NCOL != kXRows)
+    for (int i = tid; i < (NCOL + 2) * p.h; i += nt) su[i] = p.u[i];
   if (WHS)
     for (int i = tid; i < 4 * p.H * p.H; i += nt) swh[i] = __ldg(p.wh + i);
   for (int i = tid; i < p.H * ld; i += nt) hs[i] = 0.f;  // h0 = 0, buffer 0
@@ -254,6 +294,8 @@ forward_kernel(Operands p, Layout lay, Smem sm, float* out, Stash st) {
   __syncthreads();
   const int steps = tend;
   if (STASH && tid == 0) st.tend[blockIdx.x] = steps;
+  if constexpr (NCOL == kXRows)
+    if (steps > 0) stage_x(p, srow, nrows, rb, ld, 0, xs, tid, nt);
 
   for (int t = 0; t < steps; ++t) {
     const int tt = t % kChunk;
@@ -265,8 +307,10 @@ forward_kernel(Operands p, Layout lay, Smem sm, float* out, Stash st) {
         const int s = i - r * kChunk;
         const bool in = r < nrows && t + s < p.L;
         const size_t off = in ? (size_t)srow[r] * p.L + t + s : 0;
-        sko[s * cs + r] = in ? p.kown[off] : 0u;
-        skc[s * cs + r] = in ? p.kcross[off] : 0u;
+        if constexpr (NCOL != kXRows) {
+          sko[s * cs + r] = in ? p.kown[off] : 0u;
+          skc[s * cs + r] = in ? p.kcross[off] : 0u;
+        }
         smk[s * cs + r] = in ? (int32_t)(p.mask[off] != 0) : 0;
         if (ROOT) {
           sro[s * cs + r] = in ? p.rown[off] : 0;
@@ -277,17 +321,26 @@ forward_kernel(Operands p, Layout lay, Smem sm, float* out, Stash st) {
     }
     // x of this slot for the block's rows, [h][ld]
     float* x = xs + cur * p.h * ld;
-    for (int i = tid; i < rb * p.h; i += nt) {
-      const int k = i / rb;
-      const int r = i - k * rb;
-      float fo[NCOL], fc[NCOL];
-      fields<NCOL, ROOT>(sko[tt * cs + r], ROOT ? sro[tt * cs + r] : 0,
-                         p.shift, fo);
-      fields<NCOL, ROOT>(skc[tt * cs + r], ROOT ? src[tt * cs + r] : 0,
-                         p.shift, fc);
-      x[k * ld + r] = hidden(fo, fc, su, p.h, k);
+    if constexpr (NCOL == kXRows) {
+      copies_wait();  // the thread's copies of slot t have landed
+    } else {
+      for (int i = tid; i < rb * p.h; i += nt) {
+        const int k = i / rb;
+        const int r = i - k * rb;
+        float fo[NCOL], fc[NCOL];
+        fields<NCOL, ROOT>(sko[tt * cs + r], ROOT ? sro[tt * cs + r] : 0,
+                           p.shift, fo);
+        fields<NCOL, ROOT>(skc[tt * cs + r], ROOT ? src[tt * cs + r] : 0,
+                           p.shift, fc);
+        x[k * ld + r] = hidden(fo, fc, su, p.h, k);
+      }
     }
     __syncthreads();  // x ready; h of the previous step ready
+    // the other x buffer was last read at step t - 1: free since the barrier
+    if constexpr (NCOL == kXRows)
+      if (t + 1 < steps)
+        stage_x(p, srow, nrows, rb, ld, t + 1, xs + (cur ^ 1) * p.h * ld,
+                tid, nt);
     float acc[4][kRows];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -334,8 +387,9 @@ cudaError_t launch_forward(const Operands& p, const Layout& lay,
                            cudaStream_t stream) {
   const size_t bytes = (size_t)sm.words * sizeof(float);
   void (*kernel)(Operands, Layout, Smem, float*, Stash) =
-      p.rown ? &forward_kernel<NCOL, true, WHS, STASH>
-             : &forward_kernel<NCOL, false, WHS, STASH>;
+      &forward_kernel<NCOL, false, WHS, STASH>;
+  if constexpr (NCOL != kXRows)
+    if (p.rown) kernel = &forward_kernel<NCOL, true, WHS, STASH>;
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (p.rows + lay.rb - 1) / lay.rb;

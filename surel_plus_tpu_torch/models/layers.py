@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from surel_plus_tpu_torch.ops.kernels.attn_pool import fused_attn_pool
+from surel_plus_tpu_torch.ops.kernels.lstm import lstm_final_hidden
 from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
     lstm_from_keys,
     lstm_scan_plain,
@@ -147,6 +148,25 @@ class AttentionAggregation(nn.Module):
         attn = torch.where(m, torch.softmax(gate, dim=-2), 0.0)
         return (attn * _dense(x, self.value_nn, torch.float32)).sum(dim=-2)
 
+    def folded(self, hsum: torch.Tensor, mask: torch.Tensor, w2, c2
+               ) -> torch.Tensor:
+        """The same pooling with the upstream projection x = hsum @ w2 + c2
+        and the value Linear folded past the softmax (both are affine and
+        the weights of a never-empty set sum to 1): only the scalar gate
+        is computed per slot. The gate, the softmax and the pool run in
+        hsum's dtype, the value Linear in float32, as the JAX package's
+        `folded` does."""
+        cd = hsum.dtype
+        wg = self.gate_nn.weight.t()                            # [h, 1]
+        gvec = w2.to(cd) @ wg.to(cd)
+        gconst = c2 @ wg + self.gate_nn.bias
+        m = mask[..., None]
+        gate = torch.where(m, hsum @ gvec + gconst.to(cd), -torch.inf)
+        attn = torch.where(m, torch.softmax(gate, dim=-2), 0.0)
+        pooled = (attn * hsum).sum(dim=-2)                      # [..., h]
+        return _dense(pooled @ w2.to(cd) + c2.to(cd), self.value_nn,
+                      torch.float32)
+
     def folded_from_keys(self, kown, kcross_al, mask, u_ext, shift: int,
                          w2, c2, root_own=None, root_cross=None
                          ) -> torch.Tensor:
@@ -204,7 +224,8 @@ class LSTMAggregation(nn.Module):
 
     def forward(self, x: Optional[torch.Tensor], mask: torch.Tensor,
                 fold=None, keys=None,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None,
+                fast: bool = False) -> torch.Tensor:
         """x [..., L, H], mask bool [..., L] -> [..., H] in x's dtype.
 
         fold=(w2, c2): x is the hidden rows before the upstream affine
@@ -214,7 +235,11 @@ class LSTMAggregation(nn.Module):
         keys=(kown, kcross_al, mask, u_ext, shift, root_own, root_cross):
         the recurrence runs from the packed keys (`lstm_from_keys`, with
         the fold), and x may be None with `dtype` the compute dtype: the
-        per-slot rows are never formed."""
+        per-slot rows are never formed.
+
+        fast (without keys): the recurrence runs in `lstm_final_hidden`
+        (float32 from the input product on; forward only) instead of the
+        scan."""
         cd = x.dtype if x is not None else dtype
         wi_eff, bh_eff = self.wi, self.bh.to(torch.float32)
         if fold is not None:
@@ -228,7 +253,7 @@ class LSTMAggregation(nn.Module):
                                     root_cross=rc)
             return hidden.to(cd)
         *batch, ell, h = x.shape
-        hidden = lstm_scan_plain(x.reshape(-1, ell, h),
-                                 mask.reshape(-1, ell), wi_eff, self.wh,
-                                 bh_eff)
+        run = lstm_final_hidden if fast else lstm_scan_plain
+        hidden = run(x.reshape(-1, ell, h), mask.reshape(-1, ell), wi_eff,
+                     self.wh, bh_eff)
         return hidden.reshape(*batch, self.hidden_dim).to(cd)

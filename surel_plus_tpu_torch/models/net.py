@@ -1,8 +1,10 @@
 """Link-prediction set encoder, mean, attention and LSTM aggregators (port
-of surel_plus_tpu/models/net.py:Net over packed-key joins).
+of surel_plus_tpu/models/net.py:Net over packed-key and encoding-table
+joins).
 
-Pipeline: packed keys -> pe_embedding hidden layer -> pair sum -> masked
-set aggregation -> optional raw-feature branch -> MergeLayer scorer.
+Pipeline: packed keys or encoding-table indices -> pe_embedding hidden
+layer -> pair sum -> masked set aggregation -> optional raw-feature
+branch -> MergeLayer scorer.
 
 mean: the set mean is taken BEFORE the (linear) projection:
 masked_mean(pe(e).sum(-2)) == pe.project(masked_mean(hsum)) + b2, since
@@ -16,7 +18,7 @@ lstm: LSTMAggregation over x = pe.project(hsum) + b2 per slot. Its fused
 form folds the projection into the recurrence's input weights
 (wi_eff = W2 @ wi, bh_eff = bh + 2 b2 @ wi) and runs it from the keys.
 
-Two routes compute the same logits:
+Over a keys join, two routes compute the same logits:
 
 * fused: a kernel reads the packed keys and never materializes a per-slot
   hidden row (CUDA kernels on the card, their plain versions on the CPU):
@@ -26,13 +28,24 @@ Two routes compute the same logits:
 * unfused: the hidden layer over the join's unpacked feature pairs, as
   the JAX package's XLA path does.
 
+Over an encoding-table join (`gather_join`: integer eidx, with
+`enc_table` given to forward), the per-slot hidden rows hsum are formed
+first: by `embed_mode` "table", the hidden layer over the table once and
+two row gathers (the cheapest forward; its backward is a scatter-add), or
+"direct", the hidden layer over the gathered encoding pairs (no scatter
+in the backward; the trainer trains this way). Then the fused route
+takes `masked_mean` for mean, `AttentionAggregation.folded` for attn and
+`lstm_final_hidden` (K5 on the card; forward only) for lstm, the
+projection folded in; the unfused route projects every slot first.
+
 `fused_hidden=None` picks the fused route on CUDA and the unfused one on
-the CPU. Both routes are differentiable: the fused routes' gradients for
-W1 and b1 flow through the kernels' autograd Functions into u_ext, and
-the fused lstm route's for W2, b2 and the LSTM's weights through the
-fold into wi_eff and bh_eff.
-`join_outputs` says which join outputs the route reads, so that the join
-builds only those (eager PyTorch does no dead-code elimination).
+the CPU. The keys routes are differentiable: the fused routes' gradients
+for W1 and b1 flow through the kernels' autograd Functions into u_ext,
+and the fused lstm route's for W2, b2 and the LSTM's weights through the
+fold into wi_eff and bh_eff. The table routes are too, except the fused
+lstm one, which raises under grad.
+`join_outputs` says which keys-join outputs the route reads, so that the
+join builds only those (eager PyTorch does no dead-code elimination).
 """
 
 from __future__ import annotations
@@ -57,6 +70,9 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
 )
 
 
+EMBED_MODES = ("table", "direct")
+
+
 def _torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
@@ -70,7 +86,9 @@ class Net(nn.Module):
     Weights are xavier-normal from `generator` (biases zero), made on the
     CPU and then moved to `device`, so one seed gives the same weights on
     every device. key_layout: (num_walks, num_steps) of the packed keys,
-    needed by the fused route (trainer_from_keys fills it in).
+    needed by the fused keys route (trainer_from_keys fills it in).
+    embed_mode: "table" or "direct", how an encoding-table join's hidden
+    rows are formed (same parameters either way).
     """
 
     def __init__(self, input_dim: int, hidden_dim: int = 96,
@@ -79,12 +97,16 @@ class Net(nn.Module):
                  dtype: Union[str, torch.dtype] = "float32",
                  fused_hidden: Optional[bool] = None,
                  key_layout: Optional[Tuple[int, int]] = None,
+                 embed_mode: str = "table",
                  generator: Optional[torch.Generator] = None,
                  device="cuda"):
         super().__init__()
         if aggrs not in ("mean", "attn", "lstm"):
             raise ValueError(f"unknown aggregator {aggrs!r}")
+        if embed_mode not in EMBED_MODES:
+            raise ValueError(f"unknown embed_mode {embed_mode!r}")
         self.aggrs = aggrs
+        self.embed_mode = embed_mode
         self.hidden_dim = hidden_dim
         self.dtype = _torch_dtype(dtype)
         self.fused_hidden = fused_hidden
@@ -143,10 +165,14 @@ class Net(nn.Module):
 
     def forward(self, joined: JoinedBatch,
                 feature: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                enc_table: Optional[torch.Tensor] = None,
+                embed_mode: Optional[str] = None) -> torch.Tensor:
         """joined: JoinedBatch over [2, B, L] rows; feature: optional raw
         endpoint features [2, B, x_dim]; generator: the dropout mask's
-        generator in training mode. Returns logits [B] float32."""
+        generator in training mode; enc_table: the normalized encoding
+        table [W+1, input_dim] an encoding-table join indexes; embed_mode:
+        overrides the model's for this call. Returns logits [B] float32."""
         pe = self.pe_embedding
         cd = self.dtype
 
@@ -154,7 +180,13 @@ class Net(nn.Module):
             """pe's second bias once more: each valid slot carries two."""
             return pe.project(x.new_zeros(1, self.hidden_dim))
 
-        if self.fused_on(joined.mask.device):
+        fused = self.fused_on(joined.mask.device)
+        table = joined.eidx is not None and not torch.is_floating_point(
+            joined.eidx)
+        if table:
+            hsum = self._table_hsum(joined.eidx, enc_table,
+                                    embed_mode or self.embed_mode)
+        elif fused:
             if joined.kown is None or self.key_layout is None:
                 raise ValueError("the fused route needs a keys join and "
                                  "key_layout")
@@ -188,16 +220,41 @@ class Net(nn.Module):
             mean = (sums / cnt[..., None].to(torch.float32)).to(cd)
             return self._score(pe.project(mean) + b2v(mean), feature,
                                generator)
-        if joined.eidx is None:
+        elif joined.eidx is None:
             raise ValueError("the unfused route needs the join's feature "
                              "pairs (make_keys_join(..., aligned=True))")
-        hsum = pe.hidden(joined.eidx).sum(dim=-2)            # [2, B, L, h]
-        if self.aggrs in ("attn", "lstm"):
-            agg = self.aggr(pe.project(hsum) + b2v(hsum), joined.mask)
         else:
+            hsum = pe.hidden(joined.eidx).sum(dim=-2)        # [2, B, L, h]
+        if self.aggrs == "mean":
             mean = masked_mean(hsum, joined.mask)
             agg = pe.project(mean) + b2v(mean)
+        elif fused:
+            # table route: the projection x = hsum @ W2 + 2 b2 folds past
+            # the attention softmax, or into the LSTM's input weights
+            w2, bias2 = pe.project_raw()
+            c2 = 2.0 * bias2.to(torch.float32)[None]
+            if self.aggrs == "attn":
+                agg = self.aggr.folded(hsum, joined.mask, w2, c2)
+            else:
+                agg = self.aggr(hsum, joined.mask, fold=(w2, c2), fast=True)
+        else:
+            agg = self.aggr(pe.project(hsum) + b2v(hsum), joined.mask)
         return self._score(agg, feature, generator)
+
+    def _table_hsum(self, eidx: torch.Tensor,
+                    enc_table: Optional[torch.Tensor],
+                    embed_mode: str) -> torch.Tensor:
+        """The pair-summed hidden rows [2, B, L, h] of an encoding-table
+        join's index pairs eidx [2, B, L, 2]."""
+        if enc_table is None:
+            raise ValueError("an encoding-table join needs enc_table")
+        pe = self.pe_embedding
+        if embed_mode == "direct":
+            return pe.hidden(enc_table[eidx]).sum(dim=-2)
+        if embed_mode != "table":
+            raise ValueError(f"unknown embed_mode {embed_mode!r}")
+        htable = pe.hidden(enc_table)                        # [W+1, h]
+        return htable[eidx[..., 0]] + htable[eidx[..., 1]]
 
     def _score(self, agg: torch.Tensor, feature: Optional[torch.Tensor],
                generator: Optional[torch.Generator]) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""SpJoin over packed-key sets (port of the keys join of
-surel_plus_tpu/ops/join.py).
+"""SpJoin over sampled sets (port of surel_plus_tpu/ops/join.py: the keys
+join and the encoding-table join `gather_join`).
 
 For a query (u, v) every node x of S_u is paired with its key w.r.t. u
 and its key w.r.t. v (0 when x is not in S_v), and symmetrically for
@@ -33,10 +33,12 @@ from surel_plus_tpu_torch.ops.walk import (
 class JoinedBatch(NamedTuple):
     """Join output for a batch of B queries with Q endpoints each.
 
-    eidx:  float32 [Q, B, L, 2, ncol] unpacked feature pairs: [..., 0, :]
-           the anchor side's encoding, [..., 1, :] the partner's (zeros if
-           absent). None unless the join was asked for aligned outputs
-           with features.
+    eidx:  keys joins: float32 [Q, B, L, 2, ncol] unpacked feature pairs:
+           [..., 0, :] the anchor side's encoding, [..., 1, :] the
+           partner's (zeros if absent); None unless the join was asked for
+           aligned outputs with features. `gather_join`: int32
+           [Q, B, L, 2] encoding-table indices, [..., 0] the anchor side's,
+           [..., 1] the partner's (0, the zero row, if absent).
     mask:  bool  [Q, B, L] validity of each set slot.
     sizes: int32 [Q, B] true set sizes.
     kown:  int32 bits [Q, B, L] of the packed lo keys, slot order.
@@ -110,6 +112,27 @@ def _cross_lookup_bidir_multi(nodes_u, nodes_v, pays_u, pays_v,
     pad = snode != INT32_MAX
     return out + ((cu,), (st == 1) & pad, (cv,), (st == 0) & pad,
                   snode, st)
+
+
+def gather_join(nodes: torch.Tensor, eidx: torch.Tensor,
+                sizes: torch.Tensor, edges: torch.Tensor) -> JoinedBatch:
+    """Join encoding-table sets (SpGDevice rows) for query edges [2, B] of
+    row ids: block 0 pairs (Z_u[x], Z_v[x]) for x in S_u, block 1 pairs
+    (Z_v[x], Z_u[x]) for x in S_v. Both directions come out of one merge
+    of the two node rows with the table indices as its payload, and the
+    output does not depend on the key layout."""
+    if edges.shape[0] != 2:
+        raise ValueError("gather_join handles Q=2 (higher-order queries "
+                         "are not ported)")
+    edges = edges.to(torch.int64)
+    rows_nodes, rows_eidx = nodes[edges], eidx[edges]          # [2, B, L]
+    eu, ev = rows_eidx[0], rows_eidx[1]
+    (cross_u,), (cross_v,) = _cross_lookup_bidir_multi(
+        rows_nodes[0], rows_nodes[1], (eu,), (ev,), aligned=True)
+    pairs = torch.stack([torch.stack([eu, cross_u], dim=-1),
+                         torch.stack([ev, cross_v], dim=-1)])
+    return JoinedBatch(eidx=pairs, mask=rows_nodes != INT32_MAX,
+                       sizes=sizes[edges])
 
 
 def unpack_key_features(khi: torch.Tensor, klo: torch.Tensor,

@@ -1,6 +1,6 @@
 """Walk-based node-set sampling with packed landing-count keys
-(port of surel_plus_tpu/ops/walk.py: the edge-table walk and the packed
-set builder).
+(port of surel_plus_tpu/ops/walk.py: the edge-table walk, the packed
+set builder and the host unpacking of deduplicated keys).
 
 The random bits are an argument of the walk: `walk_bits` draws them
 from a `torch.Generator`, and `walk_block_tables` walks from given bits,
@@ -58,6 +58,22 @@ def enc_field_layout(num_walks: int, num_steps: int):
             f"encoding key needs {total} bits > 62 "
             f"(num_walks={num_walks}, num_steps={num_steps})")
     return shift, starts, lead_bit
+
+
+def unpack_encodings(packed: np.ndarray, num_walks: int,
+                     num_steps: int) -> np.ndarray:
+    """Invert the bit-pack: uint64 keys -> int32 [n, num_steps+1] counts
+    (column 0 is num_walks for the root, else 0)."""
+    shift, starts, lead_bit = enc_field_layout(num_walks, num_steps)
+    mask = np.uint64((1 << shift) - 1)
+    ncol = num_steps + 1
+    out = np.zeros((len(packed), ncol), dtype=np.int32)
+    root = (packed >> np.uint64(lead_bit)) & np.uint64(1)
+    out[:, 0] = root.astype(np.int32) * num_walks
+    for j in range(1, ncol):
+        out[:, j] = ((packed >> np.uint64(starts[j])) & mask).astype(
+            np.int32)
+    return out
 
 
 def build_walk_tables(indptr: torch.Tensor, indices: torch.Tensor,

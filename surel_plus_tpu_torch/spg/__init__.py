@@ -1,3 +1,3 @@
-from surel_plus_tpu_torch.spg.spg import SpGKeys
+from surel_plus_tpu_torch.spg.spg import SpG, SpGDevice, SpGKeys
 
-__all__ = ["SpGKeys"]
+__all__ = ["SpG", "SpGDevice", "SpGKeys"]

@@ -1,7 +1,11 @@
 """Device-resident training, scoring and metrics (port of
 surel_plus_tpu/train/device.py).
 
-`DeviceTrainer` owns the model and its optimizer. `fit` trains epoch by
+`DeviceTrainer` owns the model and its optimizer, over either store of
+sets: an encoding-table SpGDevice (joined by `gather_join`, the model fed
+the encoding table; training in the "direct" embed mode, scoring in the
+model's own) or a packed-key SpGKeys (`trainer_from_keys` builds its
+join). `fit` trains epoch by
 epoch: each epoch shuffles the query edges with a riffle permutation
 (padded ids weigh 0), then runs a Python loop of steps (join, model,
 weighted BCE, backward, clip + Adam) on the sets' device, and keeps the
@@ -12,13 +16,13 @@ the tail batch padded with zero edges as in the reference.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch.nn import functional as F
 
-from surel_plus_tpu_torch.ops.join import make_keys_join
-from surel_plus_tpu_torch.spg.spg import SpGKeys
+from surel_plus_tpu_torch.ops.join import gather_join, make_keys_join
+from surel_plus_tpu_torch.spg.spg import SpGDevice, SpGKeys
 from surel_plus_tpu_torch.train.loop import TrainConfig
 
 
@@ -129,22 +133,41 @@ def device_mrr(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
 
 
 class DeviceTrainer:
-    """Trains and scores a Net over a device-resident SpGKeys.
+    """Trains and scores a Net over device-resident sets.
 
-    join(nodes, khi, klo, sizes, edges) -> JoinedBatch; `feature`
-    optional raw node features [n, x_dim] on the sets' device. The
-    optimizer is optax.chain(clip_by_global_norm(grad_clip), adam(lr)):
-    `clip_by_global_norm_` then torch.optim.Adam (eps 1e-8 outside the
-    square root, as optax's), fresh state from `init`."""
+    sets: an SpGDevice, whose join is join(nodes, eidx, sizes, edges)
+    (default `gather_join`) and whose encoding table goes to the model
+    (training with embed_mode=train_embed_mode, scoring with the model's
+    own; the parameters are the same either way); or an SpGKeys, whose
+    join is join(nodes, khi, klo, sizes, edges) (`trainer_from_keys`
+    builds it). `feature`: optional raw node features [n, x_dim] on the
+    sets' device. The optimizer is optax.chain(clip_by_global_norm(
+    grad_clip), adam(lr)): `clip_by_global_norm_` then torch.optim.Adam
+    (eps 1e-8 outside the square root, as optax's), fresh state from
+    `init`."""
 
-    def __init__(self, model: torch.nn.Module, spgk: SpGKeys,
-                 config: TrainConfig, join: Callable,
-                 feature: Optional[torch.Tensor] = None):
+    def __init__(self, model: torch.nn.Module,
+                 sets: Union[SpGDevice, SpGKeys], config: TrainConfig,
+                 join: Optional[Callable] = None,
+                 feature: Optional[torch.Tensor] = None,
+                 train_embed_mode: str = "direct"):
         self.model = model
-        self.spgk = spgk
+        self.sets = sets
         self.config = config
-        self.join = join
         self.feature = feature
+        if isinstance(sets, SpGDevice):
+            self.rows = (sets.nodes, sets.eidx, sets.sizes)
+            self.join = gather_join if join is None else join
+            self.predict_kw = dict(enc_table=sets.enc)
+            self.train_kw = dict(enc_table=sets.enc,
+                                 embed_mode=train_embed_mode)
+        else:
+            if join is None:
+                raise ValueError("a keys store needs its join "
+                                 "(trainer_from_keys builds it)")
+            self.rows = (sets.nodes, sets.khi, sets.klo, sets.sizes)
+            self.join = join
+            self.predict_kw = self.train_kw = {}
         self.optimizer = self._new_optimizer()
 
     def _new_optimizer(self) -> torch.optim.Optimizer:
@@ -157,8 +180,7 @@ class DeviceTrainer:
         self.optimizer = self._new_optimizer()
 
     def _batch(self, edges: torch.Tensor):
-        s = self.spgk
-        joined = self.join(s.nodes, s.khi, s.klo, s.sizes, edges)
+        joined = self.join(*self.rows, edges)
         feat = self.feature[edges] if self.feature is not None else None
         return joined, feat
 
@@ -186,7 +208,8 @@ class DeviceTrainer:
         for idx, w in zip(perm, wmat):
             bl = labels[idx]
             joined, feat = self._batch(edges[:, idx])
-            logits = self.model(joined, feat, generator=generator)
+            logits = self.model(joined, feat, generator=generator,
+                                **self.train_kw)
             loss = batch_loss(logits, bl, w)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -209,7 +232,7 @@ class DeviceTrainer:
         """`n_epochs` epochs of `train_epoch`; `perms` optionally gives
         each epoch's batch permutation. Returns (losses [n_epochs],
         aucs [n_epochs]) as device tensors."""
-        dev = self.spgk.nodes.device
+        dev = self.sets.nodes.device
         edges = torch.as_tensor(edges).to(dev, torch.int64)
         labels = torch.as_tensor(labels).to(dev, torch.float32)
         losses, aucs = zip(*(self.train_epoch(
@@ -222,7 +245,7 @@ class DeviceTrainer:
         """Score [Q, E] query edges (numpy or tensor of SpG row ids);
         returns sigmoid scores [E] float32 on the sets' device. Leaves
         the model in eval mode."""
-        dev = self.spgk.nodes.device
+        dev = self.sets.nodes.device
         edges = torch.as_tensor(edges).to(dev, torch.int64)
         bs = self.config.batch_size
         E = edges.shape[1]
@@ -234,7 +257,8 @@ class DeviceTrainer:
         out = []
         for i in range(0, E + pad, bs):
             joined, feat = self._batch(edges[:, i:i + bs])
-            out.append(torch.sigmoid(self.model(joined, feat)))
+            out.append(torch.sigmoid(self.model(joined, feat,
+                                                **self.predict_kw)))
         return torch.cat(out)[:E]
 
 
