@@ -32,10 +32,19 @@ NVIDIA GPU. Run from the repository root:
    L=801, (c) at B=999, L=203, (d) on masks with holes, (e) with an
    empty row and a row valid only at its last slot, and (f) at
    h = H = 256, fp32 at rtol = atol = 1e-4, two launches and the
-   unsorted row order bit for bit, the empty row exactly 0. Times each
-   kernel, its plain version and, as yardsticks, `torch.sort` for the
-   merge and cuDNN's LSTM (`torch.nn.LSTM` over the packed rows: the
-   recurrence alone) forward for K4 and K5 and backward for K4 bwd, and
+   unsorted row order bit for bit, the empty row exactly 0; its backward
+   (K5 bwd) on the same six cases, each of dx, dwi, dwh, dbh within 1e-4
+   of its largest entry with the rows sorted and unsorted, two launches
+   bit for bit, dx exactly 0 at every masked slot and empty rows silent;
+   the cross lookup of both key words (K6) exactly against its plain
+   version (the [B, L, L] equality mask), in both directions, on the
+   join rows of the lo-only [4096, 301] and lead-in-hi [4096, 801]
+   batches and of sets in the general hi/lo layout (M=1000, S'=4, 4096
+   seeds of the graph), at odd B and L and with full 32-bit payload
+   words. Times each kernel, its plain version and, as yardsticks,
+   `torch.sort` for the merge, cuDNN's LSTM (`torch.nn.LSTM` over the
+   packed rows: the recurrence alone) forward for K4 and K5 and backward
+   for K4 bwd and K5 bwd, and the merge route's cross lookup for K6, and
    prints the phase's peak device memory.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
@@ -86,9 +95,17 @@ NVIDIA GPU. Run from the repository root:
    with the same weights on N_REF queries (fp32, 1e-4) and the card
    against the CPU on N_REF queries (fp32, 1e-4); a cold fit (no
    synchronizing call) and a timed fit of the mean (8 epochs) and the
-   attention Net (4 epochs) with card-vs-CPU training checks; a check
-   that the table lstm route refuses to train; a profile of a few table
-   lstm predict batches.
+   attention Net (4 epochs) with card-vs-CPU training checks; a profile
+   of a few table lstm predict batches; then the table lstm Net's
+   training on K5 and K5 bwd: the route gradient checks, a cold and a
+   timed 4-epoch fit, the card-vs-CPU training check; a profile of a
+   few train steps of each table Net.
+   Then the keys join's impl "pallas" on K6: `predict` of the mean and
+   lstm Nets (bf16) through `trainer_from_keys(..., join_factory=...)`
+   on the 32 x 4096 edges, the joined feature pairs equal to the merge
+   join's on one batch, the scores against the keys route's on it (fp32
+   at 1e-4, bf16 at 5e-2), and one lstm predict in the general hi/lo
+   layout, where the pallas and merge joins must be equal.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the card's name
@@ -114,6 +131,7 @@ import torch
 
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import join as join_ops
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import (
     gather_join,
@@ -128,6 +146,7 @@ from surel_plus_tpu_torch.ops.kernels import (
     lstm_keys,
     merge,
 )
+from surel_plus_tpu_torch.ops.kernels import cross_lookup as xlookup
 from surel_plus_tpu_torch.ops.kernels import lstm as lstm_x
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.sampler import (
@@ -148,6 +167,7 @@ DEVICE = "cuda"
 N_NODES, N_EDGES = 250_000, 2_500_000           # bench.py:114-115
 NUM_WALKS, NUM_STEPS = 100, 3                   # bench.py:116
 WIDE_WALKS, WIDE_STEPS = 200, 4                 # lead-in-hi layout
+GEN_WALKS, GEN_STEPS, GEN_SEEDS = 1000, 4, 4096  # general hi/lo layout
 HIDDEN, BATCH, N_BATCHES = 96, 4096, 32         # bench.py:117-118, 154
 SAMPLE_BLOCK = 65536                            # bench.py:126
 N_SRC, K_NEG = 4096, 1000                       # bench.py:241
@@ -215,6 +235,14 @@ KERNELS = {
         kernel=lstm_x.LSTM_X_KERNEL,
         source="surel_plus_tpu_torch/csrc/lstm.cu",
         replaces="surel_plus_tpu/ops/pallas/lstm_kernel.py:87"),
+    "lstm_x_bwd": dict(
+        kernel=lstm_x.LSTM_X_BWD_KERNEL,
+        source="surel_plus_tpu_torch/csrc/lstm_bwd.cu",
+        replaces="surel_plus_tpu/ops/pallas/lstm_kernel.py:120"),
+    "cross_lookup": dict(
+        kernel=xlookup.KERNEL,
+        source="surel_plus_tpu_torch/csrc/cross_lookup.cu",
+        replaces="surel_plus_tpu/ops/pallas/join_kernel.py:33"),
 }
 # the kernels each main path must launch
 PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
@@ -226,12 +254,16 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "table_serve": ("merge_pairs",),
          "table_lstm_serve": ("lstm_x_fwd", "merge_pairs"),
          "table_train": ("merge_pairs",),
-         "table_attn_train": ("merge_pairs",)}
+         "table_attn_train": ("merge_pairs",),
+         "table_lstm_train": ("lstm_x_fwd", "lstm_x_bwd", "merge_pairs"),
+         "keys_pallas_serve": ("cross_lookup", "lstm_x_fwd")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
              "attn_pool_bwd": "attn_train", "lstm_keys_fwd": "lstm_train",
-             "lstm_keys_bwd": "lstm_train", "lstm_x_fwd": "table_lstm_serve"}
+             "lstm_keys_bwd": "lstm_train", "lstm_x_fwd": "table_lstm_serve",
+             "lstm_x_bwd": "table_lstm_train",
+             "cross_lookup": "keys_pallas_serve"}
 
 
 class SmokeFailure(RuntimeError):
@@ -829,11 +861,15 @@ def lstm_bwd_bound(args, g):
 
 
 def lstm_library_bwd(args, g):
-    """The yardstick of K4 bwd: `cudnn_lstm`'s backward, with the packed
-    hidden rows as a leaf: the gradients of sum(g * h_n) for the rows and
-    the weights. Returns (a call, its (dwi, dwh, dbh) in the port's
-    orientation)."""
-    lstm, packed = cudnn_lstm(args)
+    """The yardstick of K4 bwd: `cudnn_bwd` on K4's hidden rows."""
+    return cudnn_bwd(*cudnn_lstm(args), g)
+
+
+def cudnn_bwd(lstm, packed, g):
+    """cuDNN's LSTM backward (`cudnn_lstm_x`'s module and packed rows),
+    with the packed rows as a leaf: the gradients of sum(g * h_n) for the
+    rows and the weights. Returns (a call, its (dwi, dwh, dbh) in the
+    port's orientation)."""
     leaf = torch.nn.utils.rnn.PackedSequence(
         packed.data.requires_grad_(), packed.batch_sizes,
         packed.sorted_indices, packed.unsorted_indices)
@@ -954,10 +990,9 @@ def lstm_x_bound(args):
     return bound(moved, valid * (2 * 4 * hh * (h + hh) + LSTM_CELL_OPS * hh))
 
 
-def lstm_x_vs_plain(spl, spw, rows, gen):
-    """Phase 2 for K5: cases (a)-(f) against the plain version, and the
-    kernel, plain, cuDNN and bound times at L=301 and L=801."""
-    torch.cuda.reset_peak_memory_stats()
+def table_x_cases(spl, spw, rows, gen):
+    """K5's and K5 bwd's operands on the table path's input: cases
+    (a)-(f), and (a), (b) by name."""
     x_lo = table_x(spl, rows, gen)
     x_hi = table_x(spw, rows, gen)
     odd = table_x_cut(x_lo, b=999, ell=203)
@@ -970,12 +1005,18 @@ def lstm_x_vs_plain(spl, spw, rows, gen):
               "(e) an empty row, a row valid at its last slot only"),
              (table_x_widen(x_lo, gen, lstm_keys.MAX_H),
               f"(f) h = H = {lstm_keys.MAX_H}"))
+    return cases, {"L=301": x_lo, "L=801": x_hi}
+
+
+def lstm_x_vs_plain(cases, wide):
+    """Phase 2 for K5: cases (a)-(f) against the plain version, and the
+    kernel, plain, cuDNN and bound times at L=301 and L=801."""
+    torch.cuda.reset_peak_memory_stats()
     err = max(lstm_check("K5", lstm_x.lstm_final_hidden_cuda,
                          lstm_x.lstm_final_hidden_plain, a, a[1],
                          table_x_label(a, label)) for a, label in cases)
-    del cases, odd
     out = {}
-    for name, args in (("L=301", x_lo), ("L=801", x_hi)):
+    for name, args in wide.items():
         lstm, packed = cudnn_lstm_x(*args)
 
         @torch.no_grad()
@@ -1003,6 +1044,107 @@ def lstm_x_vs_plain(spl, spw, rows, gen):
                          bound=(bound_ms, by))
         del lstm, packed, lib
     say(f"K5 checks peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(max_abs_err=err, **out["L=301"])
+
+
+def lstm_x_cotangent(args, gen):
+    return torch.randn(args[0].shape[0], args[3].shape[0],
+                       generator=gen).to(DEVICE)
+
+
+def lstm_x_bwd_compare(args, g, label):
+    """K5 bwd against its plain version: each of (dx, dwi, dwh, dbh)
+    within LSTM_BWD_TOL of that tensor's largest entry, with the rows
+    sorted and in their own order (other summation orders); two launches
+    bit for bit; dx exactly 0 at every masked slot; rows with no valid
+    slot contribute nothing (a cotangent of 1e3 there leaves every
+    bit)."""
+    cuda = lstm_x.lstm_final_hidden_bwd_cuda
+    bits = lambda xs, ys: all(torch.equal(x.view(torch.int32),
+                                          y.view(torch.int32))
+                              for x, y in zip(xs, ys))
+    mask = args[1]
+    empty = ~mask.any(dim=-1)
+    want = lstm_x.lstm_final_hidden_bwd_plain(*args, g)
+    got = cuda(*args, g)
+    same = bits(got, cuda(*args, g))
+    rel_unsorted = [rel_err(x, y) for x, y in
+                    zip(cuda(*args, g, sort_rows=False), want)]
+    silent = bits(got, cuda(*args, torch.where(empty[:, None], 1e3, g)))
+    sync()
+    require(all(x.shape == y.shape and bool(torch.isfinite(x).all())
+                for x, y in zip(got, want)), f"K5 bwd {label}: bad output")
+    rel = [rel_err(x, y) for x, y in zip(got, want)]
+    dx_peak = got[0].abs().amax(dim=-1)                        # [R, L]
+    masked_zero = bool((dx_peak[~mask] == 0).all())
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    ok = max(rel + rel_unsorted) <= LSTM_BWD_TOL
+    fmt = lambda v: "/".join(f"{x:.2e}" for x in v)
+    say(f"K5 bwd {table_x_label(args, label)}; max_abs_err={err:.3e}; "
+        f"err/max by dx/dwi/dwh/dbh {fmt(rel)} (rows unsorted "
+        f"{fmt(rel_unsorted)}; tol {LSTM_BWD_TOL}); max|plain| "
+        f"{fmt([float(y.abs().max()) for y in want])}; repeat "
+        f"bit-identical: {same}; dx at {int((~mask).sum())} masked slots "
+        f"exactly 0: {masked_zero}; {int(empty.sum())} empty rows silent: "
+        f"{silent} "
+        f"{'ok' if ok and same and masked_zero and silent else 'FAIL'}")
+    require(ok, f"K5 bwd {label} disagrees with its plain version")
+    require(same, f"K5 bwd {label}: two launches differ")
+    require(masked_zero, f"K5 bwd {label}: dx at a masked slot is not 0")
+    require(silent, f"K5 bwd {label}: an empty row contributes")
+    return err
+
+
+def lstm_x_bwd_bound(args, g):
+    """K5 bwd's least time, from the valid (row, slot) pairs: the forward
+    again (lstm_x_bound's count), the products dh_prev, dx (2 4H (H + h))
+    and dwi, dwh (2 4H (h + H)), and the cell's backward
+    (LSTM_CELL_BWD_OPS per unit); the valid slots' x read, the mask, the
+    weights and g read, dx (every slot) and the weight gradients
+    written."""
+    x, mask, wi, wh, bh = args
+    r, ell, h = x.shape
+    hh = wh.shape[0]
+    valid = int(mask.sum())
+    moved = valid * h * 4 + nbytes(mask, wi, wh, bh, g) \
+        + r * ell * h * 4 + nbytes(wi, wh, bh)
+    per_slot = (3 * 2 * 4 * hh * (h + hh)
+                + (LSTM_CELL_OPS + LSTM_CELL_BWD_OPS) * hh)
+    return bound(moved, valid * per_slot)
+
+
+def lstm_x_bwd_vs_plain(cases, wide, gen):
+    """Phase 2 for K5 bwd: cases (a)-(f) against the plain version, and
+    the kernel, plain, cuDNN-backward and bound times at L=301 and
+    L=801."""
+    torch.cuda.reset_peak_memory_stats()
+    err = max(lstm_x_bwd_compare(a, lstm_x_cotangent(a, gen), label)
+              for a, label in cases)
+    out = {}
+    cuda = lstm_x.lstm_final_hidden_bwd_cuda
+    plain = lstm_x.lstm_final_hidden_bwd_plain
+    for name, args in wide.items():
+        g = lstm_x_cotangent(args, gen)
+        lib, lib_grads = cudnn_bwd(*cudnn_lstm_x(*args), g)
+        want = plain(*args, g)
+        lib_rel = [rel_err(x, y) for x, y in zip(lib_grads, want[1:])]
+        del want, lib_grads
+        ms = time_ms(lambda: cuda(*args, g))
+        ms_unsorted = time_ms(lambda: cuda(*args, g, sort_rows=False))
+        plain_ms = time_ms(lambda: plain(*args, g), iters=5)
+        lib_ms = time_ms(lib)
+        bound_ms, by = lstm_x_bwd_bound(args, g)
+        say(f"K5 bwd {name}: kernel {ms:.4f} ms (rows in their own order "
+            f"{ms_unsorted:.4f} ms), plain {plain_ms:.4f} ms, cuDNN LSTM "
+            f"backward (x given, dx too) {lib_ms:.4f} ms with its "
+            f"dwi/dwh/dbh within "
+            f"{'/'.join(f'{r:.2e}' for r in lib_rel)} of plain's largest "
+            f"entries, bound {bound_ms:.4f} ms ({by})")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound=(bound_ms, by))
+        del lib
+    say(f"K5 bwd checks peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(max_abs_err=err, **out["L=301"])
 
@@ -1051,7 +1193,120 @@ def k2_bound(args):
     return bound(moved, ops)
 
 
-def kernels_vs_plain(g):
+def k6_rows(spgk, rows, flip=False):
+    """K6's operands on a join's rows [2, B, L] of `spgk`: (a, b, hi_b,
+    lo_b) for the u -> v lookup, or v -> u with `flip`."""
+    n, hi, lo = spgk.nodes[rows], spgk.khi[rows], spgk.klo[rows]
+    a, b = (1, 0) if flip else (0, 1)
+    return tuple(t.contiguous() for t in (n[a], n[b], hi[b], lo[b]))
+
+
+def k6_variant(args, b=None, ell=None, words=None):
+    """K6's operands cut to the first b rows and ell slots (sets stay
+    sets), or with payload words drawn over all 32 bits from `words` (a
+    generator)."""
+    a, bb, hi, lo = (t[:b, :ell].contiguous() for t in args)
+    if words is not None:
+        draw = lambda: torch.randint(-(1 << 31), 1 << 31, hi.shape,
+                                     generator=words,
+                                     dtype=torch.int32).to(DEVICE)
+        hi, lo = draw(), draw()
+    return a, bb, hi, lo
+
+
+def k6_compare(args, label):
+    """K6 against its plain version (the [B, L, L] equality mask),
+    exactly, and two launches bit for bit."""
+    got = xlookup.cross_lookup_cuda(*args)
+    again = xlookup.cross_lookup_cuda(*args)
+    want = xlookup.cross_lookup_plain(*args)
+    sync()
+    exact = all(torch.equal(x, y) for x, y in zip(got, want))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    found = int(((got[0] != 0) | (got[1] != 0)).sum())
+    say(f"K6 {label}: [{args[0].shape[0]}, {args[0].shape[1]}], valid "
+        f"slots {float((args[0] != walk_ops.INT32_MAX).float().mean()):.3f}"
+        f", {found} slots with a nonzero payload found; equal to plain: "
+        f"{exact}; repeat bit-identical: {same} "
+        f"{'exact' if exact and same else 'FAIL'}")
+    require(exact, f"K6 {label} differs from its plain version")
+    require(same, f"K6 {label}: two launches differ")
+    return 0.0
+
+
+def k6_bound(args):
+    """K6's least time: the four input planes read and the two output
+    planes written once; a binary search of b per slot of a (b is sorted)
+    for the operations."""
+    rows, ell = args[0].shape
+    moved = nbytes(*args) + 2 * rows * ell * 4
+    return bound(moved, rows * ell * math.ceil(math.log2(ell + 1)))
+
+
+def general_sets(g):
+    """Sets in the general hi/lo key layout (M=1000, S'=4: count fields in
+    the hi word) for GEN_SEEDS distinct seeds of the bench graph, and the
+    rows [2, GEN_SEEDS / 2] pairing them."""
+    seeds = np.random.default_rng(13).choice(g.num_nodes, size=GEN_SEEDS,
+                                              replace=False)
+    t0 = time.perf_counter()
+    spgk = sample_gsets_device_keys(g, seeds, GEN_WALKS, GEN_STEPS, seed=13,
+                                    block_size=SAMPLE_BLOCK, device=DEVICE)
+    sync()
+    lead = walk_ops.enc_field_layout(GEN_WALKS, GEN_STEPS)[2]
+    say(f"general-layout sets: {GEN_SEEDS} seeds, M={GEN_WALKS} "
+        f"S'={GEN_STEPS} (lead bit {lead}), L={spgk.nodes.shape[1]}, mean "
+        f"size {float(spgk.sizes.float().mean()):.1f}, "
+        f"{time.perf_counter() - t0:.3f} s")
+    require(lead > 32, "the general layout's fields must reach the hi word")
+    rows = torch.arange(GEN_SEEDS, device=DEVICE).reshape(2, -1)
+    return spgk, rows
+
+
+def cross_lookup_vs_plain(spl, spw, rows, gsets):
+    """Phase 2 for K6: exactly its plain version in both directions on the
+    join rows of the lo-only [4096, 301] and lead-in-hi [4096, 801]
+    batches and of the general layout's sets, at odd B and L, and with
+    full 32-bit payload words; times at [4096, 301], beside the merge
+    route's cross lookup of the same rows."""
+    words = torch.Generator().manual_seed(8)
+    lo = k6_rows(spl, rows)
+    cases = [(lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}, u -> v"),
+             (k6_rows(spl, rows, flip=True),
+              f"lo-only M={NUM_WALKS} S'={NUM_STEPS}, v -> u"),
+             (k6_rows(spw, rows), f"lead-in-hi M={WIDE_WALKS} "
+                                  f"S'={WIDE_STEPS}, u -> v"),
+             (k6_rows(spw, rows, flip=True), f"lead-in-hi M={WIDE_WALKS} "
+                                             f"S'={WIDE_STEPS}, v -> u"),
+             (k6_variant(lo, b=999, ell=203), "odd B and L, lo-only"),
+             (k6_variant(lo, words=words), "full 32-bit payload words")]
+    gspgk, grows = gsets
+    cases += [(k6_rows(gspgk, grows, flip=f), f"general M={GEN_WALKS} "
+               f"S'={GEN_STEPS}, {'v -> u' if f else 'u -> v'}")
+              for f in (False, True)]
+    err = max(k6_compare(a, label) for a, label in cases)
+    back = cases[1][0]
+    cuda = xlookup.cross_lookup_cuda
+    ms = time_ms(lambda: cuda(*lo))
+    plain_ms = time_ms(lambda: xlookup.cross_lookup_plain(*lo), iters=5)
+    both_ms = time_ms(lambda: (cuda(*lo), cuda(*back)))
+    hi_ms = time_ms(lambda: cuda(*cases[2][0]))
+    nodes = spl.nodes[rows]
+    pays = (spl.khi[rows], spl.klo[rows])
+    merge_ms = time_ms(lambda: join_ops._cross_lookup_bidir_multi(
+        nodes[0], nodes[1], (pays[0][0], pays[1][0]),
+        (pays[0][1], pays[1][1])))
+    bound_ms, by = k6_bound(lo)
+    say(f"K6 lo-only [4096, 301]: kernel {ms:.4f} ms a direction, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); both "
+        f"directions {both_ms:.4f} ms against the merge route's two-word "
+        f"cross lookup of the same rows (K2, hit detection, un-sort) "
+        f"{merge_ms:.4f} ms; lead-in-hi [4096, 801] {hi_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound=(bound_ms, by))
+
+
+def kernels_vs_plain(g, gsets):
     gen = torch.Generator().manual_seed(1)
     stats = {}
     # lo-only layout, the main path's shapes
@@ -1095,8 +1350,15 @@ def kernels_vs_plain(g):
     stats["lstm_keys_fwd"] = lstm_vs_plain(cases, wide)
     stats["lstm_keys_bwd"] = lstm_bwd_vs_plain(cases, wide, gen)
     del cases, wide
-    # the masked LSTM over given rows (K5) on the table path's input
-    stats["lstm_x_fwd"] = lstm_x_vs_plain(spl, spw, rows, gen)
+    # the masked LSTM over given rows (K5) and its backward on the table
+    # path's input
+    cases, wide = table_x_cases(spl, spw, rows, gen)
+    stats["lstm_x_fwd"] = lstm_x_vs_plain(cases, wide)
+    stats["lstm_x_bwd"] = lstm_x_bwd_vs_plain(cases, wide, gen)
+    del cases, wide
+
+    # the cross lookup of both key words (K6)
+    stats["cross_lookup"] = cross_lookup_vs_plain(spl, spw, rows, gsets)
 
     m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
     err2 = k2_compare(m_main, "join rows, lo-only")
@@ -1448,21 +1710,21 @@ def fit_timed(trainer, edges, labels, gen, epochs, label) -> None:
     require(not still, f"parameters did not move: {still}")
 
 
-def route_grads(spgk, net, be, dtype, fused, labels=None, cot=None):
+def route_grads(sets, net, be, dtype, fused, labels=None, cot=None):
     """(loss, {name: gradient}) of one batch `be` on one route of a copy
-    of `net`, with a fixed dropout mask: of the BCE loss with `labels`,
-    or, with `cot` [B, 2 H], of sum(cot * the scorer's input), which
-    leaves the scorer (MergeLayer) out of the gradient."""
-    m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=fused,
-                 key_layout=(NUM_WALKS, NUM_STEPS))
+    of `net` over `sets` (SpGKeys or SpGDevice), joined and fed as its
+    trainer does, with a fixed dropout mask: of the BCE loss with
+    `labels`, or, with `cot` [B, 2 H], of sum(cot * the scorer's input),
+    which leaves the scorer (MergeLayer) out of the gradient."""
+    m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=fused)
     m.load_state_dict(net.state_dict())
-    joined = make_keys_join(NUM_WALKS, NUM_STEPS, **m.join_outputs(DEVICE))(
-        spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, be)
+    trainer = trainer_for(m, sets, TrainConfig(batch_size=BATCH))
+    joined, _ = trainer._batch(be)
     drop = torch.Generator(device=DEVICE).manual_seed(3)
     seen = []
     hook = m.affinity_score.register_forward_pre_hook(
         lambda mod, args: seen.append(torch.cat(args[0], dim=-1)))
-    logits = m.train()(joined, generator=drop)
+    logits = m.train()(joined, generator=drop, **trainer.train_kw)
     hook.remove()
     if cot is None:
         loss = batch_loss(logits, labels,
@@ -1507,7 +1769,7 @@ def compare_grads(what, net, pair, tol, held=True):
             "disagree with the plain route's")
 
 
-def check_train_routes(spgk, net, edges, labels) -> None:
+def check_train_routes(sets, net, edges, labels) -> None:
     """One bench batch's parameter gradients at the seeded initial
     weights: the fused route (the kernels forward and backward) against
     the plain route, with the same dropout mask. Each tensor's largest
@@ -1541,7 +1803,7 @@ def check_train_routes(spgk, net, edges, labels) -> None:
     GATE_BIAS_GRAD_ATOL instead."""
     be = edges[:, :BATCH]
     ones = torch.ones(BATCH, device=DEVICE)
-    grads = lambda dtype, **kw: [route_grads(spgk, net, be, dtype, fused,
+    grads = lambda dtype, **kw: [route_grads(sets, net, be, dtype, fused,
                                              **kw) for fused in (True, False)]
     tol32, tol16 = GRAD_ROUTE_TOL["float32"], GRAD_ROUTE_TOL["bfloat16"]
     compare_grads("float32, random labels", net,
@@ -1550,7 +1812,7 @@ def check_train_routes(spgk, net, edges, labels) -> None:
     compare_grads("bfloat16, all-one labels", net, pair, tol16,
                   held=net.aggrs != "attn")
     if net.aggrs == "attn":
-        ref = route_grads(spgk, net, be, "float32", False, labels=ones)[1]
+        ref = route_grads(sets, net, be, "float32", False, labels=ones)[1]
         dist = {k: (rel_err(pair[0][1][k], ref[k]),
                     rel_err(pair[1][1][k], ref[k]))
                 for k in ref if k != GATE_BIAS}
@@ -1707,24 +1969,11 @@ def check_table_routes(dev: SpGDevice, spgk: SpGKeys, net, edges) -> None:
             "the card disagrees with the port's CPU path (table)")
 
 
-def check_table_lstm_forward_only(dev: SpGDevice, edges, labels) -> None:
-    """The table lstm route serves on K5 but has no backward kernel yet:
-    a fit must raise NotImplementedError, not train another way."""
-    net = make_net("lstm", dropout=0.1, dtype="bfloat16")
-    trainer = DeviceTrainer(net, dev, TrainConfig(batch_size=BATCH))
-    try:
-        trainer.fit(edges[:, :BATCH], labels[:BATCH], 1,
-                    torch.Generator(device=DEVICE))
-    except NotImplementedError as e:
-        say(f"table lstm route refuses to train: {e}")
-        return
-    raise SmokeFailure("the table lstm route trained without its backward")
-
-
 def table_path(g, spgk: SpGKeys, edges, labels, label, launches) -> None:
     """The encoding-table path on the keys path's graph, sets and edges:
-    sampling, serving (mean, attn; lstm on K5) and training (mean, attn),
-    with their checks; the launch counts go into `launches`."""
+    sampling, serving (mean, attn; lstm on K5) and training (mean, attn;
+    lstm on K5 and K5 bwd), with their checks; the launch counts go into
+    `launches`."""
     dev = table_sets(g, spgk, label)
     nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
                         generator=torch.Generator().manual_seed(0))
@@ -1747,20 +1996,99 @@ def table_path(g, spgk: SpGKeys, edges, labels, label, launches) -> None:
     for net in nets.values():
         check_table_routes(dev, spgk, net, edges)
     profile_predict(dev, nets["lstm"], edges)
-    check_table_lstm_forward_only(dev, edges, labels)
-    for aggrs, epochs in (("mean", N_EPOCHS), ("attn", ATTN_EPOCHS)):
+    paths = {"mean": ("table_train", N_EPOCHS),
+             "attn": ("table_attn_train", ATTN_EPOCHS),
+             "lstm": ("table_lstm_train", LSTM_EPOCHS)}
+    for aggrs, (path, epochs) in paths.items():
         trainer, _, _, gen = train_setup(dev, aggrs)
+        if aggrs == "lstm":
+            check_train_routes(dev, trainer.model, edges, labels)
         fit_cold(trainer, edges, labels, gen, epochs)
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
         fit_timed(trainer, edges, labels, gen, epochs, label)
-        path = "table_train" if aggrs == "mean" else "table_attn_train"
         launches[path] = counts()
         say(f"launches on the table training path ({aggrs}, timed fit): "
             f"{launches[path]}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_train_cpu(dev, trainer.model, edges, labels)
-    profile_train(trainer, edges, labels, gen)
+        profile_train(trainer, edges, labels, gen)
+
+
+def keys_pallas_path(spgk: SpGKeys, edges, label, launches, gsets) -> None:
+    """The keys join's impl "pallas" (K6) on the bench sets: mean and lstm
+    `predict` through `trainer_from_keys(..., join_factory=...)` (the
+    fused Net over a join without key planes: masked_mean, K5), the
+    feature pairs against the merge join's exactly, the scores against
+    the keys route's (fp32 at CPU_TOL, bf16 at ROUTE_TOL); then one
+    predict in the general hi/lo layout (`general_sets`), whose pallas
+    and merge joins must be equal."""
+    pallas = lambda m, s: make_keys_join(m, s, impl="pallas")
+    cfg = TrainConfig(batch_size=BATCH)
+    nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
+                        generator=torch.Generator().manual_seed(0))
+            for a in ("mean", "lstm")}
+    serve = {a: trainer_from_keys(n, spgk, cfg, join_factory=pallas)
+             for a, n in nets.items()}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for a, trainer in serve.items():
+        timed_predict(trainer, edges, label, f"{a}, pallas join")
+    launches["keys_pallas_serve"] = counts()
+    say(f"launches on the pallas-join serving path (mean, lstm): "
+        f"{launches['keys_pallas_serve']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    be = edges[:, :BATCH]
+    rows = (spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, be)
+    jp = pallas(NUM_WALKS, NUM_STEPS)(*rows)
+    jm = make_keys_join(NUM_WALKS, NUM_STEPS)(*rows)
+    same = torch.equal(jp.eidx, jm.eidx) and torch.equal(jp.mask, jm.mask)
+    say(f"pallas vs merge join, one batch of {BATCH}: feature pairs and "
+        f"masks equal: {same}")
+    require(same, "the pallas join differs from the merge join")
+    for a, net in nets.items():
+        for dtype, tol in (("float32", CPU_TOL), ("bfloat16", ROUTE_TOL)):
+            pn, kn = (make_net(a, dropout=0.1, dtype=dtype)
+                      for _ in range(2))
+            pn.load_state_dict(net.state_dict())
+            kn.load_state_dict(net.state_dict())
+            got = trainer_from_keys(pn, spgk, cfg,
+                                    join_factory=pallas).predict(be)
+            want = trainer_from_keys(kn, spgk, cfg).predict(be)
+            err = float((got - want).abs().max())
+            say(f"pallas join vs keys route ({a}, {dtype}), {BATCH} "
+                f"queries: max |d score| = {err:.3e} (rtol = atol = {tol})")
+            require(torch.allclose(got, want, rtol=tol, atol=tol),
+                    f"the pallas-join route ({a}, {dtype}) disagrees with "
+                    "the keys route")
+
+    gspgk, grows = gsets
+    grow_args = (gspgk.nodes, gspgk.khi, gspgk.klo, gspgk.sizes, grows)
+    jp = pallas(GEN_WALKS, GEN_STEPS)(*grow_args)
+    jm = make_keys_join(GEN_WALKS, GEN_STEPS)(*grow_args)
+    same = (jp.kown is None and jm.kown is None
+            and torch.equal(jp.eidx, jm.eidx)
+            and torch.equal(jp.mask, jm.mask))
+    gnet = Net(GEN_STEPS + 1, HIDDEN, aggrs="lstm", dropout=0.1,
+               dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+               device=DEVICE)
+    n = grows.shape[1]
+    gtrainer = trainer_from_keys(gnet, gspgk, TrainConfig(batch_size=n),
+                                 join_factory=pallas)
+    sync()
+    t0 = time.perf_counter()
+    scores = gtrainer.predict(grows)
+    sync()
+    dt = time.perf_counter() - t0
+    ok = (scores.shape == (n,) and bool(torch.isfinite(scores).all())
+          and bool(((scores >= 0) & (scores <= 1)).all()))
+    say(f"general layout M={GEN_WALKS} S'={GEN_STEPS}, {n} queries "
+        f"(L={gspgk.nodes.shape[1]}): pallas and merge joins equal: {same}; "
+        f"lstm predict through the pallas join {dt:.4f} s, scores finite "
+        f"in [0, 1]: {ok} [{label}]")
+    require(same, "the general layout's pallas and merge joins differ")
+    require(ok, "predict in the general layout gave bad scores")
 
 
 def counts():
@@ -1799,7 +2127,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s)")
 
     # phase 2: every kernel against its plain version on the card
-    stats = kernels_vs_plain(g)
+    gsets = general_sets(g)
+    stats = kernels_vs_plain(g, gsets)
 
     # phase 3: the main paths, counting launches
     launches = {}
@@ -1873,6 +2202,8 @@ def main() -> int:
 
     # the encoding-table path, on the same graph, sets and edges
     table_path(g, spgk, tedges, tlabels, label, launches)
+    # the keys join's impl "pallas", on the same sets and edges
+    keys_pallas_path(spgk, tedges, label, launches, gsets)
 
     # phase 4
     for path, names in PATHS.items():

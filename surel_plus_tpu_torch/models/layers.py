@@ -238,8 +238,8 @@ class LSTMAggregation(nn.Module):
         per-slot rows are never formed.
 
         fast (without keys): the recurrence runs in `lstm_final_hidden`
-        (float32 from the input product on; forward only) instead of the
-        scan."""
+        (float32 from the input product on; K5 and K5 bwd on the card)
+        instead of the scan."""
         cd = x.dtype if x is not None else dtype
         wi_eff, bh_eff = self.wi, self.bh.to(torch.float32)
         if fold is not None:

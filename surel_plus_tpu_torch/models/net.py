@@ -33,17 +33,22 @@ Over an encoding-table join (`gather_join`: integer eidx, with
 first: by `embed_mode` "table", the hidden layer over the table once and
 two row gathers (the cheapest forward; its backward is a scatter-add), or
 "direct", the hidden layer over the gathered encoding pairs (no scatter
-in the backward; the trainer trains this way). Then the fused route
-takes `masked_mean` for mean, `AttentionAggregation.folded` for attn and
-`lstm_final_hidden` (K5 on the card; forward only) for lstm, the
-projection folded in; the unfused route projects every slot first.
+in the backward; the trainer trains this way). So are they over a keys
+join that carries no key planes (impl="pallas", or the general hi/lo
+layout: only the feature pairs and the mask), as the JAX Net falls
+through to `pe.hidden` there. Then the fused route takes `masked_mean`
+for mean, `AttentionAggregation.folded` for attn and `lstm_final_hidden`
+(K5, and K5 bwd in training, on the card) for lstm, the projection
+folded in; the unfused route projects every slot first.
 
 `fused_hidden=None` picks the fused route on CUDA and the unfused one on
-the CPU. The keys routes are differentiable: the fused routes' gradients
+the CPU. Every route is differentiable: the fused keys routes' gradients
 for W1 and b1 flow through the kernels' autograd Functions into u_ext,
-and the fused lstm route's for W2, b2 and the LSTM's weights through the
-fold into wi_eff and bh_eff. The table routes are too, except the fused
-lstm one, which raises under grad.
+and the fused lstm routes' for W2, b2 and the LSTM's weights through the
+fold into wi_eff and bh_eff (and, over hsum, into hsum through K5 bwd's
+dx). The JAX Net trains its fused lstm route over hsum through its scan
+(net.py:219-224), with the input product in the compute dtype; here it
+runs in float32 on K5 and K5 bwd, so the two agree in float32.
 `join_outputs` says which keys-join outputs the route reads, so that the
 join builds only those (eager PyTorch does no dead-code elimination).
 """
@@ -145,7 +150,9 @@ class Net(nn.Module):
         reads on `device`: the fused mean route reads only the merged-order
         planes, the fused attention and lstm routes the slot-aligned keys but
         not the unpacked feature pairs, the unfused routes the feature
-        pairs."""
+        pairs. A join that cannot build key planes (impl="pallas", the
+        general hi/lo layout) builds its feature pairs whatever these say,
+        and forward reads those."""
         if not self.fused_on(device):
             return dict(aligned=True, features=True)
         if self.aggrs in ("attn", "lstm"):
@@ -186,10 +193,9 @@ class Net(nn.Module):
         if table:
             hsum = self._table_hsum(joined.eidx, enc_table,
                                     embed_mode or self.embed_mode)
-        elif fused:
-            if joined.kown is None or self.key_layout is None:
-                raise ValueError("the fused route needs a keys join and "
-                                 "key_layout")
+        elif fused and joined.kown is not None:
+            if self.key_layout is None:
+                raise ValueError("the fused keys route needs key_layout")
             shift = int(self.key_layout[0]).bit_length()
             u_ext = self._u_ext()              # kernel compute stays fp32
             if self.aggrs in ("attn", "lstm"):
@@ -221,16 +227,18 @@ class Net(nn.Module):
             return self._score(pe.project(mean) + b2v(mean), feature,
                                generator)
         elif joined.eidx is None:
-            raise ValueError("the unfused route needs the join's feature "
-                             "pairs (make_keys_join(..., aligned=True))")
+            raise ValueError("this route needs the join's feature pairs "
+                             "(make_keys_join(..., aligned=True))")
         else:
+            # the unfused routes, and the fused ones over a join without
+            # key planes
             hsum = pe.hidden(joined.eidx).sum(dim=-2)        # [2, B, L, h]
         if self.aggrs == "mean":
             mean = masked_mean(hsum, joined.mask)
             agg = pe.project(mean) + b2v(mean)
         elif fused:
-            # table route: the projection x = hsum @ W2 + 2 b2 folds past
-            # the attention softmax, or into the LSTM's input weights
+            # the projection x = hsum @ W2 + 2 b2 folds past the attention
+            # softmax, or into the LSTM's input weights
             w2, bias2 = pe.project_raw()
             c2 = 2.0 * bias2.to(torch.float32)[None]
             if self.aggrs == "attn":

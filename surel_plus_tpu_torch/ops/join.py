@@ -13,6 +13,12 @@ unpacked feature pairs only when it also asks for `features`. The fused
 mean route reads only the merged-order planes, the fused attention route
 the aligned keys, the unfused routes the feature pairs
 (`Net.join_outputs`).
+
+Two joins carry no key planes, as in the JAX package: impl="pallas" (the
+cross lookup of both key words on K6, `ops/kernels/cross_lookup.py`) and
+the general hi/lo key layout (count fields in the hi word, e.g. M=1000,
+S'=4), whose merge carries both words. They build the feature pairs and
+the mask, whatever `aligned` and `features` say.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from surel_plus_tpu_torch.ops.kernels.cross_lookup import cross_lookup
 from surel_plus_tpu_torch.ops.merge_net import merge_pairs
 from surel_plus_tpu_torch.ops.walk import (
     INT32_MAX,
@@ -36,12 +43,15 @@ class JoinedBatch(NamedTuple):
     eidx:  keys joins: float32 [Q, B, L, 2, ncol] unpacked feature pairs:
            [..., 0, :] the anchor side's encoding, [..., 1, :] the
            partner's (zeros if absent); None unless the join was asked for
-           aligned outputs with features. `gather_join`: int32
-           [Q, B, L, 2] encoding-table indices, [..., 0] the anchor side's,
-           [..., 1] the partner's (0, the zero row, if absent).
+           aligned outputs with features, or carries no key planes.
+           `gather_join`: int32 [Q, B, L, 2] encoding-table indices,
+           [..., 0] the anchor side's, [..., 1] the partner's (0, the zero
+           row, if absent).
     mask:  bool  [Q, B, L] validity of each set slot.
     sizes: int32 [Q, B] true set sizes.
-    kown:  int32 bits [Q, B, L] of the packed lo keys, slot order.
+    kown:  int32 bits [Q, B, L] of the packed lo keys, slot order; this
+           and the planes below are None where the join carries no key
+           planes (impl="pallas", the general hi/lo layout).
     kcross: int32 bits [B, 2L], ONE shared plane in merged order holding
            every endpoint's partner keys at disjoint positions, selected
            per endpoint by kcross_mask [Q, B, 2L].
@@ -67,51 +77,64 @@ class JoinedBatch(NamedTuple):
 def _cross_lookup_bidir_multi(nodes_u, nodes_v, pays_u, pays_v,
                               want_sorted: bool = False,
                               aligned: bool = True):
-    """BOTH cross directions of one payload from ONE merge.
+    """BOTH cross directions of N payloads from ONE merge.
 
     Keys are node << 1 | tag (v copies tag 0, u copies tag 1), so a node
     present on both sides sorts as [v copy, u copy]: each u slot reads its
-    match from its LEFT neighbor, each v slot from its RIGHT one.
+    match from its LEFT neighbor, each v slot from its RIGHT one. One
+    payload rides the merge itself; several (the general layout's hi and
+    lo words, JAX's lax.sort branch) are gathered through the slot index
+    [v block | u block] that rides it instead.
 
-    Returns (cross_u, cross_v), each a 1-tuple of int32 [B, L]: for every
-    u slot the v payload of the same node (0 if absent), and vice versa;
-    (None,) each when `aligned` is False. With `want_sorted` it also returns
+    Returns (cross_u, cross_v), each an N-tuple of int32 [B, L]: for every
+    u slot the v payloads of the same node (0 if absent), and vice versa;
+    N Nones each when `aligned` is False. With `want_sorted` it also returns
     the merged-order planes (su_cross, su_mask, sv_cross, sv_mask, snode,
-    stag), each [B, 2L].
+    stag), the cross planes N-tuples, each [B, 2L].
     """
-    if len(pays_u) != 1 or len(pays_v) != 1:
-        raise NotImplementedError("the multi-payload merge is not ported")
     B, L = nodes_u.shape
     nv = nodes_v.to(torch.int64)
     nu = nodes_u.to(torch.int64)
-    spk, sp = merge_pairs(to_bits(nv << 1), pays_v[0],
-                          to_bits((nu << 1) | 1), pays_u[0])
+    if len(pays_u) == 1:
+        spk, sp = merge_pairs(to_bits(nv << 1), pays_v[0],
+                              to_bits((nu << 1) | 1), pays_u[0])
+        sps = (sp,)
+    else:
+        pos = torch.arange(2 * L, dtype=torch.int32, device=nodes_u.device)
+        pos = pos.expand(B, 2 * L)
+        spk, sp = merge_pairs(to_bits(nv << 1), pos[:, :L].contiguous(),
+                              to_bits((nu << 1) | 1), pos[:, L:].contiguous())
+        sp = sp.to(torch.int64)
+        sps = tuple(torch.gather(torch.cat([pv, pu], dim=1), 1, sp)
+                    for pu, pv in zip(pays_u, pays_v))
     spk = u32(spk)
     snode = spk >> 1
     st = spk & 1
-    zero = torch.zeros_like(sp[:, :1])
+    zero = torch.zeros_like(sps[0][:, :1])
     # u slot (tag 1) matches when its left neighbor is the v copy
     hit_u = torch.zeros_like(snode, dtype=torch.bool)
     hit_u[:, 1:] = ((snode[:, 1:] == snode[:, :-1]) & (st[:, 1:] == 1)
                     & (st[:, :-1] == 0) & (snode[:, 1:] != INT32_MAX))
-    cu = torch.where(hit_u, torch.cat([zero, sp[:, :-1]], dim=1), 0)
+    cu = tuple(torch.where(hit_u, torch.cat([zero, p[:, :-1]], dim=1), 0)
+               for p in sps)
     # v slot (tag 0) matches when its right neighbor is the u copy
     hit_v = torch.zeros_like(hit_u)
     hit_v[:, :-1] = ((snode[:, :-1] == snode[:, 1:]) & (st[:, :-1] == 0)
                      & (st[:, 1:] == 1) & (snode[:, :-1] != INT32_MAX))
-    cv = torch.where(hit_v, torch.cat([sp[:, 1:], zero], dim=1), 0)
-    out = ((None,), (None,))
+    cv = tuple(torch.where(hit_v, torch.cat([p[:, 1:], zero], dim=1), 0)
+               for p in sps)
+    none = (None,) * len(sps)
+    out = (none, none)
     if aligned:
         # un-sort: the original [v block | u block] layout is (tag, node)
         # ascending, rebuilt from the merged keys
         order = torch.sort((st << 31) | snode, dim=1, stable=True).indices
-        out = ((torch.gather(cu, 1, order)[:, L:],),
-               (torch.gather(cv, 1, order)[:, :L],))
+        out = (tuple(torch.gather(c, 1, order)[:, L:] for c in cu),
+               tuple(torch.gather(c, 1, order)[:, :L] for c in cv))
     if not want_sorted:
         return out
     pad = snode != INT32_MAX
-    return out + ((cu,), (st == 1) & pad, (cv,), (st == 0) & pad,
-                  snode, st)
+    return out + (cu, (st == 1) & pad, cv, (st == 0) & pad, snode, st)
 
 
 def gather_join(nodes: torch.Tensor, eidx: torch.Tensor,
@@ -181,20 +204,37 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
     the slot-aligned cross keys (and their root planes), `features` with
     it the unpacked feature pairs.
 
-    Layouts: lo-only (every field and the root bit in the lo word) and
-    lead-in-hi (fields fill the lo word, the root bit is the hi word's
-    bit 0). The general hi/lo layout and impl="pallas" are not ported.
+    impl "merge": one merge of the two rows (K2) in the lo-only layout
+    (every field and the root bit in the lo word) and the lead-in-hi
+    layout (fields fill the lo word, the root bit is the hi word's bit 0),
+    with the key planes the fused routes read; in the general hi/lo layout
+    the merge carries both words and the join gives the feature pairs
+    only. impl "pallas": the cross lookup of both words in each direction
+    (K6), for any layout, the feature pairs only (JAX join.py:329-336,
+    :366).
     """
-    if impl != "merge":
-        raise NotImplementedError(f"join impl {impl!r} is not ported")
+    if impl not in ("merge", "pallas"):
+        raise ValueError(f"unknown join impl {impl!r}")
     lead_bit = enc_field_layout(num_walks, num_steps)[2]
     lo_only = lead_bit < 32
     lead_hi = lead_bit == 32
-    if not (lo_only or lead_hi):
-        raise NotImplementedError(
-            "the general hi/lo key layout (lead bit "
-            f"{lead_bit}) is not ported")
     nu, nv = rows_nodes[0], rows_nodes[1]
+    mask = rows_nodes != INT32_MAX
+    if impl == "pallas" or not (lo_only or lead_hi):
+        if impl == "pallas":
+            cross_hi_u, cross_lo_u = cross_lookup(nu, nv, rows_hi[1],
+                                                  rows_lo[1])
+            cross_hi_v, cross_lo_v = cross_lookup(nv, nu, rows_hi[0],
+                                                  rows_lo[0])
+        else:
+            ((cross_hi_u, cross_lo_u),
+             (cross_hi_v, cross_lo_v)) = _cross_lookup_bidir_multi(
+                nu, nv, (rows_hi[0], rows_lo[0]), (rows_hi[1], rows_lo[1]))
+        feats = _feature_pairs(rows_hi, rows_lo,
+                               torch.stack([cross_hi_u, cross_hi_v]),
+                               torch.stack([cross_lo_u, cross_lo_v]),
+                               num_walks, num_steps)
+        return JoinedBatch(eidx=feats, mask=mask, sizes=rows_sizes)
     ((cross_lo_u,), (cross_lo_v,), (scu,), su_mask, (scv,), sv_mask,
      snode, stag) = _cross_lookup_bidir_multi(
         nu, nv, (rows_lo[0],), (rows_lo[1],), want_sorted=True,
@@ -211,7 +251,6 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
         kcross_root = (((stag == 1) & (snode == v_b[:, None]))
                        | ((stag == 0) & (snode == u_b[:, None]))
                        ).to(torch.int32)
-    mask = rows_nodes != INT32_MAX
     kown = torch.stack([rows_lo[0], rows_lo[1]])
     # disjoint (tag-separated) positions: the sum is a select
     kcross = scu + scv
@@ -227,12 +266,19 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
         else:
             cross_hi = torch.zeros_like(kcross_al)
         if features:
-            feats = unpack_key_features(
-                torch.stack([rows_hi, cross_hi], dim=-1),
-                torch.stack([rows_lo, kcross_al], dim=-1), num_walks,
-                num_steps)                                  # [2, B, L, 2, C]
+            feats = _feature_pairs(rows_hi, rows_lo, cross_hi, kcross_al,
+                                   num_walks, num_steps)
     return JoinedBatch(eidx=feats, mask=mask, sizes=rows_sizes, kown=kown,
                        kcross=kcross, kcross_mask=kcross_mask,
                        kcross_al=kcross_al, kown_root=kown_root,
                        kcross_root=kcross_root,
                        kcross_al_root=kcross_al_root)
+
+
+def _feature_pairs(rows_hi, rows_lo, cross_hi, cross_lo, num_walks: int,
+                   num_steps: int) -> torch.Tensor:
+    """The unpacked feature pairs [2, B, L, 2, C]: each slot's own key and
+    its partner's ([2, B, L] words each)."""
+    return unpack_key_features(torch.stack([rows_hi, cross_hi], dim=-1),
+                               torch.stack([rows_lo, cross_lo], dim=-1),
+                               num_walks, num_steps)

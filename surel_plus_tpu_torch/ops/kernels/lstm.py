@@ -1,10 +1,12 @@
-"""Masked LSTM over given input rows: the CUDA kernel `csrc/lstm.cu` (K5),
-its plain PyTorch version and the wrapper that picks between them.
+"""Masked LSTM over given input rows: the CUDA kernels `csrc/lstm.cu` (K5,
+forward) and `csrc/lstm_bwd.cu` (K5 bwd, its BPTT), their plain PyTorch
+versions, and the autograd Function that joins them.
 
 Replaces surel_plus_tpu/ops/pallas/lstm_kernel.py `lstm_final_hidden`
-(the kernel `_lstm_kernel`): the LSTM aggregator's serving route on the
-encoding-table path, where the set rows come as x [R, L, h] and not as
-packed keys. For each row r and slot l in order:
+(the kernels `_lstm_kernel` and `_lstm_bwd_kernel`): the LSTM
+aggregator's fused route where the set rows come as x [R, L, h] and not
+as packed keys (the encoding-table path, and a keys join without planes).
+For each row r and slot l in order:
 
     gates = x[r, l] @ wi + h @ wh + bh          [4H], order (i, f, g, o)
     c'    = sigmoid(f) c + sigmoid(i) tanh(g),  h' = sigmoid(o) tanh(c')
@@ -17,8 +19,7 @@ scan instead (the input product in the promoted dtype of x and wi,
 layers.py:286), and `lstm_final_hidden_plain` is that scan on float32
 operands.
 
-Forward only: the backward (`_lstm_bwd_kernel`) is not ported, so a call
-that would need a gradient raises.
+The gradient is taken for x, wi, wh and bh (the mask gets none).
 """
 
 from __future__ import annotations
@@ -35,7 +36,10 @@ from surel_plus_tpu_torch.ops.kernels.build import (
     ptr_or_null,
 )
 from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
+    BWD_PARTS,
     MAX_H,
+    block_layout,
+    lstm_bptt_plain,
     lstm_scan_plain,
     row_order,
 )
@@ -43,23 +47,25 @@ from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
 LSTM_X_KERNEL = CudaKernel("lstm", "lstm_x_fwd_launch",
                            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
-BWD_TODO = "surel_plus_tpu/ops/pallas/lstm_kernel.py:_lstm_bwd_kernel"
+LSTM_X_BWD_KERNEL = CudaKernel("lstm_bwd", "lstm_x_bwd_launch",
+                               [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                               + [ctypes.c_void_p])
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in float32, or in float64 if it is float64 (for gradcheck)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def lstm_final_hidden_plain(x, mask, wi, wh, bh):
     """[R, H] float32 in plain PyTorch: `lstm_scan_plain` on x and wi cast
-    to float32."""
-    f32 = lambda t: t.to(torch.float32)
-    return lstm_scan_plain(f32(x), mask, f32(wi), wh, bh)
+    to float32 (kept in float64 if they are)."""
+    return lstm_scan_plain(_wide(x), mask, _wide(wi), wh, bh)
 
 
-def lstm_final_hidden_cuda(x, mask, wi, wh, bh, sort_rows: bool = True,
-                           order=None):
-    """Launch K5; see csrc/lstm.cu. x [R, L, h], wi [h, 4H], wh [H, 4H],
-    bh [4H]: contiguous float32; mask bool [R, L]. The rows run in `order`
-    (int32 [R]) if given, else, with `sort_rows`, by their last valid slot,
-    longest first (`row_order`), else in their own order. Returns [R, H]
-    float32."""
+def _check_operands(x, mask, wi, wh, bh):
+    """Raise unless the operands are what the CUDA kernels take; returns
+    (R, L, h, H)."""
     r, ell, h = x.shape
     hh = wh.shape[0]
     dev = x.device
@@ -71,32 +77,117 @@ def lstm_final_hidden_cuda(x, mask, wi, wh, bh, sort_rows: bool = True,
     if not (1 <= h <= MAX_H and 1 <= hh <= MAX_H and ell >= 1):
         raise ValueError(f"unsupported shape: L={ell} h={h} H={hh} "
                          f"(h, H <= {MAX_H})")
-    out = torch.empty(r, hh, dtype=torch.float32, device=dev)
+    return r, ell, h, hh
+
+
+def lstm_final_hidden_cuda(x, mask, wi, wh, bh, sort_rows: bool = True,
+                           order=None):
+    """Launch K5; see csrc/lstm.cu. x [R, L, h], wi [h, 4H], wh [H, 4H],
+    bh [4H]: contiguous float32; mask bool [R, L]. The rows run in `order`
+    (int32 [R]) if given, else, with `sort_rows`, by their last valid slot,
+    longest first (`row_order`), else in their own order. Returns [R, H]
+    float32."""
+    r, ell, h, hh = _check_operands(x, mask, wi, wh, bh)
+    out = torch.empty(r, hh, dtype=torch.float32, device=x.device)
     if r:
         if order is None and sort_rows:
             order = row_order(mask)
-        LSTM_X_KERNEL(dev, ptr(x), ptr(mask), ptr_or_null(order), ptr(wi),
-                      ptr(wh), ptr(bh), ptr(out), r, ell, h, hh)
+        LSTM_X_KERNEL(x.device, ptr(x), ptr(mask), ptr_or_null(order),
+                      ptr(wi), ptr(wh), ptr(bh), ptr(out), r, ell, h, hh)
     return out
+
+
+def lstm_final_hidden_bwd_plain(x, mask, wi, wh, bh, g):
+    """(dx [R, L, h], dwi [h, 4H], dwh [H, 4H], dbh [4H]) float32 for the
+    cotangent g [R, H], by an explicit BPTT in plain PyTorch
+    (`lstm_bptt_plain`) on the operands cast to float32 (kept in float64
+    if x is)."""
+    dt = _wide(x).dtype
+    x, wi, wh, bh = (t.to(dt) for t in (x, wi, wh, bh))
+    return lstm_bptt_plain(x, mask, wi, wh, bh, g)
+
+
+def lstm_final_hidden_bwd_cuda(x, mask, wi, wh, bh, g, sort_rows: bool = True,
+                               order=None):
+    """Launch K5 bwd; see csrc/lstm_bwd.cu. Operands as for
+    `lstm_final_hidden_cuda`, g: contiguous fp32 [R, H]; the rows run in
+    `order`, or as `lstm_final_hidden_cuda` orders them. Scratch is sized
+    from the shapes alone (no host sync): the forward's stash of gates and
+    carries, padded rows x L x 6H fp32. Returns (dx [R, L, h],
+    dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
+    r, ell, h, hh = _check_operands(x, mask, wi, wh, bh)
+    dev = x.device
+    check_cuda("g", g, torch.float32, (r, hh), dev)
+    h4 = 4 * hh
+    empty = lambda n, dt=torch.float32: torch.empty(n, dtype=dt, device=dev)
+    if not r:
+        out = torch.zeros(h4 + (h + hh) * h4, dtype=torch.float32,
+                          device=dev)
+        dx = empty((0, ell, h))
+    else:
+        if order is None and sort_rows:
+            order = row_order(mask)
+        _, groups, rb = block_layout(hh)
+        blocks = -(-r // rb)
+        parts = min(BWD_PARTS, blocks * ell)
+        out = empty(h4 + (h + hh) * h4)
+        dx = empty((r, ell, h))
+        wi_t, wh_t = wi.t().contiguous(), wh.t().contiguous()
+        stash = empty(blocks * rb * ell * 6 * hh)
+        tend = empty(blocks, torch.int32)
+        part1, part2 = empty(blocks * groups * h4), empty(
+            parts * (h + hh) * h4)
+        LSTM_X_BWD_KERNEL(dev, ptr(x), ptr(mask), ptr_or_null(order),
+                          ptr(wi), ptr(wh), ptr(bh), ptr(g), ptr(wi_t),
+                          ptr(wh_t), ptr(stash), ptr(tend), ptr(part1),
+                          ptr(part2), ptr(dx), ptr(out), r, ell, h, hh,
+                          parts)
+    return (dx, out[h4:h4 + h * h4].view(h, h4),
+            out[h4 + h * h4:].view(hh, h4), out[:h4])
+
+
+class FinalHiddenLSTM(torch.autograd.Function):
+    """The masked LSTM over given rows with its gradient for x, wi, wh and
+    bh (the custom VJP `_lstm` of the JAX kernel). On the card the forward
+    orders the rows once (`row_order`) and saves the order; the backward
+    runs K5 bwd over them in that order, so its stash forward gives K5's
+    gates bit for bit. On the CPU the pair is the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, mask, wi, wh, bh):
+        fwd = pick("lstm_final_hidden forward", x, lstm_final_hidden_cuda,
+                   lstm_final_hidden_plain)
+        order = None
+        if fwd is lstm_final_hidden_cuda:
+            order = row_order(mask)
+            out = fwd(x, mask, wi, wh, bh, order=order)
+        else:
+            out = fwd(x, mask, wi, wh, bh)
+        ctx.save_for_backward(x, mask, wi, wh, bh, order)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, wi, wh, bh, order = ctx.saved_tensors
+        bwd = pick("lstm_final_hidden backward", x,
+                   lstm_final_hidden_bwd_cuda, lstm_final_hidden_bwd_plain)
+        args = (x, mask, wi, wh, bh, g.to(torch.float32).contiguous())
+        if bwd is lstm_final_hidden_bwd_cuda:
+            dx, dwi, dwh, dbh = bwd(*args, order=order)
+        else:
+            dx, dwi, dwh, dbh = bwd(*args)
+        return dx, None, dwi, dwh, dbh
 
 
 def lstm_final_hidden(x: torch.Tensor, mask: torch.Tensor, wi: torch.Tensor,
                       wh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
-    """Final masked-LSTM hidden state -> [R, H] float32.
+    """Final masked-LSTM hidden state -> [R, H] float32, differentiable in
+    x, wi, wh and bh.
 
     x [R, L, h] (any float dtype, computed in float32), mask bool [R, L]
     (any pattern; a masked slot leaves the carry as it is), wi [h, 4H],
-    wh [H, 4H], bh [4H]. On CUDA tensors this launches K5, on CPU tensors
-    it takes the plain version. Raises NotImplementedError when grad mode
-    is on and an input requires grad: the backward is not ported."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, wi, wh, bh)):
-        raise NotImplementedError(
-            f"lstm_final_hidden is forward only: its backward ({BWD_TODO}) "
-            "is not ported; train the LSTM Net without keys on the unfused "
-            "route (fused_hidden=False)")
-    fn = pick("lstm_final_hidden", x, lstm_final_hidden_cuda,
-              lstm_final_hidden_plain)
+    wh [H, 4H], bh [4H]. On CUDA tensors this launches K5 (and K5 bwd when
+    differentiated), on CPU tensors it takes the plain versions."""
     f32 = lambda t: t.to(torch.float32).contiguous()
-    return fn(f32(x), mask.contiguous(), f32(wi), f32(wh),
-              f32(bh).reshape(-1))
+    return FinalHiddenLSTM.apply(f32(x), mask.contiguous(), f32(wi), f32(wh),
+                                 f32(bh).reshape(-1))

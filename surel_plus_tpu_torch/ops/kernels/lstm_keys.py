@@ -61,18 +61,20 @@ def lstm_scan_plain(x, mask, wi, wh, bh):
     """Final hidden state [R, H] float32 of the masked LSTM over rows
     x [R, L, h], mask bool [R, L], in the order of the JAX package's scan
     (layers.py:286-302): x_l @ wi in the promoted type of x and wi, then
-    float32 for the rest. The input product is taken a step at a time:
-    all of x @ wi at once would be 4H/h times the size of x."""
+    float32 for the rest (float64 where x or wi is). The input product is
+    taken a step at a time: all of x @ wi at once would be 4H/h times the
+    size of x."""
     r, ell, _ = x.shape
     hh = wh.shape[0]
     dt = torch.promote_types(x.dtype, wi.dtype)
+    ct = torch.promote_types(dt, torch.float32)
     wi = wi.to(dt)
-    wh = wh.to(torch.float32)
-    bh = bh.to(torch.float32)
-    c = torch.zeros(r, hh, dtype=torch.float32, device=x.device)
+    wh = wh.to(ct)
+    bh = bh.to(ct)
+    c = torch.zeros(r, hh, dtype=ct, device=x.device)
     h = torch.zeros_like(c)
     for t in range(ell):
-        gates = (x[:, t].to(dt) @ wi).to(torch.float32) + h @ wh + bh
+        gates = (x[:, t].to(dt) @ wi).to(ct) + h @ wh + bh
         gi, gf, gg, go = gates.chunk(4, dim=-1)
         nc = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
         nh = torch.sigmoid(go) * torch.tanh(nc)
@@ -103,22 +105,16 @@ def lstm_from_keys_plain(kown, kcross_al, mask, u_ext, wi, wh, bh,
     return out.reshape(q, b, -1)
 
 
-def lstm_from_keys_bwd_plain(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
-                             shift: int, root_own=None, root_cross=None):
-    """(du [ncol+2, h], dwi [h, 4H], dwh [H, 4H], dbh [4H]) float32 for the
-    cotangent g [Q, B, H], by an explicit BPTT in plain PyTorch (the TPU
-    kernel's formulas): a forward that keeps the carries entering each
-    slot, then a reverse loop that recomputes each slot's gates from them.
-    A masked slot passes dh and dc on and contributes nothing."""
-    q, b, ell = kown.shape
-    r = q * b
-    ncol = u_ext.shape[0] - 2
-    zero = torch.zeros(kown.shape, dtype=torch.bool, device=kown.device)
-    fo = _fields_ext(kown, zero, shift, ncol, root_own).reshape(r, ell, -1)
-    fc = _fields_ext(kcross_al, zero, shift, ncol,
-                     root_cross).reshape(r, ell, -1)
-    zo, zc = fo @ u_ext, fc @ u_ext
-    x = torch.relu(zo) + torch.relu(zc)                        # [R, L, h]
+def lstm_bptt_plain(x, mask, wi, wh, bh, g):
+    """(dx [R, L, h], dwi [h, 4H], dwh [H, 4H], dbh [4H]) in x's dtype
+    (float32, or float64): the gradient of the masked LSTM's final hidden
+    state over rows x [R, L, h], mask bool [R, L], with wi, wh and bh in
+    x's dtype, for the cotangent g [R, H], by an explicit BPTT in plain
+    PyTorch (the TPU kernels' formulas): a forward that keeps the carries
+    entering each slot, then a reverse loop that recomputes each slot's
+    gates from them. A masked slot passes dh and dc on, contributes
+    nothing and gets dx exactly 0."""
+    r, ell, _ = x.shape
     keep = mask.reshape(r, ell, 1)
 
     def activations(t, c, h):
@@ -127,7 +123,7 @@ def lstm_from_keys_bwd_plain(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
         return (torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg),
                 torch.sigmoid(go))
 
-    c = torch.zeros(r, wh.shape[0], dtype=torch.float32, device=kown.device)
+    c = torch.zeros(r, wh.shape[0], dtype=x.dtype, device=x.device)
     h = torch.zeros_like(c)
     carries = []
     for t in range(ell):
@@ -137,11 +133,11 @@ def lstm_from_keys_bwd_plain(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
         c = torch.where(keep[:, t], nc, c)
         h = torch.where(keep[:, t], so * torch.tanh(nc), h)
 
-    dh = g.reshape(r, -1).to(torch.float32)
+    dh = g.reshape(r, -1).to(x.dtype)
     dc = torch.zeros_like(dh)
-    du, dwi, dwh = (torch.zeros_like(u_ext), torch.zeros_like(wi),
-                    torch.zeros_like(wh))
+    dwi, dwh = torch.zeros_like(wi), torch.zeros_like(wh)
     dbh = torch.zeros_like(bh)
+    dx = torch.empty_like(x)
     for t in reversed(range(ell)):
         cp, hp = carries[t]
         si, sf, tg, so = activations(t, cp, hp)
@@ -154,11 +150,31 @@ def lstm_from_keys_bwd_plain(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
         dwi += x[:, t].T @ dgates
         dwh += hp.T @ dgates
         dbh += dgates.sum(dim=0)
-        dx = dgates @ wi.T
-        du += (fo[:, t].T @ torch.where(zo[:, t] > 0, dx, 0.0)
-               + fc[:, t].T @ torch.where(zc[:, t] > 0, dx, 0.0))
+        dx[:, t] = torch.where(k, dgates @ wi.T, 0.0)
         dh = torch.where(k, dgates @ wh.T, dh)
         dc = torch.where(k, dnc * sf, dc)
+    return dx, dwi, dwh, dbh
+
+
+def lstm_from_keys_bwd_plain(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
+                             shift: int, root_own=None, root_cross=None):
+    """(du [ncol+2, h], dwi [h, 4H], dwh [H, 4H], dbh [4H]) float32 for the
+    cotangent g [Q, B, H]: `lstm_bptt_plain` over the hidden rows, then dx
+    back through each side's relu into du."""
+    q, b, ell = kown.shape
+    r = q * b
+    ncol = u_ext.shape[0] - 2
+    zero = torch.zeros(kown.shape, dtype=torch.bool, device=kown.device)
+    fo = _fields_ext(kown, zero, shift, ncol, root_own).reshape(r * ell, -1)
+    fc = _fields_ext(kcross_al, zero, shift, ncol,
+                     root_cross).reshape(r * ell, -1)
+    zo, zc = fo @ u_ext, fc @ u_ext
+    x = (torch.relu(zo) + torch.relu(zc)).reshape(r, ell, -1)
+    dx, dwi, dwh, dbh = lstm_bptt_plain(x, mask.reshape(r, ell), wi, wh, bh,
+                                        g)
+    dx = dx.reshape(r * ell, -1)
+    du = (fo.T @ torch.where(zo > 0, dx, 0.0)
+          + fc.T @ torch.where(zc > 0, dx, 0.0))
     return du, dwi, dwh, dbh
 
 

@@ -263,14 +263,20 @@ class DeviceTrainer:
 
 
 def trainer_from_keys(model, spgk: SpGKeys, config: TrainConfig,
-                      feature: Optional[torch.Tensor] = None
+                      feature: Optional[torch.Tensor] = None,
+                      join_factory: Optional[Callable] = None
                       ) -> DeviceTrainer:
     """DeviceTrainer over a packed-key SpG: the join unpacks landing-count
-    features on the fly. Fills in the model's key_layout when unset, and
-    asks the join for what the model reads on the sets' device
+    features on the fly. Fills in the model's key_layout when unset.
+    `join_factory(num_walks, num_steps)` builds the join (for example
+    `lambda m, s: make_keys_join(m, s, impl="pallas")`); by default it is
+    `make_keys_join` asked for what the model reads on the sets' device
     (`Net.join_outputs`)."""
     if getattr(model, "key_layout", False) is None:
         model.key_layout = (spgk.num_walks, spgk.num_steps)
-    join = make_keys_join(spgk.num_walks, spgk.num_steps,
-                          **model.join_outputs(spgk.nodes.device))
+    if join_factory is None:
+        join = make_keys_join(spgk.num_walks, spgk.num_steps,
+                              **model.join_outputs(spgk.nodes.device))
+    else:
+        join = join_factory(spgk.num_walks, spgk.num_steps)
     return DeviceTrainer(model, spgk, config, join, feature=feature)

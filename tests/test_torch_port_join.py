@@ -98,10 +98,34 @@ def test_unpack_key_features_matches_jax():
 
 
 def test_unported_layouts_raise():
-    rows = torch.zeros(2, 1, 4, dtype=torch.int32)
-    sizes = torch.ones(2, 1, dtype=torch.int32)
-    # M=1000, S'=4: field 1 starts in the hi word (general hi/lo layout)
-    with pytest.raises(NotImplementedError, match="general hi/lo"):
-        join_gathered_keys(rows, rows, rows, sizes, 1000, 4)
-    with pytest.raises(NotImplementedError, match="pallas"):
-        join_gathered_keys(rows, rows, rows, sizes, 100, 3, impl="pallas")
+    """The general hi/lo layout (M=1000, S'=4: field 1 starts in the hi
+    word) on the merge and impl="pallas" in the lo-only layout join
+    (once they raised; the name dates from then) hand-built rows with
+    shared nodes, padding and full 32-bit key words exactly as the JAX
+    package's merge join does: the same feature pairs, mask and sizes,
+    and no key planes."""
+    rng = np.random.default_rng(3)
+    b, ell = 3, 6
+    nodes = np.full((2, b, ell), np.iinfo(np.int32).max, np.int32)
+    for q in range(2):
+        for r in range(b):
+            n = rng.integers(2, ell + 1)
+            nodes[q, r, :n] = np.sort(rng.choice(9, size=n, replace=False))
+    valid = nodes != np.iinfo(np.int32).max
+    words = lambda: np.where(valid, rng.integers(
+        0, 1 << 32, size=nodes.shape, dtype=np.uint64), 0).astype(np.uint32)
+    hi, lo = words(), words()
+    sizes = valid.sum(axis=-1).astype(np.int32)
+    from surel_plus_tpu.ops.join import join_gathered_keys as jax_join
+
+    t = lambda x: torch.as_tensor(x.view(np.int32))
+    for (nw, ns), impl in (((1000, 4), "merge"), ((100, 3), "pallas")):
+        want = jax_join(*map(jnp.asarray, (nodes, hi, lo, sizes)), nw, ns)
+        got = join_gathered_keys(t(nodes), t(hi), t(lo), t(sizes), nw, ns,
+                                 impl=impl)
+        for name in ("eidx", "mask", "sizes"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          _np(getattr(want, name)),
+                                          err_msg=f"{impl} {name}")
+        assert got.kown is None and got.kcross_al is None
+        assert bool((got.eidx[..., 1, :] != 0).any())  # partners found
