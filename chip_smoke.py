@@ -3,8 +3,8 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from `surel_plus_tpu_torch/csrc/` (one nvcc per
-   source, started together) and prints the build time.
+1. Builds the twelve CUDA kernels from `surel_plus_tpu_torch/csrc/` (one
+   nvcc per source, started together) and prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card, on
    sets sampled from the main path's graph at the main path's shapes:
    the fused key hidden set sum (K1) in the lo-only layout (M=100, S'=3,
@@ -41,18 +41,27 @@ NVIDIA GPU. Run from the repository root:
    join rows of the lo-only [4096, 301] and lead-in-hi [4096, 801]
    batches and of sets in the general hi/lo layout (M=1000, S'=4, 4096
    seeds of the graph), at odd B and L and with full 32-bit payload
-   words. Times each kernel, its plain version and, as yardsticks,
-   `torch.sort` for the merge, cuDNN's LSTM (`torch.nn.LSTM` over the
-   packed rows: the recurrence alone) forward for K4 and K5 and backward
-   for K4 bwd and K5 bwd, and the merge route's cross lookup for K6, and
-   prints the phase's peak device memory.
+   words; the per-slot hidden rows from the keys (K7) on the lo-only
+   [2, 4096, 301] batch with fp32 and bf16 output, the lead-in-hi
+   [2, 4096, 801] batch with root planes (both outputs), at B=999, L=203
+   and at Q=4, fp32 at rtol = atol = 1e-5 and bf16 within one bf16
+   rounding; its backward (K7 bwd) on the same shapes with a bf16 and a
+   fp32 cotangent, dU within 1e-4 of each row's largest magnitude, its
+   masking row exactly 0, two launches bit for bit. Times each kernel,
+   its plain version and, as yardsticks, `torch.sort` for the merge,
+   cuDNN's LSTM (`torch.nn.LSTM` over the packed rows: the recurrence
+   alone) forward for K4 and K5 and backward for K4 bwd and K5 bwd, the
+   merge route's cross lookup for K6, and for K7 and K7 bwd the
+   feature-pair route they replace (the join's unpack, the hidden layer
+   and the pair sum in bf16, and its backward), and prints the phase's
+   peak device memory.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
    S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
    32 x 4096 query edges, then the MRR of 4096 sources against 1000
    negatives each. Checks the sets' invariants, the fused route's logits
-   against the plain (unfused) route's on one batch (bf16, rtol = atol =
-   5e-2), and the card against the port's CPU path on 256 queries (fp32
+   against the plain route's (unfused, over the feature pairs) on one
+   batch (bf16, rtol = atol = 5e-2), and the card against the port's CPU path on 256 queries (fp32
    scores, rtol = atol = 1e-4). Profiles a few predict batches (device
    time by kernel, and the device's busy share).
    Then drives the training path at the bench width (bench.py:153-186):
@@ -106,6 +115,17 @@ NVIDIA GPU. Run from the repository root:
    join's on one batch, the scores against the keys route's on it (fp32
    at 1e-4, bf16 at 5e-2), and one lstm predict in the general hi/lo
    layout, where the pallas and merge joins must be equal.
+   Then the unfused keys routes (`Net(..., fused_hidden=False)`, whose
+   join on the card carries the aligned keys and no feature pairs, so
+   that K7 forms the hidden rows, and K7 bwd their gradient):
+   `predict` of the mean, attn and lstm Nets (bf16) on the 32 x 4096
+   edges; the K7 route against the feature-pair route on one batch
+   (fp32 at 1e-4, bf16 at 5e-2); for each aggregator the K7 route's
+   fp32 gradients against the fused route's (within 1e-3 of each
+   tensor's largest), a cold fit (no synchronizing call) and a timed
+   fit (mean 8 epochs, attn 4, lstm 1: the unfused lstm runs the plain
+   scan, a Python loop over the slots), the card against the port's CPU
+   path after 4 training steps, and a profile of a few train steps.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the card's name
@@ -192,6 +212,11 @@ GATE_BIAS_FIT_ATOL = 2 * LR * REF_STEPS
 LSTM_TOL = 1e-4         # K4 and cuDNN vs plain, fp32 over up to 801 steps
 LSTM_BWD_TOL = 1e-4     # K4 bwd vs plain, of each gradient's largest entry
 LSTM_EPOCHS = 4                                 # bench.py:206
+# the unfused lstm route runs the plain scan, a Python loop over the slots
+UNFUSED_LSTM_EPOCHS = 1
+K7_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # one bf16 ulp
+K7_ATOL = 1e-5
+K7B_TOL = 1e-4          # of each dU row's largest magnitude
 # operations of one LSTM cell update per unit: three sigmoids (exp, add,
 # divide) and two tanh (counted as 3 each), the cell's 3 and the output's 1
 LSTM_CELL_OPS = 19
@@ -243,6 +268,14 @@ KERNELS = {
         kernel=xlookup.KERNEL,
         source="surel_plus_tpu_torch/csrc/cross_lookup.cu",
         replaces="surel_plus_tpu/ops/pallas/join_kernel.py:33"),
+    "hidden_slots_fwd": dict(
+        kernel=hidden_sum.SLOTS_KERNEL,
+        source="surel_plus_tpu_torch/csrc/hidden_slots.cu",
+        replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:382"),
+    "hidden_slots_bwd": dict(
+        kernel=hidden_sum.SLOTS_BWD_KERNEL,
+        source="surel_plus_tpu_torch/csrc/hidden_slots_bwd.cu",
+        replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:402"),
 }
 # the kernels each main path must launch
 PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
@@ -256,14 +289,23 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "table_train": ("merge_pairs",),
          "table_attn_train": ("merge_pairs",),
          "table_lstm_train": ("lstm_x_fwd", "lstm_x_bwd", "merge_pairs"),
-         "keys_pallas_serve": ("cross_lookup", "lstm_x_fwd")}
+         "keys_pallas_serve": ("cross_lookup", "lstm_x_fwd"),
+         "unfused_serve": ("hidden_slots_fwd", "merge_pairs"),
+         "unfused_train": ("hidden_slots_fwd", "hidden_slots_bwd",
+                           "merge_pairs"),
+         "unfused_attn_train": ("hidden_slots_fwd", "hidden_slots_bwd",
+                                "merge_pairs"),
+         "unfused_lstm_train": ("hidden_slots_fwd", "hidden_slots_bwd",
+                                "merge_pairs")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
              "attn_pool_bwd": "attn_train", "lstm_keys_fwd": "lstm_train",
              "lstm_keys_bwd": "lstm_train", "lstm_x_fwd": "table_lstm_serve",
              "lstm_x_bwd": "table_lstm_train",
-             "cross_lookup": "keys_pallas_serve"}
+             "cross_lookup": "keys_pallas_serve",
+             "hidden_slots_fwd": "unfused_train",
+             "hidden_slots_bwd": "unfused_train"}
 
 
 class SmokeFailure(RuntimeError):
@@ -693,7 +735,8 @@ def cudnn_lstm(args):
     """`cudnn_lstm_x` on K4's hidden rows, materialized."""
     kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc = args
     q, b, ell = kown.shape
-    x = lstm_keys.lstm_rows_plain(kown, kc, u_ext, shift, ro, rc)
+    x = hidden_sum.fused_key_hidden_slots_plain(kown, kc, u_ext, shift,
+                                                root_own=ro, root_cross=rc)
     return cudnn_lstm_x(x.reshape(q * b, ell, -1), mask.reshape(q * b, ell),
                         wi, wh, bh)
 
@@ -1306,6 +1349,191 @@ def cross_lookup_vs_plain(spl, spw, rows, gsets):
                 bound=(bound_ms, by))
 
 
+def k7_inputs(joined, u_ext, shift, out_dtype, b=None, ell=None,
+              q4=False):
+    """K7's operands on a join's slot-aligned planes: the first b rows and
+    ell slots, or Q=4 (endpoints 2, 3 reuse other queries' rows)."""
+    cut = lambda t: None if t is None else t[:, :b, :ell].contiguous()
+    if q4:
+        cut = lambda t: None if t is None else torch.cat(
+            [t, t.roll(1, dims=1)])[:, :b, :ell].contiguous()
+    return (cut(joined.kown), cut(joined.kcross_al), u_ext, shift,
+            out_dtype, cut(joined.kown_root), cut(joined.kcross_al_root))
+
+
+def k7_label(args, label):
+    kown, kc = args[0], args[1]
+    return (f"{label}: Q,B,L={tuple(kown.shape)} -> {args[4]}, keys 0: "
+            f"own {float((kown == 0).float().mean()):.3f}, partner "
+            f"{float((kc == 0).float().mean()):.3f}")
+
+
+def k7_compare(args, label):
+    """K7 against its plain version: fp32 at rtol = atol = 1e-5, bf16
+    within one bf16 rounding (both round an fp32 sum once)."""
+    got = hidden_sum.fused_key_hidden_slots_cuda(*args)
+    want = hidden_sum.fused_key_hidden_slots_plain(*args)
+    sync()
+    require(got.shape == want.shape and got.dtype == want.dtype
+            and bool(torch.isfinite(got).all()), f"K7 {label}: bad output")
+    rtol = K7_RTOL[args[4]]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= K7_ATOL + rtol * want.float().abs()).all())
+    say(f"K7 {k7_label(args, label)}; max_abs_err={err:.3e} max|plain|="
+        f"{float(want.float().abs().max()):.3e} (rtol {rtol}, atol "
+        f"{K7_ATOL}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"K7 {label} disagrees with its plain version")
+    return err
+
+
+def k7b_call(fn, args, g):
+    """A K7 bwd version on K7's operands `args` and the cotangent g."""
+    kown, kc, u_ext, shift, _, ro, rc = args
+    return fn(kown, kc, u_ext, g, shift, ro, rc)
+
+
+def k7b_compare(args, g, label):
+    """K7 bwd against its plain version: dU within 1e-4 of each row's
+    largest, the masking row exactly 0, two launches bit for bit."""
+    got = k7b_call(hidden_sum.fused_key_hidden_slots_bwd_cuda, args, g)
+    again = k7b_call(hidden_sum.fused_key_hidden_slots_bwd_cuda, args, g)
+    want = k7b_call(hidden_sum.fused_key_hidden_slots_bwd_plain, args, g)
+    sync()
+    ncol = args[2].shape[0] - 2
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"K7 bwd {label}: bad output")
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    err = float((got - want).abs().max())
+    scale = want.abs().amax(dim=1, keepdim=True)
+    ok = bool(((got - want).abs() <= K7B_TOL * scale).all())
+    zero = bool((got[ncol] == 0).all())
+    say(f"K7 bwd {label}: Q,B,L={tuple(args[0].shape)}, g {g.dtype}: "
+        f"max_abs_err={err:.3e} max|dU|={float(scale.max()):.3e}, worst "
+        f"row err/row max="
+        f"{float(((got - want).abs() / scale.clamp(min=1e-30)).max()):.3e} "
+        f"(tol {K7B_TOL}); masking row zero: {zero}; repeat "
+        f"bit-identical: {same} {'ok' if ok and zero and same else 'FAIL'}")
+    require(ok, f"K7 bwd {label} disagrees with its plain version")
+    require(zero, f"K7 bwd {label}: masking row")
+    require(same, f"K7 bwd {label}: two launches differ")
+    return err
+
+
+def k7_bound(args):
+    """K7's least time: the keys (and root planes) read and the rows
+    written once; per slot and channel, ncol multiply-adds and a max on
+    each side and one add (no slot is skipped)."""
+    kown, kc, u_ext, _, out_dtype, ro, rc = args
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    n = kown.numel()
+    out_bytes = n * h * torch.empty((), dtype=out_dtype).element_size()
+    moved = nbytes(kown, kc, u_ext, ro, rc) + out_bytes
+    return bound(moved, n * h * (2 * (2 * ncol + 1) + 1))
+
+
+def k7b_bound(args, g):
+    """K7 bwd's least time: the keys and g read, dU written once; per
+    slot, side and channel the recomputed z (ncol multiply-adds and a
+    compare), and where it passes the relu ncol + 1 multiply-adds into
+    dU (this run's data decides)."""
+    kown, kc, u_ext, shift, _, ro, rc = args
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    zero = torch.zeros(kown.shape, dtype=torch.bool, device=kown.device)
+    passed = sum(int((hidden_sum._fields_ext(k, zero, shift, ncol, r)
+                      @ u_ext > 0).sum()) for k, r in ((kown, ro), (kc, rc)))
+    moved = nbytes(kown, kc, u_ext, ro, rc, g) + u_ext.numel() * 4
+    ops = kown.numel() * h * 2 * (2 * ncol + 1) + passed * 2 * (ncol + 1)
+    return bound(moved, ops)
+
+
+def feature_route(spgk, rows, kcross_al, gen):
+    """The feature-pair route K7 replaces, on the same rows: the join's
+    unpack of both sides' keys into feature pairs [2, B, L, 2, ncol],
+    the hidden layer over them and the pair sum, in bf16 (the bench
+    Net's dtype), with W1 and b1 that require a gradient. Returns the
+    route and its backward for a cotangent g."""
+    pe = make_net("mean", dtype="bfloat16", generator=gen).pe_embedding
+    hi, lo = spgk.khi[rows], spgk.klo[rows]
+    params = list(pe.fc0.parameters())
+
+    def forward():
+        feats = join_ops._feature_pairs(hi, lo, torch.zeros_like(kcross_al),
+                                        kcross_al, NUM_WALKS, NUM_STEPS)
+        return pe.hidden(feats).sum(dim=-2)
+
+    def backward(y, g):
+        return torch.autograd.grad(y, params, g, retain_graph=True)
+
+    return forward, backward
+
+
+def hidden_slots_vs_plain(jlo, jhi, u_lo, u_hi, shift_lo, shift_hi, spl,
+                          rows, gen):
+    """Phase 2 for K7 and K7 bwd: against their plain versions on the
+    lo-only [2, 4096, 301] batch (fp32 and bf16 output), the lead-in-hi
+    [2, 4096, 801] batch with root planes (both outputs), at B=999, L=203
+    and at Q=4; the backward on each with a bf16 and a fp32 cotangent.
+    Times at the lo-only batch in bf16 (the bench Net's dtype), beside the
+    feature-pair route they replace."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    lo = lambda dt, **kw: k7_inputs(jlo, u_lo, shift_lo, dt, **kw)
+    hi = lambda dt: k7_inputs(jhi, u_hi, shift_hi, dt)
+    lo_name = f"lo-only M={NUM_WALKS} S'={NUM_STEPS}"
+    hi_name = f"lead-in-hi M={WIDE_WALKS} S'={WIDE_STEPS}"
+    cases = [(lo(f32), lo_name), (lo(bf16), lo_name), (hi(f32), hi_name),
+             (hi(bf16), hi_name),
+             (lo(f32, b=999, ell=203), "odd B and L, lo-only"),
+             (lo(bf16, b=256, q4=True), "Q=4, lo-only")]
+    err = max(k7_compare(a, label) for a, label in cases)
+    dgen = torch.Generator(device=DEVICE).manual_seed(9)
+    cot = lambda a: torch.randn(*a[0].shape, a[2].shape[1], generator=dgen,
+                                device=DEVICE)
+    errb = 0.0
+    for a, label in cases[::2] + cases[5:]:      # lo, hi, odd, Q=4
+        g = cot(a)
+        for gt in (bf16, f32):
+            errb = max(errb, k7b_compare(a, g.to(gt), label))
+        del g
+    main = cases[1][0]
+    g = cot(main).to(bf16)
+    cuda, plain = (hidden_sum.fused_key_hidden_slots_cuda,
+                   hidden_sum.fused_key_hidden_slots_plain)
+    bcuda, bplain = (hidden_sum.fused_key_hidden_slots_bwd_cuda,
+                     hidden_sum.fused_key_hidden_slots_bwd_plain)
+    ms = time_ms(lambda: cuda(*main))
+    plain_ms = time_ms(lambda: plain(*main), iters=5)
+    f32_ms = time_ms(lambda: cuda(*cases[0][0]))
+    hi_ms = time_ms(lambda: cuda(*cases[3][0]))
+    bms = time_ms(lambda: k7b_call(bcuda, main, g))
+    bplain_ms = time_ms(lambda: k7b_call(bplain, main, g), iters=5)
+    bf32_ms = time_ms(lambda: k7b_call(bcuda, main, g.float()))
+    ghi = cot(cases[3][0]).to(bf16)
+    bhi_ms = time_ms(lambda: k7b_call(bcuda, cases[3][0], ghi))
+    del ghi
+    fwd, bwd = feature_route(spl, rows, jlo.kcross_al, gen)
+    route_ms = time_ms(fwd)
+    y = fwd()
+    route_bwd_ms = time_ms(lambda: bwd(y, g))
+    del y
+    fb, bb = k7_bound(main), k7b_bound(main, g)
+    say(f"K7 lo-only [2, 4096, 301] bf16: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]}); fp32 output "
+        f"{f32_ms:.4f} ms; lead-in-hi [2, 4096, 801] bf16 {hi_ms:.4f} ms; "
+        f"the feature-pair route it replaces (unpack, hidden layer, pair "
+        f"sum, bf16) {route_ms:.4f} ms")
+    say(f"K7 bwd lo-only, bf16 g: kernel {bms:.4f} ms, plain "
+        f"{bplain_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}); fp32 g "
+        f"{bf32_ms:.4f} ms; lead-in-hi {bhi_ms:.4f} ms; the feature-pair "
+        f"route's backward (W1, b1) {route_bwd_ms:.4f} ms")
+    return {"hidden_slots_fwd": dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, library_ms=None,
+                                     bound=fb),
+            "hidden_slots_bwd": dict(max_abs_err=errb, ms=bms,
+                                     plain_ms=bplain_ms, library_ms=None,
+                                     bound=bb)}
+
+
 def kernels_vs_plain(g, gsets):
     gen = torch.Generator().manual_seed(1)
     stats = {}
@@ -1359,6 +1587,9 @@ def kernels_vs_plain(g, gsets):
 
     # the cross lookup of both key words (K6)
     stats["cross_lookup"] = cross_lookup_vs_plain(spl, spw, rows, gsets)
+    # the per-slot hidden rows (K7) and their backward
+    stats.update(hidden_slots_vs_plain(jlo, jhi, a_lo[4], a_hi[4], a_lo[5],
+                                       a_hi[5], spl, rows, gen))
 
     m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
     err2 = k2_compare(m_main, "join rows, lo-only")
@@ -1529,18 +1760,29 @@ def serve_path(g, label):
     return spgk, net, edges
 
 
-def trainer_for(net, sets, cfg):
+def trainer_for(net, sets, cfg, join_factory=None):
     """The trainer of `net` over either store of sets: a table
-    DeviceTrainer over an SpGDevice, `trainer_from_keys` over an SpGKeys."""
+    DeviceTrainer over an SpGDevice, `trainer_from_keys` over an SpGKeys
+    (with `join_factory`, if given)."""
     if isinstance(sets, SpGDevice):
         return DeviceTrainer(net, sets, cfg)
-    return trainer_from_keys(net, sets, cfg)
+    return trainer_from_keys(net, sets, cfg, join_factory=join_factory)
+
+
+def pair_join(num_walks, num_steps):
+    """The keys join with the unpacked feature pairs: the unfused route
+    reads them through the hidden layer (the JAX package's XLA route)
+    instead of forming the hidden rows from the keys (K7)."""
+    return make_keys_join(num_walks, num_steps, aligned=True, features=True)
 
 
 def path_name(trainer) -> str:
-    """The aggregator, and which store the trainer reads."""
+    """The aggregator, which store the trainer reads, and the unfused
+    route where the model takes it."""
     table = isinstance(trainer.sets, SpGDevice)
-    return f"{trainer.model.aggrs}{', table' if table else ''}"
+    unfused = trainer.model.fused_hidden is False
+    return (f"{trainer.model.aggrs}{', table' if table else ''}"
+            f"{', unfused' if unfused else ''}")
 
 
 def subset(sets, edges: torch.Tensor):
@@ -1565,8 +1807,9 @@ def subset(sets, edges: torch.Tensor):
 
 
 def check_routes(spgk, net, edges) -> None:
-    """The fused route against the plain route on one batch (both on the
-    card), and the card against the port's CPU path on a few queries."""
+    """The fused route against the plain route (the hidden layer over the
+    feature pairs) on one batch (both on the card), and the card against
+    the port's CPU path on a few queries."""
     aggrs, state = net.aggrs, net.state_dict()
     be = edges[:, :BATCH]
     plain = make_net(aggrs, dropout=0.1, dtype="bfloat16",
@@ -1576,8 +1819,7 @@ def check_routes(spgk, net, edges) -> None:
     with torch.inference_mode():
         got = net.eval()(make_keys_join(
             NUM_WALKS, NUM_STEPS, **net.join_outputs(DEVICE))(*rows_be))
-        want = plain.eval()(make_keys_join(
-            NUM_WALKS, NUM_STEPS, **plain.join_outputs(DEVICE))(*rows_be))
+        want = plain.eval()(pair_join(NUM_WALKS, NUM_STEPS)(*rows_be))
     require(got.shape == (BATCH,) and bool(torch.isfinite(got).all()),
             f"fused route ({aggrs}) gave bad logits")
     err = float((got - want).abs().max())
@@ -1644,12 +1886,14 @@ def profile_predict(sets, net, edges, batches: int = 8) -> None:
             f"predict batches ({path_name(trainer)})")
 
 
-def train_setup(sets, aggrs: str):
+def train_setup(sets, aggrs: str, fused_hidden=None):
     """bench.py:153-165 (and :206-212 for attn and lstm) on the port: the
-    bench Net of `aggrs` from a seeded generator, its trainer over `sets`
-    (SpGKeys or SpGDevice), 32 x 4096 random query edges with random 0/1
-    labels, and the generator of the permutations and dropout masks."""
+    bench Net of `aggrs` (on the route `fused_hidden` picks) from a seeded
+    generator, its trainer over `sets` (SpGKeys or SpGDevice), 32 x 4096
+    random query edges with random 0/1 labels, and the generator of the
+    permutations and dropout masks."""
     net = make_net(aggrs, dropout=0.1, dtype="bfloat16",
+                   fused_hidden=fused_hidden,
                    generator=torch.Generator().manual_seed(0))
     trainer = trainer_for(net, sets, TrainConfig(
         batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
@@ -1710,15 +1954,20 @@ def fit_timed(trainer, edges, labels, gen, epochs, label) -> None:
     require(not still, f"parameters did not move: {still}")
 
 
-def route_grads(sets, net, be, dtype, fused, labels=None, cot=None):
+def route_grads(sets, net, be, dtype, fused, labels=None, cot=None,
+                pairs=True):
     """(loss, {name: gradient}) of one batch `be` on one route of a copy
     of `net` over `sets` (SpGKeys or SpGDevice), joined and fed as its
     trainer does, with a fixed dropout mask: of the BCE loss with
     `labels`, or, with `cot` [B, 2 H], of sum(cot * the scorer's input),
-    which leaves the scorer (MergeLayer) out of the gradient."""
+    which leaves the scorer (MergeLayer) out of the gradient. The unfused
+    route over SpGKeys reads the feature pairs, or with `pairs` False the
+    aligned keys (K7)."""
     m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=fused)
     m.load_state_dict(net.state_dict())
-    trainer = trainer_for(m, sets, TrainConfig(batch_size=BATCH))
+    keys_pairs = not fused and pairs and isinstance(sets, SpGKeys)
+    trainer = trainer_for(m, sets, TrainConfig(batch_size=BATCH),
+                          join_factory=pair_join if keys_pairs else None)
     joined, _ = trainer._batch(be)
     drop = torch.Generator(device=DEVICE).manual_seed(3)
     seen = []
@@ -1825,19 +2074,21 @@ def check_train_routes(sets, net, edges, labels) -> None:
                   grads("bfloat16", cot=cot), tol16)
 
 
-def check_train_cpu(sets, net, edges, labels) -> None:
-    """A few training steps on the card (fused route, kernels) against
-    the port's CPU path (unfused route), fp32, dropout 0, one shared
-    permutation, over `sets` (SpGKeys or SpGDevice). The attention gate's
-    bias is held to GATE_BIAS_FIT_ATOL: Adam turns its noise gradient into
-    steps of up to about lr."""
+def check_train_cpu(sets, net, edges, labels, fused_hidden=None) -> None:
+    """A few training steps on the card (the fused route, or the route
+    `fused_hidden` picks; kernels) against the port's CPU path (unfused
+    route, feature pairs), fp32, dropout 0, one shared permutation, over
+    `sets` (SpGKeys or SpGDevice). The attention gate's bias is held to
+    GATE_BIAS_FIT_ATOL: Adam turns its noise gradient into steps of up to
+    about lr."""
     n = REF_STEPS * REF_BATCH
     small, cpu_small, remap = subset(sets, edges[:, :n])
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(4))
     cfg = TrainConfig(batch_size=REF_BATCH, lr=LR, grad_clip=GRAD_CLIP)
     out = {}
     for dev, part in ((DEVICE, small), ("cpu", cpu_small)):
-        m = make_net(net.aggrs, dropout=0.0, device=dev)
+        m = make_net(net.aggrs, dropout=0.0, device=dev,
+                     fused_hidden=fused_hidden)
         m.load_state_dict(net.state_dict())
         trainer = trainer_for(m, part, cfg)
         losses, _ = trainer.fit(
@@ -2091,6 +2342,84 @@ def keys_pallas_path(spgk: SpGKeys, edges, label, launches, gsets) -> None:
     require(ok, "predict in the general layout gave bad scores")
 
 
+def check_unfused_routes(spgk: SpGKeys, net, edges) -> None:
+    """The unfused route's two forms on one batch, both on the card: the
+    hidden rows from the aligned keys (K7; the join carries no feature
+    pairs) against the hidden layer over the feature pairs, with the same
+    weights, fp32 at CPU_TOL and bf16 at ROUTE_TOL."""
+    rows_be = (spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, edges[:, :BATCH])
+    keys = make_keys_join(NUM_WALKS, NUM_STEPS,
+                          **net.join_outputs(DEVICE))(*rows_be)
+    require(keys.eidx is None and keys.kcross_al is not None,
+            "the unfused route's join on the card carries feature pairs")
+    pairs = pair_join(NUM_WALKS, NUM_STEPS)(*rows_be)
+    for dtype, tol in (("float32", CPU_TOL), ("bfloat16", ROUTE_TOL)):
+        m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=False,
+                     key_layout=(NUM_WALKS, NUM_STEPS))
+        m.load_state_dict(net.state_dict())
+        with torch.inference_mode():
+            got, want = m.eval()(keys), m(pairs)
+        require(got.shape == (BATCH,) and bool(torch.isfinite(got).all()),
+                f"the K7 route ({net.aggrs}, {dtype}) gave bad logits")
+        err = float((got - want).abs().max())
+        say(f"K7 route vs feature-pair route ({net.aggrs}, {dtype}), one "
+            f"batch of {BATCH}: max |d logit| = {err:.3e}, max |logit| = "
+            f"{float(want.abs().max()):.3e} (rtol = atol = {tol})")
+        require(torch.allclose(got, want, rtol=tol, atol=tol),
+                f"the K7 route ({net.aggrs}, {dtype}) disagrees with the "
+                "feature-pair route")
+
+
+def unfused_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
+    """The unfused keys routes on the bench sets (K7, and K7 bwd in
+    training): `predict` of the mean, attn and lstm Nets (bf16,
+    fused_hidden=False) through `trainer_from_keys`, whose join carries
+    the aligned keys and no feature pairs; the K7 route against the
+    feature-pair route; then for each aggregator the K7 route's fp32
+    gradients against the fused route's, a cold fit (no synchronizing
+    call) and a timed fit (mean 8 epochs, attn 4, lstm 1: its route is
+    the plain scan), card-vs-CPU training and a profile of a few steps.
+    The launch counts go into `launches`."""
+    cfg = TrainConfig(batch_size=BATCH)
+    nets = {a: make_net(a, dropout=0.1, dtype="bfloat16", fused_hidden=False,
+                        generator=torch.Generator().manual_seed(0))
+            for a in ("mean", "attn", "lstm")}
+    serve = {a: trainer_from_keys(n, spgk, cfg) for a, n in nets.items()}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for a, trainer in serve.items():
+        timed_predict(trainer, edges, label, f"{a}, unfused")
+    launches["unfused_serve"] = counts()
+    say(f"launches on the unfused serving path (mean, attn, lstm): "
+        f"{launches['unfused_serve']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for net in nets.values():
+        check_unfused_routes(spgk, net, edges)
+    paths = {"mean": ("unfused_train", N_EPOCHS, 8),
+             "attn": ("unfused_attn_train", ATTN_EPOCHS, 8),
+             "lstm": ("unfused_lstm_train", UNFUSED_LSTM_EPOCHS, 2)}
+    for aggrs, (path, epochs, steps) in paths.items():
+        trainer, _, _, gen = train_setup(spgk, aggrs, fused_hidden=False)
+        m = trainer.model
+        be = edges[:, :BATCH]
+        pair = [route_grads(spgk, m, be, "float32", fused, pairs=False,
+                            labels=labels[:BATCH]) for fused in (True, False)]
+        compare_grads("float32, random labels, the plain route on K7 (the "
+                      "hidden rows from the keys)", m, pair,
+                      GRAD_ROUTE_TOL["float32"])
+        del pair
+        fit_cold(trainer, edges, labels, gen, epochs)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        fit_timed(trainer, edges, labels, gen, epochs, label)
+        launches[path] = counts()
+        say(f"launches on the unfused training path ({aggrs}, timed fit): "
+            f"{launches[path]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_train_cpu(spgk, m, edges, labels, fused_hidden=False)
+        profile_train(trainer, edges, labels, gen, steps=steps)
+
+
 def counts():
     return {name: k["kernel"].launches for name, k in KERNELS.items()}
 
@@ -2204,6 +2533,8 @@ def main() -> int:
     table_path(g, spgk, tedges, tlabels, label, launches)
     # the keys join's impl "pallas", on the same sets and edges
     keys_pallas_path(spgk, tedges, label, launches, gsets)
+    # the unfused keys routes (K7, K7 bwd), on the same sets and edges
+    unfused_path(spgk, tedges, tlabels, label, launches)
 
     # phase 4
     for path, names in PATHS.items():

@@ -25,8 +25,13 @@ Over a keys join, two routes compute the same logits:
   `fused_key_hidden_sum` for mean, on the join's merged-order planes;
   `fused_attn_pool` for attn and `lstm_from_keys` for lstm, on the
   slot-aligned keys.
-* unfused: the hidden layer over the join's unpacked feature pairs, as
-  the JAX package's XLA path does.
+* unfused: the per-slot hidden rows hsum [2, B, L, h] first, then the
+  aggregator over them: over a join that carries feature pairs, the
+  hidden layer over the unpacked pairs and their sum, as the JAX
+  package's XLA path does (the CPU default); over a join that carries
+  the slot-aligned keys and no pairs (the CUDA default),
+  `fused_key_hidden_slots` from the keys (K7, and K7 bwd in training,
+  on the card; the JAX package's `fused_key_hidden_slots`).
 
 Over an encoding-table join (`gather_join`: integer eidx, with
 `enc_table` given to forward), the per-slot hidden rows hsum are formed
@@ -42,8 +47,9 @@ for mean, `AttentionAggregation.folded` for attn and `lstm_final_hidden`
 folded in; the unfused route projects every slot first.
 
 `fused_hidden=None` picks the fused route on CUDA and the unfused one on
-the CPU. Every route is differentiable: the fused keys routes' gradients
-for W1 and b1 flow through the kernels' autograd Functions into u_ext,
+the CPU. Every route is differentiable: the keys routes' gradients for
+W1 and b1 (fused, and unfused over the aligned keys) flow through the
+kernels' autograd Functions into u_ext,
 and the fused lstm routes' for W2, b2 and the LSTM's weights through the
 fold into wi_eff and bh_eff (and, over hsum, into hsum through K5 bwd's
 dx). The JAX Net trains its fused lstm route over hsum through its scan
@@ -70,6 +76,7 @@ from surel_plus_tpu_torch.models.layers import (
 from surel_plus_tpu_torch.ops.join import JoinedBatch
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     NEG,
+    fused_key_hidden_slots,
     fused_key_hidden_sum,
     u_core_rows,
 )
@@ -149,12 +156,14 @@ class Net(nn.Module):
         """The keyword arguments of `make_keys_join` that build what forward
         reads on `device`: the fused mean route reads only the merged-order
         planes, the fused attention and lstm routes the slot-aligned keys but
-        not the unpacked feature pairs, the unfused routes the feature
-        pairs. A join that cannot build key planes (impl="pallas", the
-        general hi/lo layout) builds its feature pairs whatever these say,
-        and forward reads those."""
+        not the unpacked feature pairs; the unfused routes the slot-aligned
+        keys on CUDA (K7 forms the hidden rows from them) and the feature
+        pairs on the CPU (the JAX package's XLA route). A join that cannot
+        build key planes (impl="pallas", the general hi/lo layout) builds
+        its feature pairs whatever these say, and forward reads those."""
         if not self.fused_on(device):
-            return dict(aligned=True, features=True)
+            return dict(aligned=True,
+                        features=torch.device(device).type != "cuda")
         if self.aggrs in ("attn", "lstm"):
             return dict(aligned=True, features=False)
         return dict(aligned=False)
@@ -226,12 +235,25 @@ class Net(nn.Module):
             mean = (sums / cnt[..., None].to(torch.float32)).to(cd)
             return self._score(pe.project(mean) + b2v(mean), feature,
                                generator)
+        elif joined.eidx is None and joined.kcross_al is not None:
+            # the unfused routes over the aligned keys: the per-slot
+            # hidden rows straight from the keys (K7, and K7 bwd in
+            # training, on the card)
+            if self.key_layout is None:
+                raise ValueError("the keys hidden-rows route needs "
+                                 "key_layout")
+            hsum = fused_key_hidden_slots(
+                joined.kown, joined.kcross_al, self._u_ext(),
+                int(self.key_layout[0]).bit_length(), out_dtype=cd,
+                root_own=joined.kown_root,
+                root_cross=joined.kcross_al_root)            # [2, B, L, h]
         elif joined.eidx is None:
-            raise ValueError("this route needs the join's feature pairs "
-                             "(make_keys_join(..., aligned=True))")
+            raise ValueError("this route needs the join's aligned keys or "
+                             "feature pairs (make_keys_join(..., "
+                             "aligned=True))")
         else:
-            # the unfused routes, and the fused ones over a join without
-            # key planes
+            # the unfused routes over feature pairs, and the fused ones
+            # over a join without key planes
             hsum = pe.hidden(joined.eidx).sum(dim=-2)        # [2, B, L, h]
         if self.aggrs == "mean":
             mean = masked_mean(hsum, joined.mask)

@@ -1,6 +1,8 @@
 """Fused key unpack + hidden layer + masked set sum: the CUDA kernels
 `csrc/hidden_sum.cu` (forward) and `csrc/hidden_sum_bwd.cu` (backward),
 their plain PyTorch versions, and the autograd Function that joins them.
+Below them, the per-slot variant (`fused_key_hidden_slots`, kernels
+`csrc/hidden_slots.cu` and `csrc/hidden_slots_bwd.cu`).
 
 Replaces surel_plus_tpu/ops/pallas/hidden_sum_kernel.py
 (`fused_key_hidden_sum`, `_fwd_kernel`, `_bwd_kernel` and the custom VJP
@@ -42,8 +44,15 @@ KERNEL = CudaKernel("hidden_sum", "hidden_sum_fwd_launch",
 BWD_KERNEL = CudaKernel("hidden_sum_bwd", "hidden_sum_bwd_launch",
                         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p])
+SLOTS_KERNEL = CudaKernel("hidden_slots", "hidden_slots_fwd_launch",
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p])
+SLOTS_BWD_KERNEL = CudaKernel("hidden_slots_bwd", "hidden_slots_bwd_launch",
+                              [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                              + [ctypes.c_void_p])
 MAX_Q, MAX_NCOL, MAX_H = 4, 8, 1024
 BWD_PARTS = 2048   # row groups of the backward, each one partial dU
+SLOTS_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def u_core_rows(w1: torch.Tensor, num_walks: int,
@@ -126,14 +135,19 @@ def _check_operands(kown, mask_own, kcross, mask_cross, u_ext, shift,
     if root_own is not None:
         check_cuda("root_own", root_own, torch.int32, (q, b, lo), dev)
         check_cuda("root_cross", root_cross, torch.int32, (b, lc), dev)
-    nshift = ncol - 1 if root_own is not None else ncol
+    _check_layout(q, ncol, h, shift, root_own is not None)
+    return q, b, lo, lc, h, ncol
+
+
+def _check_layout(q: int, ncol: int, h: int, shift: int, root: bool):
+    """Raise unless the kernels take Q endpoints, ncol fields of `shift`
+    bits (the last from a root plane with `root`) and H channels."""
+    nshift = ncol - 1 if root else ncol
     if not (1 <= q <= MAX_Q and 2 <= ncol <= MAX_NCOL and 1 <= h <= MAX_H):
         raise ValueError(f"unsupported shape: Q={q} ncol={ncol} H={h}")
-    if (nshift - 1) * shift >= 32 or (root_own is not None
-                                      and nshift * shift > 32):
+    if (nshift - 1) * shift >= 32 or (root and nshift * shift > 32):
         raise ValueError(f"{ncol} fields of {shift} bits do not fit the "
                          "lo word")
-    return q, b, lo, lc, h, ncol
 
 
 def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
@@ -220,3 +234,165 @@ def fused_key_hidden_sum(kown: torch.Tensor, mask_own: torch.Tensor,
     differentiated), on CPU tensors it takes the plain versions."""
     return FusedKeyHiddenSum.apply(kown, mask_own, kcross, mask_cross,
                                    u_ext, shift, root_own, root_cross)
+
+
+# ---------------------------------------------------------------------------
+# Per-slot variant: the pair-summed hidden rows [Q, B, L, H] themselves,
+# for the aggregators that read every slot (the unfused keys routes of
+# models/net.py). Replaces `fused_key_hidden_slots` of the same JAX module
+# (`_slots_fwd_kernel`, `_slots_bwd_kernel`, the custom VJP
+# `_fused_slots`). The partner keys are slot-aligned (the join's
+# kcross_al) and no mask is read: a masked slot gives finite values that
+# the aggregators mask, and an absent partner's key 0 gives relu(b1), as
+# the feature route's zero feature row does.
+
+
+def fused_key_hidden_slots_plain(kown, kcross_al, u_ext, shift: int,
+                                 out_dtype=torch.float32, root_own=None,
+                                 root_cross=None):
+    """relu(fields_ext(kown) @ u_ext) + relu(fields_ext(kcross_al) @ u_ext)
+    in u_ext's precision (at least fp32), cast once to `out_dtype`. The
+    invalid-slot column is all zeros on both sides, so u_ext's masking row
+    never enters."""
+    ncol = u_ext.shape[0] - 2
+    ct = torch.promote_types(u_ext.dtype, torch.float32)
+    u = u_ext.to(ct)
+    zero = torch.zeros(kown.shape, dtype=torch.bool, device=kown.device)
+    out = torch.relu(_fields_ext(kown, zero, shift, ncol, root_own).to(ct)
+                     @ u)
+    out = out + torch.relu(_fields_ext(kcross_al, zero, shift, ncol,
+                                       root_cross).to(ct) @ u)
+    return out.to(out_dtype)
+
+
+def fused_key_hidden_slots_bwd_plain(kown, kcross_al, u_ext, g, shift: int,
+                                     root_own=None, root_cross=None):
+    """dU [ncol+2, H] (fp32, or u_ext's wider type) for the cotangent
+    g [Q, B, L, H]: the sum over both sides and all slots of
+    fields_ext^T @ where(z > 0, g, 0). Row ncol is exactly 0."""
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    ct = torch.promote_types(u_ext.dtype, torch.float32)
+    u = u_ext.to(ct)
+    g = g.to(ct).reshape(-1, h)
+    zero = torch.zeros(kown.shape, dtype=torch.bool, device=kown.device)
+    du = torch.zeros(ncol + 2, h, dtype=ct, device=u_ext.device)
+    for keys, root in ((kown, root_own), (kcross_al, root_cross)):
+        f = _fields_ext(keys, zero, shift, ncol, root).to(ct).reshape(
+            -1, ncol + 2)
+        du += f.T @ torch.where(f @ u > 0, g, 0.0)
+    return du
+
+
+def _check_slots_operands(kown, kcross_al, u_ext, shift, root_own,
+                          root_cross):
+    """Raise unless the operands are what the per-slot CUDA kernels take;
+    returns (Q, B, L, H, ncol)."""
+    q, b, ell = kown.shape
+    nbx, h = u_ext.shape
+    ncol = nbx - 2
+    dev = kown.device
+    check_cuda("kown", kown, torch.int32, (q, b, ell), dev)
+    check_cuda("kcross_al", kcross_al, torch.int32, (q, b, ell), dev)
+    check_cuda("u_ext", u_ext, torch.float32, (nbx, h), dev)
+    if (root_own is None) != (root_cross is None):
+        raise ValueError("pass both root planes or neither")
+    if root_own is not None:
+        check_cuda("root_own", root_own, torch.int32, (q, b, ell), dev)
+        check_cuda("root_cross", root_cross, torch.int32, (q, b, ell), dev)
+    _check_layout(q, ncol, h, shift, root_own is not None)
+    return q, b, ell, h, ncol
+
+
+def fused_key_hidden_slots_cuda(kown, kcross_al, u_ext, shift: int,
+                                out_dtype=torch.float32, root_own=None,
+                                root_cross=None):
+    """Launch the per-slot kernel; see csrc/hidden_slots.cu. out_dtype:
+    float32 or bfloat16."""
+    q, b, ell, h, ncol = _check_slots_operands(kown, kcross_al, u_ext,
+                                               shift, root_own, root_cross)
+    if out_dtype not in SLOTS_OUT_DTYPES:
+        raise ValueError(f"out_dtype {out_dtype} is not float32 or "
+                         "bfloat16")
+    out = torch.empty(q, b, ell, h, dtype=out_dtype, device=kown.device)
+    if out.numel():
+        SLOTS_KERNEL(kown.device, ptr(kown), ptr(kcross_al),
+                     ptr_or_null(root_own), ptr_or_null(root_cross),
+                     ptr(u_ext), ptr(out), q, b, ell, h, ncol, shift,
+                     int(out_dtype == torch.bfloat16))
+    return out
+
+
+def fused_key_hidden_slots_bwd_cuda(kown, kcross_al, u_ext, g, shift: int,
+                                    root_own=None, root_cross=None):
+    """Launch the per-slot backward and its reduction pass; see
+    csrc/hidden_slots_bwd.cu. g: contiguous [Q, B, L, H], float32 or
+    bfloat16, read as it is."""
+    q, b, ell, h, ncol = _check_slots_operands(kown, kcross_al, u_ext,
+                                               shift, root_own, root_cross)
+    dev = kown.device
+    if g.dtype not in SLOTS_OUT_DTYPES:
+        raise ValueError(f"g has dtype {g.dtype}, expected float32 or "
+                         "bfloat16")
+    check_cuda("g", g, g.dtype, (q, b, ell, h), dev)
+    du = torch.zeros(ncol + 2, h, dtype=torch.float32, device=dev)
+    n = q * b * ell
+    if n:
+        parts = min(n, BWD_PARTS)
+        scratch = torch.empty((ncol + 1) * h * parts, dtype=torch.float32,
+                              device=dev)
+        SLOTS_BWD_KERNEL(dev, ptr(kown), ptr(kcross_al),
+                         ptr_or_null(root_own), ptr_or_null(root_cross),
+                         ptr(u_ext), ptr(g), ptr(scratch), ptr(du), q, b,
+                         ell, h, ncol, shift,
+                         int(g.dtype == torch.bfloat16), parts)
+    return du
+
+
+class FusedKeyHiddenSlots(torch.autograd.Function):
+    """The per-slot rows with their gradient for u_ext only (the custom
+    VJP `_fused_slots` of the JAX kernel): the backward recomputes the
+    activations from the saved keys, on the card with the backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, kown, kcross_al, u_ext, shift, out_dtype, root_own,
+                root_cross):
+        ctx.shift = shift
+        ctx.save_for_backward(kown, kcross_al, u_ext, root_own, root_cross)
+        fwd = pick("fused_key_hidden_slots forward", kown,
+                   fused_key_hidden_slots_cuda, fused_key_hidden_slots_plain)
+        return fwd(kown, kcross_al, u_ext, shift, out_dtype, root_own,
+                   root_cross)
+
+    @staticmethod
+    def backward(ctx, g):
+        kown, kcross_al, u_ext, root_own, root_cross = ctx.saved_tensors
+        bwd = pick("fused_key_hidden_slots backward", kown,
+                   fused_key_hidden_slots_bwd_cuda,
+                   fused_key_hidden_slots_bwd_plain)
+        du = bwd(kown, kcross_al, u_ext, g.contiguous(), ctx.shift,
+                 root_own, root_cross)
+        return None, None, du, None, None, None, None
+
+
+def fused_key_hidden_slots(kown: torch.Tensor, kcross_al: torch.Tensor,
+                           u_ext: torch.Tensor, shift: int,
+                           out_dtype: torch.dtype = torch.float32,
+                           root_own: Optional[torch.Tensor] = None,
+                           root_cross: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Pair-summed per-slot hidden activations -> [Q, B, L, H] out_dtype
+    (computed in fp32 and rounded once; a bf16 output halves the only
+    large write), differentiable in u_ext.
+
+    kown, kcross_al [Q, B, L]: int32 bits of the packed lo keys, slot
+    aligned. u_ext float32 [ncol + 2, H] = concat(u_core_rows(W1), [any
+    row], [b1 row]); the masking row meets a zero column here. root_own /
+    root_cross: int32 0/1 planes replacing the key's root bit (lead-in-hi
+    layout). Masked slots give finite values the caller must mask. On
+    CUDA tensors this launches the kernels (forward, and backward when
+    differentiated), on CPU tensors it takes the plain versions. The JAX
+    wrapper's `tb` (its TPU program tile) and `interpret` (Pallas
+    interpret mode) have no counterpart here."""
+    return FusedKeyHiddenSlots.apply(kown, kcross_al, u_ext, shift,
+                                     out_dtype, root_own, root_cross)

@@ -44,6 +44,7 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     MAX_NCOL,
     MAX_Q,
     _fields_ext,
+    fused_key_hidden_slots_plain,
 )
 
 LSTM_KERNEL = CudaKernel("lstm_keys", "lstm_keys_fwd_launch",
@@ -84,22 +85,14 @@ def lstm_scan_plain(x, mask, wi, wh, bh):
     return h
 
 
-def lstm_rows_plain(kown, kcross_al, u_ext, shift: int, root_own=None,
-                    root_cross=None):
-    """The hidden rows x [Q, B, L, h] float32 that the LSTM reads."""
-    ncol = u_ext.shape[0] - 2
-    zero = torch.zeros(kown.shape, dtype=torch.bool, device=kown.device)
-    x = torch.relu(_fields_ext(kown, zero, shift, ncol, root_own) @ u_ext)
-    return x + torch.relu(_fields_ext(kcross_al, zero, shift, ncol,
-                                      root_cross) @ u_ext)
-
-
 def lstm_from_keys_plain(kown, kcross_al, mask, u_ext, wi, wh, bh,
                          shift: int, root_own=None, root_cross=None):
     """[Q, B, H] float32 in plain PyTorch: materializes the hidden rows,
     then runs `lstm_scan_plain` over them."""
     q, b, ell = kown.shape
-    x = lstm_rows_plain(kown, kcross_al, u_ext, shift, root_own, root_cross)
+    x = fused_key_hidden_slots_plain(kown, kcross_al, u_ext, shift,
+                                     root_own=root_own,
+                                     root_cross=root_cross)
     out = lstm_scan_plain(x.reshape(q * b, ell, -1),
                           mask.reshape(q * b, ell), wi, wh, bh)
     return out.reshape(q, b, -1)
