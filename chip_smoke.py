@@ -20,20 +20,23 @@ NVIDIA GPU. Run from the repository root:
    in both layouts (L=301 and L=801), at an odd shape (B=999, L=203), at
    Q=4, on masks with holes punched in, with an empty row and a row
    valid only at its last slot, and at H=256 (its widest, with the
-   weights read from L2), fp32 at rtol = atol = 1e-4, two launches
-   and the unsorted row order bit for bit, the empty row exactly 0; its
-   backward (K4 bwd) on the same seven cases, each gradient within 1e-4
-   of its largest entry with the rows sorted and unsorted, two launches
-   bit for bit, dU's masking row exactly 0 and empty rows silent; the
+   weights read from L2), fp32 at rtol = atol = 1e-4, two launches,
+   the unsorted row order and the training instance (which keeps the
+   stash for the backward) bit for bit, the empty row exactly 0; its
+   backward (K4 bwd, from the training forward's stash) on the same
+   seven cases, each gradient within 1e-4 of its largest entry with the
+   rows sorted and unsorted, two launches bit for bit, dU's masking row
+   exactly 0 and empty rows silent; the
    merge (K2) at [4096, 301] x 2, at [4096, 801] x 2 and at odd widths,
    exactly; the masked LSTM over given rows (K5) on the encoding-table
    path's real input (the pair-summed hidden rows of a table join, fp32
    [8192, L, 96], with the join's prefix masks) at (a) L=301 and (b)
    L=801, (c) at B=999, L=203, (d) on masks with holes, (e) with an
    empty row and a row valid only at its last slot, and (f) at
-   h = H = 256, fp32 at rtol = atol = 1e-4, two launches and the
-   unsorted row order bit for bit, the empty row exactly 0; its backward
-   (K5 bwd) on the same six cases, each of dx, dwi, dwh, dbh within 1e-4
+   h = H = 256, fp32 at rtol = atol = 1e-4, two launches, the unsorted
+   row order and the training instance bit for bit, the empty row
+   exactly 0; its backward (K5 bwd, from the training forward's stash)
+   on the same six cases, each of dx, dwi, dwh, dbh within 1e-4
    of its largest entry with the rows sorted and unsorted, two launches
    bit for bit, dx exactly 0 at every masked slot and empty rows silent;
    the cross lookup of both key words (K6) exactly against its plain
@@ -50,7 +53,11 @@ NVIDIA GPU. Run from the repository root:
    masking row exactly 0, two launches bit for bit. Times each kernel,
    its plain version and, as yardsticks, `torch.sort` for the merge,
    cuDNN's LSTM (`torch.nn.LSTM` over the packed rows: the recurrence
-   alone) forward for K4 and K5 and backward for K4 bwd and K5 bwd, the
+   alone) forward for K4 and K5, and its training forward and backward
+   beside K4 bwd and K5 bwd (each backward timed alone from a fresh
+   stash, beside its training forward and the pair, at L=301 and
+   L=801, with its bound on the fp32 CUDA cores and its products' time
+   in 3xTF32 at the TF32 tensor rate), the
    merge route's cross lookup for K6, and for K7 and K7 bwd the
    feature-pair route they replace (the join's unpack, the hidden layer
    and the pair sum in bf16, and its backward), and prints the phase's
@@ -227,6 +234,7 @@ LSTM_CELL_BWD_OPS = 31
 # NVIDIA's H100 SXM data sheet: HBM3 rate, fp32 peak of the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12      # CUDA cores, outside the tensor cores
+TF32_OPS_PER_S = 495e12     # tensor cores, TF32, dense
 
 KERNELS = {
     "hidden_sum_fwd": dict(
@@ -688,6 +696,7 @@ def lstm_check(name, cuda, plain, args, mask, label):
     got = cuda(*args)
     again = cuda(*args)
     unsorted = cuda(*args, sort_rows=False)
+    trained = cuda(*args, keep_stash=True)[0]
     want = plain(*args)
     sync()
     require(got.shape == want.shape and bool(torch.isfinite(got).all()),
@@ -695,17 +704,23 @@ def lstm_check(name, cuda, plain, args, mask, label):
     bits = lambda x: x.view(torch.int32)
     same = torch.equal(bits(got), bits(again))
     same_order = torch.equal(bits(got), bits(unsorted))
+    same_train = torch.equal(bits(got), bits(trained))
+    del trained
     empty = ~mask.any(dim=-1)
     zero = bool((got[empty] == 0).all())
     err = float((got - want).abs().max())
     ok = torch.allclose(got, want, rtol=LSTM_TOL, atol=LSTM_TOL)
+    fine = ok and same and same_order and same_train and zero
     say(f"{name} {label}; max_abs_err={err:.3e} max|plain|="
         f"{float(want.abs().max()):.3e} (rtol = atol = {LSTM_TOL}); repeat "
         f"bit-identical: {same}; unsorted rows bit-identical: {same_order};"
-        f" {int(empty.sum())} empty rows exactly 0: {zero} "
-        f"{'ok' if ok and same and same_order and zero else 'FAIL'}")
+        f" training instance (stash kept) bit-identical: {same_train}; "
+        f"{int(empty.sum())} empty rows exactly 0: {zero} "
+        f"{'ok' if fine else 'FAIL'}")
     require(ok, f"{name} {label} disagrees with its plain version")
     require(same and same_order, f"{name} {label}: launches differ")
+    require(same_train, f"{name} {label}: the training forward's final h "
+                        "differs from serving's")
     require(zero, f"{name} {label}: an empty row is not 0")
     return err
 
@@ -826,9 +841,48 @@ def lstm_vs_plain(cases, wide):
     return dict(max_abs_err=err, **out["L=301"])
 
 
-def lstm_bwd_call(fn, args, g, **kw):
-    """A K4 bwd version on K4's operands `args` and the cotangent g."""
-    return fn(*args[:7], g, *args[7:], **kw)
+def lstm_bwd_call(fn, args, g):
+    """K4 bwd's plain version on K4's operands `args` and the cotangent
+    g."""
+    return fn(*args[:7], g, *args[7:])
+
+
+def lstm_stash(args, sort_rows=True):
+    """K4's training forward on `args`: the stash it keeps."""
+    return lstm_keys.lstm_from_keys_cuda(*args, sort_rows=sort_rows,
+                                         keep_stash=True)[1]
+
+
+def lstm_bwd_from(args, g, stash):
+    """K4 bwd from a training forward's stash."""
+    return lstm_keys.lstm_from_keys_bwd_cuda(*args[:7], g, *args[7:],
+                                             stash=stash)
+
+
+def lstm_train_bwd(args, g, sort_rows=True):
+    """K4's training forward, then K4 bwd from its stash."""
+    return lstm_bwd_from(args, g, lstm_stash(args, sort_rows))
+
+
+def time_after_ms(prep, fn, iters: int = TIMED_ITERS) -> float:
+    """Median device time of fn(prep()) in ms, without prep's: the L2
+    flushed after prep and before each timed run."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
+    fn(prep())
+    sync()
+    times = []
+    for _ in range(iters):
+        x = prep()
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(x)
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+        del x
+    return float(np.median(times))
 
 
 def lstm_cotangent(args, gen):
@@ -838,17 +892,17 @@ def lstm_cotangent(args, gen):
 
 
 def lstm_bwd_compare(args, g, label):
-    """K4 bwd against its plain version: each of (du, dwi, dwh, dbh)
-    within LSTM_BWD_TOL of that tensor's largest entry, with the rows
-    sorted and in their own order (other summation orders); two launches
-    bit for bit; dU's masking row exactly 0; rows with no valid slot
-    contribute nothing (a cotangent of 1e3 there leaves every bit)."""
-    cuda = lstm_keys.lstm_from_keys_bwd_cuda
-    got = lstm_bwd_call(cuda, args, g)
-    again = lstm_bwd_call(cuda, args, g)
-    unsorted = lstm_bwd_call(cuda, args, g, sort_rows=False)
+    """K4 bwd, from the stash of K4's training forward, against its plain
+    version: each of (du, dwi, dwh, dbh) within LSTM_BWD_TOL of that
+    tensor's largest entry, with the rows sorted and in their own order
+    (other summation orders); two launches bit for bit; dU's masking row
+    exactly 0; rows with no valid slot contribute nothing (a cotangent of
+    1e3 there leaves every bit)."""
+    got = lstm_train_bwd(args, g)
+    again = lstm_train_bwd(args, g)
+    unsorted = lstm_train_bwd(args, g, sort_rows=False)
     empty = ~args[2].any(dim=-1)
-    loud = lstm_bwd_call(cuda, args, torch.where(empty[..., None], 1e3, g))
+    loud = lstm_train_bwd(args, torch.where(empty[..., None], 1e3, g))
     want = lstm_bwd_call(lstm_keys.lstm_from_keys_bwd_plain, args, g)
     sync()
     require(all(x.shape == y.shape and bool(torch.isfinite(x).all())
@@ -878,17 +932,11 @@ def lstm_bwd_compare(args, g, label):
     return err
 
 
-def lstm_bwd_bound(args, g):
-    """K4 bwd's least time, from the valid (row, slot) pairs: the forward
-    again (lstm_bound's count), the products dh_prev, dx (2 4H (H + h))
-    and dwi, dwh (2 4H (h + H)), the cell's backward (LSTM_CELL_BWD_OPS
-    per unit), and 2 (ncol + 1) into dU for each side and channel that
-    passes the relu (this run's data decides)."""
-    kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc = args
-    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
-    hh = wh.shape[0]
-    moved = nbytes(kown, kc, mask, u_ext, wi, wh, bh, ro, rc, g) \
-        + nbytes(u_ext, wi, wh, bh)
+def relu_passed(args):
+    """The (valid slot, side, channel) triples whose hidden value passes
+    the relu, from this run's keys."""
+    kown, kc, mask, u_ext, _, _, _, shift, ro, rc = args
+    ncol = u_ext.shape[0] - 2
     passed = 0
     for keys, roots in ((kown, ro), (kc, rc)):
         for i in range(kown.shape[0]):  # one endpoint at a time
@@ -897,40 +945,104 @@ def lstm_bwd_bound(args, g):
                 None if roots is None else roots[i]) @ u_ext
             passed += int(((z > 0) & mask[i, ..., None]).sum())
             del z
-    per_slot = (h * (2 * (2 * ncol + 2) + 1) + 3 * 2 * 4 * hh * (h + hh)
-                + (LSTM_CELL_OPS + LSTM_CELL_BWD_OPS) * hh)
-    return bound(moved, int(mask.sum()) * per_slot
-                 + passed * 2 * (ncol + 1))
+    return passed
 
 
-def lstm_library_bwd(args, g):
-    """The yardstick of K4 bwd: `cudnn_bwd` on K4's hidden rows."""
-    return cudnn_bwd(*cudnn_lstm(args), g)
+def bwd_products(valid, h, hh):
+    """Operations of the backward's four products per valid (row, slot):
+    dh_prev = dgates wh^T, dx = dgates wi^T, dwi += x^T dgates, dwh +=
+    h_prev^T dgates, 2 4H (h + H) each pair."""
+    return valid * 2 * 2 * 4 * hh * (h + hh)
 
 
-def cudnn_bwd(lstm, packed, g):
-    """cuDNN's LSTM backward (`cudnn_lstm_x`'s module and packed rows),
-    with the packed rows as a leaf: the gradients of sum(g * h_n) for the
-    rows and the weights. Returns (a call, its (dwi, dwh, dbh) in the
-    port's orientation)."""
+def stash_bytes(valid, hh):
+    """The stash a valid (row, slot) needs: gates 4H, c and h H each."""
+    return valid * 6 * hh * 4
+
+
+def lstm_bwd_bound(args, g):
+    """K4 bwd's least time, from the valid (row, slot) pairs: the products
+    dh_prev, dx, dwi, dwh (`bwd_products`), the cell's backward
+    (LSTM_CELL_BWD_OPS per unit), the hidden rows again for dwi (per
+    channel and side 2 ncol + 2 operations and the relu) and 2 (ncol + 1)
+    into dU for each side and channel that passes the relu (this run's
+    data decides); the stash read once (`stash_bytes`), the keys, g and
+    the weights read and the gradients written. Also returns the products'
+    time on the tensor cores in 3xTF32 (three TF32 products each)."""
+    kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc = args
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    hh = wh.shape[0]
+    valid = int(mask.sum())
+    moved = nbytes(kown, kc, mask, u_ext, wi, wh, bh, ro, rc, g) \
+        + nbytes(u_ext, wi, wh, bh) + stash_bytes(valid, hh)
+    prods = bwd_products(valid, h, hh)
+    ops = (prods + valid * (h * (2 * (2 * ncol + 2) + 1)
+                            + LSTM_CELL_BWD_OPS * hh)
+           + relu_passed(args) * 2 * (ncol + 1))
+    return bound(moved, ops), 3 * prods / TF32_OPS_PER_S * 1e3
+
+
+def stash_fwd_bound(fwd_bound_ms, valid, hh):
+    """The training forward's least time: the serving forward's (its
+    operations bound it) or the stash written once, whichever is
+    longer."""
+    t_bytes = stash_bytes(valid, hh) / HBM_BYTES_PER_S * 1e3
+    return max(fwd_bound_ms, t_bytes), (
+        "bytes" if t_bytes > fwd_bound_ms else "operations")
+
+
+def cudnn_train(lstm, packed, g):
+    """cuDNN's LSTM training pair (`cudnn_lstm_x`'s module and packed
+    rows), with the packed rows as a leaf: (the training forward, which
+    keeps cuDNN's reserve space, as a call; the backward of sum(g * h_n)
+    for the rows and the weights, as a call taking that forward's output;
+    its (dwi, dwh, dbh) in the port's orientation)."""
     leaf = torch.nn.utils.rnn.PackedSequence(
         packed.data.requires_grad_(), packed.batch_sizes,
         packed.sorted_indices, packed.unsorted_indices)
-    hn = lstm(leaf)[1][0][0]
     wrt = [leaf.data, lstm.weight_ih_l0, lstm.weight_hh_l0, lstm.bias_hh_l0]
-    gg = g.reshape(hn.shape)
 
-    def run():
-        return torch.autograd.grad(hn, wrt, grad_outputs=gg,
-                                   retain_graph=True)
+    def fwd():
+        return lstm(leaf)[1][0][0]
 
-    _, dwih, dwhh, dbhh = run()
-    return run, (dwih.T, dwhh.T, dbhh)
+    def bwd(hn):
+        return torch.autograd.grad(hn, wrt, grad_outputs=g.reshape(hn.shape))
+
+    _, dwih, dwhh, dbhh = bwd(fwd())
+    return fwd, bwd, (dwih.T, dwhh.T, dbhh)
+
+
+def bwd_times(name, stash, bwd, plain, lib_fwd, lib_bwd, fwd_bound_ms,
+              bound_, tc_ms, valid, hh):
+    """Times of a backward (K4 bwd or K5 bwd) and its training forward:
+    the stash forward alone, the backward alone from a fresh stash (rows
+    sorted and in their own order), the pair, the plain version, cuDNN's
+    training forward and backward, and the bounds."""
+    fwd_ms = time_ms(stash)
+    ms = time_after_ms(stash, bwd)
+    ms_unsorted = time_after_ms(lambda: stash(False), bwd)
+    pair_ms = time_ms(lambda: bwd(stash()))
+    plain_ms = time_ms(plain, iters=5)
+    lib_fwd_ms = time_ms(lib_fwd)
+    lib_ms = time_after_ms(lib_fwd, lib_bwd)
+    (bound_ms, by) = bound_
+    fb_ms, fb_by = stash_fwd_bound(fwd_bound_ms, valid, hh)
+    say(f"{name}: backward {ms:.4f} ms from the training forward's stash "
+        f"(rows in their own order {ms_unsorted:.4f} ms), bound "
+        f"{bound_ms:.4f} ms ({by}; its products in 3xTF32 at the TF32 "
+        f"tensor rate {tc_ms:.4f} ms); training forward (stash kept) "
+        f"{fwd_ms:.4f} ms, bound {fb_ms:.4f} ms ({fb_by}); the pair "
+        f"{pair_ms:.4f} ms; plain {plain_ms:.4f} ms; cuDNN LSTM training "
+        f"forward {lib_fwd_ms:.4f} ms, backward {lib_ms:.4f} ms, pair "
+        f"{lib_fwd_ms + lib_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound=bound_, stash_fwd_ms=fwd_ms, pair_ms=pair_ms)
 
 
 def lstm_bwd_vs_plain(cases, wide, gen):
     """Phase 2 for K4 bwd: cases (a)-(g) against the plain version, and
-    the kernel, plain, cuDNN-backward and bound times at L=301 and
+    the times and bounds of the backward, the training forward, their
+    pair, the plain version and cuDNN's training pair at L=301 and
     L=801."""
     torch.cuda.reset_peak_memory_stats()
     err = max(lstm_bwd_compare(a, lstm_cotangent(a, gen), label)
@@ -938,27 +1050,22 @@ def lstm_bwd_vs_plain(cases, wide, gen):
     out = {}
     for name, args in wide.items():
         g = lstm_cotangent(args, gen)
-        lib, lib_grads = lstm_library_bwd(args, g)
+        lib_fwd, lib_bwd, lib_grads = cudnn_train(*cudnn_lstm(args), g)
         want = lstm_bwd_call(lstm_keys.lstm_from_keys_bwd_plain, args, g)
         lib_rel = [rel_err(x, y) for x, y in zip(lib_grads, want[1:])]
         del want, lib_grads
-        cuda = lstm_keys.lstm_from_keys_bwd_cuda
-        ms = time_ms(lambda: lstm_bwd_call(cuda, args, g))
-        ms_unsorted = time_ms(lambda: lstm_bwd_call(cuda, args, g,
-                                                    sort_rows=False))
-        plain_ms = time_ms(lambda: lstm_bwd_call(
-            lstm_keys.lstm_from_keys_bwd_plain, args, g), iters=5)
-        lib_ms = time_ms(lib)
-        bound_ms, by = lstm_bwd_bound(args, g)
-        say(f"K4 bwd {name}: kernel {ms:.4f} ms (rows in their own order "
-            f"{ms_unsorted:.4f} ms), plain {plain_ms:.4f} ms, cuDNN LSTM "
-            f"backward (recurrence only, x given) {lib_ms:.4f} ms with its "
-            f"dwi/dwh/dbh within "
+        say(f"K4 bwd {name}: cuDNN's dwi/dwh/dbh within "
             f"{'/'.join(f'{r:.2e}' for r in lib_rel)} of plain's largest "
-            f"entries, bound {bound_ms:.4f} ms ({by})")
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound=(bound_ms, by))
-        del lib
+            f"entries")
+        bound_, tc_ms = lstm_bwd_bound(args, g)
+        out[name] = bwd_times(
+            f"K4 bwd {name}", lambda s=True: lstm_stash(args, s),
+            lambda st: lstm_bwd_from(args, g, st),
+            lambda: lstm_bwd_call(lstm_keys.lstm_from_keys_bwd_plain, args,
+                                  g),
+            lib_fwd, lib_bwd, lstm_bound(args)[0], bound_, tc_ms,
+            int(args[2].sum()), args[5].shape[0])
+        del lib_fwd, lib_bwd
     say(f"K4 bwd checks peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(max_abs_err=err, **out["L=301"])
@@ -1096,25 +1203,37 @@ def lstm_x_cotangent(args, gen):
                        generator=gen).to(DEVICE)
 
 
+def lstm_x_stash(args, sort_rows=True):
+    """K5's training forward on `args`: the stash it keeps."""
+    return lstm_x.lstm_final_hidden_cuda(*args, sort_rows=sort_rows,
+                                         keep_stash=True)[1]
+
+
+def lstm_x_train_bwd(args, g, sort_rows=True):
+    """K5's training forward, then K5 bwd from its stash."""
+    return lstm_x.lstm_final_hidden_bwd_cuda(
+        *args, g, stash=lstm_x_stash(args, sort_rows))
+
+
 def lstm_x_bwd_compare(args, g, label):
-    """K5 bwd against its plain version: each of (dx, dwi, dwh, dbh)
-    within LSTM_BWD_TOL of that tensor's largest entry, with the rows
-    sorted and in their own order (other summation orders); two launches
-    bit for bit; dx exactly 0 at every masked slot; rows with no valid
-    slot contribute nothing (a cotangent of 1e3 there leaves every
-    bit)."""
-    cuda = lstm_x.lstm_final_hidden_bwd_cuda
+    """K5 bwd, from the stash of K5's training forward, against its plain
+    version: each of (dx, dwi, dwh, dbh) within LSTM_BWD_TOL of that
+    tensor's largest entry, with the rows sorted and in their own order
+    (other summation orders); two launches bit for bit; dx exactly 0 at
+    every masked slot; rows with no valid slot contribute nothing (a
+    cotangent of 1e3 there leaves every bit)."""
     bits = lambda xs, ys: all(torch.equal(x.view(torch.int32),
                                           y.view(torch.int32))
                               for x, y in zip(xs, ys))
     mask = args[1]
     empty = ~mask.any(dim=-1)
     want = lstm_x.lstm_final_hidden_bwd_plain(*args, g)
-    got = cuda(*args, g)
-    same = bits(got, cuda(*args, g))
+    got = lstm_x_train_bwd(args, g)
+    same = bits(got, lstm_x_train_bwd(args, g))
     rel_unsorted = [rel_err(x, y) for x, y in
-                    zip(cuda(*args, g, sort_rows=False), want)]
-    silent = bits(got, cuda(*args, torch.where(empty[:, None], 1e3, g)))
+                    zip(lstm_x_train_bwd(args, g, sort_rows=False), want)]
+    silent = bits(got, lstm_x_train_bwd(
+        args, torch.where(empty[:, None], 1e3, g)))
     sync()
     require(all(x.shape == y.shape and bool(torch.isfinite(x).all())
                 for x, y in zip(got, want)), f"K5 bwd {label}: bad output")
@@ -1140,53 +1259,51 @@ def lstm_x_bwd_compare(args, g, label):
 
 
 def lstm_x_bwd_bound(args, g):
-    """K5 bwd's least time, from the valid (row, slot) pairs: the forward
-    again (lstm_x_bound's count), the products dh_prev, dx (2 4H (H + h))
-    and dwi, dwh (2 4H (h + H)), and the cell's backward
-    (LSTM_CELL_BWD_OPS per unit); the valid slots' x read, the mask, the
-    weights and g read, dx (every slot) and the weight gradients
-    written."""
+    """K5 bwd's least time, from the valid (row, slot) pairs: the products
+    dh_prev, dx, dwi, dwh (`bwd_products`) and the cell's backward
+    (LSTM_CELL_BWD_OPS per unit); the stash read once (`stash_bytes`), the
+    valid slots' x, the mask, the weights and g read, dx (every slot) and
+    the weight gradients written. Also returns the products' time on the
+    tensor cores in 3xTF32."""
     x, mask, wi, wh, bh = args
     r, ell, h = x.shape
     hh = wh.shape[0]
     valid = int(mask.sum())
     moved = valid * h * 4 + nbytes(mask, wi, wh, bh, g) \
-        + r * ell * h * 4 + nbytes(wi, wh, bh)
-    per_slot = (3 * 2 * 4 * hh * (h + hh)
-                + (LSTM_CELL_OPS + LSTM_CELL_BWD_OPS) * hh)
-    return bound(moved, valid * per_slot)
+        + r * ell * h * 4 + nbytes(wi, wh, bh) + stash_bytes(valid, hh)
+    prods = bwd_products(valid, h, hh)
+    return (bound(moved, prods + valid * LSTM_CELL_BWD_OPS * hh),
+            3 * prods / TF32_OPS_PER_S * 1e3)
 
 
 def lstm_x_bwd_vs_plain(cases, wide, gen):
     """Phase 2 for K5 bwd: cases (a)-(f) against the plain version, and
-    the kernel, plain, cuDNN-backward and bound times at L=301 and
+    the times and bounds of the backward, the training forward, their
+    pair, the plain version and cuDNN's training pair at L=301 and
     L=801."""
     torch.cuda.reset_peak_memory_stats()
     err = max(lstm_x_bwd_compare(a, lstm_x_cotangent(a, gen), label)
               for a, label in cases)
     out = {}
-    cuda = lstm_x.lstm_final_hidden_bwd_cuda
     plain = lstm_x.lstm_final_hidden_bwd_plain
     for name, args in wide.items():
         g = lstm_x_cotangent(args, gen)
-        lib, lib_grads = cudnn_bwd(*cudnn_lstm_x(*args), g)
+        lib_fwd, lib_bwd, lib_grads = cudnn_train(*cudnn_lstm_x(*args), g)
         want = plain(*args, g)
         lib_rel = [rel_err(x, y) for x, y in zip(lib_grads, want[1:])]
         del want, lib_grads
-        ms = time_ms(lambda: cuda(*args, g))
-        ms_unsorted = time_ms(lambda: cuda(*args, g, sort_rows=False))
-        plain_ms = time_ms(lambda: plain(*args, g), iters=5)
-        lib_ms = time_ms(lib)
-        bound_ms, by = lstm_x_bwd_bound(args, g)
-        say(f"K5 bwd {name}: kernel {ms:.4f} ms (rows in their own order "
-            f"{ms_unsorted:.4f} ms), plain {plain_ms:.4f} ms, cuDNN LSTM "
-            f"backward (x given, dx too) {lib_ms:.4f} ms with its "
-            f"dwi/dwh/dbh within "
+        say(f"K5 bwd {name}: cuDNN's dwi/dwh/dbh within "
             f"{'/'.join(f'{r:.2e}' for r in lib_rel)} of plain's largest "
-            f"entries, bound {bound_ms:.4f} ms ({by})")
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound=(bound_ms, by))
-        del lib
+            f"entries (its backward gives dx too)")
+        bound_, tc_ms = lstm_x_bwd_bound(args, g)
+        out[name] = bwd_times(
+            f"K5 bwd {name}", lambda s=True: lstm_x_stash(args, s),
+            lambda st: lstm_x.lstm_final_hidden_bwd_cuda(*args, g,
+                                                         stash=st),
+            lambda: plain(*args, g), lib_fwd, lib_bwd,
+            lstm_x_bound(args)[0], bound_, tc_ms, int(args[1].sum()),
+            args[3].shape[0])
+        del lib_fwd, lib_bwd
     say(f"K5 bwd checks peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(max_abs_err=err, **out["L=301"])

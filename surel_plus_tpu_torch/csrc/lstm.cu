@@ -32,26 +32,36 @@
 // one slot ahead: slot t + 1's copy runs while slot t's gate sums do. The
 // mask is staged 32 slots at a time, as K4 stages it.
 //
+// Training (a non-null `stash`): the same loop also keeps the stash for
+// the backward (lstm_bwd.cu), as K4's training instance does; its final h
+// is serving's bit for bit.
+//
 // Uses expf / tanhf and no float atomics: two launches give the same bits.
 
-#include "lstm_keys.cuh"
+#include "lstm_tc.cuh"
 
 using namespace lstm;
 
+// stash: null (serving), or blocks * rb * L * 6H floats and tend: blocks
+// ints (layout_for(H): rb rows a block, blocks = ceil(rows / rb)).
 extern "C" int lstm_x_fwd_launch(const void* x, const void* mask,
                                  const void* order, const void* wi,
                                  const void* wh, const void* bh, void* out,
-                                 int rows, int L, int h, int H,
-                                 void* stream) {
+                                 void* stash, void* tend, int rows, int L,
+                                 int h, int H, void* stream) {
   const Operands p{nullptr,           nullptr,           (const uint8_t*)mask,
                    nullptr,           nullptr,           (const int32_t*)order,
                    nullptr,           (const float*)wi,  (const float*)wh,
                    (const float*)bh,  rows,              L,
                    h,                 H,                 0,
                    (const float*)x};
-  if (rows < 1 || L < 1 || h < 1 || h > kMaxH || H < 1 || H > kMaxH)
+  if (rows < 1 || L < 1 || h < 1 || h > kMaxH || H < 1 || H > kMaxH ||
+      (stash == nullptr) != (tend == nullptr))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (stash != nullptr)
+    return (int)launch_forward<kXRows, true>(
+        p, (float*)out, stash_in(stash, tend, rows, L, H), st);
   const Stash none{nullptr, nullptr, nullptr, nullptr};
-  return (int)launch_forward<kXRows, false>(p, (float*)out, none,
-                                            (cudaStream_t)stream);
+  return (int)launch_forward<kXRows, false>(p, (float*)out, none, st);
 }

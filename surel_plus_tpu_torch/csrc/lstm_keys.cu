@@ -43,21 +43,29 @@
 // first (the `order` operand), so a block's rows end together and the
 // longest blocks start first; out[order[i]] is written directly.
 //
+// Training (a non-null `stash`): the same step loop also keeps every
+// step's activated gates and entering carries (c, h) and each block's step
+// count for the backward (lstm_keys_bwd.cu), padded rows x L x 6H fp32 (5.7
+// GB at the bench width); the final h it writes is serving's bit for bit.
+//
 // Uses expf / tanhf (no fast-math intrinsics) and no float atomics: two
 // launches give the same bits. The kernel itself, `forward_kernel`, lives
-// in lstm_keys.cuh: the backward runs the same step loop.
+// in lstm_keys.cuh: K5 runs the same step loop over given rows.
 
-#include "lstm_keys.cuh"
+#include "lstm_tc.cuh"
 
 using namespace lstm;
 
+// stash: null (serving), or blocks * rb * L * 6H floats and tend: blocks
+// ints (layout_for(H): rb rows a block, blocks = ceil(rows / rb)).
 extern "C" int lstm_keys_fwd_launch(const void* kown, const void* kcross,
                                     const void* mask, const void* rown,
                                     const void* rcross, const void* order,
                                     const void* u, const void* wi,
                                     const void* wh, const void* bh, void* out,
-                                    int rows, int L, int h, int H, int ncol,
-                                    int shift, void* stream) {
+                                    void* stash, void* tend, int rows, int L,
+                                    int h, int H, int ncol, int shift,
+                                    void* stream) {
   const Operands p{(const uint32_t*)kown, (const uint32_t*)kcross,
                    (const uint8_t*)mask,  (const int32_t*)rown,
                    (const int32_t*)rcross, (const int32_t*)order,
@@ -65,10 +73,24 @@ extern "C" int lstm_keys_fwd_launch(const void* kown, const void* kcross,
                    (const float*)wh,      (const float*)bh,
                    rows, L, h, H, shift};
   if (rows < 1 || L < 1 || h < 1 || h > kMaxH || H < 1 || H > kMaxH ||
-      (rown == nullptr) != (rcross == nullptr))
+      (rown == nullptr) != (rcross == nullptr) ||
+      (stash == nullptr) != (tend == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* o = (float*)out;
+  if (stash != nullptr) {
+    const Stash keep = stash_in(stash, tend, rows, L, H);
+    switch (ncol) {
+      case 2: return (int)launch_forward<2, true>(p, o, keep, st);
+      case 3: return (int)launch_forward<3, true>(p, o, keep, st);
+      case 4: return (int)launch_forward<4, true>(p, o, keep, st);
+      case 5: return (int)launch_forward<5, true>(p, o, keep, st);
+      case 6: return (int)launch_forward<6, true>(p, o, keep, st);
+      case 7: return (int)launch_forward<7, true>(p, o, keep, st);
+      case 8: return (int)launch_forward<8, true>(p, o, keep, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   const Stash none{nullptr, nullptr, nullptr, nullptr};
   switch (ncol) {
     case 2: return (int)launch_forward<2, false>(p, o, none, st);

@@ -1,11 +1,11 @@
-// The keys-LSTM's forward, shared by its serving kernel (lstm_keys.cu, K4)
-// and its backward (lstm_keys_bwd.cu), which recomputes the forward from the
-// keys: the operands, the block layout, the field extraction, the hidden
-// rows, the gate sums, the cell update and the step loop itself. Both
-// directions run this one code and get the same values bit for bit (same
-// fmaf order); the backward's instance also stashes each step's gates and
-// carries for its reverse sweep. The same step loop also runs over given
-// input rows x in place of the keys (NCOL = kXRows: lstm.cu, K5).
+// The keys-LSTM's forward (lstm_keys.cu, K4): the operands, the block
+// layout, the field extraction, the hidden rows, the gate sums, the cell
+// update and the step loop itself. Serving and training run this one code
+// and get the same values bit for bit (same fmaf order); the training
+// instance also stashes each step's gates and carries for the backward
+// (lstm_tc.cuh), which runs no forward of its own. The same step loop also
+// runs over given input rows x in place of the keys (NCOL = kXRows:
+// lstm.cu, K5).
 
 #pragma once
 
@@ -178,7 +178,7 @@ __device__ __forceinline__ void cell(const Gates& a, float& c, float& h) {
   h = a.o * tanhf(c);
 }
 
-// What the backward's forward keeps for its reverse sweep, per block b and
+// What the training forward keeps for the backward's sweep, per block b and
 // step t < tend[b], rows in the block's order, channels contiguous (so the
 // lanes of a warp, one unit each, write and read whole lines): the gates
 // after their activations [rb][4H] (0 where the slot is masked), and the
@@ -236,9 +236,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// The forward over one block of rb rows (design in lstm_keys.cu). Serving
-// (STASH false) writes the final h to out[order[i]]; the backward's
-// instance (STASH true) writes the stash instead. With NCOL = kXRows the
+// The forward over one block of rb rows (design in lstm_keys.cu). Both
+// instances write the final h to out[order[i]]; the training instance
+// (STASH true) also writes the stash. With NCOL = kXRows the
 // step's x rows are copied from p.x (lstm.cu) instead of computed from the
 // keys: slot t + 1's copy runs while slot t's gate sums do.
 template <int NCOL, bool ROOT, bool WHS, bool STASH>
@@ -374,7 +374,7 @@ forward_kernel(Operands p, Layout lay, Smem sm, float* out, Stash st) {
       if (on) hn[j * ld + r0 + i] = hv[i];
     }
   }
-  if (!STASH && on) {
+  if (on) {
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
       if (r0 + i < nrows) out[(size_t)srow[r0 + i] * p.H + j] = hv[i];

@@ -22,404 +22,76 @@
 // any mask): dh and dc ride through masked slots, and a block starts its
 // reverse sweep at its rows' last valid slot INDEX.
 //
-// Design: one C entry point runs three kernels and a reduction pass.
-// 1. The forward again, K4's own step loop (`forward_kernel` with STASH,
-//    lstm_keys.cuh), so the relu decisions and the gates are K4's bit for
-//    bit, over the same blocks of rows in the same order. It stashes every
-//    step's activated gates and entering carries (c, h) in device memory.
-//    The TPU keeps chunk-boundary carries and re-forwards each chunk, for
-//    its small VMEM; the card holds the whole stash (padded rows x L x 6H
-//    fp32: 5.7 GB at the bench width, 15 GB at L = 801).
-// 2. The reverse sweep, with K4's block layout: one thread per hidden unit
-//    j and 8 rows. It forms unit j's four dgates from the stash, writes
-//    them over the stashed gates and into shared memory [4H][ld]; after a
-//    barrier every unit forms dh_prev = dgates wh^T (wh^T in shared memory
-//    where it fits) and input channel j its dx = dgates wi^T (wi^T through
-//    the read-only cache, h <= the unit threads), and keeps its column of
-//    dU and its four dbh entries in registers.
-// 3. The weight gradients [dwi; dwh] = sum over (row, slot) of
-//    [x; h_prev] dgates^T: a tiled fp32 product, 64 x 128 output tiles of
-//    [h + H, 4H], its K axis the (block, step) tiles of rb rows (x
-//    recomputed from the keys with K4's `hidden`, h_prev and dgates read
-//    from the stash); tiles past a block's last valid slot are skipped. P
-//    parts of the tiles give P partial sums.
-// 4. A pass adds the partials of each output entry (per block and row
-//    group for dU and dbh, per part for dwi and dwh) in a fixed order: no
-//    float atomics, so two launches give the same bits.
+// Design (lstm_tc.cuh, shared with K5 bwd): the training forward, K4's
+// own step loop (`forward_kernel` with STASH), has kept every step's
+// activated gates and entering carries, so the relu decisions and the gates
+// are K4's bit for bit over the same blocks of rows in the same order, and
+// this entry point runs no forward. The TPU kernels keep chunk-boundary
+// carries and re-forward each chunk, for their small VMEM; the card holds
+// the whole stash (padded rows x L x 6H fp32: 5.7 GB at the bench width,
+// 15 GB at L = 801). It runs the reverse sweep (dh_prev = dgates wh^T on
+// the tensor cores in 3xTF32, dgates written over the stashed gates), the
+// dx pass (dx = dgates wi^T; its epilogue recomputes each slot's fields
+// from the keys and adds dx back through each side's relu into dU: x is
+// recomputed, not stashed, which keeps the stash at 6H a slot), the weight
+// gradients [dwi; dwh] and dbh over the stash's slabs, and the fixed-order
+// reductions. h and H are each at most 256; h is no longer tied to H.
 //
-// Bound on the H100: operations. Per valid (row, slot): the recomputed
-// gates 4H (h + H) multiply-adds, dh_prev and dx 4H (H + h), the weight
-// gradients 4H (h + H), three times K4's product (some 6.5 ms on the fp32
-// CUDA cores at the bench width), against about 11 GB of stash written and
-// read back (about 3.4 ms at 3.35 TB/s). chip_smoke.py counts the bound from
-// its inputs.
+// Bound on the H100: the stash read once (about 2.5 GB of valid slabs at
+// the bench width, 0.8 ms at 3.35 TB/s), against the products dh_prev, dx,
+// dwi and dwh, 4 x 4H (h + H) multiply-adds per valid (row, slot), some
+// 4.3 ms on the fp32 CUDA cores or, in 3xTF32 on the tensor cores, 1.8 ms
+// at 495 TFLOP/s. chip_smoke.py counts both from its inputs.
 
-#include "lstm_keys.cuh"
-
-namespace {
+#include "lstm_tc.cuh"
 
 using namespace lstm;
 
-constexpr int kBM = 64;            // weight-gradient tile: rows of [wi; wh]
-constexpr int kBN = 128;           // and columns (gates)
-constexpr int kWThreads = 256;     // 8 x 32 threads, 8 x 4 outputs each
-constexpr int kReduceThreads = 256;
-
-// Dynamic shared memory of the reverse sweep, in 4-byte words: dgates
-// [4H][ld], U, and wh^T [4H][H] where it fits (H = 96: 205,056 bytes).
-struct RevSmem {
-  int dg, u, wh, words;
-};
-
-inline RevSmem rev_smem_for(const Layout& l, int h, int H, int ncol,
-                            bool wh_smem) {
-  RevSmem s;
-  s.dg = 0;
-  s.u = 4 * H * l.ld;
-  s.wh = s.u + (ncol + 2) * h;
-  s.words = s.wh + (wh_smem ? 4 * H * H : 0);
-  return s;
-}
-
-template <int NCOL, bool ROOT, bool WHS>
-__global__ void __launch_bounds__(kMaxThreads)
-reverse_kernel(Operands p, Layout lay, RevSmem sm, Stash st, const float* g,
-               const float* wiT, const float* whT, float* part) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int srow[kMaxGroups * kRows];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int rb = lay.rb;
-  const int ld = lay.ld;
-  const int h = p.h;
-  const int H = p.H;
-  const int H4 = 4 * H;
-  const int blk = blockIdx.x;
-  const int base = blk * rb;
-  const int nrows = min(rb, p.rows - base);
-  float* dgs = smem + sm.dg;
-  float* su = smem + sm.u;
-  float* swh = smem + sm.wh;
-
-  for (int i = tid; i < (NCOL + 2) * h; i += nt) su[i] = p.u[i];
-  if (WHS)
-    for (int i = tid; i < H4 * H; i += nt) swh[i] = __ldg(whT + i);
-  if (tid < rb)
-    srow[tid] = tid < nrows ? (p.order ? p.order[base + tid] : base + tid)
-                            : -1;
-  __syncthreads();
-
-  const int j = tid % lay.hp;
-  const int grp = tid / lay.hp;
-  const int r0 = grp * kRows;
-  const bool on = j < H;   // hidden unit j
-  const bool xon = j < h;  // input channel j
-  float dh[kRows], dc[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = srow[r0 + i];
-    dh[i] = on && r >= 0 ? g[(size_t)r * H + j] : 0.f;
-    dc[i] = 0.f;
-  }
-  float acc_u[NCOL];  // dU rows of the fields, column j
-  float acc_b = 0.f;  // dU's b1 row
-  float acc_bh[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < NCOL; ++c) acc_u[c] = 0.f;
-
-  for (int t = st.tend[blk] - 1; t >= 0; --t) {
-    bool keep[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = srow[r0 + i];
-      keep[i] = r >= 0 && p.mask[(size_t)r * p.L + t] != 0;
-    }
-    if (on) {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        float* ga = st.gates + stash_at(blk, p.L, t, r0 + i, rb, H4) + j;
-        float d[4] = {0.f, 0.f, 0.f, 0.f};
-        if (keep[i]) {
-          const Gates a{ga[0], ga[H], ga[2 * H], ga[3 * H]};
-          const float cp = st.cprev[stash_at(blk, p.L, t, r0 + i, rb, H) + j];
-          const float tc = tanhf(fmaf(a.f, cp, a.i * a.g));  // the forward's c
-          const float dnc = dc[i] + dh[i] * a.o * (1.f - tc * tc);
-          d[0] = dnc * a.g * a.i * (1.f - a.i);
-          d[1] = dnc * cp * a.f * (1.f - a.f);
-          d[2] = dnc * a.i * (1.f - a.g * a.g);
-          d[3] = dh[i] * tc * a.o * (1.f - a.o);
-          dc[i] = dnc * a.f;
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          ga[q * H] = d[q];
-          dgs[(q * H + j) * ld + r0 + i] = d[q];
-          acc_bh[q] += d[q];
-        }
-      }
-    }
-    __syncthreads();  // every unit's dgates are in shared memory
-    // dh_prev = dgates wh^T for unit j, dx = dgates wi^T for channel j
-    float sh[kRows], sx[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) sh[i] = sx[i] = 0.f;
-#pragma unroll 4
-    for (int m = 0; m < H4; ++m) {
-      const float wh_m =
-          on ? (WHS ? swh[m * H + j] : __ldg(whT + (size_t)m * H + j)) : 0.f;
-      const float wi_m = xon ? __ldg(wiT + (size_t)m * h + j) : 0.f;
-      const float4* v = reinterpret_cast<const float4*>(dgs + m * ld + r0);
-#pragma unroll
-      for (int i4 = 0; i4 < kRows / 4; ++i4) {
-        const float4 d4 = v[i4];
-        sh[4 * i4 + 0] = fmaf(d4.x, wh_m, sh[4 * i4 + 0]);
-        sh[4 * i4 + 1] = fmaf(d4.y, wh_m, sh[4 * i4 + 1]);
-        sh[4 * i4 + 2] = fmaf(d4.z, wh_m, sh[4 * i4 + 2]);
-        sh[4 * i4 + 3] = fmaf(d4.w, wh_m, sh[4 * i4 + 3]);
-        sx[4 * i4 + 0] = fmaf(d4.x, wi_m, sx[4 * i4 + 0]);
-        sx[4 * i4 + 1] = fmaf(d4.y, wi_m, sx[4 * i4 + 1]);
-        sx[4 * i4 + 2] = fmaf(d4.z, wi_m, sx[4 * i4 + 2]);
-        sx[4 * i4 + 3] = fmaf(d4.w, wi_m, sx[4 * i4 + 3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      if (!keep[i]) continue;
-      dh[i] = sh[i];
-      if (xon) {
-        const size_t off = (size_t)srow[r0 + i] * p.L + t;
-        float fo[NCOL], fc[NCOL];
-        fields<NCOL, ROOT>(p.kown[off], ROOT ? p.rown[off] : 0, p.shift, fo);
-        fields<NCOL, ROOT>(p.kcross[off], ROOT ? p.rcross[off] : 0, p.shift,
-                           fc);
-        const float dzo = side_z(fo, su, h, j) > 0.f ? sx[i] : 0.f;
-        const float dzc = side_z(fc, su, h, j) > 0.f ? sx[i] : 0.f;
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c) {
-          acc_u[c] = fmaf(fo[c], dzo, acc_u[c]);
-          acc_u[c] = fmaf(fc[c], dzc, acc_u[c]);
-        }
-        acc_b += dzo;
-        acc_b += dzc;
-      }
-    }
-    __syncthreads();  // the dgates are consumed
-  }
-  // this row group's partial of [dU | dbh]
-  float* pp = part + (size_t)(blk * lay.groups + grp) *
-                         ((NCOL + 2) * h + H4);
-  if (xon) {
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) pp[c * h + j] = acc_u[c];
-    pp[NCOL * h + j] = 0.f;
-    pp[(NCOL + 1) * h + j] = acc_b;
-  }
-  if (on) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) pp[(NCOL + 2) * h + q * H + j] = acc_bh[q];
-  }
-}
-
-// Part blockIdx.z of [dwi; dwh] over the output tile (blockIdx.y,
-// blockIdx.x): the sum over its (block, step) tiles of [x; h_prev] dgates^T.
-template <int NCOL, bool ROOT>
-__global__ void __launch_bounds__(kWThreads)
-weights_kernel(Operands p, Layout lay, Stash st, float* part) {
-  __shared__ __align__(16) float as[kMaxGroups * kRows][kBM];  // [r][m]
-  __shared__ float bs[kMaxGroups * kRows][kBN];                // [r][n]
-  __shared__ float su[(NCOL + 2) * kMaxH];
-  __shared__ int srow[kMaxGroups * kRows];
-  const int tid = threadIdx.x;
-  const int rb = lay.rb;
-  const int h = p.h;
-  const int H = p.H;
-  const int M = h + H;
-  const int N = 4 * H;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int blocks = (p.rows + rb - 1) / rb;
-  const int tm = tid / 32;  // rows m0 + 8 tm .. + 7 (one per warp)
-  const int tn = tid % 32;  // columns n0 + tn + 32 c, c = 0..3
-  for (int i = tid; i < (NCOL + 2) * h; i += kWThreads) su[i] = p.u[i];
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-
-  for (int tile = blockIdx.z; tile < blocks * p.L; tile += gridDim.z) {
-    const int b = tile / p.L;
-    const int t = tile - b * p.L;
-    if (t >= st.tend[b]) continue;  // the same for every thread
-    __syncthreads();  // the previous tile is consumed, U is loaded
-    if (tid < rb) {
-      const int r = b * rb + tid;
-      srow[tid] = r < p.rows ? (p.order ? p.order[r] : r) : -1;
-    }
-    __syncthreads();
-    for (int e = tid; e < rb * kBM; e += kWThreads) {
-      const int r = e / kBM;
-      const int ml = e - r * kBM;
-      const int m = m0 + ml;
-      const int row = srow[r];
-      float v = 0.f;
-      if (row >= 0 && m < h) {
-        const size_t off = (size_t)row * p.L + t;
-        float fo[NCOL], fc[NCOL];
-        fields<NCOL, ROOT>(p.kown[off], ROOT ? p.rown[off] : 0, p.shift, fo);
-        fields<NCOL, ROOT>(p.kcross[off], ROOT ? p.rcross[off] : 0, p.shift,
-                           fc);
-        v = hidden(fo, fc, su, h, m);
-      } else if (row >= 0 && m < M) {
-        v = st.hprev[stash_at(b, p.L, t, r, rb, H) + (m - h)];
-      }
-      as[r][ml] = v;
-    }
-    for (int e = tid; e < rb * kBN; e += kWThreads) {
-      const int r = e / kBN;
-      const int nl = e - r * kBN;
-      const int n = n0 + nl;
-      bs[r][nl] = n < N ? st.gates[stash_at(b, p.L, t, r, rb, N) + n] : 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < rb; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[k][tm * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[k][tm * 8 + 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float bv[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = bs[k][tn + 32 * c];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-    }
-  }
-  float* pp = part + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + tm * 8 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tn + 32 * c;
-      if (n < N) pp[(size_t)m * N + n] = acc[i][c];
-    }
-  }
-}
-
-// out[e] = part[0][e] + part[1][e] + ... + part[P-1][e], in that order.
-__global__ void reduce_kernel(const float* part, float* out, int E, int P) {
-  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-#pragma unroll 8
-  for (int q = 0; q < P; ++q) s += part[(size_t)q * E + e];
-  out[e] = s;
-}
-
-template <int NCOL, bool ROOT>
-cudaError_t launch_reverse(const Operands& p, const Layout& lay,
-                           const Stash& st, const float* g, const float* wiT,
-                           const float* whT, float* part,
-                           cudaStream_t stream) {
-  const RevSmem with_wh = rev_smem_for(lay, p.h, p.H, NCOL, true);
-  const bool whs = (size_t)with_wh.words * sizeof(float) <= (size_t)kMaxSmem;
-  const RevSmem sm = whs ? with_wh : rev_smem_for(lay, p.h, p.H, NCOL, false);
-  void (*kernel)(Operands, Layout, RevSmem, Stash, const float*,
-                 const float*, const float*, float*) =
-      whs ? &reverse_kernel<NCOL, ROOT, true>
-          : &reverse_kernel<NCOL, ROOT, false>;
-  const size_t bytes = (size_t)sm.words * sizeof(float);
-  const cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const int blocks = (p.rows + lay.rb - 1) / lay.rb;
-  kernel<<<blocks, lay.hp * lay.groups, bytes, stream>>>(p, lay, sm, st, g,
-                                                         wiT, whT, part);
-  return cudaGetLastError();
-}
-
-template <int NCOL>
-cudaError_t launch(const Operands& p, const Stash& st, const float* g,
-                   const float* wiT, const float* whT, float* part1,
-                   float* part2, float* out, int P, cudaStream_t stream) {
-  const Layout lay = layout_for(p.H);
-  const bool root = p.rown != nullptr;
-  cudaError_t err = launch_forward<NCOL, true>(p, nullptr, st, stream);
-  if (err != cudaSuccess) return err;
-  err = root ? launch_reverse<NCOL, true>(p, lay, st, g, wiT, whT, part1,
-                                          stream)
-             : launch_reverse<NCOL, false>(p, lay, st, g, wiT, whT, part1,
-                                           stream);
-  if (err != cudaSuccess) return err;
-  const int M = p.h + p.H;
-  const int N = 4 * p.H;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, P);
-  if (root)
-    weights_kernel<NCOL, true><<<grid, kWThreads, 0, stream>>>(p, lay, st,
-                                                               part2);
-  else
-    weights_kernel<NCOL, false><<<grid, kWThreads, 0, stream>>>(p, lay, st,
-                                                                part2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int blocks = (p.rows + lay.rb - 1) / lay.rb;
-  const int e1 = (NCOL + 2) * p.h + N;
-  const int e2 = M * N;
-  reduce_kernel<<<(e1 + kReduceThreads - 1) / kReduceThreads,
-                  kReduceThreads, 0, stream>>>(part1, out, e1,
-                                               blocks * lay.groups);
-  reduce_kernel<<<(e2 + kReduceThreads - 1) / kReduceThreads,
-                  kReduceThreads, 0, stream>>>(part2, out + e1, e2, P);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// Scratch, sized by the caller from the shapes (layout_for(H): rb rows a
-// block, `groups` row groups, blocks = ceil(rows / rb)):
-//   stash: blocks * rb * L * 6H floats; tend: blocks ints;
-//   part1: blocks * groups * ((ncol + 2) h + 4H) floats;
-//   part2: P * (h + H) * 4H floats.
-// out: (ncol + 2) h + 4H + (h + H) 4H floats, [dU | dbh | dwi | dwh].
-// wiT [4H, h] and whT [4H, H] are wi and wh transposed. P (>= 1) fixes the
-// partition of the weight-gradient tiles, and with it the bits.
+// The stash and tend come from the training forward (lstm_keys.cu) over the
+// same operands and `order`, and are consumed (the dgates overwrite the
+// gates). Scratch, sized by the caller from the shapes:
+//   part1: kDxBlocks * dx_layout_for(h).streams * (ncol + 2) h floats;
+//   part2: P * (4H + (h + H) 4H) floats.
+// out: (ncol + 2) h + 4H + (h + H) 4H floats, [dU | dbh | dwi | dwh]. P
+// (>= 1) fixes the partition of the weight-gradient slabs, and with it the
+// bits.
 extern "C" int lstm_keys_bwd_launch(
     const void* kown, const void* kcross, const void* mask, const void* rown,
     const void* rcross, const void* order, const void* u, const void* wi,
-    const void* wh, const void* bh, const void* g, const void* wiT,
-    const void* whT, void* stash, void* tend, void* part1, void* part2,
-    void* out, int rows, int L, int h, int H, int ncol, int shift, int P,
-    void* stream) {
+    const void* wh, const void* g, void* stash, void* tend, void* part1,
+    void* part2, void* out, int rows, int L, int h, int H, int ncol,
+    int shift, int P, void* stream) {
   const Operands p{(const uint32_t*)kown, (const uint32_t*)kcross,
                    (const uint8_t*)mask,  (const int32_t*)rown,
                    (const int32_t*)rcross, (const int32_t*)order,
                    (const float*)u,       (const float*)wi,
-                   (const float*)wh,      (const float*)bh,
+                   (const float*)wh,      nullptr,
                    rows, L, h, H, shift};
-  if (rows < 1 || L < 1 || H < 1 || H > kMaxH || h < 1 ||
-      h > layout_for(H).hp || P < 1 ||
-      (rown == nullptr) != (rcross == nullptr))
+  if (rows < 1 || L < 1 || H < 1 || H > kMaxH || h < 1 || h > kMaxH ||
+      P < 1 || (rown == nullptr) != (rcross == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Layout lay = layout_for(H);
-  const size_t plane = (size_t)((rows + lay.rb - 1) / lay.rb) * lay.rb * L;
-  float* s = (float*)stash;
-  const Stash st{s, s + plane * 4 * H, s + plane * 5 * H, (int*)tend};
+  const Stash st = stash_in(stash, tend, rows, L, H);
   const cudaStream_t cs = (cudaStream_t)stream;
   const float* gg = (const float*)g;
-  const float* wt = (const float*)wiT;
-  const float* ht = (const float*)whT;
   float* p1 = (float*)part1;
   float* p2 = (float*)part2;
   float* o = (float*)out;
+  const bool root = rown != nullptr;
+#define LSTM_KEYS_BWD(n)                                                     \
+  case n:                                                                    \
+    return root ? (int)launch_backward<n, true>(p, st, gg, nullptr, p1, p2,  \
+                                                o, P, cs)                    \
+                : (int)launch_backward<n, false>(p, st, gg, nullptr, p1, p2, \
+                                                 o, P, cs);
   switch (ncol) {
-    case 2: return (int)launch<2>(p, st, gg, wt, ht, p1, p2, o, P, cs);
-    case 3: return (int)launch<3>(p, st, gg, wt, ht, p1, p2, o, P, cs);
-    case 4: return (int)launch<4>(p, st, gg, wt, ht, p1, p2, o, P, cs);
-    case 5: return (int)launch<5>(p, st, gg, wt, ht, p1, p2, o, P, cs);
-    case 6: return (int)launch<6>(p, st, gg, wt, ht, p1, p2, o, P, cs);
-    case 7: return (int)launch<7>(p, st, gg, wt, ht, p1, p2, o, P, cs);
-    case 8: return (int)launch<8>(p, st, gg, wt, ht, p1, p2, o, P, cs);
+    LSTM_KEYS_BWD(2)
+    LSTM_KEYS_BWD(3)
+    LSTM_KEYS_BWD(4)
+    LSTM_KEYS_BWD(5)
+    LSTM_KEYS_BWD(6)
+    LSTM_KEYS_BWD(7)
+    LSTM_KEYS_BWD(8)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef LSTM_KEYS_BWD
 }

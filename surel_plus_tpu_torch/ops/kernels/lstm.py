@@ -19,7 +19,9 @@ scan instead (the input product in the promoted dtype of x and wi,
 layers.py:286), and `lstm_final_hidden_plain` is that scan on float32
 operands.
 
-The gradient is taken for x, wi, wh and bh (the mask gets none).
+The gradient is taken for x, wi, wh and bh (the mask gets none). When
+one is needed, the forward on the card runs K5's training instance, which
+keeps the stash that K5 bwd runs from.
 """
 
 from __future__ import annotations
@@ -36,19 +38,21 @@ from surel_plus_tpu_torch.ops.kernels.build import (
     ptr_or_null,
 )
 from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
-    BWD_PARTS,
     MAX_H,
-    block_layout,
+    LSTMStash,
+    bwd_layout,
     lstm_bptt_plain,
     lstm_scan_plain,
+    needs_grad,
+    new_stash,
     row_order,
 )
 
 LSTM_X_KERNEL = CudaKernel("lstm", "lstm_x_fwd_launch",
-                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
 LSTM_X_BWD_KERNEL = CudaKernel("lstm_bwd", "lstm_x_bwd_launch",
-                               [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                                + [ctypes.c_void_p])
 
 
@@ -81,20 +85,29 @@ def _check_operands(x, mask, wi, wh, bh):
 
 
 def lstm_final_hidden_cuda(x, mask, wi, wh, bh, sort_rows: bool = True,
-                           order=None):
+                           order=None, keep_stash: bool = False):
     """Launch K5; see csrc/lstm.cu. x [R, L, h], wi [h, 4H], wh [H, 4H],
     bh [4H]: contiguous float32; mask bool [R, L]. The rows run in `order`
     (int32 [R]) if given, else, with `sort_rows`, by their last valid slot,
     longest first (`row_order`), else in their own order. Returns [R, H]
-    float32."""
+    float32; with `keep_stash` (training), also the LSTMStash for
+    `lstm_final_hidden_bwd_cuda`, the output bit for bit the same."""
     r, ell, h, hh = _check_operands(x, mask, wi, wh, bh)
     out = torch.empty(r, hh, dtype=torch.float32, device=x.device)
+    stash = None
     if r:
         if order is None and sort_rows:
             order = row_order(mask)
+        if keep_stash:
+            stash = new_stash(r, ell, hh, order, x.device)
         LSTM_X_KERNEL(x.device, ptr(x), ptr(mask), ptr_or_null(order),
-                      ptr(wi), ptr(wh), ptr(bh), ptr(out), r, ell, h, hh)
-    return out
+                      ptr(wi), ptr(wh), ptr(bh), ptr(out),
+                      ptr_or_null(None if stash is None else stash.data),
+                      ptr_or_null(None if stash is None else stash.tend),
+                      r, ell, h, hh)
+    elif keep_stash:
+        stash = new_stash(0, ell, hh, order, x.device)
+    return (out, stash) if keep_stash else out
 
 
 def lstm_final_hidden_bwd_plain(x, mask, wi, wh, bh, g):
@@ -107,41 +120,37 @@ def lstm_final_hidden_bwd_plain(x, mask, wi, wh, bh, g):
     return lstm_bptt_plain(x, mask, wi, wh, bh, g)
 
 
-def lstm_final_hidden_bwd_cuda(x, mask, wi, wh, bh, g, sort_rows: bool = True,
-                               order=None):
+def lstm_final_hidden_bwd_cuda(x, mask, wi, wh, bh, g,
+                               stash: LSTMStash = None):
     """Launch K5 bwd; see csrc/lstm_bwd.cu. Operands as for
-    `lstm_final_hidden_cuda`, g: contiguous fp32 [R, H]; the rows run in
-    `order`, or as `lstm_final_hidden_cuda` orders them. Scratch is sized
-    from the shapes alone (no host sync): the forward's stash of gates and
-    carries, padded rows x L x 6H fp32. Returns (dx [R, L, h],
+    `lstm_final_hidden_cuda`, g: contiguous fp32 [R, H]; `stash`: what
+    `lstm_final_hidden_cuda(..., keep_stash=True)` kept on the same
+    operands (the rows run in its order), taken once. Scratch is sized
+    from the shapes alone (no host sync). Returns (dx [R, L, h],
     dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
     r, ell, h, hh = _check_operands(x, mask, wi, wh, bh)
     dev = x.device
     check_cuda("g", g, torch.float32, (r, hh), dev)
+    if stash is None:
+        raise ValueError("the backward needs the training forward's stash "
+                         "(lstm_final_hidden_cuda(..., keep_stash=True))")
     h4 = 4 * hh
-    empty = lambda n, dt=torch.float32: torch.empty(n, dtype=dt, device=dev)
+    lay = bwd_layout(r, ell, h, hh, None)
+    st = stash.take()
+    empty = lambda n: torch.empty(n, dtype=torch.float32, device=dev)
     if not r:
-        out = torch.zeros(h4 + (h + hh) * h4, dtype=torch.float32,
-                          device=dev)
+        out = torch.zeros(lay["out"], dtype=torch.float32, device=dev)
         dx = empty((0, ell, h))
     else:
-        if order is None and sort_rows:
-            order = row_order(mask)
-        _, groups, rb = block_layout(hh)
-        blocks = -(-r // rb)
-        parts = min(BWD_PARTS, blocks * ell)
-        out = empty(h4 + (h + hh) * h4)
+        if st.data.numel() != lay["stash"] or st.tend.numel() != lay["tend"]:
+            raise ValueError("the stash does not fit these operands")
+        out = empty(lay["out"])
         dx = empty((r, ell, h))
-        wi_t, wh_t = wi.t().contiguous(), wh.t().contiguous()
-        stash = empty(blocks * rb * ell * 6 * hh)
-        tend = empty(blocks, torch.int32)
-        part1, part2 = empty(blocks * groups * h4), empty(
-            parts * (h + hh) * h4)
-        LSTM_X_BWD_KERNEL(dev, ptr(x), ptr(mask), ptr_or_null(order),
-                          ptr(wi), ptr(wh), ptr(bh), ptr(g), ptr(wi_t),
-                          ptr(wh_t), ptr(stash), ptr(tend), ptr(part1),
-                          ptr(part2), ptr(dx), ptr(out), r, ell, h, hh,
-                          parts)
+        part = empty(lay["part2"])
+        LSTM_X_BWD_KERNEL(dev, ptr(x), ptr(mask), ptr_or_null(st.order),
+                          ptr(wi), ptr(wh), ptr(g), ptr(st.data),
+                          ptr(st.tend), ptr(part), ptr(dx), ptr(out), r, ell,
+                          h, hh, lay["parts"])
     return (dx, out[h4:h4 + h * h4].view(h, h4),
             out[h4 + h * h4:].view(hh, h4), out[:h4])
 
@@ -149,34 +158,43 @@ def lstm_final_hidden_bwd_cuda(x, mask, wi, wh, bh, g, sort_rows: bool = True,
 class FinalHiddenLSTM(torch.autograd.Function):
     """The masked LSTM over given rows with its gradient for x, wi, wh and
     bh (the custom VJP `_lstm` of the JAX kernel). On the card the forward
-    orders the rows once (`row_order`) and saves the order; the backward
-    runs K5 bwd over them in that order, so its stash forward gives K5's
-    gates bit for bit. On the CPU the pair is the plain versions."""
+    orders the rows once (`row_order`); when `train`, it runs K5's
+    training instance, which keeps the stash (K5's gates bit for bit), and
+    the backward runs K5 bwd from it. On the CPU the pair is the plain
+    versions."""
 
     @staticmethod
-    def forward(ctx, x, mask, wi, wh, bh):
+    def forward(ctx, x, mask, wi, wh, bh, train=False):
         fwd = pick("lstm_final_hidden forward", x, lstm_final_hidden_cuda,
                    lstm_final_hidden_plain)
-        order = None
+        ctx.stash = None
         if fwd is lstm_final_hidden_cuda:
             order = row_order(mask)
-            out = fwd(x, mask, wi, wh, bh, order=order)
+            if train:
+                out, ctx.stash = fwd(x, mask, wi, wh, bh, order=order,
+                                     keep_stash=True)
+            else:
+                out = fwd(x, mask, wi, wh, bh, order=order)
         else:
             out = fwd(x, mask, wi, wh, bh)
-        ctx.save_for_backward(x, mask, wi, wh, bh, order)
+        ctx.save_for_backward(x, mask, wi, wh, bh)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, mask, wi, wh, bh, order = ctx.saved_tensors
+        x, mask, wi, wh, bh = ctx.saved_tensors
         bwd = pick("lstm_final_hidden backward", x,
                    lstm_final_hidden_bwd_cuda, lstm_final_hidden_bwd_plain)
         args = (x, mask, wi, wh, bh, g.to(torch.float32).contiguous())
         if bwd is lstm_final_hidden_bwd_cuda:
-            dx, dwi, dwh, dbh = bwd(*args, order=order)
+            if ctx.stash is None:
+                raise RuntimeError("lstm_final_hidden backward: the forward "
+                                   "ran without grad and kept no stash")
+            dx, dwi, dwh, dbh = bwd(*args, stash=ctx.stash)
+            ctx.stash = None
         else:
             dx, dwi, dwh, dbh = bwd(*args)
-        return dx, None, dwi, dwh, dbh
+        return dx, None, dwi, dwh, dbh, None
 
 
 def lstm_final_hidden(x: torch.Tensor, mask: torch.Tensor, wi: torch.Tensor,
@@ -186,8 +204,10 @@ def lstm_final_hidden(x: torch.Tensor, mask: torch.Tensor, wi: torch.Tensor,
 
     x [R, L, h] (any float dtype, computed in float32), mask bool [R, L]
     (any pattern; a masked slot leaves the carry as it is), wi [h, 4H],
-    wh [H, 4H], bh [4H]. On CUDA tensors this launches K5 (and K5 bwd when
-    differentiated), on CPU tensors it takes the plain versions."""
+    wh [H, 4H], bh [4H]. On CUDA tensors this launches K5 (its training
+    instance, and K5 bwd when differentiated, where a gradient is needed),
+    on CPU tensors it takes the plain versions."""
     f32 = lambda t: t.to(torch.float32).contiguous()
-    return FinalHiddenLSTM.apply(f32(x), mask.contiguous(), f32(wi), f32(wh),
-                                 f32(bh).reshape(-1))
+    ts = (f32(x), f32(wi), f32(wh), f32(bh).reshape(-1))
+    return FinalHiddenLSTM.apply(ts[0], mask.contiguous(), *ts[1:],
+                                 needs_grad(*ts))

@@ -23,12 +23,15 @@ planes transposed and extract fields chunk by chunk, all for Mosaic's lane
 rules: none of that is here. The kernels read the mask plane.
 
 The gradient is taken for u_ext, wi, wh and bh (the keys and the mask
-get none), recomputing the forward from the keys.
+get none). When one is needed, the forward on the card keeps a stash of
+every step's gates and carries (K4's training instance), and the backward
+(K4 bwd) runs from it without a forward of its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -48,14 +51,18 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
 )
 
 LSTM_KERNEL = CudaKernel("lstm_keys", "lstm_keys_fwd_launch",
-                         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
 LSTM_BWD_KERNEL = CudaKernel("lstm_keys_bwd", "lstm_keys_bwd_launch",
-                             [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
+                             [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
 MAX_H = 256     # LSTM width H and input width h (csrc/lstm_keys.cuh kMaxH)
-BWD_PARTS = 64  # parts of the backward's weight-gradient tiles, one partial
-#                 sum each
+# csrc/lstm_tc.cuh: the backward's fixed partitions, which fix its bits
+BWD_PARTS = 64  # parts of the weight-gradient slabs, one partial sum each
+SWEEP_ROWS = 64  # rows of a sweep block (kSweepRows: 4 warps of 16)
+DX_BLOCKS = 132  # blocks of the dx pass (kDxBlocks)
+DX_TILES = 3     # n-tiles of 8 channels a dx warp holds (kDxTiles)
+DX_WARPS = 16    # a dx block's target warp count (kDxWarps)
 
 
 def lstm_scan_plain(x, mask, wi, wh, bh):
@@ -213,77 +220,151 @@ def _check_operands(kown, kcross_al, mask, u_ext, wi, wh, bh, shift,
     return q, b, ell, h, hh, ncol
 
 
-def lstm_from_keys_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh,
-                        shift: int, root_own=None, root_cross=None,
-                        sort_rows: bool = True, order=None):
-    """Launch K4; see csrc/lstm_keys.cu. wi [h, 4H], wh [H, 4H], bh [4H]:
-    contiguous float32. The rows run in `order` (int32 [Q * B]) if given,
-    else, with `sort_rows`, by their last valid slot, longest first
-    (`row_order`), else in their own order. Returns [Q, B, H] float32."""
-    q, b, ell, h, hh, ncol = _check_operands(
-        kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
-        root_cross)
-    dev = kown.device
-    out = torch.empty(q, b, hh, dtype=torch.float32, device=dev)
-    if b:
-        if order is None and sort_rows:
-            order = row_order(mask.reshape(q * b, ell))
-        LSTM_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
-                    ptr_or_null(root_own), ptr_or_null(root_cross),
-                    ptr_or_null(order), ptr(u_ext), ptr(wi), ptr(wh),
-                    ptr(bh), ptr(out), q * b, ell, h, hh, ncol, shift)
-    return out
-
-
 def block_layout(hh: int):
-    """(threads per row group, row groups, rows per block) of the kernels'
-    blocks at LSTM width hh (csrc/lstm_keys.cuh `layout_for`)."""
+    """(threads per row group, row groups, rows per block) of the forward
+    kernels' blocks at LSTM width hh (csrc/lstm_keys.cuh `layout_for`)."""
     hp = -(-hh // 32) * 32
     groups = min(512 // hp, 4)
     return hp, groups, 8 * groups
 
 
+def dx_layout(h: int):
+    """(n-tile groups, warp streams a block, warps a block) of the
+    backward's dx pass at input width h (csrc/lstm_tc.cuh
+    `dx_layout_for`)."""
+    ng = -(-(-(-h // 8)) // DX_TILES)
+    streams = DX_WARPS // ng if ng < DX_WARPS else 1
+    return ng, streams, ng * streams
+
+
+def _round(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bwd_layout(rows: int, ell: int, h: int, hh: int, ncol: Optional[int]):
+    """The backward's blocks and buffers in 4-byte words, as the C entry
+    points document them (csrc/lstm_tc.cuh, lstm_keys_bwd.cu, lstm_bwd.cu):
+    the stash, the sweep's blocks and dynamic shared memory (wh padded and
+    resident where it fits in 227 KB less 1 KB, with dh and dc), the dx
+    pass's (wi padded where it fits, U for the keys), its dU partials (the
+    keys, ncol given), the weight-gradient parts and partials, and the
+    output."""
+    _, _, rb = block_layout(hh)
+    blocks = -(-rows // rb)
+    hp = _round(hh, 8)
+    ld = _round(4 * hp, 32) + 8
+    state = 2 * SWEEP_ROWS * (_round(hp, 32) + 8)
+    limit = (232448 - 1024) // 4
+    sweep = _round(hh, 8) * ld + state
+    sweep = sweep if sweep <= limit else state
+    u = 0 if ncol is None else (ncol + 2) * h
+    dx = _round(h, 8) * ld + u
+    dx = dx if dx <= limit else u
+    e1 = 0 if ncol is None else (ncol + 2) * h
+    e2 = 4 * hh + (h + hh) * 4 * hh
+    parts = min(BWD_PARTS, blocks * ell)
+    return dict(stash=blocks * rb * ell * 6 * hh, tend=blocks,
+                sweep_blocks=-(-rows // SWEEP_ROWS), sweep_smem=4 * sweep,
+                dx_smem=4 * dx, part1=DX_BLOCKS * dx_layout(h)[1] * e1,
+                parts=parts, part2=parts * e2, out=e1 + e2)
+
+
+@dataclass
+class LSTMStash:
+    """What the training forward of K4 or K5 keeps for the backward: every
+    step's activated gates and entering carries (`data`, padded rows x L x
+    6H fp32), each forward block's step count (`tend`), and the row order
+    it ran in. The backward overwrites the gates with their gradients, so
+    it takes a stash once."""
+    data: torch.Tensor
+    tend: torch.Tensor
+    order: Optional[torch.Tensor]
+    used: bool = False
+
+    def take(self) -> "LSTMStash":
+        if self.used:
+            raise RuntimeError("this LSTM stash was used by a backward "
+                               "already: run the forward again")
+        self.used = True
+        return self
+
+
+def new_stash(rows: int, ell: int, hh: int, order, device) -> LSTMStash:
+    """An empty stash for rows x ell slots at LSTM width hh."""
+    lay = bwd_layout(rows, ell, 1, hh, None)
+    return LSTMStash(
+        torch.empty(lay["stash"], dtype=torch.float32, device=device),
+        torch.empty(lay["tend"], dtype=torch.int32, device=device), order)
+
+
+def lstm_from_keys_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh,
+                        shift: int, root_own=None, root_cross=None,
+                        sort_rows: bool = True, order=None,
+                        keep_stash: bool = False):
+    """Launch K4; see csrc/lstm_keys.cu. wi [h, 4H], wh [H, 4H], bh [4H]:
+    contiguous float32. The rows run in `order` (int32 [Q * B]) if given,
+    else, with `sort_rows`, by their last valid slot, longest first
+    (`row_order`), else in their own order. Returns [Q, B, H] float32;
+    with `keep_stash` (training), also the LSTMStash for
+    `lstm_from_keys_bwd_cuda`, the output bit for bit the same."""
+    q, b, ell, h, hh, ncol = _check_operands(
+        kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
+        root_cross)
+    dev = kown.device
+    out = torch.empty(q, b, hh, dtype=torch.float32, device=dev)
+    stash = None
+    if b:
+        if order is None and sort_rows:
+            order = row_order(mask.reshape(q * b, ell))
+        if keep_stash:
+            stash = new_stash(q * b, ell, hh, order, dev)
+        LSTM_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
+                    ptr_or_null(root_own), ptr_or_null(root_cross),
+                    ptr_or_null(order), ptr(u_ext), ptr(wi), ptr(wh),
+                    ptr(bh), ptr(out),
+                    ptr_or_null(None if stash is None else stash.data),
+                    ptr_or_null(None if stash is None else stash.tend),
+                    q * b, ell, h, hh, ncol, shift)
+    elif keep_stash:
+        stash = new_stash(0, ell, hh, order, dev)
+    return (out, stash) if keep_stash else out
+
+
 def lstm_from_keys_bwd_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
                             shift: int, root_own=None, root_cross=None,
-                            sort_rows: bool = True, order=None):
+                            stash: Optional[LSTMStash] = None):
     """Launch K4 bwd; see csrc/lstm_keys_bwd.cu. g: contiguous fp32
-    [Q, B, H]; the rows run in `order`, or as `lstm_from_keys_cuda` orders
-    them. Scratch is sized from the shapes alone (no host sync): the
-    forward's stash of gates and carries, padded rows x L x 6H fp32.
-    Returns (du [ncol+2, h], dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
+    [Q, B, H]; `stash`: what `lstm_from_keys_cuda(..., keep_stash=True)`
+    kept on the same operands (the rows run in its order), taken once.
+    Scratch is sized from the shapes alone (no host sync). Returns
+    (du [ncol+2, h], dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
     q, b, ell, h, hh, ncol = _check_operands(
         kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
         root_cross)
     dev = kown.device
     check_cuda("g", g, torch.float32, (q, b, hh), dev)
-    hp, groups, rb = block_layout(hh)
-    if h > hp:
-        raise ValueError(f"the backward takes h <= {hp} at H={hh} (one "
-                         f"thread per input channel), got h={h}")
-    e1 = (ncol + 2) * h + 4 * hh
-    e2 = (h + hh) * 4 * hh
+    if stash is None:
+        raise ValueError("the backward needs the training forward's stash "
+                         "(lstm_from_keys_cuda(..., keep_stash=True))")
     rows = q * b
+    lay = bwd_layout(rows, ell, h, hh, ncol)
+    st = stash.take()
     if not rows:
-        out = torch.zeros(e1 + e2, dtype=torch.float32, device=dev)
+        out = torch.zeros(lay["out"], dtype=torch.float32, device=dev)
     else:
-        if order is None and sort_rows:
-            order = row_order(mask.reshape(rows, ell))
-        blocks = -(-rows // rb)
-        parts = min(BWD_PARTS, blocks * ell)
-        empty = lambda n, dt=torch.float32: torch.empty(n, dtype=dt,
-                                                        device=dev)
-        out = empty(e1 + e2)
-        wi_t, wh_t = wi.t().contiguous(), wh.t().contiguous()
-        stash = empty(blocks * rb * ell * 6 * hh)
-        tend = empty(blocks, torch.int32)
-        part1, part2 = empty(blocks * groups * e1), empty(parts * e2)
+        if st.data.numel() != lay["stash"] or st.tend.numel() != lay["tend"]:
+            raise ValueError("the stash does not fit these operands")
+        empty = lambda n: torch.empty(n, dtype=torch.float32, device=dev)
+        out = empty(lay["out"])
+        part1, part2 = empty(lay["part1"]), empty(lay["part2"])
         LSTM_BWD_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
                         ptr_or_null(root_own), ptr_or_null(root_cross),
-                        ptr_or_null(order), ptr(u_ext), ptr(wi), ptr(wh),
-                        ptr(bh), ptr(g), ptr(wi_t), ptr(wh_t), ptr(stash),
-                        ptr(tend), ptr(part1), ptr(part2), ptr(out), rows,
-                        ell, h, hh, ncol, shift, parts)
+                        ptr_or_null(st.order), ptr(u_ext), ptr(wi), ptr(wh),
+                        ptr(g), ptr(st.data), ptr(st.tend), ptr(part1),
+                        ptr(part2), ptr(out), rows, ell, h, hh, ncol, shift,
+                        lay["parts"])
     n = (ncol + 2) * h
+    e1 = n + 4 * hh
     return (out[:n].view(ncol + 2, h), out[e1:e1 + h * 4 * hh].view(h, -1),
             out[e1 + h * 4 * hh:].view(hh, -1), out[n:e1])
 
@@ -291,41 +372,56 @@ def lstm_from_keys_bwd_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
 class FusedKeysLSTM(torch.autograd.Function):
     """The keys-LSTM with its gradient for u_ext, wi, wh and bh only (the
     custom VJP `_klstmt2` of the JAX kernel). On the card the forward
-    orders the rows once (`row_order`) and saves the order; the backward
-    recomputes the forward from the saved keys, with K4 bwd."""
+    orders the rows once (`row_order`); when `train`, it runs K4's training
+    instance, which keeps the stash, and the backward runs K4 bwd from it.
+    On the CPU the pair is the plain versions."""
 
     @staticmethod
     def forward(ctx, kown, kcross_al, mask, u_ext, wi, wh, bh, shift,
-                root_own, root_cross):
+                root_own, root_cross, train):
         fwd = pick("lstm_from_keys forward", kown, lstm_from_keys_cuda,
                    lstm_from_keys_plain)
         args = (kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
                 root_cross)
-        order = None
+        ctx.stash = None
         if fwd is lstm_from_keys_cuda:
             order = row_order(mask.reshape(-1, mask.shape[-1]))
-            out = fwd(*args, order=order)
+            if train:
+                out, ctx.stash = fwd(*args, order=order, keep_stash=True)
+            else:
+                out = fwd(*args, order=order)
         else:
             out = fwd(*args)
         ctx.shift = shift
         ctx.save_for_backward(kown, kcross_al, mask, u_ext, wi, wh, bh,
-                              root_own, root_cross, order)
+                              root_own, root_cross)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (kown, kcross_al, mask, u_ext, wi, wh, bh, root_own, root_cross,
-         order) = ctx.saved_tensors
+        (kown, kcross_al, mask, u_ext, wi, wh, bh, root_own,
+         root_cross) = ctx.saved_tensors
         bwd = pick("lstm_from_keys backward", kown, lstm_from_keys_bwd_cuda,
                    lstm_from_keys_bwd_plain)
         args = (kown, kcross_al, mask, u_ext, wi, wh, bh,
                 g.to(torch.float32).contiguous(), ctx.shift, root_own,
                 root_cross)
         if bwd is lstm_from_keys_bwd_cuda:
-            du, dwi, dwh, dbh = bwd(*args, order=order)
+            if ctx.stash is None:
+                raise RuntimeError("lstm_from_keys backward: the forward "
+                                   "ran without grad and kept no stash")
+            du, dwi, dwh, dbh = bwd(*args, stash=ctx.stash)
+            ctx.stash = None  # taken: free it with the graph's other
+            #                   buffers
         else:
             du, dwi, dwh, dbh = bwd(*args)
-        return None, None, None, du, dwi, dwh, dbh, None, None, None
+        return None, None, None, du, dwi, dwh, dbh, None, None, None, None
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd will ask for a gradient of any of `tensors`."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors)
 
 
 def lstm_from_keys(kown: torch.Tensor, kcross_al: torch.Tensor,
@@ -342,9 +438,10 @@ def lstm_from_keys(kown: torch.Tensor, kcross_al: torch.Tensor,
     [ncol + 2, h] as for `fused_key_hidden_sum`; wi [h, 4H] (the input
     weights, projection folded in), wh [H, 4H], bh [4H], cast to float32
     here. root_own / root_cross: int32 0/1 planes replacing the key's root
-    bit (lead-in-hi layout). On CUDA tensors this launches K4 (and K4 bwd
-    when differentiated), on CPU tensors it takes the plain versions."""
+    bit (lead-in-hi layout). On CUDA tensors this launches K4 (its
+    training instance, and K4 bwd when differentiated, where a gradient is
+    needed), on CPU tensors it takes the plain versions."""
     f32 = lambda t: t.to(torch.float32).contiguous()
-    return FusedKeysLSTM.apply(kown, kcross_al, mask, f32(u_ext), f32(wi),
-                               f32(wh), f32(bh).reshape(-1), shift, root_own,
-                               root_cross)
+    ws = (f32(u_ext), f32(wi), f32(wh), f32(bh).reshape(-1))
+    return FusedKeysLSTM.apply(kown, kcross_al, mask, *ws, shift, root_own,
+                               root_cross, needs_grad(*ws))
