@@ -57,7 +57,12 @@ NVIDIA GPU. Run from the repository root:
    beside K4 bwd and K5 bwd (each backward timed alone from a fresh
    stash, beside its training forward and the pair, at L=301 and
    L=801, with its bound on the fp32 CUDA cores and its products' time
-   in 3xTF32 at the TF32 tensor rate), the
+   in 3xTF32 at the TF32 tensor rate; each forward's serving and
+   training instance beside cuDNN's forward and training forward, with
+   both bounds, the longest block's step count and the blocks an SM
+   holds), holds each LSTM autograd Function's gradients with its
+   training stash split into row groups (the stash budget lowered) to
+   the whole stash's (within 1e-4 of each tensor's largest), the
    merge route's cross lookup for K6, and for K7 and K7 bwd the
    feature-pair route they replace (the join's unpack, the hidden layer
    and the pair sum in bf16, and its backward), and prints the phase's
@@ -133,6 +138,11 @@ NVIDIA GPU. Run from the repository root:
    fit (mean 8 epochs, attn 4, lstm 1: the unfused lstm runs the plain
    scan, a Python loop over the slots), the card against the port's CPU
    path after 4 training steps, and a profile of a few train steps.
+   Then the lstm Net on wide sets: 4 training steps at M=200, S'=4
+   (L=801, the keys route, its stash whole) and 2 at batch 4096 in the
+   general hi/lo layout (M=1000, S'=4, L=4001: K5 over the feature
+   pairs, its 75.5 GB stash split into row groups), each with its peak
+   device memory (below the card's) and the rows of a stash group.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the card's name
@@ -147,11 +157,18 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
 import warnings
+
+# The allocator maps memory into growing segments instead of caching fixed
+# ones: after every earlier phase, the general layout's lstm fit (69 GiB
+# at its peak) found 16.8 GiB cached but in pieces, none big enough for a
+# 14.8 GiB stash group. Set before torch starts; a caller's setting wins.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np
 import torch
@@ -833,12 +850,61 @@ def lstm_vs_plain(cases, wide):
             f"{ms_unsorted:.4f} ms), plain {plain_ms:.4f} ms, cuDNN LSTM "
             f"(recurrence only, x given) {lib_ms:.4f} ms with max |d| "
             f"{lib_err:.3e} from plain, bound {bound_ms:.4f} ms ({by})")
+        del lib
+        kown, mask, u_ext, wh = args[0], args[2], args[3], args[5]
+        q, b, ell = kown.shape
+        fwd_times(f"K4 {name}", ms,
+                  lambda: lstm_keys.lstm_from_keys_cuda(*args,
+                                                        keep_stash=True),
+                  cudnn_lstm(args), (bound_ms, by),
+                  fwd_tc_ms(int(mask.sum()), u_ext.shape[1], wh.shape[0]),
+                  mask.reshape(q * b, ell), u_ext.shape[1], wh.shape[0],
+                  u_ext.shape[0] - 2)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound=(bound_ms, by))
-        del lib
     say(f"K4 checks peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return dict(max_abs_err=err, **out["L=301"])
+
+
+def fwd_tc_ms(valid, h, hh):
+    """The forward's gate products, 2 4H (h + H) operations a valid (row,
+    slot), in 3xTF32 (three TF32 products each) at the TF32 tensor rate,
+    in ms."""
+    return 3 * valid * 2 * 4 * hh * (h + hh) / TF32_OPS_PER_S * 1e3
+
+
+def fwd_times(name, ms, train, cudnn, bound_, tc_ms, mask, h, hh, ncol):
+    """A forward's serving (ms, timed by the caller) and training instance
+    beside cuDNN's forward and training forward (its module and packed
+    rows), in the same call; its bounds; the longest block's step count
+    (the rows in `row_order`, blocks of `block_layout`'s rows) and the
+    blocks an SM holds (shared memory bounds it)."""
+    lstm, packed = cudnn
+    train_ms = time_ms(train)
+    with torch.no_grad():
+        lib_ms = time_ms(lambda: lstm(packed))
+    lib_fwd = cudnn_train(lstm, packed, torch.zeros(
+        packed.batch_sizes[0], hh, device=DEVICE))[0]
+    lib_train_ms = time_ms(lib_fwd)
+    lay = lstm_keys.block_layout(h, hh, ncol)
+    ends = lstm_keys.row_ends(mask)
+    steps = ends[lstm_keys.row_order(mask, ends).long()]
+    per_block = steps[::lay["rows"]]
+    per_sm = (228 * 1024) // (lay["smem"] + 1024)
+    bound_ms, by = bound_
+    stash_ms, stash_by = stash_fwd_bound(bound_ms, int(mask.sum()), hh)
+    say(f"{name} forward: serving {ms:.4f} ms (cuDNN forward {lib_ms:.4f} "
+        f"ms), training instance {train_ms:.4f} ms (cuDNN training forward "
+        f"{lib_train_ms:.4f} ms); bound {bound_ms:.4f} ms ({by}; training "
+        f"{stash_ms:.4f} ms, {stash_by}), its products in 3xTF32 at the "
+        f"TF32 tensor rate {tc_ms:.4f} ms; {per_block.numel()} blocks of "
+        f"{lay['rows']} rows (resident wh: {lay['resident']}, "
+        f"{lay['smem']} bytes of shared memory, {per_sm} a SM), the longest "
+        f"block {int(per_block.max())} steps, mean "
+        f"{float(per_block.float().mean()):.1f}")
+    del lib_fwd
+    return train_ms, lib_train_ms
 
 
 def lstm_bwd_call(fn, args, g):
@@ -1071,6 +1137,61 @@ def lstm_bwd_vs_plain(cases, wide, gen):
     return dict(max_abs_err=err, **out["L=301"])
 
 
+def groups_vs_whole(name, loss, leaves, rows, ell, hh):
+    """An LSTM Function's gradients of `loss()` for `leaves`, its training
+    stash whole and in row groups (`lstm_keys.STASH_BUDGET` lowered to a
+    quarter of the stash for the call): each grouped gradient within
+    LSTM_BWD_TOL of the whole one's largest entry."""
+    def grads():
+        for t in leaves:
+            t.grad = None
+        loss().backward()
+        return [t.grad.clone() for t in leaves]
+
+    whole = grads()
+    keep = lstm_keys.STASH_BUDGET
+    blocks = -(-rows // lstm_keys.STASH_ROWS)
+    lstm_keys.STASH_BUDGET = (4 * lstm_keys.STASH_ROWS * ell * 6 * hh
+                              * (blocks // 4))
+    try:
+        group = lstm_keys.stash_group(rows, ell, hh)
+        split = grads()
+    finally:
+        lstm_keys.STASH_BUDGET = keep
+    rel = [rel_err(a, b) for a, b in zip(split, whole)]
+    ok = max(rel) <= LSTM_BWD_TOL and group < rows
+    say(f"{name}: gradients with the stash in groups of {group} rows "
+        f"({-(-rows // group)} groups) against the whole stash's "
+        f"({rows} rows): err/max {'/'.join(f'{r:.2e}' for r in rel)} (tol "
+        f"{LSTM_BWD_TOL}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name}: the grouped backward disagrees with the whole")
+
+
+def lstm_groups(args, gen):
+    """`groups_vs_whole` for the keys-LSTM (FusedKeysLSTM: K4, K4 bwd)."""
+    kown, kc, mask, u_ext, wi, wh, bh, shift, ro, rc = args
+    q, b, ell = kown.shape
+    leaves = [t.clone().requires_grad_() for t in (u_ext, wi, wh, bh)]
+    g = lstm_cotangent(args, gen)
+    groups_vs_whole(
+        "FusedKeysLSTM L=301",
+        lambda: (lstm_keys.lstm_from_keys(kown, kc, mask, *leaves, shift,
+                                          root_own=ro, root_cross=rc)
+                 * g).sum(), leaves, q * b, ell, wh.shape[0])
+
+
+def lstm_x_groups(args, gen):
+    """`groups_vs_whole` for the LSTM over given rows (FinalHiddenLSTM:
+    K5, K5 bwd; dx written group by group)."""
+    x, mask, wi, wh, bh = args
+    leaves = [t.clone().requires_grad_() for t in (x, wi, wh, bh)]
+    g = lstm_x_cotangent(args, gen)
+    groups_vs_whole(
+        "FinalHiddenLSTM L=301",
+        lambda: (lstm_x.lstm_final_hidden(leaves[0], mask, *leaves[1:])
+                 * g).sum(), leaves, x.shape[0], x.shape[1], wh.shape[0])
+
+
 def table_x(spgk, rows, gen):
     """K5's operands on the encoding-table path's real input: the sets of
     `spgk` deduplicated (`dedup_device`), the batch `rows` [2, B] joined
@@ -1190,6 +1311,13 @@ def lstm_x_vs_plain(cases, wide):
             f"(x given) {lib_ms:.4f} ms with max |d| {lib_err:.3e} from "
             f"plain, bound {bound_ms:.4f} ms ({by}); valid slots "
             f"{int(args[1].sum())}")
+        x, mask, wh = args[0], args[1], args[3]
+        fwd_times(f"K5 {name}", ms,
+                  lambda: lstm_x.lstm_final_hidden_cuda(*args,
+                                                        keep_stash=True),
+                  (lstm, packed), (bound_ms, by),
+                  fwd_tc_ms(int(mask.sum()), x.shape[2], wh.shape[0]),
+                  mask, x.shape[2], wh.shape[0], None)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound=(bound_ms, by))
         del lstm, packed, lib
@@ -1694,12 +1822,14 @@ def kernels_vs_plain(g, gsets):
                              gen)
     stats["lstm_keys_fwd"] = lstm_vs_plain(cases, wide)
     stats["lstm_keys_bwd"] = lstm_bwd_vs_plain(cases, wide, gen)
+    lstm_groups(wide["L=301"], gen)
     del cases, wide
     # the masked LSTM over given rows (K5) and its backward on the table
     # path's input
     cases, wide = table_x_cases(spl, spw, rows, gen)
     stats["lstm_x_fwd"] = lstm_x_vs_plain(cases, wide)
     stats["lstm_x_bwd"] = lstm_x_bwd_vs_plain(cases, wide, gen)
+    lstm_x_groups(wide["L=301"], gen)
     del cases, wide
 
     # the cross lookup of both key words (K6)
@@ -2459,6 +2589,63 @@ def keys_pallas_path(spgk: SpGKeys, edges, label, launches, gsets) -> None:
     require(ok, "predict in the general layout gave bad scores")
 
 
+def wide_lstm_fits(spw: SpGKeys, gsets, label) -> None:
+    """The lstm Net trains on wide sets: a short fit at M=200, S'=4 (L=801,
+    the keys route: K4 and K4 bwd, the stash whole) and a few steps in the
+    general hi/lo layout (M=1000, S'=4, L=4001, batch 4096: the route over
+    feature pairs, K5 and K5 bwd, the stash in row groups), each with its
+    peak device memory and the rows of a stash group."""
+    cap = torch.cuda.get_device_properties(0).total_memory
+    for what, sets, nsteps, steps in (
+            (f"lead-in-hi M={WIDE_WALKS} S'={WIDE_STEPS}", spw, WIDE_STEPS,
+             4),
+            (f"general M={GEN_WALKS} S'={GEN_STEPS}", gsets[0], GEN_STEPS,
+             2)):
+        net = Net(nsteps + 1, HIDDEN, aggrs="lstm", dropout=0.1,
+                  dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+                  device=DEVICE)
+        trainer = trainer_from_keys(net, sets, TrainConfig(
+            batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
+        rng = np.random.default_rng(3)
+        n = steps * BATCH
+        edges = torch.as_tensor(rng.integers(
+            0, sets.nodes.shape[0], size=(2, n))).to(DEVICE)
+        labels = torch.as_tensor((rng.random(n) < 0.5).astype(
+            np.float32)).to(DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        ell = sets.nodes.shape[1]
+        rows = 2 * BATCH
+        group = lstm_keys.stash_group(rows, ell, HIDDEN)
+        stash_gb = 4 * lstm_keys.bwd_layout(rows, ell, 1, HIDDEN,
+                                            None)["stash"] / 1e9
+        start = {k: v.clone() for k, v in net.state_dict().items()}
+        torch.cuda.empty_cache()
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        losses, _ = trainer.fit(edges, labels, 1, gen)
+        sync()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        still = [k for k, v in net.state_dict().items()
+                 if torch.equal(v, start[k])]
+        lstm_counts = {k: v for k, v in counts().items() if "lstm" in k}
+        say(f"wide lstm fit ({what}, L={ell}): {steps} steps of {BATCH} "
+            f"queries in {dt:.3f} s, loss {float(losses[-1]):.6f}; the "
+            f"whole stash would be {stash_gb:.1f} GB: {group} rows a stash "
+            f"group ({-(-rows // group)} groups of {rows} rows); peak device "
+            f"memory {peak / 2**30:.2f} GiB of {cap / 2**30:.2f}; launches "
+            f"{lstm_counts} [{label}]")
+        require(bool(torch.isfinite(losses).all()), f"wide fit ({what}): a "
+                "loss is not finite")
+        require(not still, f"wide fit ({what}): parameters did not move: "
+                f"{still}")
+        require(peak < cap, f"wide fit ({what}): peak memory past the card")
+        del net, trainer, edges, labels, start
+    torch.cuda.empty_cache()
+
+
 def check_unfused_routes(spgk: SpGKeys, net, edges) -> None:
     """The unfused route's two forms on one batch, both on the card: the
     hidden rows from the aligned keys (K7; the join carries no feature
@@ -2652,6 +2839,11 @@ def main() -> int:
     keys_pallas_path(spgk, tedges, label, launches, gsets)
     # the unfused keys routes (K7, K7 bwd), on the same sets and edges
     unfused_path(spgk, tedges, tlabels, label, launches)
+    # the lstm Net on wide sets: its stash whole at L=801, in row groups in
+    # the general layout
+    spw, _, _ = joined_batch(g, WIDE_WALKS, WIDE_STEPS, seed=12)
+    wide_lstm_fits(spw, gsets, label)
+    del spw
 
     # phase 4
     for path, names in PATHS.items():

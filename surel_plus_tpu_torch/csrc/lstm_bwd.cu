@@ -20,11 +20,12 @@
 // last lane. This one reads the mask plane and keeps the whole forward.
 //
 // Design: K4 bwd's (lstm_tc.cuh), with x given in place of the keys. The
-// training forward, K5's own step loop (`forward_kernel<kXRows, ...,
-// STASH>`), has kept every step's activated gates and entering carries
-// (padded rows x L x 6H fp32, 5.7 GB at R = 8192, L = 301, H = 96), so the
-// gates are K5's bit for bit over the same blocks of rows in the same order
-// (`row_order`), and this entry point runs no forward. It runs the reverse
+// training forward, K5's own step loop (`forward_kernel` with STASH), has
+// kept every step's activated gates and entering carries (padded rows x L
+// x 6H fp32, 5.7 GB at R = 8192, L = 301, H = 96; one group of rows at a
+// time past a fixed budget), so the gates are K5's bit for bit over the
+// same rows in the same order (`row_order`), and this entry point runs no
+// forward. It runs the reverse
 // sweep (dh_prev = dgates wh^T on the tensor cores in 3xTF32), the dx pass
 // (dx = dgates wi^T, written at every row's every slot: 0 where the slot is
 // masked or past its block's last valid slot), the weight gradients
@@ -43,8 +44,9 @@ using namespace lstm;
 
 // The stash and tend come from the training forward (lstm.cu) over the
 // same operands and `order`, and are consumed. Scratch, sized by the caller
-// from the shapes: part: P * (4H + (h + H) 4H) floats. dx: rows * L * h
-// floats, every entry written. out: 4H + (h + H) 4H floats,
+// from the shapes: part: P * (4H + (h + H) 4H) floats. dx: like x, every
+// slot of each processed row written (rows: the positions of `order`, a
+// subset of x's rows, or x's first rows). out: 4H + (h + H) 4H floats,
 // [dbh | dwi | dwh]. P (>= 1) fixes the partition of the weight-gradient
 // slabs, and with it the bits.
 extern "C" int lstm_x_bwd_launch(const void* x, const void* mask,

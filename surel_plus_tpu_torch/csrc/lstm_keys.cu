@@ -23,83 +23,92 @@
 // 4H (h + H) multiply-adds (147,456 operations at h = H = 96), against
 // 2 h (2 ncol + 1) for the hidden rows and some 20 H for the cell; at the
 // bench width (Q=2, B=4096, L=301, about 39% of the slots valid) about
-// 1.5e11 operations, 2.2 ms on the fp32 CUDA cores, while the keys are
-// about 30 MB (9 us at 3.35 TB/s). It stays in fp32: the recurrence runs
-// up to 801 steps and is held to its plain version at 1e-4.
+// 1.5e11 operations: 2.2 ms on the fp32 CUDA cores, 0.9 ms for the three
+// TF32 products of 3xTF32 at the TF32 tensor rate, while the keys are
+// about 30 MB (9 us at 3.35 TB/s). It holds fp32 accuracy: the recurrence
+// runs up to 801 steps and is held to its plain version at 1e-4.
 //
-// The weights do not fit in one SM: wi and wh are 2 x 96 x 384 fp32 =
-// 295 KB, above the 227 KB of shared memory a block may have and above
-// the register file. So each step reads them once per BLOCK (through the
-// read-only cache, from L2), and a block runs several rows to reuse every
-// weight it reads: one thread per hidden unit j and row group of 8 rows,
-// kMaxGroups groups (32 rows at H = 96, 384 threads). A thread keeps the
-// four gate sums of unit j for its 8 rows in registers (32 accumulators,
-// 32 multiply-adds per 4 weight loads), so the cell update needs no
-// exchange; c stays in registers, h and x go through shared memory,
-// double buffered, with one barrier a step. Where it fits (H = 96), wh
-// is copied into shared memory once per block, so only wi streams from
-// L2; wider H reads both from L2. Keys are staged 32 slots at a
-// time. The wrapper orders the rows by their last valid slot, longest
-// first (the `order` operand), so a block's rows end together and the
-// longest blocks start first; out[order[i]] is written directly.
+// Design (the step loop `forward_kernel` in lstm_keys.cuh). The products
+// run on the tensor cores (mma.sync.m16n8k8, 3xTF32; the big parts rounded
+// to nearest and each k-step's products in a fresh accumulator, as
+// accurate as fp32): a row group of 16 rows runs on two warps, each
+// holding all four gates of half the units, so the cell runs in the lane;
+// the h' a lane computes is the next step's A fragment of the same lane of
+// both warps (K axis permuted), passed through shared memory in lane
+// order. A block holds 4 row groups (64 rows; 128 blocks at R = 8192, one
+// wave on 132 SMs, 8 warps an SM) that step together. At H = 96 wh (147
+// KB in fragment order) stays in shared memory and c in registers; wi (147
+// KB more) cannot join it and streams through a two-k-step ring in shared
+// memory (cp.async, a block barrier a k-step), h updated in place. The
+// hidden rows are formed from each lane's keys and U (in shared memory)
+// as A fragments in the lane's words, a slot's keys loaded a step ahead,
+// the two warps taking alternate k-steps. The wrapper orders the rows by
+// their last valid slot, longest first (the `order` operand), so a block's
+// rows end together; it also passes each row's end (`ends`) and the
+// weights in fragment order.
 //
 // Training (a non-null `stash`): the same step loop also keeps every
-// step's activated gates and entering carries (c, h) and each block's step
-// count for the backward (lstm_keys_bwd.cu), padded rows x L x 6H fp32 (5.7
-// GB at the bench width); the final h it writes is serving's bit for bit.
+// step's activated gates and entering carries (c, h) and each 32-row stash
+// block's step count for the backward (lstm_keys_bwd.cu), padded rows x L
+// x 6H fp32 (5.7 GB at the bench width); the final h it writes is
+// serving's bit for bit.
 //
 // Uses expf / tanhf (no fast-math intrinsics) and no float atomics: two
-// launches give the same bits. The kernel itself, `forward_kernel`, lives
-// in lstm_keys.cuh: K5 runs the same step loop over given rows.
+// launches give the same bits, and a row's bits do not depend on the order
+// the rows run in.
 
 #include "lstm_tc.cuh"
 
 using namespace lstm;
 
-// stash: null (serving), or blocks * rb * L * 6H floats and tend: blocks
-// ints (layout_for(H): rb rows a block, blocks = ceil(rows / rb)).
+// rows: the processing positions (order [rows] when given, a subset of the
+// [Q B] rows, each at most once; else the first rows rows). ends [Q B]:
+// each row's last valid slot + 1. wif, whf: wi, wh in fragment order
+// (lstm_keys.cuh: (h or H) / 8 up x H / 8 up x 256 floats). stash: null
+// (serving), or blocks * kStashRows * L * 6H floats and tend: blocks ints
+// (blocks = ceil(rows / kStashRows)). out [Q B, H]: the rows processed
+// written.
 extern "C" int lstm_keys_fwd_launch(const void* kown, const void* kcross,
                                     const void* mask, const void* rown,
                                     const void* rcross, const void* order,
-                                    const void* u, const void* wi,
-                                    const void* wh, const void* bh, void* out,
-                                    void* stash, void* tend, int rows, int L,
-                                    int h, int H, int ncol, int shift,
+                                    const void* ends, const void* u,
+                                    const void* wif, const void* whf,
+                                    const void* bh, void* out, void* stash,
+                                    void* tend, int rows, int L, int h,
+                                    int H, int ncol, int shift,
                                     void* stream) {
-  const Operands p{(const uint32_t*)kown, (const uint32_t*)kcross,
-                   (const uint8_t*)mask,  (const int32_t*)rown,
-                   (const int32_t*)rcross, (const int32_t*)order,
-                   (const float*)u,       (const float*)wi,
-                   (const float*)wh,      (const float*)bh,
-                   rows, L, h, H, shift};
+  FwdOperands p{};
+  p.kown = (const uint32_t*)kown;
+  p.kcross = (const uint32_t*)kcross;
+  p.mask = (const uint8_t*)mask;
+  p.rown = (const int32_t*)rown;
+  p.rcross = (const int32_t*)rcross;
+  p.order = (const int32_t*)order;
+  p.u = (const float*)u;
+  p.bh = (const float*)bh;
+  p.rows = rows;
+  p.L = L;
+  p.h = h;
+  p.H = H;
+  p.shift = shift;
+  p.ends = (const int32_t*)ends;
+  p.wif = (const float*)wif;
+  p.whf = (const float*)whf;
+  p.ncol = ncol;
   if (rows < 1 || L < 1 || h < 1 || h > kMaxH || H < 1 || H > kMaxH ||
+      ncol < 2 || ncol > kMaxNcol ||
       (rown == nullptr) != (rcross == nullptr) ||
       (stash == nullptr) != (tend == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   float* o = (float*)out;
+  const bool root = rown != nullptr;
   if (stash != nullptr) {
     const Stash keep = stash_in(stash, tend, rows, L, H);
-    switch (ncol) {
-      case 2: return (int)launch_forward<2, true>(p, o, keep, st);
-      case 3: return (int)launch_forward<3, true>(p, o, keep, st);
-      case 4: return (int)launch_forward<4, true>(p, o, keep, st);
-      case 5: return (int)launch_forward<5, true>(p, o, keep, st);
-      case 6: return (int)launch_forward<6, true>(p, o, keep, st);
-      case 7: return (int)launch_forward<7, true>(p, o, keep, st);
-      case 8: return (int)launch_forward<8, true>(p, o, keep, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    return root ? (int)launch_forward<true, true, true>(p, o, keep, st)
+                : (int)launch_forward<true, false, true>(p, o, keep, st);
   }
   const Stash none{nullptr, nullptr, nullptr, nullptr};
-  switch (ncol) {
-    case 2: return (int)launch_forward<2, false>(p, o, none, st);
-    case 3: return (int)launch_forward<3, false>(p, o, none, st);
-    case 4: return (int)launch_forward<4, false>(p, o, none, st);
-    case 5: return (int)launch_forward<5, false>(p, o, none, st);
-    case 6: return (int)launch_forward<6, false>(p, o, none, st);
-    case 7: return (int)launch_forward<7, false>(p, o, none, st);
-    case 8: return (int)launch_forward<8, false>(p, o, none, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return root ? (int)launch_forward<true, true, false>(p, o, none, st)
+              : (int)launch_forward<true, false, false>(p, o, none, st);
 }

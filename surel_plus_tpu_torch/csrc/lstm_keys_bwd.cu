@@ -22,20 +22,21 @@
 // any mask): dh and dc ride through masked slots, and a block starts its
 // reverse sweep at its rows' last valid slot INDEX.
 //
-// Design (lstm_tc.cuh, shared with K5 bwd): the training forward, K4's
-// own step loop (`forward_kernel` with STASH), has kept every step's
-// activated gates and entering carries, so the relu decisions and the gates
-// are K4's bit for bit over the same blocks of rows in the same order, and
-// this entry point runs no forward. The TPU kernels keep chunk-boundary
-// carries and re-forward each chunk, for their small VMEM; the card holds
-// the whole stash (padded rows x L x 6H fp32: 5.7 GB at the bench width,
-// 15 GB at L = 801). It runs the reverse sweep (dh_prev = dgates wh^T on
-// the tensor cores in 3xTF32, dgates written over the stashed gates), the
-// dx pass (dx = dgates wi^T; its epilogue recomputes each slot's fields
-// from the keys and adds dx back through each side's relu into dU: x is
-// recomputed, not stashed, which keeps the stash at 6H a slot), the weight
-// gradients [dwi; dwh] and dbh over the stash's slabs, and the fixed-order
-// reductions. h and H are each at most 256; h is no longer tied to H.
+// Design (lstm_tc.cuh, shared with K5 bwd): the training forward, K4's own
+// step loop (`forward_kernel` with STASH), has kept every step's activated
+// gates and entering carries, so the relu decisions and the gates are K4's bit
+// for bit over the same rows in the same order, and this entry point runs no
+// forward. The TPU kernels keep chunk-boundary carries and re-forward each
+// chunk, for their small VMEM; the card holds the stash (padded rows x L x 6H
+// fp32: 5.7 GB at the bench width, 15 GB at L = 801) or, where it would pass a
+// fixed budget, the stash of one group of rows at a time (the caller's loop,
+// ops/kernels/lstm_keys.py). It runs the reverse sweep (dh_prev = dgates wh^T
+// on the tensor cores in 3xTF32, dgates written over the stashed gates), the
+// dx pass (dx = dgates wi^T; its epilogue recomputes each slot's fields from
+// the keys and adds dx back through each side's relu into dU: x is recomputed,
+// not stashed, which keeps the stash at 6H a slot), the weight gradients [dwi;
+// dwh] and dbh over the stash's slabs, and the fixed-order reductions. h and H
+// are each at most 256; h is no longer tied to H.
 //
 // Bound on the H100: the stash read once (about 2.5 GB of valid slabs at
 // the bench width, 0.8 ms at 3.35 TB/s), against the products dh_prev, dx,

@@ -2,8 +2,8 @@
 // (lstm_keys_bwd.cu, x from the keys) and K5 bwd (lstm_bwd.cu, x given).
 // Both start from the stash that the training forward kept (`forward_kernel`
 // with STASH, lstm_keys.cuh): every step's activated gates and entering
-// carries (c, h), per forward block of rb rows, in the rows' processing
-// order. Three kernels and a fixed-order reduction:
+// carries (c, h), per stash block of rb = kStashRows rows, in the rows'
+// processing order. Three kernels and a fixed-order reduction:
 //
 // 1. `sweep_kernel`, the reverse sweep. A warp owns 16 rows, a block 4
 //    warps (64 rows; 128 blocks at R = 8192, one wave on 132 SMs). Per
@@ -24,7 +24,7 @@
 //    and into registers one k-group ahead: a ring in shared memory would
 //    need the step's 120 KB of stash rows beside wh. The dgates are
 //    written over the stashed gates (masked slots keep their stashed 0).
-// 2. `dx_kernel`: dx = dgates wi^T per (forward block, step) slab, off the
+// 2. `dx_kernel`: dx = dgates wi^T per (stash block, step) slab, off the
 //    serial chain, wi resident in shared memory; K5 writes dx (0 at masked
 //    slots and past a block's last valid slot), K4 sends it back through
 //    each side's relu into dU in its epilogue (the fields recomputed from
@@ -61,10 +61,6 @@ constexpr int kWN = 128;         // and columns (gates)
 constexpr int kWThreads = 256;   // 8 warps, 32 x 32 outputs each
 constexpr int kReduceThreads = 256;
 
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-
 // A weight matrix W [n][4H] in shared memory, gate-padded: row n holds
 // W[n][q H + j] at q hp + j (hp = H rounded up to 8, zero for j >= H), rows
 // rounded up to 8 with zeros; the row stride is 8 words past a multiple of
@@ -95,54 +91,6 @@ __device__ inline void copy_padded(float* dst, const float* __restrict__ w,
   }
 }
 
-// x = big + small: big is x truncated to TF32 (its low 13 mantissa bits
-// cleared: one LOP3, where cvt.rna.tf32.f32 costs a dozen integer
-// instructions on sm_90), small = x - big exactly, which the tensor core
-// reads truncated to TF32 in turn.
-struct Split {
-  uint32_t big, small;
-};
-
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t b = __float_as_uint(x) & 0xffffe000u;
-  return Split{b, __float_as_uint(x - __uint_as_float(b))};
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
-                                    uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// c[n] += a b[n] in 3xTF32 for the first nc of NT n-tiles, for the A
-// fragment a (a0: row g, k c; a1: row g + 8, k c; a2: row g, k c + 4; a3:
-// row g + 8, k c + 4; g = lane / 4, c = lane % 4) and the B fragments (b0:
-// k c, column g; b1: k c + 4, column g). One pass a term, so that the
-// products in flight are on different accumulators.
-template <int NT>
-__device__ __forceinline__ void mma3(float (&c)[NT][4], const Split (&a)[4],
-                                     const Split (&b0)[NT],
-                                     const Split (&b1)[NT], int nc = NT) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    if (n < nc)
-      mma(c[n], a[0].small, a[1].small, a[2].small, a[3].small, b0[n].big,
-          b1[n].big);
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    if (n < nc)
-      mma(c[n], a[0].big, a[1].big, a[2].big, a[3].big, b0[n].small,
-          b1[n].small);
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    if (n < nc)
-      mma(c[n], a[0].big, a[1].big, a[2].big, a[3].big, b0[n].big,
-          b1[n].big);
-}
-
 // B fragment of k-step (gate q, units j .. j + 1 of the lane) for column n:
 // W[n][q H + j], W[n][q H + j + 1], from the padded copy in shared memory
 // (SMEM) or from device memory.
@@ -170,7 +118,7 @@ __device__ __forceinline__ void b_pair(const float* ws,
 
 // ------------------------------------------------------------- the sweep
 
-// A lane's two rows: processing position, row of x / g, forward block, row
+// A lane's two rows: processing position, row of x / g, stash block, row
 // in it, the block's step count; `live` where a stash row exists.
 struct LaneRows {
   int srow[2], fb[2], r[2], tend[2];
@@ -412,7 +360,7 @@ sweep_kernel(Operands p, int rb, Stash st, const float* g, Padded pwr,
 
 // A dx warp's place: `ng` n-tile groups of kDxTiles cover x's h channels;
 // a block runs `streams` warp streams of ng warps, warp w taking group
-// w % ng of stream w / ng, over the tasks (forward block, step, 16-row
+// w % ng of stream w / ng, over the tasks (stash block, step, 16-row
 // tile) stream, stream + all streams, ...
 struct DxLayout {
   int ng, streams, warps;
@@ -445,7 +393,7 @@ __device__ __forceinline__ void load_dgates(float (&d)[4][2][2],
   }
 }
 
-// dx = dgates wi^T over the slabs (forward block fb, step t) of rb rows.
+// dx = dgates wi^T over the slabs (stash block fb, step t) of rb rows.
 // NCOL = kXRows: dx written for every (row, slot) of x's rows, 0 where the
 // slot is masked or past the block's last valid slot. Else dx goes back
 // through each side's relu: dU rows of the fields and b1's row, one
@@ -598,7 +546,7 @@ dx_kernel(Operands p, int rb, Stash st, Padded pw, DxLayout dl, float* dx,
 
 // Part blockIdx.y of [dbh | dwi | dwh] over output tile blockIdx.x of
 // [x; h_prev]^T dgates ([h + H][4H] in kWM x kWN tiles): the sum over the
-// part's slabs (forward block, step), slab s = part, part + P, ... and the
+// part's slabs (stash block, step), slab s = part, part + P, ... and the
 // slabs' column sums of dgates for dbh (the blocks of the first tile row).
 // The part's next slab with a valid step after slab s (or past the end).
 __device__ __forceinline__ int next_slab(const Stash& st, int s, int P,
@@ -638,7 +586,7 @@ __device__ __forceinline__ SlabRow slab_row(const Operands& p, int rb,
 
 // Part blockIdx.y of [dbh | dwi | dwh] over output tile blockIdx.x of
 // [x; h_prev]^T dgates ([h + H][4H] in kWM x kWN tiles): the sum over the
-// part's slabs (forward block, step), slab s = part, part + P, ... with a
+// part's slabs (stash block, step), slab s = part, part + P, ... with a
 // valid step, and the slabs' column sums of dgates for dbh (the blocks of
 // the first tile row). A slab's tiles are loaded while the previous
 // slab's products run, its rows and keys a slab earlier still.
@@ -646,7 +594,7 @@ template <int NCOL, bool ROOT>
 __global__ void __launch_bounds__(kWThreads, 2)
 weights_kernel(Operands p, int rb, Stash st, float* part) {
   constexpr int NF = NCOL == kXRows ? 1 : NCOL;
-  constexpr int kR = kMaxGroups * kRows;  // slab rows at most
+  constexpr int kR = kStashRows;  // slab rows
   constexpr int kAE = kR * kWM / kWThreads;  // A elements a thread stages
   constexpr int kBE = kR * kWN / kWThreads;
   __shared__ __align__(16) float as[kR][kWM + 8];  // [k][m]
@@ -855,8 +803,7 @@ cudaError_t launch_backward(const Operands& p, const Stash& st,
                             const float* g, float* dx, float* part1,
                             float* part2, float* out, int P,
                             cudaStream_t stream) {
-  const Layout lay = layout_for(p.H);
-  const int rb = lay.rb;
+  const int rb = kStashRows;
   cudaError_t err;
   {
     const Padded pw = padded_for(p.H, p.H);
@@ -904,11 +851,11 @@ cudaError_t launch_backward(const Operands& p, const Stash& st,
   return cudaGetLastError();
 }
 
-// The stash's planes in one buffer of blocks * rb * L * 6H floats:
+// The stash's planes in one buffer of blocks * kStashRows * L * 6H floats:
 // activated gates [.][4H], then c and h entering each step [.][H].
 inline Stash stash_in(void* buf, void* tend, int rows, int L, int H) {
-  const Layout lay = layout_for(H);
-  const size_t plane = (size_t)((rows + lay.rb - 1) / lay.rb) * lay.rb * L;
+  const size_t plane =
+      (size_t)((rows + kStashRows - 1) / kStashRows) * kStashRows * L;
   float* s = (float*)buf;
   return Stash{s, s + plane * 4 * H, s + plane * 5 * H, (int*)tend};
 }

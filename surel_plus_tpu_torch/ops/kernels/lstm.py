@@ -21,7 +21,9 @@ operands.
 
 The gradient is taken for x, wi, wh and bh (the mask gets none). When
 one is needed, the forward on the card runs K5's training instance, which
-keeps the stash that K5 bwd runs from.
+keeps the stash that K5 bwd runs from; where that stash would pass
+`lstm_keys.STASH_BUDGET`, the backward runs the training forward and K5
+bwd group by group of the ordered rows instead (as `FusedKeysLSTM` does).
 """
 
 from __future__ import annotations
@@ -40,16 +42,22 @@ from surel_plus_tpu_torch.ops.kernels.build import (
 from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
     MAX_H,
     LSTMStash,
+    add_grads,
     bwd_layout,
+    fragment_order,
     lstm_bptt_plain,
     lstm_scan_plain,
     needs_grad,
     new_stash,
+    processed_rows,
+    row_ends,
+    row_groups,
     row_order,
+    stash_group,
 )
 
 LSTM_X_KERNEL = CudaKernel("lstm", "lstm_x_fwd_launch",
-                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p])
 LSTM_X_BWD_KERNEL = CudaKernel("lstm_bwd", "lstm_x_bwd_launch",
                                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
@@ -88,23 +96,28 @@ def lstm_final_hidden_cuda(x, mask, wi, wh, bh, sort_rows: bool = True,
                            order=None, keep_stash: bool = False):
     """Launch K5; see csrc/lstm.cu. x [R, L, h], wi [h, 4H], wh [H, 4H],
     bh [4H]: contiguous float32; mask bool [R, L]. The rows run in `order`
-    (int32 [R]) if given, else, with `sort_rows`, by their last valid slot,
-    longest first (`row_order`), else in their own order. Returns [R, H]
-    float32; with `keep_stash` (training), also the LSTMStash for
+    (int32, the rows to run, each at most once; the others' outputs are
+    left unwritten) if given, else, with `sort_rows`, by their last valid
+    slot, longest first (`row_order`), else in their own order. Returns
+    [R, H] float32; with `keep_stash` (training), also the LSTMStash for
     `lstm_final_hidden_bwd_cuda`, the output bit for bit the same."""
     r, ell, h, hh = _check_operands(x, mask, wi, wh, bh)
     out = torch.empty(r, hh, dtype=torch.float32, device=x.device)
+    rows = processed_rows(order, r, x.device)
     stash = None
-    if r:
+    if rows:
+        ends = row_ends(mask)
         if order is None and sort_rows:
-            order = row_order(mask)
+            order = row_order(mask, ends)
         if keep_stash:
-            stash = new_stash(r, ell, hh, order, x.device)
+            stash = new_stash(rows, ell, hh, order, x.device)
+        # held until the launch (see lstm_from_keys_cuda)
+        wif, whf = fragment_order(wi, hh), fragment_order(wh, hh)
         LSTM_X_KERNEL(x.device, ptr(x), ptr(mask), ptr_or_null(order),
-                      ptr(wi), ptr(wh), ptr(bh), ptr(out),
+                      ptr(ends), ptr(wif), ptr(whf), ptr(bh), ptr(out),
                       ptr_or_null(None if stash is None else stash.data),
                       ptr_or_null(None if stash is None else stash.tend),
-                      r, ell, h, hh)
+                      rows, ell, h, hh)
     elif keep_stash:
         stash = new_stash(0, ell, hh, order, x.device)
     return (out, stash) if keep_stash else out
@@ -121,13 +134,15 @@ def lstm_final_hidden_bwd_plain(x, mask, wi, wh, bh, g):
 
 
 def lstm_final_hidden_bwd_cuda(x, mask, wi, wh, bh, g,
-                               stash: LSTMStash = None):
+                               stash: LSTMStash = None, dx=None):
     """Launch K5 bwd; see csrc/lstm_bwd.cu. Operands as for
     `lstm_final_hidden_cuda`, g: contiguous fp32 [R, H]; `stash`: what
     `lstm_final_hidden_cuda(..., keep_stash=True)` kept on the same
-    operands (the rows run in its order), taken once. Scratch is sized
-    from the shapes alone (no host sync). Returns (dx [R, L, h],
-    dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
+    operands (the rows run in its order: a group of rows gives that
+    group's gradients and dx rows), taken once; `dx`: where to write dx
+    (contiguous fp32 like x; its other rows are left as they are), else a
+    new tensor. Scratch is sized from the shapes alone (no host sync).
+    Returns (dx [R, L, h], dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
     r, ell, h, hh = _check_operands(x, mask, wi, wh, bh)
     dev = x.device
     check_cuda("g", g, torch.float32, (r, hh), dev)
@@ -135,22 +150,25 @@ def lstm_final_hidden_bwd_cuda(x, mask, wi, wh, bh, g,
         raise ValueError("the backward needs the training forward's stash "
                          "(lstm_final_hidden_cuda(..., keep_stash=True))")
     h4 = 4 * hh
-    lay = bwd_layout(r, ell, h, hh, None)
     st = stash.take()
+    rows = processed_rows(st.order, r, dev)
+    lay = bwd_layout(rows, ell, h, hh, None)
     empty = lambda n: torch.empty(n, dtype=torch.float32, device=dev)
-    if not r:
+    if dx is None:
+        dx = empty((r, ell, h))
+    else:
+        check_cuda("dx", dx, torch.float32, (r, ell, h), dev)
+    if not rows:
         out = torch.zeros(lay["out"], dtype=torch.float32, device=dev)
-        dx = empty((0, ell, h))
     else:
         if st.data.numel() != lay["stash"] or st.tend.numel() != lay["tend"]:
             raise ValueError("the stash does not fit these operands")
         out = empty(lay["out"])
-        dx = empty((r, ell, h))
         part = empty(lay["part2"])
         LSTM_X_BWD_KERNEL(dev, ptr(x), ptr(mask), ptr_or_null(st.order),
                           ptr(wi), ptr(wh), ptr(g), ptr(st.data),
-                          ptr(st.tend), ptr(part), ptr(dx), ptr(out), r, ell,
-                          h, hh, lay["parts"])
+                          ptr(st.tend), ptr(part), ptr(dx), ptr(out), rows,
+                          ell, h, hh, lay["parts"])
     return (dx, out[h4:h4 + h * h4].view(h, h4),
             out[h4 + h * h4:].view(hh, h4), out[:h4])
 
@@ -160,21 +178,26 @@ class FinalHiddenLSTM(torch.autograd.Function):
     bh (the custom VJP `_lstm` of the JAX kernel). On the card the forward
     orders the rows once (`row_order`); when `train`, it runs K5's
     training instance, which keeps the stash (K5's gates bit for bit), and
-    the backward runs K5 bwd from it. On the CPU the pair is the plain
-    versions."""
+    the backward runs K5 bwd from it; where the stash would pass the
+    budget (`stash_group`), the forward serves and the backward re-runs
+    the training forward and K5 bwd group by group, each group's dx rows
+    written in place. On the CPU the pair is the plain versions."""
 
     @staticmethod
     def forward(ctx, x, mask, wi, wh, bh, train=False):
         fwd = pick("lstm_final_hidden forward", x, lstm_final_hidden_cuda,
                    lstm_final_hidden_plain)
-        ctx.stash = None
+        ctx.stash = ctx.order = None
         if fwd is lstm_final_hidden_cuda:
             order = row_order(mask)
-            if train:
+            ctx.group = stash_group(order.numel(), mask.shape[-1],
+                                    wh.shape[0])
+            if train and ctx.group == order.numel():
                 out, ctx.stash = fwd(x, mask, wi, wh, bh, order=order,
                                      keep_stash=True)
             else:
                 out = fwd(x, mask, wi, wh, bh, order=order)
+                ctx.order = order if train else None
         else:
             out = fwd(x, mask, wi, wh, bh)
         ctx.save_for_backward(x, mask, wi, wh, bh)
@@ -187,10 +210,21 @@ class FinalHiddenLSTM(torch.autograd.Function):
                    lstm_final_hidden_bwd_cuda, lstm_final_hidden_bwd_plain)
         args = (x, mask, wi, wh, bh, g.to(torch.float32).contiguous())
         if bwd is lstm_final_hidden_bwd_cuda:
-            if ctx.stash is None:
-                raise RuntimeError("lstm_final_hidden backward: the forward "
-                                   "ran without grad and kept no stash")
-            dx, dwi, dwh, dbh = bwd(*args, stash=ctx.stash)
+            if ctx.order is not None:  # stash groups
+                dx = torch.empty_like(x)
+                grads = None
+                for rows in row_groups(ctx.order, ctx.group):
+                    _, st = lstm_final_hidden_cuda(*args[:5], order=rows,
+                                                   keep_stash=True)
+                    grads = add_grads(grads, bwd(*args, stash=st,
+                                                 dx=dx)[1:])
+                dwi, dwh, dbh = grads
+            else:
+                if ctx.stash is None:
+                    raise RuntimeError("lstm_final_hidden backward: the "
+                                       "forward ran without grad and kept "
+                                       "no stash")
+                dx, dwi, dwh, dbh = bwd(*args, stash=ctx.stash)
             ctx.stash = None
         else:
             dx, dwi, dwh, dbh = bwd(*args)

@@ -25,7 +25,12 @@ rules: none of that is here. The kernels read the mask plane.
 The gradient is taken for u_ext, wi, wh and bh (the keys and the mask
 get none). When one is needed, the forward on the card keeps a stash of
 every step's gates and carries (K4's training instance), and the backward
-(K4 bwd) runs from it without a forward of its own.
+(K4 bwd) runs from it without a forward of its own. Where that stash would
+pass STASH_BUDGET bytes (wide sets: the general hi/lo layout's L = 4001),
+the forward serves and keeps none, and the backward walks the sorted rows
+in groups whose stash fits: a training forward over the group's rows, then
+K4 bwd, the groups' gradients added in order. LSTM rows are independent,
+so the split is exact up to the order of the weight gradients' sums.
 """
 
 from __future__ import annotations
@@ -51,12 +56,22 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
 )
 
 LSTM_KERNEL = CudaKernel("lstm_keys", "lstm_keys_fwd_launch",
-                         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p])
 LSTM_BWD_KERNEL = CudaKernel("lstm_keys_bwd", "lstm_keys_bwd_launch",
                              [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
 MAX_H = 256     # LSTM width H and input width h (csrc/lstm_keys.cuh kMaxH)
+# csrc/lstm_keys.cuh: the forward's layout
+WARP_ROWS = 16       # rows of a forward row group (kWarpRows)
+FWD_GROUPS = 4       # row groups (two warps each) a block (kFwdGroups)
+RESIDENT_UNITS = 12  # unit tiles of the resident path (kResidentUnits)
+STASH_ROWS = 32      # rows of a stash block (kStashRows)
+SMEM_LIMIT = 232448 - 1024  # dynamic shared memory a block may have, bytes
+# bytes of stash one training forward may keep: above it the backward runs
+# in row groups. 15 GiB keeps the bench width (5.7 GB) and L = 801 (15.1
+# GB) whole and splits the general layout's L = 4001 (75.5 GB at R = 8192)
+STASH_BUDGET = 15 * 2 ** 30
 # csrc/lstm_tc.cuh: the backward's fixed partitions, which fix its bits
 BWD_PARTS = 64  # parts of the weight-gradient slabs, one partial sum each
 SWEEP_ROWS = 64  # rows of a sweep block (kSweepRows: 4 warps of 16)
@@ -178,13 +193,37 @@ def lstm_from_keys_bwd_plain(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
     return du, dwi, dwh, dbh
 
 
-def row_order(mask: torch.Tensor) -> torch.Tensor:
-    """int32 [R]: the rows of mask [R, L] by their last valid slot, the
-    longest first (stable), so that a block's rows end together."""
+def row_ends(mask: torch.Tensor) -> torch.Tensor:
+    """int32 [R]: each row's last valid slot index + 1 in mask [R, L] (0
+    for a row with none), the step count the forward runs it to."""
     ell = mask.shape[-1]
     pos = torch.arange(1, ell + 1, dtype=torch.int32, device=mask.device)
-    last = torch.where(mask, pos, 0).amax(dim=-1)
+    return torch.where(mask, pos, 0).amax(dim=-1).to(torch.int32)
+
+
+def row_order(mask: torch.Tensor, ends=None) -> torch.Tensor:
+    """int32 [R]: the rows of mask [R, L] by their last valid slot, the
+    longest first (stable), so that a warp's rows end together; `ends`:
+    `row_ends(mask)` if already at hand."""
+    last = row_ends(mask) if ends is None else ends
     return torch.argsort(last, descending=True, stable=True).to(torch.int32)
+
+
+def fragment_order(w: torch.Tensor, hh: int) -> torch.Tensor:
+    """w [K, 4H] (H = hh) as the forward's B fragments, flat float32
+    (csrc/lstm_keys.cuh, "Fragment order"): [K/8 up][H/8 up][2][32][4], lane
+    4g + c's float4 of (k-step kk, unit tile n, gate pair p) being
+    W[8kk + 2c + e][q H + 8n + g] for q = 2p, 2p + 1 and e = 0, 1 (q
+    outer), zero past K and H. A warp reads a fragment as 512 contiguous
+    bytes."""
+    k = w.shape[0]
+    nk, nu = -(-k // 8), -(-hh // 8)
+    wp = w.new_zeros(nk * 8, 4, nu * 8, dtype=torch.float32)
+    wp[:k, :, :hh] = w.reshape(k, 4, hh)
+    # [kk, c, e, p, q2, n, g]: channel 8kk + 2c + e, gate 2p + q2, unit
+    # 8n + g
+    wp = wp.reshape(nk, 4, 2, 2, 2, nu, 8)
+    return wp.permute(0, 5, 3, 6, 1, 4, 2).contiguous().reshape(-1)
 
 
 def _check_operands(kown, kcross_al, mask, u_ext, wi, wh, bh, shift,
@@ -220,12 +259,30 @@ def _check_operands(kown, kcross_al, mask, u_ext, wi, wh, bh, shift,
     return q, b, ell, h, hh, ncol
 
 
-def block_layout(hh: int):
-    """(threads per row group, row groups, rows per block) of the forward
-    kernels' blocks at LSTM width hh (csrc/lstm_keys.cuh `layout_for`)."""
-    hp = -(-hh // 32) * 32
-    groups = min(512 // hp, 4)
-    return hp, groups, 8 * groups
+def block_layout(h: int, hh: int, ncol: Optional[int] = None):
+    """The forward kernels' blocks at input width h and LSTM width hh, for
+    the keys with ncol count fields or (None) for x rows
+    (csrc/lstm_keys.cuh `fwd_layout_for`): unit tiles `nu`, x's k-steps
+    `nkx`, whether the path is `resident` (12 unit tiles and the words
+    fit: wh in shared memory beside a ring of two of wi's k-steps, h in
+    place), row `groups` of WARP_ROWS rows (two warps each) a block, its
+    `rows` and dynamic shared memory `smem` in bytes."""
+    nu, nkx = -(-hh // 8), -(-h // 8)
+    wh, ring = nu * nu * 256, 2 * nu * 256
+    u = 0 if ncol is None else _round((ncol + 2) * h, 4)
+    bias = nu * 32
+    limit = SMEM_LIMIT // 4
+    per_group = 128 * (nu + nkx)
+    resident = (nu == RESIDENT_UNITS
+                and wh + ring + u + bias + FWD_GROUPS * per_group <= limit)
+    if resident:
+        groups = FWD_GROUPS
+    else:
+        per_group = 128 * (3 * nu + nkx)
+        groups = min(FWD_GROUPS, (limit - u - bias) // per_group)
+    words = (wh + ring if resident else 0) + u + bias + groups * per_group
+    return dict(nu=nu, nkx=nkx, resident=resident, groups=groups,
+                rows=WARP_ROWS * groups, smem=4 * words)
 
 
 def dx_layout(h: int):
@@ -244,17 +301,17 @@ def _round(x: int, m: int) -> int:
 def bwd_layout(rows: int, ell: int, h: int, hh: int, ncol: Optional[int]):
     """The backward's blocks and buffers in 4-byte words, as the C entry
     points document them (csrc/lstm_tc.cuh, lstm_keys_bwd.cu, lstm_bwd.cu):
-    the stash, the sweep's blocks and dynamic shared memory (wh padded and
-    resident where it fits in 227 KB less 1 KB, with dh and dc), the dx
-    pass's (wi padded where it fits, U for the keys), its dU partials (the
-    keys, ncol given), the weight-gradient parts and partials, and the
-    output."""
-    _, _, rb = block_layout(hh)
+    the stash (blocks of STASH_ROWS rows), the sweep's blocks and dynamic
+    shared memory (wh padded and resident where it fits in 227 KB less 1
+    KB, with dh and dc), the dx pass's (wi padded where it fits, U for the
+    keys), its dU partials (the keys, ncol given), the weight-gradient
+    parts and partials, and the output."""
+    rb = STASH_ROWS
     blocks = -(-rows // rb)
     hp = _round(hh, 8)
     ld = _round(4 * hp, 32) + 8
     state = 2 * SWEEP_ROWS * (_round(hp, 32) + 8)
-    limit = (232448 - 1024) // 4
+    limit = SMEM_LIMIT // 4
     sweep = _round(hh, 8) * ld + state
     sweep = sweep if sweep <= limit else state
     u = 0 if ncol is None else (ncol + 2) * h
@@ -273,9 +330,10 @@ def bwd_layout(rows: int, ell: int, h: int, hh: int, ncol: Optional[int]):
 class LSTMStash:
     """What the training forward of K4 or K5 keeps for the backward: every
     step's activated gates and entering carries (`data`, padded rows x L x
-    6H fp32), each forward block's step count (`tend`), and the row order
-    it ran in. The backward overwrites the gates with their gradients, so
-    it takes a stash once."""
+    6H fp32), each stash block's step count (`tend`), and the rows it ran
+    in that order (`order`: all rows, or a group of them; None: all rows in
+    their own order). The backward overwrites the gates with their
+    gradients, so it takes a stash once."""
     data: torch.Tensor
     tend: torch.Tensor
     order: Optional[torch.Tensor]
@@ -297,34 +355,75 @@ def new_stash(rows: int, ell: int, hh: int, order, device) -> LSTMStash:
         torch.empty(lay["tend"], dtype=torch.int32, device=device), order)
 
 
+def stash_group(rows: int, ell: int, hh: int) -> int:
+    """Rows a training forward keeps the stash of: all of them where their
+    stash fits STASH_BUDGET, else the most whole stash blocks that fit (at
+    least one). From the shapes alone."""
+    if 4 * bwd_layout(rows, ell, 1, hh, None)["stash"] <= STASH_BUDGET:
+        return rows
+    block = 4 * STASH_ROWS * ell * 6 * hh
+    return max(1, STASH_BUDGET // block) * STASH_ROWS
+
+
+def row_groups(order: torch.Tensor, group: int):
+    """The rows of `order` in groups of `group` (the last one shorter)."""
+    return [order[i:i + group] for i in range(0, order.numel(), group)]
+
+
+def add_grads(total, part):
+    """The groups' gradients summed in the order they come."""
+    return part if total is None else tuple(a + b for a, b in
+                                            zip(total, part))
+
+
+def processed_rows(order, rows: int, device) -> int:
+    """The processing positions: order's rows (int32, on the device, each
+    row at most once) where given, else all rows."""
+    if order is None:
+        return rows
+    if (order.dtype != torch.int32 or order.device != device
+            or order.dim() != 1 or not order.is_contiguous()
+            or order.numel() > rows):
+        raise ValueError("order must be a contiguous int32 vector of at "
+                         "most R rows on the operands' device")
+    return order.numel()
+
+
 def lstm_from_keys_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh,
                         shift: int, root_own=None, root_cross=None,
                         sort_rows: bool = True, order=None,
                         keep_stash: bool = False):
     """Launch K4; see csrc/lstm_keys.cu. wi [h, 4H], wh [H, 4H], bh [4H]:
-    contiguous float32. The rows run in `order` (int32 [Q * B]) if given,
-    else, with `sort_rows`, by their last valid slot, longest first
-    (`row_order`), else in their own order. Returns [Q, B, H] float32;
-    with `keep_stash` (training), also the LSTMStash for
+    contiguous float32. The rows run in `order` (int32, the rows of the
+    flattened [Q * B] to run, each at most once; the others' outputs are
+    left unwritten) if given, else, with `sort_rows`, by their last valid
+    slot, longest first (`row_order`), else in their own order. Returns
+    [Q, B, H] float32; with `keep_stash` (training), also the LSTMStash for
     `lstm_from_keys_bwd_cuda`, the output bit for bit the same."""
     q, b, ell, h, hh, ncol = _check_operands(
         kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
         root_cross)
     dev = kown.device
     out = torch.empty(q, b, hh, dtype=torch.float32, device=dev)
+    rows = processed_rows(order, q * b, dev)
     stash = None
-    if b:
+    if rows:
+        flat = mask.reshape(q * b, ell)
+        ends = row_ends(flat)
         if order is None and sort_rows:
-            order = row_order(mask.reshape(q * b, ell))
+            order = row_order(flat, ends)
         if keep_stash:
-            stash = new_stash(q * b, ell, hh, order, dev)
+            stash = new_stash(rows, ell, hh, order, dev)
+        # held until the launch: a freed temporary's memory would be
+        # handed to the next allocation before the kernel reads it
+        wif, whf = fragment_order(wi, hh), fragment_order(wh, hh)
         LSTM_KERNEL(dev, ptr(kown), ptr(kcross_al), ptr(mask),
                     ptr_or_null(root_own), ptr_or_null(root_cross),
-                    ptr_or_null(order), ptr(u_ext), ptr(wi), ptr(wh),
-                    ptr(bh), ptr(out),
+                    ptr_or_null(order), ptr(ends), ptr(u_ext), ptr(wif),
+                    ptr(whf), ptr(bh), ptr(out),
                     ptr_or_null(None if stash is None else stash.data),
                     ptr_or_null(None if stash is None else stash.tend),
-                    q * b, ell, h, hh, ncol, shift)
+                    rows, ell, h, hh, ncol, shift)
     elif keep_stash:
         stash = new_stash(0, ell, hh, order, dev)
     return (out, stash) if keep_stash else out
@@ -335,7 +434,8 @@ def lstm_from_keys_bwd_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
                             stash: Optional[LSTMStash] = None):
     """Launch K4 bwd; see csrc/lstm_keys_bwd.cu. g: contiguous fp32
     [Q, B, H]; `stash`: what `lstm_from_keys_cuda(..., keep_stash=True)`
-    kept on the same operands (the rows run in its order), taken once.
+    kept on the same operands (the rows run in its order: a group of rows
+    gives that group's gradients), taken once.
     Scratch is sized from the shapes alone (no host sync). Returns
     (du [ncol+2, h], dwi [h, 4H], dwh [H, 4H], dbh [4H])."""
     q, b, ell, h, hh, ncol = _check_operands(
@@ -346,9 +446,9 @@ def lstm_from_keys_bwd_cuda(kown, kcross_al, mask, u_ext, wi, wh, bh, g,
     if stash is None:
         raise ValueError("the backward needs the training forward's stash "
                          "(lstm_from_keys_cuda(..., keep_stash=True))")
-    rows = q * b
-    lay = bwd_layout(rows, ell, h, hh, ncol)
     st = stash.take()
+    rows = processed_rows(st.order, q * b, dev)
+    lay = bwd_layout(rows, ell, h, hh, ncol)
     if not rows:
         out = torch.zeros(lay["out"], dtype=torch.float32, device=dev)
     else:
@@ -373,8 +473,11 @@ class FusedKeysLSTM(torch.autograd.Function):
     """The keys-LSTM with its gradient for u_ext, wi, wh and bh only (the
     custom VJP `_klstmt2` of the JAX kernel). On the card the forward
     orders the rows once (`row_order`); when `train`, it runs K4's training
-    instance, which keeps the stash, and the backward runs K4 bwd from it.
-    On the CPU the pair is the plain versions."""
+    instance, which keeps the stash, and the backward runs K4 bwd from it;
+    where the stash would pass STASH_BUDGET (`stash_group`), the forward
+    serves and the backward re-runs the training forward and K4 bwd group
+    by group of the ordered rows. On the CPU the pair is the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, kown, kcross_al, mask, u_ext, wi, wh, bh, shift,
@@ -383,13 +486,16 @@ class FusedKeysLSTM(torch.autograd.Function):
                    lstm_from_keys_plain)
         args = (kown, kcross_al, mask, u_ext, wi, wh, bh, shift, root_own,
                 root_cross)
-        ctx.stash = None
+        ctx.stash = ctx.order = None
         if fwd is lstm_from_keys_cuda:
-            order = row_order(mask.reshape(-1, mask.shape[-1]))
-            if train:
+            ell = mask.shape[-1]
+            order = row_order(mask.reshape(-1, ell))
+            ctx.group = stash_group(order.numel(), ell, wh.shape[0])
+            if train and ctx.group == order.numel():
                 out, ctx.stash = fwd(*args, order=order, keep_stash=True)
             else:
                 out = fwd(*args, order=order)
+                ctx.order = order if train else None
         else:
             out = fwd(*args)
         ctx.shift = shift
@@ -403,18 +509,28 @@ class FusedKeysLSTM(torch.autograd.Function):
          root_cross) = ctx.saved_tensors
         bwd = pick("lstm_from_keys backward", kown, lstm_from_keys_bwd_cuda,
                    lstm_from_keys_bwd_plain)
-        args = (kown, kcross_al, mask, u_ext, wi, wh, bh,
-                g.to(torch.float32).contiguous(), ctx.shift, root_own,
-                root_cross)
+        ops = (kown, kcross_al, mask, u_ext, wi, wh, bh)
+        roots = (root_own, root_cross)
+        gf = g.to(torch.float32).contiguous()
         if bwd is lstm_from_keys_bwd_cuda:
-            if ctx.stash is None:
-                raise RuntimeError("lstm_from_keys backward: the forward "
-                                   "ran without grad and kept no stash")
-            du, dwi, dwh, dbh = bwd(*args, stash=ctx.stash)
+            if ctx.order is not None:  # stash groups
+                grads = None
+                for rows in row_groups(ctx.order, ctx.group):
+                    _, st = lstm_from_keys_cuda(*ops, ctx.shift, *roots,
+                                                order=rows, keep_stash=True)
+                    grads = add_grads(grads, bwd(*ops, gf, ctx.shift, *roots,
+                                                 stash=st))
+                du, dwi, dwh, dbh = grads
+            else:
+                if ctx.stash is None:
+                    raise RuntimeError("lstm_from_keys backward: the forward "
+                                       "ran without grad and kept no stash")
+                du, dwi, dwh, dbh = bwd(*ops, gf, ctx.shift, *roots,
+                                        stash=ctx.stash)
             ctx.stash = None  # taken: free it with the graph's other
             #                   buffers
         else:
-            du, dwi, dwh, dbh = bwd(*args)
+            du, dwi, dwh, dbh = bwd(*ops, gf, ctx.shift, *roots)
         return None, None, None, du, dwi, dwh, dbh, None, None, None, None
 
 

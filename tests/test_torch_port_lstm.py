@@ -236,12 +236,28 @@ def test_fused_keys_lstm_grad_matches_autograd_of_plain(case, holes):
 
 
 def test_block_layout_mirrors_the_kernels():
-    """csrc/lstm_keys.cuh layout_for: whole warps of units, at most 512
-    threads and 4 groups of 8 rows."""
-    assert block_layout(96) == (96, 4, 32)
-    assert block_layout(8) == (32, 4, 32)
-    assert block_layout(256) == (256, 2, 16)
-    assert block_layout(200) == (224, 2, 16)
+    """csrc/lstm_keys.cuh fwd_layout_for: row groups of 16 rows (two warps
+    each), 4 a block on the resident path at H = 96 (wh, 147,456 bytes,
+    beside a ring of two of wi's k-steps, U, the bias and each group's h
+    and x words), else as many groups as the state words (h twice, c, x)
+    allow in 227 KB less 1 KB."""
+    def lay(h, hh, ncol=None):
+        got = block_layout(h, hh, ncol)
+        return (got["nu"], got["nkx"], got["resident"], got["groups"],
+                got["rows"], got["smem"])
+
+    fixed = 147_456 + 2 * 12 * 1024 + 12 * 32 * 4
+    per_group = 4 * 128 * (12 + 12)
+    assert lay(96, 96, 4) == (12, 12, True, 4, 64,
+                              fixed + 6 * 96 * 4 + 4 * per_group)
+    assert lay(96, 96) == (12, 12, True, 4, 64, fixed + 4 * per_group)
+    assert lay(96, 96, 8)[5] <= 232_448 - 1024
+    assert lay(256, 256, 4) == (32, 32, False, 3, 48,
+                                4 * (6 * 256 + 32 * 32
+                                     + 3 * 128 * (3 * 32 + 32)))
+    assert lay(256, 96, 4)[2:4] == (False, 4)     # x words crowd wh out
+    assert lay(8, 8, 2)[:5] == (1, 1, False, 4, 64)
+    assert lay(30, 40)[:4] == (5, 4, False, 4)
 
 
 def test_row_order_is_by_last_valid_slot_longest_first():

@@ -415,7 +415,8 @@ def test_bwd_layout_mirrors_the_documented_sizes():
     wide = bwd_layout(512, 301, 256, 256, 4)
     assert wide["sweep_smem"] == 2 * 64 * 264 * 4   # wh from L2
     assert wide["dx_smem"] == 6 * 256 * 4           # wi from L2
-    assert wide["stash"] == 32 * 16 * 301 * 6 * 256  # 16-row blocks
+    assert wide["stash"] == 16 * 32 * 301 * 6 * 256  # 32-row blocks
+    assert wide["tend"] == 16
     odd = bwd_layout(1000, 7, 30, 40, 3)
     assert odd["stash"] == 32 * 32 * 7 * 6 * 40 and odd["tend"] == 32
     assert odd["parts"] == 64 and odd["sweep_blocks"] == 16
