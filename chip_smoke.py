@@ -13,12 +13,16 @@ NVIDIA GPU. Run from the repository root:
    small Q=4 shape with an all-masked set, fp32 within 1e-4 of each dU
    row's largest magnitude, and two launches bit for bit; the attention
    pool (K3) and its backward (K3 bwd) in both layouts, at an odd shape
-   (B=999, L=203) and at Q=4, the pooled rows and the softmax residuals
-   at rtol = atol = 1e-4, dU within 1e-4 of each row's largest
-   magnitude and dgvec, dgconst (sums that cancel) within 1e-6 of their
-   terms' sizes, two backward launches bit for bit; the keys-LSTM (K4)
-   in both layouts (L=301 and L=801), at an odd shape (B=999, L=203), at
-   Q=4, on masks with holes punched in, with an empty row and a row
+   (B=999, L=203), at Q=4, in both layouts on rows of every mask kind
+   the kernels' walk over valid slots must keep (holes spanning whole
+   32-slot tiles, valid slots only in the last tile, only slot 0,
+   none), and at the longest L the wrappers take at H=96 (two sets, one
+   warp's block of shared memory full), the pooled rows and the softmax
+   residuals at rtol = atol = 1e-4, dU within 1e-4 of each row's
+   largest magnitude and dgvec, dgconst (sums that cancel) within 1e-6
+   of their terms' sizes, two launches of each bit for bit; the
+   keys-LSTM (K4) in both layouts (L=301 and L=801), at an odd shape
+   (B=999, L=203), at Q=4, on masks with holes punched in, with an empty row and a row
    valid only at its last slot, and at H=256 (its widest, with the
    weights read from L2), fp32 at rtol = atol = 1e-4, two launches,
    the unsorted row order and the training instance (which keeps the
@@ -540,18 +544,63 @@ def attn_q4(args, b=256):
     return quad(kown), quad(kc), quad(mask), u_ext, gv, shift, None, None
 
 
+def attn_mask_kinds(args, gen):
+    """The operands with each row's mask replaced, by row number mod 5:
+    kept (the join's prefix); holes, a random half of the prefix kept and
+    slots 32-95 cleared (whole tiles walked past inside a row); valid only
+    in the last 32-slot tile (a random half of it and its last slot);
+    valid only at slot 0; no valid slot (uniform weights over all L)."""
+    kown, kc, mask, u_ext, gv, shift, ro, rc = args
+    q, b, ell = mask.shape
+    kind = (torch.arange(b, device=mask.device) % 5)[None, :, None]
+    slot = torch.arange(ell, device=mask.device)
+    coin = (torch.rand(q, b, ell, generator=gen) < 0.5).to(mask.device)
+    last = (ell - 1) // attn_pool.TILE * attn_pool.TILE
+    holes = mask & coin & ((slot < 32) | (slot >= 96))
+    holes[..., 0] = True
+    tail = (coin & (slot >= last)) | (slot == ell - 1)
+    first = (slot == 0).expand_as(mask)
+    none = torch.zeros_like(mask)
+    masks = torch.where(kind == 0, mask, torch.where(
+        kind == 1, holes, torch.where(kind == 2, tail, torch.where(
+            kind == 3, first, none))))
+    return (kown, kc, masks.contiguous(), u_ext, gv, shift, ro, rc)
+
+
+def attn_widest(args, rows=2):
+    """The longest operands the wrappers take at the operands' hidden
+    width (Q=1): the largest L whose backward block of one warp fits
+    (`attn_pool.bwd_smem_bytes`), made of the first `rows` sets of `args`
+    repeated along the slots (their prefix masks repeat: holes across
+    many tiles)."""
+    kown, kc, mask, u_ext, gv, shift, ro, rc = args
+    h, ncol = u_ext.shape[1], u_ext.shape[0] - 2
+    ell = attn_pool.MAX_DYN_SMEM // 8
+    while attn_pool.bwd_smem_bytes(ell, h, ncol) > attn_pool.MAX_DYN_SMEM:
+        ell -= 1
+    reps = -(-ell // kown.shape[2])
+    tile = lambda t: None if t is None else t[:1, :rows].repeat(
+        1, 1, reps)[..., :ell].contiguous()
+    return (tile(kown), tile(kc), tile(mask), u_ext, gv, shift, tile(ro),
+            tile(rc))
+
+
 def attn_label(args, label):
     kown, mask = args[0], args[2]
     return (f"{label}: Q,B,L={tuple(kown.shape)} valid slots "
-            f"{float(mask.float().mean()):.3f}")
+            f"{float(mask.float().mean()):.3f}, rows with none "
+            f"{int((~mask.any(dim=-1)).sum())}")
 
 
 def attn_compare(args, label):
     got, gm, gs = attn_pool.fused_attn_pool_cuda(*args)
+    again = attn_pool.fused_attn_pool_cuda(*args)
     want, wm, ws = attn_pool.fused_attn_pool_plain(*args)
     sync()
     require(got.shape == want.shape and bool(torch.isfinite(got).all())
             and bool(torch.isfinite(gs).all()), f"K3 {label}: bad output")
+    same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip((got, gm, gs), again))
     err = float((got - want).abs().max())
     close = lambda x, y: torch.allclose(x, y, rtol=ATTN_RTOL, atol=ATTN_ATOL)
     ok = close(got, want) and close(gm, wm) and close(gs, ws)
@@ -559,8 +608,10 @@ def attn_compare(args, label):
         f"max|plain|={float(want.abs().max()):.3e}, m err "
         f"{float((gm - wm).abs().max()):.3e}, s err "
         f"{float(((gs - ws) / ws).abs().max()):.3e} relative (rtol "
-        f"{ATTN_RTOL}, atol {ATTN_ATOL}) {'ok' if ok else 'FAIL'}")
+        f"{ATTN_RTOL}, atol {ATTN_ATOL}); repeat bit-identical: {same} "
+        f"{'ok' if ok and same else 'FAIL'}")
     require(ok, f"K3 {label} disagrees with its plain version")
+    require(same, f"K3 {label}: two launches differ")
     return err
 
 
@@ -651,6 +702,54 @@ def attn_bwd_bound(args, g):
     ops = valid * (h * (2 * (2 * ncol + 1) + 3 + 2 + 2 + 3 + 2) + 8) \
         + passed * (2 * ncol + 1)
     return bound(moved, ops)
+
+
+def attn_vs_plain(t_lo, t_hi, g2, gen):
+    """K3 and K3 bwd against their plain versions: both layouts, an odd
+    shape, Q=4, in both layouts every mask kind (attn_mask_kinds), and
+    the longest L the wrappers take at H=96 (attn_widest); then their
+    times at L=301 (the kernels line's) and at L=801, where the TPU
+    needs its slot-chunked kernels."""
+    kinds = torch.Generator().manual_seed(3)   # leaves gen's draws as were
+    cases = ((t_lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}", gen),
+             (t_hi, f"lead-in-hi M={WIDE_WALKS} S'={WIDE_STEPS}", gen),
+             (attn_odd(t_lo), "odd B and L, lo-only", gen),
+             (attn_q4(t_lo), "Q=4, lo-only", gen),
+             (attn_mask_kinds(t_lo, kinds), "mask kinds, lo-only", kinds),
+             (attn_mask_kinds(t_hi, kinds), "mask kinds, lead-in-hi",
+              kinds),
+             (attn_widest(t_lo), f"widest L at H={HIDDEN}, lo-only", kinds))
+    err3 = max(attn_compare(a, label) for a, label, _ in cases)
+    err3b = 0.0
+    for a, label, cot in cases:
+        ga = torch.randn(a[0].shape[0], a[0].shape[1], HIDDEN,
+                         generator=cot).to(DEVICE)
+        err3b = max(err3b, attn_bwd_compare(a, ga, label))
+    del cases
+    stats = {}
+    for name, t in (("L=301", t_lo), ("L=801", t_hi)):
+        _, m, s = attn_pool.fused_attn_pool_cuda(*t)
+        fwd = (time_ms(lambda: attn_pool.fused_attn_pool_cuda(*t)),
+               time_ms(lambda: attn_pool.fused_attn_pool_plain(*t),
+                       iters=5), attn_bound(t))
+        bwd = (time_ms(lambda: attn_bwd_call(
+                   attn_pool.fused_attn_pool_bwd_cuda, t, g2, m, s)),
+               time_ms(lambda: attn_bwd_call(
+                   attn_pool.fused_attn_pool_bwd_plain, t, g2, m, s),
+                       iters=5), attn_bwd_bound(t, g2))
+        for what, (ms, plain_ms, (bound_ms, by)) in (("K3", fwd),
+                                                     ("K3 bwd", bwd)):
+            say(f"{what} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {bound_ms:.4f} ms ({by}), "
+                f"{ms / bound_ms:.1f}x the bound")
+        if t is t_lo:
+            stats["attn_pool_fwd"] = dict(
+                max_abs_err=err3, ms=fwd[0], plain_ms=fwd[1],
+                library_ms=None, bound=fwd[2])
+            stats["attn_pool_bwd"] = dict(
+                max_abs_err=err3b, ms=bwd[0], plain_ms=bwd[1],
+                library_ms=None, bound=bwd[2])
+    return stats
 
 
 def lstm_inputs(joined, u_ext, shift, gen):
@@ -1800,20 +1899,10 @@ def kernels_vs_plain(g, gsets):
     g4 = torch.randn(4, a_q4[0].shape[1], HIDDEN, generator=gen).to(DEVICE)
     err1b = max(err1b, k1b_compare(a_q4, g4, "Q=4, lo-only, all-masked set"))
 
-    # the attention pool (K3) and its backward: both layouts, an odd
-    # shape, Q=4
+    # the attention pool (K3) and its backward
     t_lo = attn_inputs(jlo, a_lo[4], a_lo[5], gen)
     t_hi = attn_inputs(jhi, a_hi[4], a_hi[5], gen)
-    t_odd, t_q4 = attn_odd(t_lo), attn_q4(t_lo)
-    cases = ((t_lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}"),
-             (t_hi, f"lead-in-hi M={WIDE_WALKS} S'={WIDE_STEPS}"),
-             (t_odd, "odd B and L, lo-only"), (t_q4, "Q=4, lo-only"))
-    err3 = max(attn_compare(a, label) for a, label in cases)
-    err3b = 0.0
-    for a, label in cases:
-        ga = torch.randn(a[0].shape[0], a[0].shape[1], HIDDEN,
-                         generator=gen).to(DEVICE)
-        err3b = max(err3b, attn_bwd_compare(a, ga, label))
+    stats.update(attn_vs_plain(t_lo, t_hi, g2, gen))
     say(f"phase 2 peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # the keys-LSTM (K4) and its backward: cases (a)-(g), times at L=301
@@ -1865,37 +1954,6 @@ def kernels_vs_plain(g, gsets):
     k1b_hi_ms = time_ms(lambda: k1b_call(
         hidden_sum.fused_key_hidden_sum_bwd_cuda, a_hi, g2))
     say(f"K1 bwd lead-in-hi (L=801) kernel: {k1b_hi_ms:.4f} ms")
-    _, m_lo, s_lo = attn_pool.fused_attn_pool_cuda(*t_lo)
-    k3_ms = time_ms(lambda: attn_pool.fused_attn_pool_cuda(*t_lo))
-    k3_plain = time_ms(lambda: attn_pool.fused_attn_pool_plain(*t_lo),
-                       iters=5)
-    k3b_ms = time_ms(lambda: attn_bwd_call(
-        attn_pool.fused_attn_pool_bwd_cuda, t_lo, g2, m_lo, s_lo))
-    k3b_plain = time_ms(lambda: attn_bwd_call(
-        attn_pool.fused_attn_pool_bwd_plain, t_lo, g2, m_lo, s_lo), iters=5)
-    # L=801, where the TPU needs its slot-chunked kernels
-    _, m_hi, s_hi = attn_pool.fused_attn_pool_cuda(*t_hi)
-    wide = {
-        "K3": (lambda: attn_pool.fused_attn_pool_cuda(*t_hi),
-               lambda: attn_pool.fused_attn_pool_plain(*t_hi),
-               lambda: attn_bound(t_hi)),
-        "K3 bwd": (lambda: attn_bwd_call(attn_pool.fused_attn_pool_bwd_cuda,
-                                         t_hi, g2, m_hi, s_hi),
-                   lambda: attn_bwd_call(
-                       attn_pool.fused_attn_pool_bwd_plain, t_hi, g2, m_hi,
-                       s_hi),
-                   lambda: attn_bwd_bound(t_hi, g2))}
-    for name, (kernel, plain, bnd) in wide.items():
-        ms, plain_ms, (bound_ms, by) = time_ms(kernel), time_ms(
-            plain, iters=5), bnd()
-        say(f"{name} lead-in-hi (L=801): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
-    stats["attn_pool_fwd"] = dict(
-        max_abs_err=err3, ms=k3_ms, plain_ms=k3_plain, library_ms=None,
-        bound=attn_bound(t_lo))
-    stats["attn_pool_bwd"] = dict(
-        max_abs_err=err3b, ms=k3b_ms, plain_ms=k3b_plain, library_ms=None,
-        bound=attn_bwd_bound(t_lo, g2))
     stats["hidden_sum_fwd"] = dict(
         max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
         bound=k1_bound(a_lo))

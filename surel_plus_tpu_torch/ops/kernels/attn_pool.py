@@ -21,9 +21,11 @@ recomputed from the keys.
 
 The TPU needs the chunked kernels where the monolithic backward's
 slot-aligned planes overflow its 16 MB of scoped VMEM (L=801 at M=200).
-The CUDA kernels stream a row's slots through shared memory with an
-online softmax and keep only two floats per slot, so ONE pair of kernels
-covers every L, chunked shapes included: there is no `chunk` argument.
+The CUDA kernels give each row a warp that walks only the 32-slot tiles
+holding a valid slot; the forward keeps an online softmax and no
+per-slot state, the backward two floats per slot in its warp's shared
+memory, so ONE pair of kernels covers every L, chunked shapes included:
+there is no `chunk` argument.
 """
 
 from __future__ import annotations
@@ -55,8 +57,21 @@ ATTN_BWD_KERNEL = CudaKernel("attn_pool_bwd", "attn_pool_bwd_launch",
                              [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                              + [ctypes.c_void_p])
 TILE = 32              # slots per tile (csrc/attn_pool.cuh kTile)
-BWD_PARTS = 2048       # row groups of the backward, each one partial sum
-MAX_DYN_SMEM = 200 * 1024   # bytes of dynamic shared memory per block
+BWD_PARTS = 4096       # row groups of the backward, each one partial sum
+MAX_DYN_SMEM = 232448  # bytes of dynamic shared memory a block may have
+
+
+def bwd_smem_bytes(ell: int, h: int, ncol: int) -> int:
+    """Shared memory of a backward block of one warp (the most that any
+    shape needs of either kernel): the channels' weight records, then the
+    warp's slot records, sums and a group's sums, g row, a and dgate per
+    slot, walked bits and dgconst (csrc/attn_pool_bwd.cu `WarpLayout`)."""
+    pad = lambda n, k: -(-n // k) * k
+    hp = pad(h, 32)
+    rec_k, rec_s = pad(ncol + 3, 4), pad(2 * ncol + 3, 4)
+    warp = (TILE * rec_s + (2 * ncol + 7) * hp + 2 * pad(ell, 4)
+            + pad(-(-ell // TILE), 4) + 4)
+    return 4 * (hp * rec_k + warp)
 
 
 def attn_slots_plain(kown, kcross_al, mask, u_ext, gv, shift: int,
@@ -145,8 +160,7 @@ def _check_operands(kown, kcross_al, mask, u_ext, gv, shift, root_own,
                                       and nshift * shift > 32):
         raise ValueError(f"{ncol} fields of {shift} bits do not fit the "
                          "lo word")
-    threads = -(-h // 32) * 32
-    if (TILE * threads + 2 * ell) * 4 > MAX_DYN_SMEM:
+    if bwd_smem_bytes(ell, h, ncol) > MAX_DYN_SMEM:
         raise ValueError(f"L={ell} at H={h} needs more shared memory than "
                          "a block has")
     return q, b, ell, h, ncol
