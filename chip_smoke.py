@@ -4,14 +4,19 @@ NVIDIA GPU. Run from the repository root:
     python3 chip_smoke.py
 
 1. Builds the twelve CUDA kernels from `surel_plus_tpu_torch/csrc/` (one
-   nvcc per source, started together) and prints the build time.
+   nvcc per source, started together) and prints the build time, each
+   source's registers and spills, and ptxas's lines for every instance of
+   the two hidden-layer backwards.
 2. Holds each kernel against its plain PyTorch version on the card, on
    sets sampled from the main path's graph at the main path's shapes:
    the fused key hidden set sum (K1) in the lo-only layout (M=100, S'=3,
    L=301) and the lead-in-hi layout (M=200, S'=4, L=801), fp32 at
-   rtol 1e-4 / atol 1e-3; its backward (K1 bwd) in both layouts and at a
-   small Q=4 shape with an all-masked set, fp32 within 1e-4 of each dU
-   row's largest magnitude, and two launches bit for bit; the attention
+   rtol 1e-4 / atol 1e-3; its backward (K1 bwd) in both layouts, at a
+   small Q=4 shape with an all-masked set and on seeded keys at H=100,
+   H=1024, ncol=8 and shift 12 (fields past TF32's exact range, with the
+   root bit and with root planes), fp32 within 1e-4 of each dU row's
+   largest magnitude, its masking row exactly 0, and two launches bit for
+   bit; the attention
    pool (K3) and its backward (K3 bwd) in both layouts, at an odd shape
    (B=999, L=203), at Q=4, in both layouts on rows of every mask kind
    the kernels' walk over valid slots must keep (holes spanning whole
@@ -52,9 +57,10 @@ NVIDIA GPU. Run from the repository root:
    [2, 4096, 301] batch with fp32 and bf16 output, the lead-in-hi
    [2, 4096, 801] batch with root planes (both outputs), at B=999, L=203
    and at Q=4, fp32 at rtol = atol = 1e-5 and bf16 within one bf16
-   rounding; its backward (K7 bwd) on the same shapes with a bf16 and a
-   fp32 cotangent, dU within 1e-4 of each row's largest magnitude, its
-   masking row exactly 0, two launches bit for bit. Times each kernel,
+   rounding; its backward (K7 bwd) on the same shapes and the seeded
+   ones of K1 bwd with a bf16 and a fp32 cotangent, dU within 1e-4 of
+   each row's largest magnitude, its masking row exactly 0, two launches
+   bit for bit. Times each kernel,
    its plain version and, as yardsticks, `torch.sort` for the merge,
    cuDNN's LSTM (`torch.nn.LSTM` over the packed rows: the recurrence
    alone) forward for K4 and K5, and its training forward and backward
@@ -69,8 +75,9 @@ NVIDIA GPU. Run from the repository root:
    the whole stash's (within 1e-4 of each tensor's largest), the
    merge route's cross lookup for K6, and for K7 and K7 bwd the
    feature-pair route they replace (the join's unpack, the hidden layer
-   and the pair sum in bf16, and its backward), and prints the phase's
-   peak device memory.
+   and the pair sum in bf16, and its backward); K1 bwd's and K7 bwd's
+   bounds also with their dU contraction at the TF32 tensor rate; and
+   prints the phase's peak device memory.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
    S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
@@ -256,6 +263,8 @@ LSTM_CELL_BWD_OPS = 31
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12      # CUDA cores, outside the tensor cores
 TF32_OPS_PER_S = 495e12     # tensor cores, TF32, dense
+# the hidden-layer kernels, which each profile lists wherever they rank
+HIDDEN_KERNELS = re.compile(r"hidden_(sum|slots)_(fwd|bwd)|reduce_partials")
 
 KERNELS = {
     "hidden_sum_fwd": dict(
@@ -500,6 +509,82 @@ def k1b_bound(args, g):
     computed = int(mown.sum()) + int(csel.sum())
     ops = computed * h * (2 * ncol + 1) + passed * 2 * (ncol + 1)
     return bound(moved, ops)
+
+
+def contraction_tc_ms(entries, h, ncol):
+    """The backwards' dU contraction, 2 (ncol + 1) H operations a slot
+    (side) that enters it, in two TF32 products at the TF32 tensor rate,
+    in ms (the kernels take one product for a bf16 cotangent)."""
+    return 2 * entries * 2 * (ncol + 1) * h / TF32_OPS_PER_S * 1e3
+
+
+def k1b_tc_ms(args):
+    """K1 bwd's contraction at the TF32 rate: every selected slot."""
+    kown, mown, kcross, mcross, u_ext = args[:5]
+    entries = int(mown.sum()) + int(mcross.any(dim=0).sum())
+    return contraction_tc_ms(entries, u_ext.shape[1], u_ext.shape[0] - 2)
+
+
+def wide_keys(shape, num_walks, num_steps, root_plane, gen, full=False):
+    """Packed lo keys of `num_steps` count fields of bit_length(num_walks)
+    bits each (up to num_walks, or up to the field's largest value with
+    `full`) and the root: a bit above them, or an int32 0/1 plane with
+    `root_plane`; a fifth of the keys 0. Drawn from `gen` (CPU)."""
+    shift = int(num_walks).bit_length()
+    top = (1 << shift) if full else num_walks + 1
+    k = torch.zeros(shape, dtype=torch.int64)
+    for j in range(num_steps):
+        k |= torch.randint(0, top, shape, generator=gen) << (j * shift)
+    root = torch.randint(0, 2, shape, generator=gen, dtype=torch.int32)
+    if not root_plane:
+        k |= root.to(torch.int64) << (num_steps * shift)
+    zero = torch.rand(shape, generator=gen) < 0.2
+    k[zero] = 0
+    root[zero] = 0
+    k = torch.where(k >= 2 ** 31, k - 2 ** 32, k).to(torch.int32)
+    return k.to(DEVICE), (root.to(DEVICE) if root_plane else None)
+
+
+def wide_u_ext(ncol, h, num_walks, gen):
+    """u_ext [ncol + 2, H] of the bench Net's scale: field rows over
+    num_walks, the masking row, b1."""
+    w = torch.randn(ncol, h, generator=gen) * (0.5 / num_walks)
+    return torch.cat([w, torch.full((1, h), NEG),
+                      torch.randn(1, h, generator=gen) * 0.1]).to(
+        DEVICE).contiguous()
+
+
+# The backwards' shapes beyond the bench Net's (keys drawn from a seed):
+# label, Q, B, L, H, num_walks, num_steps (ncol = num_steps + 1), root
+# plane, fields over their whole width. "shift 12" takes the instance whose
+# fields are not exact in TF32 (split in two parts).
+WIDE_BWD_CASES = (("H=100", 2, 512, 301, 100, 100, 3, False, False),
+                  ("H=1024", 2, 64, 301, 1024, 100, 3, False, False),
+                  ("eight fields", 2, 256, 301, 96, 10, 7, False, False),
+                  ("shift 12", 2, 256, 301, 96, 2048, 2, False, True),
+                  ("shift 12, root plane", 2, 256, 301, 96, 2048, 2, True,
+                   True))
+
+
+def k1b_wide(gen):
+    """K1 bwd on WIDE_BWD_CASES (the cross plane 2L wide, each endpoint
+    selecting a random part of it, set 0 all masked): the K1 bwd checks of
+    `k1b_compare`. Returns the largest error."""
+    err = 0.0
+    for label, q, b, ell, h, nw, ns, root, full in WIDE_BWD_CASES:
+        kown, rown = wide_keys((q, b, ell), nw, ns, root, gen, full)
+        kcross, rcross = wide_keys((b, 2 * ell), nw, ns, root, gen, full)
+        mown = (torch.rand(q, b, ell, generator=gen) < 0.4).to(DEVICE)
+        pick = torch.randint(0, q + 2, (b, 2 * ell), generator=gen)
+        mcross = torch.stack([pick == i for i in range(q)]).to(DEVICE)
+        mown[:, 0] = False
+        mcross[:, 0] = False
+        args = (kown, mown, kcross, mcross, wide_u_ext(ns + 1, h, nw, gen),
+                int(nw).bit_length(), rown, rcross)
+        g = torch.randn(q, b, h, generator=gen).to(DEVICE)
+        err = max(err, k1b_compare(args, g, f"{label}, ncol={ns + 1}, "
+                                            f"shift {args[5]}"))
+    return err
 
 
 def q4_inputs(joined, u_ext, shift, gen, b=256):
@@ -1791,6 +1876,31 @@ def k7b_bound(args, g):
     return bound(moved, ops)
 
 
+def k7b_tc_ms(args):
+    """K7 bwd's contraction at the TF32 rate: both sides of every slot."""
+    kown, u_ext = args[0], args[2]
+    return contraction_tc_ms(2 * kown.numel(), u_ext.shape[1],
+                             u_ext.shape[0] - 2)
+
+
+def k7b_wide(gen):
+    """K7 bwd on WIDE_BWD_CASES, with a bf16 and an fp32 cotangent: the
+    checks of `k7b_compare`. Returns the largest error."""
+    err = 0.0
+    for label, q, b, ell, h, nw, ns, root, full in WIDE_BWD_CASES:
+        if h > 512:
+            b = 8
+        kown, rown = wide_keys((q, b, ell), nw, ns, root, gen, full)
+        kc, rc = wide_keys((q, b, ell), nw, ns, root, gen, full)
+        args = (kown, kc, wide_u_ext(ns + 1, h, nw, gen),
+                int(nw).bit_length(), torch.bfloat16, rown, rc)
+        g = torch.randn(q, b, ell, h, generator=gen).to(DEVICE)
+        for gt in (torch.bfloat16, torch.float32):
+            err = max(err, k7b_compare(args, g.to(gt), f"{label}, ncol="
+                                       f"{ns + 1}, shift {args[3]}"))
+    return err
+
+
 def feature_route(spgk, rows, kcross_al, gen):
     """The feature-pair route K7 replaces, on the same rows: the join's
     unpack of both sides' keys into feature pairs [2, B, L, 2, ncol],
@@ -1839,6 +1949,8 @@ def hidden_slots_vs_plain(jlo, jhi, u_lo, u_hi, shift_lo, shift_hi, spl,
         for gt in (bf16, f32):
             errb = max(errb, k7b_compare(a, g.to(gt), label))
         del g
+    # wider shapes, from a generator of their own
+    errb = max(errb, k7b_wide(torch.Generator().manual_seed(14)))
     main = cases[1][0]
     g = cot(main).to(bf16)
     cuda, plain = (hidden_sum.fused_key_hidden_slots_cuda,
@@ -1851,7 +1963,12 @@ def hidden_slots_vs_plain(jlo, jhi, u_lo, u_hi, shift_lo, shift_hi, spl,
     hi_ms = time_ms(lambda: cuda(*cases[3][0]))
     bms = time_ms(lambda: k7b_call(bcuda, main, g))
     bplain_ms = time_ms(lambda: k7b_call(bplain, main, g), iters=5)
-    bf32_ms = time_ms(lambda: k7b_call(bcuda, main, g.float()))
+    g32 = g.float()
+    bf32_ms = time_ms(lambda: k7b_call(bcuda, main, g32))
+    # with the cast of g to fp32 inside the timed call, as this script
+    # timed the fp32 cotangent before (a 1.4 GB pass of its own)
+    bf32_cast_ms = time_ms(lambda: k7b_call(bcuda, main, g.float()))
+    del g32
     ghi = cot(cases[3][0]).to(bf16)
     bhi_ms = time_ms(lambda: k7b_call(bcuda, cases[3][0], ghi))
     del ghi
@@ -1866,10 +1983,14 @@ def hidden_slots_vs_plain(jlo, jhi, u_lo, u_hi, shift_lo, shift_hi, spl,
         f"{f32_ms:.4f} ms; lead-in-hi [2, 4096, 801] bf16 {hi_ms:.4f} ms; "
         f"the feature-pair route it replaces (unpack, hidden layer, pair "
         f"sum, bf16) {route_ms:.4f} ms")
+    bb32 = k7b_bound(main, g.float())
     say(f"K7 bwd lo-only, bf16 g: kernel {bms:.4f} ms, plain "
-        f"{bplain_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}); fp32 g "
-        f"{bf32_ms:.4f} ms; lead-in-hi {bhi_ms:.4f} ms; the feature-pair "
-        f"route's backward (W1, b1) {route_bwd_ms:.4f} ms")
+        f"{bplain_ms:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}), its "
+        f"contraction in two TF32 products at the TF32 tensor rate "
+        f"{k7b_tc_ms(main):.4f} ms; fp32 g {bf32_ms:.4f} ms (bound "
+        f"{bb32[0]:.4f} ms, {bb32[1]}; with its cast from bf16 in the "
+        f"timed call {bf32_cast_ms:.4f} ms); lead-in-hi {bhi_ms:.4f} ms; the "
+        f"feature-pair route's backward (W1, b1) {route_bwd_ms:.4f} ms")
     return {"hidden_slots_fwd": dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, library_ms=None,
                                      bound=fb),
@@ -1898,6 +2019,8 @@ def kernels_vs_plain(g, gsets):
     a_q4 = q4_inputs(jlo, a_lo[4], a_lo[5], gen)
     g4 = torch.randn(4, a_q4[0].shape[1], HIDDEN, generator=gen).to(DEVICE)
     err1b = max(err1b, k1b_compare(a_q4, g4, "Q=4, lo-only, all-masked set"))
+    # wider shapes, from a generator of their own (the later draws stay)
+    err1b = max(err1b, k1b_wide(torch.Generator().manual_seed(13)))
 
     # the attention pool (K3) and its backward
     t_lo = attn_inputs(jlo, a_lo[4], a_lo[5], gen)
@@ -1954,12 +2077,16 @@ def kernels_vs_plain(g, gsets):
     k1b_hi_ms = time_ms(lambda: k1b_call(
         hidden_sum.fused_key_hidden_sum_bwd_cuda, a_hi, g2))
     say(f"K1 bwd lead-in-hi (L=801) kernel: {k1b_hi_ms:.4f} ms")
+    k1b_b = k1b_bound(a_lo, g2)
+    say(f"K1 bwd lo-only: kernel {k1b_ms:.4f} ms, bound {k1b_b[0]:.4f} ms "
+        f"({k1b_b[1]}), its contraction in two TF32 products at the TF32 "
+        f"tensor rate {k1b_tc_ms(a_lo):.4f} ms")
     stats["hidden_sum_fwd"] = dict(
         max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
         bound=k1_bound(a_lo))
     stats["hidden_sum_bwd"] = dict(
         max_abs_err=err1b, ms=k1b_ms, plain_ms=k1b_plain, library_ms=None,
-        bound=k1b_bound(a_lo, g2))
+        bound=k1b_b)
     stats["merge_pairs"] = dict(
         max_abs_err=float(err2), ms=k2_ms, plain_ms=k2_plain,
         library_ms=k2_lib, bound=k2_bound(m_main))
@@ -2179,9 +2306,11 @@ def profile(run, steps: int, what: str) -> None:
         f"time {busy_us / 1e3:.3f} ms (device busy "
         f"{100 * busy_us / wall_us:.1f}%), {launched / steps:.1f} kernel "
         f"launches per step in {len(by_name)} kernel names")
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]:
-        say(f"  {t / steps / 1e3:.4f} ms/step  x{n // steps:<3d} "
-            f"{name[:100]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (t, n)) in enumerate(ranked):
+        if i < 14 or HIDDEN_KERNELS.search(name):
+            say(f"  {t / steps / 1e3:.4f} ms/step  x{n // steps:<3d} "
+                f"{name[:100]}")
 
 
 def profile_predict(sets, net, edges, batches: int = 8) -> None:
@@ -2811,6 +2940,10 @@ def main() -> int:
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill", log))
         say(f"  ptxas {name}: {len(regs)} entries, at most {max(regs)} "
             f"registers, {spills} bytes spilled")
+    for name in ("hidden_sum_bwd", "hidden_slots_bwd"):
+        for line in logs.get(name, "").splitlines():
+            if re.search(r"Compiling entry|Used \d+ registers|spill", line):
+                say(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
     g = rmat_graph(N_NODES, N_EDGES, seed=0)

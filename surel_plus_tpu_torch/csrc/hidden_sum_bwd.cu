@@ -12,38 +12,47 @@
 // pushes them to -1e9), so they are skipped.
 //
 // Replaces the TPU kernel surel_plus_tpu/ops/pallas/hidden_sum_kernel.py
-// (_bwd_kernel, launched by _pallas_bwd). The TPU kernel contracts
-// fields^T @ dz on the MXU and routes a cross slot's cotangent through a
-// group-selector matmul, carrying dU across its sequential grid; on the
-// GPU blocks run in no order, so each block keeps a partial dU and a
-// second pass adds the partials in a fixed order (no float atomics: two
-// launches give the same bits).
+// (_bwd_kernel, launched by _pallas_bwd), which contracts fields^T @ dz on
+// the MXU and routes a cross slot's cotangent through a group-selector
+// matmul; here the contraction runs on the tensor cores too
+// (csrc/hidden_tc.cuh).
 //
 // Bound on the H100: operations. At the bench width (Q=2, B=4096, L=301,
-// Lc=602, H=96, ncol=4) it reads the forward's 30 MB of keys and masks
-// and 3 MB of g (10 us at 3.35 TB/s), but for every selected slot and
-// channel it recomputes z (ncol multiply-adds and a compare) and, where
-// z > 0, adds ncol + 1 products into dU: on sampled sets some 2.5 GFLOP,
-// about 38 us on the fp32 CUDA cores (chip_smoke.py counts it from its
-// inputs). It stays in fp32: z must be recomputed exactly as the forward
-// computes it (same fmaf order) so that the strict z > 0 agrees.
+// Lc=602, H=96, ncol=4) it reads the forward's 30 MB of keys and masks and
+// 3 MB of g (10 us at 3.35 TB/s), and for every selected slot and channel
+// recomputes z on the CUDA cores (ncol fmaf and a compare, in the
+// forward's order, so that the relu decisions are the forward's); the
+// products into dU go to the tensor cores (two TF32 products: dz is a sum
+// of fp32 cotangents, split in big and small parts).
 //
-// Design: as the forward, one thread per hidden channel, U's column and
-// the thread's ncol + 1 accumulators in registers. Block p walks the
-// query rows p, p + P, p + 2P, ...; for each it loads its Q cotangents,
-// stages a chunk of unpacked fields and a per-slot endpoint bitmask in
-// shared memory, skips slots no endpoint selects, and sums the cotangents
-// of the endpoints that select a slot. Partials go to part[(r * H + h) * P
-// + p], so the reduction pass reads each entry's P partials contiguously.
+// Design: a warp per query row (kWarps rows a block; warp w of block p
+// takes rows p * kWarps + w, + P * kWarps, ...: a fixed partition). For
+// its row the warp writes the table of the cotangent sums of every
+// endpoint subset, G[m] = sum of g[q, b] over the bits q of m (q
+// ascending, as the per-slot sums were taken before), to its own shared
+// memory. It then walks the shared cross plane and each endpoint's own
+// row in 32-slot tiles, the next tile's keys and masks loaded while the
+// current one is processed. Each lane reads its slot's endpoint bits once
+// (Q mask bytes of a cross slot, one of an own slot); a ballot marks the
+// selected slots and they are appended, compacted, to the warp's queue of
+// (key, root, bits). Each time the queue holds whole k-steps of 8 slots
+// they are contracted (lane (g, c) takes queue entries c and c + 4: its K
+// entries), dz = (z > 0) * G[bits] formed in registers, into a fresh
+// accumulator that is then added to the warp's sums; the rest of the queue
+// moves to its front. At the row's end the queue is padded with empty
+// entries (bits 0, G[0] = 0). Only the warp's own barrier is taken inside
+// the walk. At the end a block adds its warps' sums in warp order into one
+// partial, and a second pass adds the P partials in a fixed order (no
+// float atomics: two launches give the same bits).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hidden_tc.cuh"
+
 namespace {
 
-constexpr int kChunk = 128;     // slots staged in shared memory per pass
-constexpr int kMaxQ = 4;        // endpoints per query (link: 2, hyperedge: 4)
-constexpr int kReduceThreads = 256;
+using namespace htc;
 
 struct Args {
   const uint32_t* kown;    // [Q, B, Lo]
@@ -58,124 +67,202 @@ struct Args {
   int Q, B, Lo, Lc, H, shift, P;
 };
 
+// The layout of one instance: m-tiles of a slab, slab channels, the
+// combination table's row stride (floats) and a warp's shared memory for
+// Q endpoints (the table, then the queue's keys, roots and bits).
+template <int NCOL>
+struct Layout {
+  static constexpr int kMS = slab_mtiles(NCOL, false);
+  static constexpr int kNT = n_tiles(NCOL);
+  static constexpr int kCS = 16 * kMS;
+  static constexpr int kGS = kCS + 8;
+  __host__ __device__ static constexpr int warp_bytes(int q) {
+    return (1 << q) * kGS * 4 + 3 * kQueue * 4;
+  }
+};
+
+// A lane's slot of a tile: its key, root and endpoint bits (0: unselected).
+struct Slot {
+  uint32_t key, bits;
+  int32_t root;
+};
+
 template <int NCOL, bool ROOT>
-__global__ void hidden_sum_bwd_kernel(Args a) {
-  __shared__ float fs[kChunk][NCOL];
-  __shared__ uint32_t sel[kChunk];
-  const int h = threadIdx.x;
-  const bool active = h < a.H;
-  const uint32_t fmask = (1u << a.shift) - 1u;
+__global__ void __launch_bounds__(kWarps * 32)
+hidden_sum_bwd_kernel(Args a) {
+  using Lay = Layout<NCOL>;
+  constexpr int MS = Lay::kMS, NT = Lay::kNT, CS = Lay::kCS, GS = Lay::kGS;
+  constexpr int kCh = (CS + 31) / 32;  // table channels a lane writes
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int c0 = blockIdx.y * CS;  // the slab's first channel
+  const bool fsplit = a.shift > kExactShift;
+  float* tab = reinterpret_cast<float*>(smem + (size_t)warp *
+                                                   Lay::warp_bytes(a.Q));
+  uint32_t* qk = reinterpret_cast<uint32_t*>(tab + (1 << a.Q) * GS);
+  int32_t* qr = reinterpret_cast<int32_t*>(qk + kQueue);
+  uint32_t* qs = qk + 2 * kQueue;
 
-  float uc[NCOL];
-  float bias = 0.f;
-#pragma unroll
-  for (int i = 0; i < NCOL; ++i) uc[i] = active ? a.u[i * a.H + h] : 0.f;
-  if (active) bias = a.u[(NCOL + 1) * a.H + h];
-  float acc[NCOL + 1];  // field rows, then the bias row
-#pragma unroll
-  for (int i = 0; i <= NCOL; ++i) acc[i] = 0.f;
+  Cols<NCOL, MS> cols;
+  load_cols(cols, a.u, a.H, c0, g);
 
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    float gq[kMaxQ];
+  float run[MS][NT][4], acc[MS][NT][4];
 #pragma unroll
-    for (int q = 0; q < kMaxQ; ++q)
-      gq[q] = (active && q < a.Q) ? a.g[((size_t)q * a.B + b) * a.H + h]
-                                  : 0.f;
-    // seg -1: the shared cross plane; seg 0..Q-1: endpoint seg's own row
-    for (int seg = -1; seg < a.Q; ++seg) {
-      const bool cross = seg < 0;
-      const int L = cross ? a.Lc : a.Lo;
-      const size_t row = cross ? (size_t)b * a.Lc
-                               : ((size_t)seg * a.B + b) * a.Lo;
-      const uint32_t* keys = (cross ? a.kcross : a.kown) + row;
-      for (int base = 0; base < L; base += kChunk) {
-        const int n = min(kChunk, L - base);
-        __syncthreads();  // the previous chunk is consumed
-        for (int s = threadIdx.x; s < n; s += blockDim.x) {
-          const int l = base + s;
-          uint32_t m = 0;
-          if (cross) {
-            for (int q = 0; q < a.Q; ++q)
-              m |= (uint32_t)(a.mcross[((size_t)q * a.B + b) * a.Lc + l] != 0)
-                   << q;
-          } else {
-            m = (uint32_t)(a.mown[row + l] != 0) << seg;
-          }
-          sel[s] = m;
-          const uint32_t k = keys[l];
+  for (int m = 0; m < MS; ++m)
 #pragma unroll
-          for (int i = 0; i < NCOL; ++i) {
-            float v;
-            if (ROOT && i == NCOL - 1) {
-              v = (float)(cross ? a.rcross : a.rown)[row + l];
-            } else {
-              const uint32_t fm = (!ROOT && i == NCOL - 1) ? 1u : fmask;
-              v = (float)((k >> (i * a.shift)) & fm);
-            }
-            fs[s][i] = v;
-          }
-        }
-        __syncthreads();
-        if (active) {
-          for (int s = 0; s < n; ++s) {
-            const uint32_t m = sel[s];
-            if (m == 0) continue;  // uniform across the block
-            // z exactly as the forward computes it
-            float z = bias;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-            for (int i = 0; i < NCOL; ++i) z = fmaf(fs[s][i], uc[i], z);
-            if (!(z > 0.f)) continue;
-            float dz = 0.f;
-#pragma unroll
-            for (int q = 0; q < kMaxQ; ++q)
-              if ((m >> q) & 1u) dz += gq[q];
-#pragma unroll
-            for (int i = 0; i < NCOL; ++i) acc[i] = fmaf(fs[s][i], dz, acc[i]);
-            acc[NCOL] += dz;
-          }
-        }
+      for (int e = 0; e < 4; ++e) run[m][n][e] = acc[m][n][e] = 0.f;
+
+  const int ncross = (a.Lc + 31) / 32;
+  const int nown = (a.Lo + 31) / 32;
+  const int ntiles = ncross + a.Q * nown;
+  const uint32_t lt = (1u << lane) - 1u;
+
+  // tile ti of row b: the cross plane's tiles, then each endpoint's own
+  auto load = [&](int b, int ti) {
+    Slot s{0u, 0u, 0};
+    if (ti < ncross) {
+      const int l = 32 * ti + lane;
+      if (l < a.Lc) {
+        const size_t at = (size_t)b * a.Lc + l;
+        for (int q = 0; q < a.Q; ++q)
+          s.bits |= (uint32_t)(a.mcross[((size_t)q * a.B + b) * a.Lc + l] != 0)
+                    << q;
+        s.key = a.kcross[at];
+        if (ROOT) s.root = a.rcross[at];
+      }
+    } else {
+      const int seg = (ti - ncross) / nown;
+      const int l = 32 * (ti - ncross - seg * nown) + lane;
+      if (l < a.Lo) {
+        const size_t at = ((size_t)seg * a.B + b) * a.Lo + l;
+        s.bits = (uint32_t)(a.mown[at] != 0) << seg;
+        s.key = a.kown[at];
+        if (ROOT) s.root = a.rown[at];
       }
     }
-  }
-  if (active) {
+    return s;
+  };
+
+  // the k-step of queue entries e0 + c (K entry c) and e0 + c + 4 (K c + 4)
+  auto kstep = [&](int e0) {
+    const int i0 = e0 + c, i1 = e0 + c + 4;
+    float f0[NCOL], f1[NCOL];
+    fields<NCOL, ROOT>(qk[i0], qr[i0], a.shift, f0);
+    fields<NCOL, ROOT>(qk[i1], qr[i1], a.shift, f1);
+    BFrag<NT> bf;
+    b_frag(bf, f0, f1, g);
+    const float* t0 = tab + qs[i0] * GS + 2 * g;
+    const float* t1 = tab + qs[i1] * GS + 2 * g;
 #pragma unroll
-    for (int i = 0; i <= NCOL; ++i)
-      a.part[((size_t)i * a.H + h) * a.P + blockIdx.x] = acc[i];
+    for (int m = 0; m < MS; ++m) {
+      const float2 g0 = *reinterpret_cast<const float2*>(t0 + 16 * m);
+      const float2 g1 = *reinterpret_cast<const float2*>(t1 + 16 * m);
+      const float z00 = zed(f0, cols.u[2 * m], cols.b[2 * m]);
+      const float z01 = zed(f0, cols.u[2 * m + 1], cols.b[2 * m + 1]);
+      const float z10 = zed(f1, cols.u[2 * m], cols.b[2 * m]);
+      const float z11 = zed(f1, cols.u[2 * m + 1], cols.b[2 * m + 1]);
+      contract<NT, true>(acc[m], z00 > 0.f ? g0.x : 0.f,
+                         z01 > 0.f ? g0.y : 0.f, z10 > 0.f ? g1.x : 0.f,
+                         z11 > 0.f ? g1.y : 0.f, bf, fsplit);
+    }
+  };
+
+  for (int b = blockIdx.x * kWarps + warp; b < a.B;
+       b += gridDim.x * kWarps) {
+    // the cotangent sums of every endpoint subset, for the slab's channels
+    float gq[kMaxQ][kCh];
+#pragma unroll
+    for (int q = 0; q < kMaxQ; ++q)
+#pragma unroll
+      for (int j = 0; j < kCh; ++j) {
+        const int ch = c0 + lane + 32 * j;
+        gq[q][j] = q < a.Q && lane + 32 * j < CS && ch < a.H
+                       ? __ldg(a.g + ((size_t)q * a.B + b) * a.H + ch)
+                       : 0.f;
+      }
+    Slot nxt = load(b, 0);
+    __syncwarp();  // the previous row's reads of the table are done
+    for (int m = 0; m < (1 << a.Q); ++m)
+#pragma unroll
+      for (int j = 0; j < kCh; ++j) {
+        if (lane + 32 * j >= CS) continue;
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < kMaxQ; ++q)
+          if ((m >> q) & 1) s += gq[q][j];
+        tab[m * GS + lane + 32 * j] = s;
+      }
+
+    int n = 0;  // entries in the queue
+    for (int ti = 0; ti < ntiles; ++ti) {
+      const Slot cur = nxt;
+      if (ti + 1 < ntiles) nxt = load(b, ti + 1);
+      const uint32_t sel = __ballot_sync(0xffffffffu, cur.bits != 0);
+      if (cur.bits) {
+        const int at = n + __popc(sel & lt);
+        qk[at] = cur.key;
+        qr[at] = cur.root;
+        qs[at] = cur.bits;
+      }
+      n += __popc(sel);
+      __syncwarp();  // the queue (and the table) written
+      const int nk = n / 8;
+      if (nk == 0) continue;
+      for (int j = 0; j < nk; ++j) kstep(8 * j);
+      fold(run, acc);
+      const int rest = n - 8 * nk;
+      Slot r{0u, 0u, 0};
+      if (lane < rest) {
+        r.key = qk[8 * nk + lane];
+        r.root = qr[8 * nk + lane];
+        r.bits = qs[8 * nk + lane];
+      }
+      __syncwarp();
+      if (lane < rest) {
+        qk[lane] = r.key;
+        qr[lane] = r.root;
+        qs[lane] = r.bits;
+      }
+      __syncwarp();
+      n = rest;
+    }
+    if (n > 0) {  // the row's last entries, padded with empty ones
+      if (lane >= n && lane < 8) {
+        qk[lane] = 0u;
+        qr[lane] = 0;
+        qs[lane] = 0u;
+      }
+      __syncwarp();
+      kstep(0);
+      fold(run, acc);
+    }
   }
+  store_partial<NCOL, MS, NT>(run, reinterpret_cast<float*>(smem), a.part,
+                              a.H, a.P, blockIdx.x, c0);
 }
 
-// One block per dU entry: the entry's P partials, summed in a fixed order
-// (a strided pass per thread, then a tree over the block).
-__global__ void hidden_sum_bwd_reduce(const float* part, float* du, int ncol,
-                                      int H, int P) {
-  __shared__ float red[kReduceThreads];
-  const int e = blockIdx.x;  // entry r * H + h of du [ncol + 2, H]
-  const int r = e / H;
-  const int h = e % H;
-  if (r == ncol) {  // the masking row: masked slots have zero gradient
-    if (threadIdx.x == 0) du[e] = 0.f;
-    return;
-  }
-  const int pr = r < ncol ? r : ncol;  // partial row of the bias: ncol
-  const float* p = part + ((size_t)pr * H + h) * P;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < P; i += kReduceThreads) s += p[i];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) du[e] = red[0];
+template <int NCOL, bool ROOT>
+cudaError_t launch_typed(const Args& a, cudaStream_t stream) {
+  using Lay = Layout<NCOL>;
+  const size_t red = sizeof(float) * kWarps * Lay::kMS * Lay::kNT * 4 * 32;
+  const size_t ring = (size_t)kWarps * Lay::warp_bytes(a.Q);
+  const size_t smem = ring > red ? ring : red;
+  auto kernel = hidden_sum_bwd_kernel<NCOL, ROOT>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.P, (a.H + Lay::kCS - 1) / Lay::kCS);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int NCOL>
-void launch(const Args& a, bool root, cudaStream_t stream) {
-  const int threads = ((a.H + 31) / 32) * 32;
-  if (root)
-    hidden_sum_bwd_kernel<NCOL, true><<<a.P, threads, 0, stream>>>(a);
-  else
-    hidden_sum_bwd_kernel<NCOL, false><<<a.P, threads, 0, stream>>>(a);
+cudaError_t launch(const Args& a, bool root, cudaStream_t stream) {
+  return root ? launch_typed<NCOL, true>(a, stream)
+              : launch_typed<NCOL, false>(a, stream);
 }
 
 }  // namespace
@@ -198,19 +285,19 @@ extern "C" int hidden_sum_bwd_launch(const void* kown, const void* mown,
   const cudaStream_t s = (cudaStream_t)stream;
   if (Q < 1 || Q > kMaxQ || H < 1 || H > 1024 || B < 1 || P < 1 || P > B)
     return (int)cudaErrorInvalidValue;
+  cudaError_t err;
   switch (ncol) {
-    case 2: launch<2>(a, root, s); break;
-    case 3: launch<3>(a, root, s); break;
-    case 4: launch<4>(a, root, s); break;
-    case 5: launch<5>(a, root, s); break;
-    case 6: launch<6>(a, root, s); break;
-    case 7: launch<7>(a, root, s); break;
-    case 8: launch<8>(a, root, s); break;
+    case 2: err = launch<2>(a, root, s); break;
+    case 3: err = launch<3>(a, root, s); break;
+    case 4: err = launch<4>(a, root, s); break;
+    case 5: err = launch<5>(a, root, s); break;
+    case 6: err = launch<6>(a, root, s); break;
+    case 7: err = launch<7>(a, root, s); break;
+    case 8: err = launch<8>(a, root, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  hidden_sum_bwd_reduce<<<(ncol + 2) * H, kReduceThreads, 0, s>>>(
+  reduce_partials<<<(ncol + 2) * H, kReduceThreads, 0, s>>>(
       (const float*)part, (float*)du, ncol, H, P);
   return (int)cudaGetLastError();
 }

@@ -51,8 +51,34 @@ SLOTS_BWD_KERNEL = CudaKernel("hidden_slots_bwd", "hidden_slots_bwd_launch",
                               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                               + [ctypes.c_void_p])
 MAX_Q, MAX_NCOL, MAX_H = 4, 8, 1024
-BWD_PARTS = 2048   # row groups of the backward, each one partial dU
+# The backwards' partitions, each part one partial dU (fixed, so that the
+# bits do not depend on the card): K1 bwd runs a warp per query row, TC_WARPS
+# rows a block, in at most BWD_PARTS blocks; K7 bwd a persistent grid of
+# SLOTS_BWD_PARTS blocks (three an SM of an H100) over its tiles.
+BWD_PARTS = 1024
+SLOTS_BWD_PARTS = 396
 SLOTS_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/hidden_tc.cuh's layout, mirrored for the tests:
+# warps a block, stages of K7 bwd's ring and the cotangent bytes a stage
+# holds, K1 bwd's queue, and the widest field exact in TF32.
+TC_WARPS, TC_STAGES, TC_STAGE_BYTES, TC_QUEUE, TC_EXACT_SHIFT = \
+    4, 2, 6144, 64, 11
+
+
+def slab_mtiles(ncol: int, slots: bool) -> int:
+    """m-tiles (16 channels) of a channel slab of K7 bwd (`slots`) or K1
+    bwd."""
+    if slots:
+        return 6 if ncol <= 5 else (4 if ncol <= 6 else 3)
+    return 6 if ncol <= 4 else 3
+
+
+def tile_slots(ncol: int, itemsize: int) -> int:
+    """Slots of a K7 bwd tile (its accumulator's slab): whole k-steps of 4
+    slots of a slab's cotangent rows in TC_STAGE_BYTES, 4 to 32."""
+    ts = TC_STAGE_BYTES // (16 * slab_mtiles(ncol, True) * itemsize) // 4 * 4
+    return min(max(ts, 4), 32)
 
 
 def u_core_rows(w1: torch.Tensor, num_walks: int,
@@ -177,7 +203,7 @@ def fused_key_hidden_sum_bwd_cuda(kown, mask_own, kcross, mask_cross, u_ext,
     check_cuda("g", g, torch.float32, (q, b, h), dev)
     du = torch.zeros(ncol + 2, h, dtype=torch.float32, device=dev)
     if b:
-        parts = min(b, BWD_PARTS)
+        parts = min(-(-b // TC_WARPS), BWD_PARTS)
         scratch = torch.empty((ncol + 1) * h * parts, dtype=torch.float32,
                               device=dev)
         BWD_KERNEL(dev, ptr(kown), ptr(mask_own), ptr(kcross),
@@ -337,7 +363,7 @@ def fused_key_hidden_slots_bwd_cuda(kown, kcross_al, u_ext, g, shift: int,
     du = torch.zeros(ncol + 2, h, dtype=torch.float32, device=dev)
     n = q * b * ell
     if n:
-        parts = min(n, BWD_PARTS)
+        parts = min(n, SLOTS_BWD_PARTS)
         scratch = torch.empty((ncol + 1) * h * parts, dtype=torch.float32,
                               device=dev)
         SLOTS_BWD_KERNEL(dev, ptr(kown), ptr(kcross_al),

@@ -49,6 +49,7 @@ from surel_plus_tpu_torch.ops.kernels.attn_pool import (
 )
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.walk import enc_field_layout
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LAYOUTS = {"lo_only": (10, 3), "lead_in_hi": (200, 4)}
 CASES = {"lo_only-q2": ("lo_only", 2), "lead_in_hi-q2": ("lead_in_hi", 2),

@@ -38,6 +38,7 @@ from surel_plus_tpu_torch.ops.kernels.attn_pool import (
 )
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.walk import enc_field_layout
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, H = 4, 16
 

@@ -48,6 +48,7 @@ from surel_plus_tpu_torch.ops.kernels.cross_lookup import (
 from surel_plus_tpu_torch.spg import SpGKeys
 from surel_plus_tpu_torch.train import TrainConfig
 from surel_plus_tpu_torch.train.device import trainer_from_keys
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 INT32_MAX = np.iinfo(np.int32).max
 LAYOUTS = {"lo_only": (100, 3), "lead_in_hi": (200, 4),

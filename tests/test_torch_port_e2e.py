@@ -28,6 +28,7 @@ from surel_plus_tpu_torch.train.device import (
     device_mrr,
     trainer_from_keys,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, N, BS, E = 16, 120, 8, 21     # E % BS != 0: the tail batch is padded
 

@@ -30,6 +30,7 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     fused_key_hidden_sum_plain,
     u_core_rows,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (num_walks, num_steps): lo-only fields + root bit, and lead-in-hi
 # (4 fields filling the lo word, root from a plane)

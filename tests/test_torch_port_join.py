@@ -17,6 +17,7 @@ from surel_plus_tpu_torch.ops.join import (
     make_keys_join,
     unpack_key_features,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _carry(spgk):

@@ -58,6 +58,7 @@ from surel_plus_tpu_torch.ops.walk import enc_field_layout
 from surel_plus_tpu_torch.spg import SpGKeys
 from surel_plus_tpu_torch.train import TrainConfig
 from surel_plus_tpu_torch.train.device import trainer_from_keys
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LAYOUTS = {"lo_only": (10, 3), "lead_in_hi": (200, 4)}
 WEIGHTS = ("u", "wi", "wh", "bh")
@@ -362,11 +363,14 @@ def _jax_logits(joins, dtype, fused):
     return np.asarray(jnet.apply(params, jnp.zeros((1, 1), jnp.float32), jj))
 
 
-def _port_net(joins, dtype, fused):
+def _port_net(joins, dtype, fused, queries=None):
+    """The port's lstm Net with the fixture's weights and its join of the
+    batch (of its first `queries` queries)."""
     nw, ns, _, rows, params, _ = joins
     net = Net(ns + 1, NET_H, aggrs="lstm", dropout=0.0, dtype=dtype,
               key_layout=(nw, ns), fused_hidden=fused, device="cpu")
     net.load_state_dict(params_from_flax(params))
+    rows = [x[:, :queries] for x in rows]
     joined = join_gathered_keys(*rows, nw, ns,
                                 **net.join_outputs(torch.device("cpu")))
     return net.eval(), joined
@@ -443,11 +447,13 @@ def test_keys_lstm_is_forward_only():
 def test_fused_lstm_net_raises_under_grad_and_unfused_trains(joins):
     """Both routes train (the name dates from when the fused one raised
     under grad): the same parameter gradients of the summed logits (fp32,
-    dropout 0), and a fit on the fused route moves every parameter."""
+    dropout 0) on the batch's first 4 queries (the unfused route's plain
+    scan costs the CPU about L^2 a row), and a fit on the fused route
+    moves every parameter."""
     nw, ns, _, _, _, tspgk = joins
     grads = []
     for fused in (True, False):
-        net, joined = _port_net(joins, "float32", fused)
+        net, joined = _port_net(joins, "float32", fused, queries=4)
         net.train()(joined).sum().backward()
         grads.append({k: p.grad for k, p in net.named_parameters()})
     assert set(grads[0]) == set(grads[1])

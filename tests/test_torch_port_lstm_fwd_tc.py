@@ -61,6 +61,7 @@ from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
     stash_group,
 )
 from surel_plus_tpu_torch.ops.walk import enc_field_layout
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 GRAD_TOL = 1e-5

@@ -56,6 +56,7 @@ from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
     lstm_bptt_plain,
 )
 from surel_plus_tpu_torch.ops.walk import enc_field_layout
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 CSRC = Path(lstm_keys.__file__).resolve().parents[2] / "csrc"

@@ -31,6 +31,7 @@ from surel_plus_tpu_torch.ops.kernels.lstm import (
     lstm_final_hidden_bwd_plain,
     lstm_final_hidden_plain,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, L, h, H = 9, 23, 6, 8
 GRADS = ("dx", "dwi", "dwh", "dbh")

@@ -12,6 +12,7 @@ from surel_plus_tpu.ops.merge_net import merge_pairs_xor
 from surel_plus_tpu.ops.pallas.bitonic_merge import bitonic_merge_pairs
 from surel_plus_tpu_torch.ops.kernels.merge import merge_pairs_cuda
 from surel_plus_tpu_torch.ops.merge_net import merge_pairs
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _distinct_case(rng, B, la, lb):

@@ -19,6 +19,7 @@ from surel_plus_tpu.ops.sampler import sample_gsets_device_keys
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
 from surel_plus_tpu_torch.ops.join import make_keys_join
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H = 16
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}

@@ -22,6 +22,7 @@ from surel_plus_tpu_torch.ops.sampler import (
     sample_gsets_device_keys,
     shuffled_indices_for,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 INT32_MAX = np.iinfo(np.int32).max
 

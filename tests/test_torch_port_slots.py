@@ -54,6 +54,7 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     u_core_rows,
 )
 from surel_plus_tpu_torch.train.device import batch_loss
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (num_walks, num_steps): lo-only (3 fields of 4 bits and the root bit in
 # the lo word) and lead-in-hi (4 fields of 8 bits fill the lo word, the

@@ -71,6 +71,7 @@ from surel_plus_tpu_torch.ops.sampler import (
 from surel_plus_tpu_torch.spg import SpGDevice
 from surel_plus_tpu_torch.train import TrainConfig
 from surel_plus_tpu_torch.train.device import DeviceTrainer, batch_loss
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (num_walks, num_steps, enc_width, max_enc_width) of each dedup case
 DEDUP = {"lo_only": (16, 3, 4096, 1 << 16),

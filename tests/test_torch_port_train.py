@@ -58,6 +58,7 @@ from surel_plus_tpu_torch.train.device import (
     score_histogram,
     trainer_from_keys,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, N, BS, E, EPOCHS, LR = 16, 120, 8, 21, 2, 1e-2   # E % BS != 0
 LAYOUTS = {"lo_only": (100, 3), "lead_in_hi": (200, 4)}
@@ -87,11 +88,14 @@ def _grads_by_name(net):
     return {n: p.grad.numpy() for n, p in net.named_parameters()}
 
 
-@pytest.mark.parametrize("aggrs", AGGRS)
-@pytest.mark.parametrize("route", sorted(ROUTES))
-def test_train_step_loss_and_grads_match_jax(sampled, route, aggrs):
+@pytest.fixture(scope="module")
+def step_batch(sampled):
+    """One training batch of 16 queries (the last 3 padded, weight 0),
+    JAX's join of it, and each aggregator's initial JAX parameters. Both
+    routes share them: the JAX Net's parameters do not depend on its
+    route (the same tree from the same key), so one init (on the unfused
+    route) serves both."""
     nw, ns, spgk, tspgk = sampled
-    fused = ROUTES[route]
     rng = np.random.default_rng(32)
     edges = rng.integers(0, N, size=(2, 16)).astype(np.int32)
     labels = (rng.random(16) < 0.5).astype(np.float32)
@@ -99,10 +103,25 @@ def test_train_step_loss_and_grads_match_jax(sampled, route, aggrs):
     w[-3:] = 0.0                                   # padded ids weigh 0
     jj = jax.jit(jax_make_keys_join(nw, ns))(
         spgk.nodes, spgk.khi, spgk.klo, spgk.sizes, jnp.asarray(edges))
+    enc = jnp.zeros((1, 1), jnp.float32)
+    params = {a: JaxNet(input_dim=ns + 1, hidden_dim=H, aggrs=a,
+                        dropout=0.0, key_layout=(nw, ns),
+                        fused_hidden=False).init(jax.random.PRNGKey(4),
+                                                 enc, jj)
+              for a in AGGRS}
+    return edges, labels, w, jj, enc, params
+
+
+@pytest.mark.parametrize("aggrs", AGGRS)
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_train_step_loss_and_grads_match_jax(sampled, step_batch, route,
+                                             aggrs):
+    nw, ns, spgk, tspgk = sampled
+    edges, labels, w, jj, enc, params = step_batch
+    params = params[aggrs]
+    fused = ROUTES[route]
     jnet = JaxNet(input_dim=ns + 1, hidden_dim=H, aggrs=aggrs, dropout=0.0,
                   key_layout=(nw, ns), fused_hidden=fused)
-    enc = jnp.zeros((1, 1), jnp.float32)
-    params = jnet.init(jax.random.PRNGKey(4), enc, jj)
 
     def loss_fn(p):
         logits = jnet.apply(p, enc, jj, train=True)
