@@ -6,12 +6,19 @@ NVIDIA GPU. Run from the repository root:
 1. Builds the twelve CUDA kernels from `surel_plus_tpu_torch/csrc/` (one
    nvcc per source, started together) and prints the build time, each
    source's registers and spills, and ptxas's lines for every instance of
-   the two hidden-layer backwards.
+   the set sum (K1) and the two hidden-layer backwards.
 2. Holds each kernel against its plain PyTorch version on the card, on
    sets sampled from the main path's graph at the main path's shapes:
    the fused key hidden set sum (K1) in the lo-only layout (M=100, S'=3,
-   L=301) and the lead-in-hi layout (M=200, S'=4, L=801), fp32 at
-   rtol 1e-4 / atol 1e-3; its backward (K1 bwd) in both layouts, at a
+   L=301) and the lead-in-hi layout (M=200, S'=4, L=801), at Q=4 with
+   odd B, L and Lc, on seeded keys at H=100, H=1024, ncol=8 and shift 12
+   (with the root bit and with root planes), and on weights that put z at
+   or within a few ulps of 0 at many slots (`near_zero_u`: the tensor-core
+   z's recheck in the fmaf order), fp32 at rtol 1e-4 / atol 1e-3, two
+   launches bit for bit, an all-masked set exactly 0, and on those
+   weights with one selected slot a set, its relu decisions (out > 0)
+   exactly those of the fmaf order (`k1_decisions`); its backward (K1
+   bwd) in both layouts, at a
    small Q=4 shape with an all-masked set and on seeded keys at H=100,
    H=1024, ncol=8 and shift 12 (fields past TF32's exact range, with the
    root bit and with root planes), fp32 within 1e-4 of each dU row's
@@ -36,8 +43,11 @@ NVIDIA GPU. Run from the repository root:
    seven cases, each gradient within 1e-4 of its largest entry with the
    rows sorted and unsorted, two launches bit for bit, dU's masking row
    exactly 0 and empty rows silent; the
-   merge (K2) at [4096, 301] x 2, at [4096, 801] x 2 and at odd widths,
-   exactly; the masked LSTM over given rows (K5) on the encoding-table
+   merge (K2) at [4096, 301] x 2, at [4096, 801] x 2, at odd widths, on
+   rows of many equal keys across a and b (all equal among them), at
+   la = 1 and at la + lb = MAX_ROW, exactly, two launches bit for bit,
+   and its launch times' spread (`k2_spread`: flushed by zeroing or by
+   reading, the outputs allocated once, and back to back); the masked LSTM over given rows (K5) on the encoding-table
    path's real input (the pair-summed hidden rows of a table join, fp32
    [8192, L, 96], with the join's prefix masks) at (a) L=301 and (b)
    L=801, (c) at B=999, L=203, (d) on masks with holes, (e) with an
@@ -75,9 +85,11 @@ NVIDIA GPU. Run from the repository root:
    the whole stash's (within 1e-4 of each tensor's largest), the
    merge route's cross lookup for K6, and for K7 and K7 bwd the
    feature-pair route they replace (the join's unpack, the hidden layer
-   and the pair sum in bf16, and its backward); K1 bwd's and K7 bwd's
-   bounds also with their dU contraction at the TF32 tensor rate; and
-   prints the phase's peak device memory.
+   and the pair sum in bf16, and its backward); K1's bound as the larger
+   of its bytes, its CUDA-core operations and its products at the TF32
+   tensor rate (`k1_tc_ms`), beside the first version's fp32 bound; K1
+   bwd's and K7 bwd's bounds also with their dU contraction at the TF32
+   tensor rate; and prints the phase's peak device memory.
 3. Drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
    S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
@@ -86,7 +98,7 @@ NVIDIA GPU. Run from the repository root:
    against the plain route's (unfused, over the feature pairs) on one
    batch (bf16, rtol = atol = 5e-2), and the card against the port's CPU path on 256 queries (fp32
    scores, rtol = atol = 1e-4). Profiles a few predict batches (device
-   time by kernel, and the device's busy share).
+   time by kernel, the device time a step, and the device's busy share).
    Then drives the training path at the bench width (bench.py:153-186):
    `DeviceTrainer.fit` over 32 x 4096 random query edges with random 0/1
    labels, lr 1e-3, grad_clip 1.0, one cold 8-epoch fit (which must make
@@ -161,6 +173,7 @@ NVIDIA GPU. Run from the repository root:
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.
+
 """
 
 from __future__ import annotations
@@ -234,6 +247,9 @@ GRAD_ROUTE_TOL = {"float32": 1e-3, "bfloat16": ROUTE_TOL}   # of tensor max
 CPU_TOL = 1e-4
 CPU_TRAIN_RTOL, CPU_TRAIN_ATOL = 1e-4, 1e-5
 TIMED_ITERS = 20
+# the device wait before timed launches: at most this long, in cycles of a
+# clock of at most 2 GHz (the H100's SM clock peaks at 1.98 GHz)
+QUEUE_AHEAD_MAX_S, SLEEP_CYCLES_PER_S = 0.05, 2e9
 N_EPOCHS, LR, GRAD_CLIP = 8, 1e-3, 1.0          # bench.py:153, 167
 ATTN_EPOCHS = 4                                 # bench.py:206
 REF_STEPS, REF_BATCH = 4, 64                    # card vs CPU training
@@ -263,8 +279,10 @@ LSTM_CELL_BWD_OPS = 31
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12      # CUDA cores, outside the tensor cores
 TF32_OPS_PER_S = 495e12     # tensor cores, TF32, dense
-# the hidden-layer kernels, which each profile lists wherever they rank
-HIDDEN_KERNELS = re.compile(r"hidden_(sum|slots)_(fwd|bwd)|reduce_partials")
+# the hidden-layer kernels and the merge, which each profile lists wherever
+# they rank
+LISTED_KERNELS = re.compile(
+    r"hidden_(sum|slots)_(fwd|bwd)|reduce_partials|merge_pairs")
 
 KERNELS = {
     "hidden_sum_fwd": dict(
@@ -346,6 +364,7 @@ MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "hidden_slots_bwd": "unfused_train"}
 
 
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -371,14 +390,40 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def time_ms(fn, iters: int = TIMED_ITERS) -> float:
-    """Median device time of `fn` in ms, L2 flushed before each run."""
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
+def queue_ahead(fn, iters: int) -> None:
+    """Hold the device in a wait long enough for the host to queue `iters`
+    calls of `fn` (its host time, from one call, 1.5 times over; at most
+    QUEUE_AHEAD_MAX_S), so that no launch's timed window holds an idle gap
+    while the host is still issuing it: `k2_spread` shows how much of a
+    short kernel's time as issued (`time_ms`) is the host's (PERF.md)."""
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    sync()
+    wait_s = min(QUEUE_AHEAD_MAX_S, 1.5 * iters * host_s + 1e-3)
+    torch.cuda._sleep(int(wait_s * SLEEP_CYCLES_PER_S))
+
+
+def launch_times(fn, iters, flush=None, queued=True):
+    """Device times in ms of `iters` launches of `fn`, each after `flush`
+    (None: back to back, one time over all of them, divided), queued
+    behind a device wait (`queue_ahead`) unless `queued` is False."""
     fn()
     sync()
+    if queued:
+        queue_ahead(fn, iters)
+    if flush is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        sync()
+        return [start.elapsed_time(end) / iters]
     events = []
     for _ in range(iters):
-        flush.zero_()
+        flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -386,7 +431,15 @@ def time_ms(fn, iters: int = TIMED_ITERS) -> float:
         end.record()
         events.append((start, end))
     sync()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def time_ms(fn, iters: int = TIMED_ITERS) -> float:
+    """Median device time of `fn` in ms, L2 flushed before each run, the
+    runs timed as the host issues them."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
+    return float(np.median(launch_times(fn, iters, flush.zero_,
+                                        queued=False)))
 
 
 def nbytes(*tensors) -> int:
@@ -429,35 +482,208 @@ def k1_inputs(joined, num_walks, num_steps, gen):
             joined.kown_root, joined.kcross_root)
 
 
-def k1_bound(args):
-    kown, mown, kcross, mcross, u_ext, _, rown, rcross = args
+def k1_work(args):
+    """K1's work on these inputs: (bytes, CUDA-core operations, tensor-core
+    operations, the first version's fp32 operations). A slot any endpoint
+    selects is computed once: its z on the tensor cores (8 multiply-adds a
+    channel, K padded to 8, in each product: one while 2 ncol <= 8, one
+    more past shift 11, two while 2 ncol > 8), a max a channel on the CUDA
+    cores, then one add a channel for each endpoint that selects it. The
+    first version formed z with ncol fmaf on the CUDA cores."""
+    kown, mown, kcross, mcross, u_ext, shift, rown, rcross = args
     q, b, _ = kown.shape
     ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
     moved = nbytes(kown, mown, kcross, mcross, u_ext, rown, rcross) \
         + q * b * h * 4
-    # the kernel computes a slot's activation once if any endpoint
-    # selects it: ncol multiply-adds and a max per channel, then one add
-    # per selecting endpoint
     computed = int(mown.sum()) + int(mcross.any(dim=0).sum())
     selected = int(mown.sum()) + int(mcross.sum())
-    ops = computed * h * (2 * ncol + 1) + selected * h
-    return bound(moved, ops)
+    products = (1 + (shift > 11)) if 2 * ncol <= 8 else 2
+    return (moved, (computed + selected) * h,
+            computed * h * 2 * 8 * products,
+            computed * h * (2 * ncol + 1) + selected * h)
 
 
-def k1_compare(args, label):
+def k1_bound(args):
+    """(bound_ms, bound_by): the larger of K1's bytes at the memory rate,
+    its CUDA-core operations at the fp32 rate and its products at the TF32
+    tensor rate."""
+    moved, cuda_ops, tc_ops, _ = k1_work(args)
+    t = {"bytes": moved / HBM_BYTES_PER_S,
+         "operations": max(cuda_ops / FP32_OPS_PER_S,
+                           tc_ops / TF32_OPS_PER_S)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def k1_bound_parts(args):
+    """K1's bound's three terms and the first version's fp32 bound, in ms."""
+    moved, cuda_ops, tc_ops, fp32_ops = k1_work(args)
+    return dict(bytes_ms=moved / HBM_BYTES_PER_S * 1e3,
+                cuda_ms=cuda_ops / FP32_OPS_PER_S * 1e3,
+                k1_tc_ms=tc_ops / TF32_OPS_PER_S * 1e3,
+                fp32_bound_ms=bound(moved, fp32_ops)[0])
+
+
+def k1_compare(args, label, empty_set=False):
+    """K1 against its plain version at K1_RTOL / K1_ATOL, two launches bit
+    for bit, and with `empty_set` set 0 (all masked) exactly 0."""
     got = hidden_sum.fused_key_hidden_sum_cuda(*args)
+    again = hidden_sum.fused_key_hidden_sum_cuda(*args)
     want = hidden_sum.fused_key_hidden_sum_plain(*args)
     sync()
     require(got.shape == want.shape and bool(torch.isfinite(got).all()),
             f"K1 {label}: bad output")
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    empty = not empty_set or bool((got[:, 0] == 0).all())
     err = float((got - want).abs().max())
     ok = torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL)
     say(f"K1 {label}: Q,B,L,Lc={tuple(args[0].shape)},{args[2].shape[1]} "
         f"valid own slots {float(args[1].float().mean()):.3f}, selected "
         f"cross slots {float(args[3].any(dim=0).float().mean()):.3f}; "
         f"max_abs_err={err:.3e} max|plain|={float(want.abs().max()):.3e} "
-        f"(rtol {K1_RTOL}, atol {K1_ATOL}) {'ok' if ok else 'FAIL'}")
+        f"(rtol {K1_RTOL}, atol {K1_ATOL}); repeat bit-identical: {same}"
+        + (f"; all-masked set exactly 0: {empty}" if empty_set else "")
+        + f" {'ok' if ok and same and empty else 'FAIL'}")
     require(ok, f"K1 {label} disagrees with its plain version")
+    require(same, f"K1 {label}: two launches differ")
+    require(empty, f"K1 {label}: the all-masked set is not 0")
+    return err
+
+
+def near_zero_u(u_ext, gen):
+    """u_ext whose z is exactly 0 wherever a key's fields 0 and 1 agree (U_1
+    = -U_0, the other field rows 0, b1 = 0) in half the channels, and a few
+    ulps of U_0 off 0 there in the other half (b1 = k 2^-23 U_0, |k| <=
+    4): K1's tensor-core z lies within its recheck bound of 0 at many
+    slots."""
+    u = u_ext.clone()
+    ncol, h = u.shape[0] - 2, u.shape[1]
+    half = h // 2
+    u[1] = -u[0]
+    u[2:ncol] = 0.0
+    u[ncol + 1, :half] = 0.0
+    k = torch.randint(-4, 5, (h - half,), generator=gen).to(DEVICE)
+    u[ncol + 1, half:] = u[0, half:] * k.float() * 2.0 ** -23
+    return u.contiguous()
+
+
+def k1_near_zero(args, gen):
+    """K1 on `near_zero_u`'s weights, held like every K1 case; prints the
+    share of the selected own slot-channels whose plain z is exactly 0."""
+    kown, mown, kcross, mcross, u_ext, shift, rown, rcross = args
+    u = near_zero_u(u_ext, gen)
+    ncol = u.shape[0] - 2
+    z = hidden_sum._fields_ext(kown, ~mown, shift, ncol, rown) @ u
+    zero = float(((z == 0) & mown[..., None]).sum()) / max(
+        1.0, float(mown.sum()) * u.shape[1])
+    del z
+    say(f"K1 near zero: {zero:.4f} of the selected own slot-channels have "
+        f"z exactly 0 (plain)")
+    return k1_compare((kown, mown, kcross, mcross, u, shift, rown, rcross),
+                      "near zero, lo-only")
+
+
+def k1_near_bound(f, u_ext):
+    """K1's recheck bound [..., H] for the fields f [..., ncol]: S /
+    2^TC_NEAR_SHIFT, S = max |b1| + sum_i f_i max |U_i| with the maxima
+    over the channels of the slot's slab, 0 where the fields meet no
+    nonzero U row."""
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    cs = 16 * hidden_sum.slab_mtiles(ncol, False)
+    out = torch.empty(*f.shape[:-1], h, device=f.device)
+    for c0 in range(0, h, cs):
+        u = u_ext[:, c0:c0 + cs].abs()
+        t = f @ u[:ncol].amax(dim=1)
+        s = torch.where(t > 0, u[ncol + 1].max() + t, 0.0)
+        out[..., c0:c0 + cs] = (s * 2.0 ** -hidden_sum.TC_NEAR_SHIFT)[
+            ..., None]
+    return out
+
+
+def k1_near_share(args, label):
+    """The share of K1's computed slot-channels whose z (the plain
+    version's) lies within K1's recheck bound of 0 (`k1_near_bound`)."""
+    kown, mown, kcross, mcross, u_ext, shift, rown, rcross = args
+    ncol, h = u_ext.shape[0] - 2, u_ext.shape[1]
+    near = total = 0
+    for keys, sel, root in ((kown, mown, rown),
+                            (kcross, mcross.any(dim=0), rcross)):
+        fe = hidden_sum._fields_ext(keys, ~sel, shift, ncol, root)
+        z = fe @ u_ext
+        near += int(((z.abs() < k1_near_bound(fe[..., :ncol], u_ext))
+                     & sel[..., None]).sum())
+        total += int(sel.sum()) * h
+        del z, fe
+    say(f"K1 recheck {label}: {near} of {total} computed slot-channels "
+        f"({near / max(total, 1):.3e}) have |z| within the bound")
+
+
+def k1_decisions(args, gen, label, draws=4):
+    """K1's relu decisions against the fmaf order on `near_zero_u`'s
+    weights: in each of `draws` launches every set holds one selected slot
+    (a valid own slot, or a valid cross slot of one or both endpoints), so
+    that out = relu(z) of that slot, and (out > 0) must be (z > 0) of the
+    fmaf order (`hidden_sum.zed_fmaf`, exact) at every slot-channel.
+    Prints the mismatches beside the slot-channels whose fmaf z is 0 and
+    those within the recheck bound (the case must hold some)."""
+    kown, mown, kcross, mcross, u_ext, shift, rown, rcross = args
+    q, b, lo = kown.shape
+    u = near_zero_u(u_ext, gen)
+    ncol = u.shape[0] - 2
+    fo = hidden_sum._fields_ext(kown, ~mown, shift, ncol, rown)[..., :ncol]
+    fc = hidden_sum._fields_ext(kcross, torch.zeros_like(mcross[0]), shift,
+                                ncol, rcross)[..., :ncol]
+    qi = torch.arange(q, device=DEVICE)[:, None]
+    bi = torch.arange(b, device=DEVICE)
+    n_own = mown.sum(dim=-1).clamp(min=1)          # valid slots: a prefix
+    n_cross = mcross.any(dim=0).sum(dim=-1).clamp(min=1)
+    wrong = zero = near = total = 0
+    for _ in range(draws):
+        own = (torch.rand(q, b, generator=gen) < 0.5).to(DEVICE)
+        at_own = (torch.rand(q, b, generator=gen).to(DEVICE)
+                  * n_own).long().clamp(max=lo - 1)
+        at_cross = (torch.rand(b, generator=gen).to(DEVICE)
+                    * n_cross).long()
+        m1 = torch.zeros_like(mown)
+        m1[qi, bi, at_own] = own
+        c1 = torch.zeros_like(mcross)
+        c1[qi, bi, at_cross.expand(q, b)] = ~own
+        got = hidden_sum.fused_key_hidden_sum_cuda(kown, m1, kcross, c1, u,
+                                                   shift, rown, rcross)
+        f = torch.where(own[..., None], fo[qi, bi, at_own],
+                        fc[bi, at_cross][None])
+        zf = hidden_sum.zed_fmaf(f, u)
+        wrong += int(((got > 0) != (zf > 0)).sum())
+        zero += int((zf == 0).sum())
+        near += int((zf.abs() < k1_near_bound(f, u)).sum())
+        total += zf.numel()
+    say(f"K1 relu decisions {label}, one slot a set, near-zero weights: "
+        f"{wrong} of {total} slot-channels differ from the fmaf order's "
+        f"({zero} with fmaf z exactly 0, {near} within the recheck bound) "
+        f"{'ok' if wrong == 0 and near > 0 else 'FAIL'}")
+    require(near > 0, f"K1 decisions {label}: no z near 0, nothing tested")
+    require(wrong == 0, f"K1 decisions {label}: {wrong} relu decisions "
+                        f"differ from the fmaf order's")
+
+
+def k1_odd_q4(joined, u_ext, shift, gen, b=999, lo=203, lc=405):
+    """Q=4 (HONet's endpoint count) at odd B, L and Lc, from a lo-only
+    batch (`q4_inputs`: set 0 all masked)."""
+    kown, mown, kcross, mcross = q4_inputs(joined, u_ext, shift, gen,
+                                           b=b)[:4]
+    cut = lambda t, n: t[..., :n].contiguous()
+    return (cut(kown, lo), cut(mown, lo), cut(kcross, lc), cut(mcross, lc),
+            u_ext, shift, None, None)
+
+
+def k1_wide(gen):
+    """K1 on WIDE_BWD_CASES (set 0 all masked). Returns the largest
+    error."""
+    err = 0.0
+    for case in WIDE_BWD_CASES:
+        args = wide_args(gen, case)
+        err = max(err, k1_compare(args, f"{case[0]}, ncol={case[6] + 1}, "
+                                        f"shift {args[5]}", empty_set=True))
     return err
 
 
@@ -566,24 +792,31 @@ WIDE_BWD_CASES = (("H=100", 2, 512, 301, 100, 100, 3, False, False),
                    True))
 
 
+def wide_args(gen, case):
+    """K1's operands for a WIDE_BWD_CASES case, drawn from `gen`: the cross
+    plane 2L wide, each endpoint selecting a random part of it, set 0 all
+    masked."""
+    label, q, b, ell, h, nw, ns, root, full = case
+    kown, rown = wide_keys((q, b, ell), nw, ns, root, gen, full)
+    kcross, rcross = wide_keys((b, 2 * ell), nw, ns, root, gen, full)
+    mown = (torch.rand(q, b, ell, generator=gen) < 0.4).to(DEVICE)
+    pick = torch.randint(0, q + 2, (b, 2 * ell), generator=gen)
+    mcross = torch.stack([pick == i for i in range(q)]).to(DEVICE)
+    mown[:, 0] = False
+    mcross[:, 0] = False
+    return (kown, mown, kcross, mcross, wide_u_ext(ns + 1, h, nw, gen),
+            int(nw).bit_length(), rown, rcross)
+
+
 def k1b_wide(gen):
-    """K1 bwd on WIDE_BWD_CASES (the cross plane 2L wide, each endpoint
-    selecting a random part of it, set 0 all masked): the K1 bwd checks of
+    """K1 bwd on WIDE_BWD_CASES (`wide_args`): the K1 bwd checks of
     `k1b_compare`. Returns the largest error."""
     err = 0.0
-    for label, q, b, ell, h, nw, ns, root, full in WIDE_BWD_CASES:
-        kown, rown = wide_keys((q, b, ell), nw, ns, root, gen, full)
-        kcross, rcross = wide_keys((b, 2 * ell), nw, ns, root, gen, full)
-        mown = (torch.rand(q, b, ell, generator=gen) < 0.4).to(DEVICE)
-        pick = torch.randint(0, q + 2, (b, 2 * ell), generator=gen)
-        mcross = torch.stack([pick == i for i in range(q)]).to(DEVICE)
-        mown[:, 0] = False
-        mcross[:, 0] = False
-        args = (kown, mown, kcross, mcross, wide_u_ext(ns + 1, h, nw, gen),
-                int(nw).bit_length(), rown, rcross)
-        g = torch.randn(q, b, h, generator=gen).to(DEVICE)
-        err = max(err, k1b_compare(args, g, f"{label}, ncol={ns + 1}, "
-                                            f"shift {args[5]}"))
+    for case in WIDE_BWD_CASES:
+        args = wide_args(gen, case)
+        g = torch.randn(case[1], case[2], case[4], generator=gen).to(DEVICE)
+        err = max(err, k1b_compare(args, g, f"{case[0]}, ncol={case[6] + 1}"
+                                            f", shift {args[5]}"))
     return err
 
 
@@ -1641,17 +1874,72 @@ def random_merge_rows(rng, rows, la, lb):
         t(kb), torch.as_tensor(pb, dtype=torch.int32).to(DEVICE)
 
 
+def tied_merge_rows(rng, rows, la, lb, top):
+    """Ascending rows of keys drawn from [0, top) on both sides (many equal
+    keys within and across a and b), distinct payloads."""
+    ka = np.sort(rng.integers(0, top, size=(rows, la)), axis=1)
+    kb = np.sort(rng.integers(0, top, size=(rows, lb)), axis=1)
+    pa = np.arange(rows * la).reshape(rows, la)
+    pb = np.arange(rows * lb).reshape(rows, lb) + rows * la
+    t = lambda x: torch.as_tensor(x, dtype=torch.int32).to(DEVICE)
+    return t(ka), t(pa), t(kb), t(pb)
+
+
 def k2_compare(args, label):
+    """K2 against its plain version exactly, two launches bit for bit."""
     kg, pg = merge.merge_pairs_cuda(*args)
+    ka, pa = merge.merge_pairs_cuda(*args)
     kw, pw = merge.merge_pairs_plain(*args)
     sync()
     err = max(int((walk_ops.u32(kg) - walk_ops.u32(kw)).abs().max()),
               int((pg.to(torch.int64) - pw.to(torch.int64)).abs().max()))
+    same = torch.equal(kg, ka) and torch.equal(pg, pa)
     say(f"K2 {label}: [{args[0].shape[0]}, {args[0].shape[1]}] + "
-        f"[{args[2].shape[0]}, {args[2].shape[1]}] max_abs_err={err} "
-        f"{'exact' if err == 0 else 'FAIL'}")
+        f"[{args[2].shape[0]}, {args[2].shape[1]}] max_abs_err={err}; "
+        f"repeat bit-identical: {same} "
+        f"{'exact' if err == 0 and same else 'FAIL'}")
     require(err == 0, f"K2 {label} differs from its plain version")
+    require(same, f"K2 {label}: two launches differ")
     return err
+
+
+def k2_spread(args, label):
+    """K2's launch times at `args`: min, median and max of TIMED_ITERS
+    launches with the L2 flushed before each by zeroing a 128 MB buffer
+    (which leaves it dirty in L2), issued as they come (the way `time_ms`
+    times) and queued behind a device wait (`queue_ahead`);
+    queued, with the L2 flushed by reading that buffer (clean lines); and
+    queued with the outputs allocated once (the kernel's C entry called
+    directly); then the mean of 200 back-to-back launches, queued and
+    without a flush (inputs and outputs L2-resident after the first), by
+    the wrapper and by the direct call."""
+    ka, pa, kb, pb = args
+    rows, la = ka.shape
+    lb = kb.shape[1]
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
+    ko = torch.empty(rows, la + lb, dtype=torch.int32, device=DEVICE)
+    po = torch.empty_like(ko)
+    wrapper = lambda: merge.merge_pairs_cuda(*args)
+    direct = lambda: merge.KERNEL(ka.device, *map(build.ptr, (
+        ka, pa, kb, pb, ko, po)), rows, la, lb)
+    ways = {"zeroed flush, as issued": (wrapper, buf.zero_, False),
+            "zeroed flush, queued": (wrapper, buf.zero_, True),
+            "read flush, queued": (wrapper, lambda: buf.max(), True),
+            "zeroed flush, queued, outputs allocated once": (
+                direct, buf.zero_, True)}
+    out = {}
+    for way, (fn, flush, queued) in ways.items():
+        t = launch_times(fn, TIMED_ITERS, flush, queued)
+        out[way] = (min(t), float(np.median(t)), max(t))
+        say(f"K2 spread {label}, {way}: min {out[way][0]:.4f}, median "
+            f"{out[way][1]:.4f}, max {out[way][2]:.4f} ms over {len(t)} "
+            f"launches; sorted: " + " ".join(f"{x:.4f}" for x in sorted(t)))
+    for way, fn in (("wrapper", wrapper), ("direct call", direct)):
+        mean = launch_times(fn, 200)[0]
+        out[f"back to back, {way}"] = mean
+        say(f"K2 spread {label}: mean of 200 back-to-back launches, queued, "
+            f"no flush, {way}: {mean:.4f} ms")
+    return out
 
 
 def k2_bound(args):
@@ -1999,19 +2287,92 @@ def hidden_slots_vs_plain(jlo, jhi, u_lo, u_hi, shift_lo, shift_hi, spl,
                                      bound=bb)}
 
 
-def kernels_vs_plain(g, gsets):
-    gen = torch.Generator().manual_seed(1)
-    stats = {}
-    # lo-only layout, the main path's shapes
+def main_batches(g, gen):
+    """The lo-only (M=100, S'=3, L=301) and lead-in-hi (M=200, S'=4, L=801:
+    root planes) batches and K1's operands on them."""
     spl, rows, jlo = joined_batch(g, NUM_WALKS, NUM_STEPS, seed=11)
     a_lo = k1_inputs(jlo, NUM_WALKS, NUM_STEPS, gen)
-    err1 = k1_compare(a_lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}")
-    # lead-in-hi layout: root planes
     spw, _, jhi = joined_batch(g, WIDE_WALKS, WIDE_STEPS, seed=12)
     require(jhi.kown_root is not None, "lead-in-hi join lost its roots")
     a_hi = k1_inputs(jhi, WIDE_WALKS, WIDE_STEPS, gen)
+    return spl, spw, rows, jlo, jhi, a_lo, a_hi
+
+
+def k1_k2_vs_plain(spl, spw, rows, jlo, a_lo, a_hi):
+    """K1 and K2 against their plain versions, their times and bounds, and
+    K2's spread (`k2_spread`); returns their stats."""
+    gen = torch.Generator().manual_seed(14)  # the later draws stay
+    err1 = k1_compare(a_lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}")
     err1 = max(err1, k1_compare(a_hi, f"lead-in-hi M={WIDE_WALKS} "
                                       f"S'={WIDE_STEPS}"))
+    err1 = max(err1, k1_compare(k1_odd_q4(jlo, a_lo[4], a_lo[5], gen),
+                                "Q=4, B=999, L=203, Lc=405, lo-only",
+                                empty_set=True))
+    err1 = max(err1, k1_wide(gen))
+    err1 = max(err1, k1_near_zero(a_lo, gen))
+    k1_near_share(a_lo, "lo-only (L=301)")
+    k1_near_share(a_hi, "lead-in-hi (L=801)")
+    k1_decisions(a_lo, gen, "lo-only (L=301)")
+    k1_decisions(a_hi, gen, "lead-in-hi (L=801)")
+
+    m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
+    m_hi = merge_rows(spw.nodes[rows], spw.klo[rows])
+    err2 = k2_compare(m_main, "join rows, lo-only")
+    err2 = max(err2, k2_compare(m_hi, "join rows, lead-in-hi"))
+    rng = np.random.default_rng(5)
+    for la, lb in ((37, 5), (1, 9), (301, 300)):
+        err2 = max(err2, k2_compare(random_merge_rows(rng, 257, la, lb),
+                                    f"random odd widths {la}+{lb}"))
+    for la, lb, top in ((301, 301, 16), (301, 301, 1), (1, 301, 4),
+                        (801, 801, 64)):
+        err2 = max(err2, k2_compare(
+            tied_merge_rows(rng, 1000, la, lb, top),
+            f"ties, keys below {top}, {la}+{lb}"))
+    half = merge.MAX_ROW // 2
+    err2 = max(err2, k2_compare(random_merge_rows(rng, 64, half, half),
+                                f"la + lb = MAX_ROW ({merge.MAX_ROW})"))
+    err2 = max(err2, k2_compare(tied_merge_rows(rng, 64, 1, merge.MAX_ROW
+                                                - 1, 8),
+                                "ties, la = 1, la + lb = MAX_ROW"))
+
+    # times at the main path's shapes
+    ka, _, kb, _ = m_main
+    cat64 = torch.cat([walk_ops.u32(ka), walk_ops.u32(kb)], dim=1)
+    k1_ms = time_ms(lambda: hidden_sum.fused_key_hidden_sum_cuda(*a_lo))
+    k1_plain = time_ms(lambda: hidden_sum.fused_key_hidden_sum_plain(*a_lo),
+                       iters=5)
+    k1_hi_ms = time_ms(lambda: hidden_sum.fused_key_hidden_sum_cuda(*a_hi))
+    for name, a, ms in (("lo-only (L=301)", a_lo, k1_ms),
+                        ("lead-in-hi (L=801)", a_hi, k1_hi_ms)):
+        b_ = k1_bound(a)
+        parts = k1_bound_parts(a)
+        say(f"K1 {name}: kernel {ms:.4f} ms, bound {b_[0]:.4f} ms ({b_[1]}"
+            f"; bytes {parts['bytes_ms']:.4f}, CUDA-core operations "
+            f"{parts['cuda_ms']:.4f}, products at the TF32 tensor rate "
+            f"k1_tc_ms {parts['k1_tc_ms']:.4f}); the first version's fp32 "
+            f"bound {parts['fp32_bound_ms']:.4f} ms")
+    k2_ms = time_ms(lambda: merge.merge_pairs_cuda(*m_main))
+    k2_plain = time_ms(lambda: merge.merge_pairs_plain(*m_main))
+    k2_lib = time_ms(lambda: torch.sort(cat64, dim=1, stable=True))
+    k2_hi_ms = time_ms(lambda: merge.merge_pairs_cuda(*m_hi))
+    k2_b, k2_hb = k2_bound(m_main), k2_bound(m_hi)
+    say(f"K2 lo-only [4096, 301] x 2: kernel {k2_ms:.4f} ms, bound "
+        f"{k2_b[0]:.4f} ms ({k2_b[1]}); lead-in-hi [4096, 801] x 2: kernel "
+        f"{k2_hi_ms:.4f} ms, bound {k2_hb[0]:.4f} ms ({k2_hb[1]})")
+    k2_spread(m_main, "[4096, 301] x 2")
+    k2_spread(m_hi, "[4096, 801] x 2")
+    return {"hidden_sum_fwd": dict(
+                max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain,
+                library_ms=None, bound=k1_bound(a_lo)),
+            "merge_pairs": dict(
+                max_abs_err=float(err2), ms=k2_ms, plain_ms=k2_plain,
+                library_ms=k2_lib, bound=k2_b)}
+
+
+def kernels_vs_plain(g, gsets):
+    gen = torch.Generator().manual_seed(1)
+    stats = {}
+    spl, spw, rows, jlo, jhi, a_lo, a_hi = main_batches(g, gen)
     g2 = torch.randn(2, BATCH, HIDDEN, generator=gen).to(DEVICE)
     err1b = k1b_compare(a_lo, g2, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}")
     err1b = max(err1b, k1b_compare(a_hi, g2, f"lead-in-hi M={WIDE_WALKS} "
@@ -2050,26 +2411,10 @@ def kernels_vs_plain(g, gsets):
     stats.update(hidden_slots_vs_plain(jlo, jhi, a_lo[4], a_hi[4], a_lo[5],
                                        a_hi[5], spl, rows, gen))
 
-    m_main = merge_rows(spl.nodes[rows], spl.klo[rows])
-    err2 = k2_compare(m_main, "join rows, lo-only")
-    err2 = max(err2, k2_compare(merge_rows(spw.nodes[rows], spw.klo[rows]),
-                                "join rows, lead-in-hi"))
-    rng = np.random.default_rng(5)
-    for la, lb in ((37, 5), (1, 9), (301, 300)):
-        err2 = max(err2, k2_compare(random_merge_rows(rng, 257, la, lb),
-                                    f"random odd widths {la}+{lb}"))
+    # the fused key hidden set sum (K1) and the merge (K2)
+    stats.update(k1_k2_vs_plain(spl, spw, rows, jlo, a_lo, a_hi))
 
-    # times at the main path's shapes
-    ka, _, kb, _ = m_main
-    cat64 = torch.cat([walk_ops.u32(ka), walk_ops.u32(kb)], dim=1)
-    k1_ms = time_ms(lambda: hidden_sum.fused_key_hidden_sum_cuda(*a_lo))
-    k1_plain = time_ms(lambda: hidden_sum.fused_key_hidden_sum_plain(*a_lo),
-                       iters=5)
-    k2_ms = time_ms(lambda: merge.merge_pairs_cuda(*m_main))
-    k2_plain = time_ms(lambda: merge.merge_pairs_plain(*m_main))
-    k2_lib = time_ms(lambda: torch.sort(cat64, dim=1, stable=True))
-    k1_hi_ms = time_ms(lambda: hidden_sum.fused_key_hidden_sum_cuda(*a_hi))
-    say(f"K1 lead-in-hi (L=801) kernel: {k1_hi_ms:.4f} ms")
+    # K1 bwd's times
     k1b_ms = time_ms(lambda: k1b_call(
         hidden_sum.fused_key_hidden_sum_bwd_cuda, a_lo, g2))
     k1b_plain = time_ms(lambda: k1b_call(
@@ -2081,15 +2426,9 @@ def kernels_vs_plain(g, gsets):
     say(f"K1 bwd lo-only: kernel {k1b_ms:.4f} ms, bound {k1b_b[0]:.4f} ms "
         f"({k1b_b[1]}), its contraction in two TF32 products at the TF32 "
         f"tensor rate {k1b_tc_ms(a_lo):.4f} ms")
-    stats["hidden_sum_fwd"] = dict(
-        max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain, library_ms=None,
-        bound=k1_bound(a_lo))
     stats["hidden_sum_bwd"] = dict(
         max_abs_err=err1b, ms=k1b_ms, plain_ms=k1b_plain, library_ms=None,
         bound=k1b_b)
-    stats["merge_pairs"] = dict(
-        max_abs_err=float(err2), ms=k2_ms, plain_ms=k2_plain,
-        library_ms=k2_lib, bound=k2_bound(m_main))
     for name, st in stats.items():
         say(f"{name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} "
             f"ms, library {st['library_ms']}, bound {st['bound'][0]:.4f} ms "
@@ -2303,12 +2642,13 @@ def profile(run, steps: int, what: str) -> None:
     busy_us = sum(t for t, _ in by_name.values())
     launched = sum(n for _, n in by_name.values())
     say(f"profile: {steps} {what}, wall {wall_us / 1e3:.3f} ms, kernel "
-        f"time {busy_us / 1e3:.3f} ms (device busy "
+        f"time {busy_us / 1e3:.3f} ms (device time a step "
+        f"{busy_us / steps / 1e3:.4f} ms, device busy "
         f"{100 * busy_us / wall_us:.1f}%), {launched / steps:.1f} kernel "
         f"launches per step in {len(by_name)} kernel names")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     for i, (name, (t, n)) in enumerate(ranked):
-        if i < 14 or HIDDEN_KERNELS.search(name):
+        if i < 14 or LISTED_KERNELS.search(name):
             say(f"  {t / steps / 1e3:.4f} ms/step  x{n // steps:<3d} "
                 f"{name[:100]}")
 
@@ -2940,7 +3280,7 @@ def main() -> int:
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill", log))
         say(f"  ptxas {name}: {len(regs)} entries, at most {max(regs)} "
             f"registers, {spills} bytes spilled")
-    for name in ("hidden_sum_bwd", "hidden_slots_bwd"):
+    for name in ("hidden_sum", "hidden_sum_bwd", "hidden_slots_bwd"):
         for line in logs.get(name, "").splitlines():
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 say(f"  {name}: {line.strip()}")

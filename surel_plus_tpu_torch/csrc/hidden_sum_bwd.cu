@@ -55,16 +55,11 @@ namespace {
 using namespace htc;
 
 struct Args {
-  const uint32_t* kown;    // [Q, B, Lo]
-  const uint8_t* mown;     // [Q, B, Lo] bool
-  const uint32_t* kcross;  // [B, Lc]
-  const uint8_t* mcross;   // [Q, B, Lc] bool
-  const int32_t* rown;     // [Q, B, Lo] or null
-  const int32_t* rcross;   // [B, Lc] or null
+  SumRows r;
   const float* u;          // [ncol + 2, H]
   const float* g;          // [Q, B, H]
   float* part;             // [ncol + 1, H, P]
-  int Q, B, Lo, Lc, H, shift, P;
+  int H, shift, P;
 };
 
 // The layout of one instance: m-tiles of a slab, slab channels, the
@@ -81,12 +76,6 @@ struct Layout {
   }
 };
 
-// A lane's slot of a tile: its key, root and endpoint bits (0: unselected).
-struct Slot {
-  uint32_t key, bits;
-  int32_t root;
-};
-
 template <int NCOL, bool ROOT>
 __global__ void __launch_bounds__(kWarps * 32)
 hidden_sum_bwd_kernel(Args a) {
@@ -99,9 +88,10 @@ hidden_sum_bwd_kernel(Args a) {
   const int g = lane / 4, c = lane % 4;
   const int c0 = blockIdx.y * CS;  // the slab's first channel
   const bool fsplit = a.shift > kExactShift;
+  const SumRows r = a.r;
   float* tab = reinterpret_cast<float*>(smem + (size_t)warp *
-                                                   Lay::warp_bytes(a.Q));
-  uint32_t* qk = reinterpret_cast<uint32_t*>(tab + (1 << a.Q) * GS);
+                                                   Lay::warp_bytes(r.Q));
+  uint32_t* qk = reinterpret_cast<uint32_t*>(tab + (1 << r.Q) * GS);
   int32_t* qr = reinterpret_cast<int32_t*>(qk + kQueue);
   uint32_t* qs = qk + 2 * kQueue;
 
@@ -116,36 +106,8 @@ hidden_sum_bwd_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) run[m][n][e] = acc[m][n][e] = 0.f;
 
-  const int ncross = (a.Lc + 31) / 32;
-  const int nown = (a.Lo + 31) / 32;
-  const int ntiles = ncross + a.Q * nown;
+  const int ntiles = r.cross_tiles() + r.Q * r.own_tiles();
   const uint32_t lt = (1u << lane) - 1u;
-
-  // tile ti of row b: the cross plane's tiles, then each endpoint's own
-  auto load = [&](int b, int ti) {
-    Slot s{0u, 0u, 0};
-    if (ti < ncross) {
-      const int l = 32 * ti + lane;
-      if (l < a.Lc) {
-        const size_t at = (size_t)b * a.Lc + l;
-        for (int q = 0; q < a.Q; ++q)
-          s.bits |= (uint32_t)(a.mcross[((size_t)q * a.B + b) * a.Lc + l] != 0)
-                    << q;
-        s.key = a.kcross[at];
-        if (ROOT) s.root = a.rcross[at];
-      }
-    } else {
-      const int seg = (ti - ncross) / nown;
-      const int l = 32 * (ti - ncross - seg * nown) + lane;
-      if (l < a.Lo) {
-        const size_t at = ((size_t)seg * a.B + b) * a.Lo + l;
-        s.bits = (uint32_t)(a.mown[at] != 0) << seg;
-        s.key = a.kown[at];
-        if (ROOT) s.root = a.rown[at];
-      }
-    }
-    return s;
-  };
 
   // the k-step of queue entries e0 + c (K entry c) and e0 + c + 4 (K c + 4)
   auto kstep = [&](int e0) {
@@ -171,7 +133,7 @@ hidden_sum_bwd_kernel(Args a) {
     }
   };
 
-  for (int b = blockIdx.x * kWarps + warp; b < a.B;
+  for (int b = blockIdx.x * kWarps + warp; b < r.B;
        b += gridDim.x * kWarps) {
     // the cotangent sums of every endpoint subset, for the slab's channels
     float gq[kMaxQ][kCh];
@@ -180,13 +142,13 @@ hidden_sum_bwd_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < kCh; ++j) {
         const int ch = c0 + lane + 32 * j;
-        gq[q][j] = q < a.Q && lane + 32 * j < CS && ch < a.H
-                       ? __ldg(a.g + ((size_t)q * a.B + b) * a.H + ch)
+        gq[q][j] = q < r.Q && lane + 32 * j < CS && ch < a.H
+                       ? __ldg(a.g + ((size_t)q * r.B + b) * a.H + ch)
                        : 0.f;
       }
-    Slot nxt = load(b, 0);
+    Slot nxt = row_slot<ROOT>(r, b, 0, lane);
     __syncwarp();  // the previous row's reads of the table are done
-    for (int m = 0; m < (1 << a.Q); ++m)
+    for (int m = 0; m < (1 << r.Q); ++m)
 #pragma unroll
       for (int j = 0; j < kCh; ++j) {
         if (lane + 32 * j >= CS) continue;
@@ -200,7 +162,7 @@ hidden_sum_bwd_kernel(Args a) {
     int n = 0;  // entries in the queue
     for (int ti = 0; ti < ntiles; ++ti) {
       const Slot cur = nxt;
-      if (ti + 1 < ntiles) nxt = load(b, ti + 1);
+      if (ti + 1 < ntiles) nxt = row_slot<ROOT>(r, b, ti + 1, lane);
       const uint32_t sel = __ballot_sync(0xffffffffu, cur.bits != 0);
       if (cur.bits) {
         const int at = n + __popc(sel & lt);
@@ -215,17 +177,17 @@ hidden_sum_bwd_kernel(Args a) {
       for (int j = 0; j < nk; ++j) kstep(8 * j);
       fold(run, acc);
       const int rest = n - 8 * nk;
-      Slot r{0u, 0u, 0};
+      Slot s{0u, 0u, 0};
       if (lane < rest) {
-        r.key = qk[8 * nk + lane];
-        r.root = qr[8 * nk + lane];
-        r.bits = qs[8 * nk + lane];
+        s.key = qk[8 * nk + lane];
+        s.root = qr[8 * nk + lane];
+        s.bits = qs[8 * nk + lane];
       }
       __syncwarp();
       if (lane < rest) {
-        qk[lane] = r.key;
-        qr[lane] = r.root;
-        qs[lane] = r.bits;
+        qk[lane] = s.key;
+        qr[lane] = s.root;
+        qs[lane] = s.bits;
       }
       __syncwarp();
       n = rest;
@@ -249,7 +211,7 @@ template <int NCOL, bool ROOT>
 cudaError_t launch_typed(const Args& a, cudaStream_t stream) {
   using Lay = Layout<NCOL>;
   const size_t red = sizeof(float) * kWarps * Lay::kMS * Lay::kNT * 4 * 32;
-  const size_t ring = (size_t)kWarps * Lay::warp_bytes(a.Q);
+  const size_t ring = (size_t)kWarps * Lay::warp_bytes(a.r.Q);
   const size_t smem = ring > red ? ring : red;
   auto kernel = hidden_sum_bwd_kernel<NCOL, ROOT>;
   const cudaError_t err = allow_smem(kernel, smem);
@@ -276,11 +238,11 @@ extern "C" int hidden_sum_bwd_launch(const void* kown, const void* mown,
                                      void* du, int Q, int B, int Lo, int Lc,
                                      int H, int ncol, int shift, int P,
                                      void* stream) {
-  const Args a{(const uint32_t*)kown, (const uint8_t*)mown,
-               (const uint32_t*)kcross, (const uint8_t*)mcross,
-               (const int32_t*)rown, (const int32_t*)rcross,
-               (const float*)u, (const float*)g, (float*)part,
-               Q, B, Lo, Lc, H, shift, P};
+  const Args a{SumRows{(const uint32_t*)kown, (const uint8_t*)mown,
+                       (const uint32_t*)kcross, (const uint8_t*)mcross,
+                       (const int32_t*)rown, (const int32_t*)rcross, Q, B,
+                       Lo, Lc},
+               (const float*)u, (const float*)g, (float*)part, H, shift, P};
   const bool root = rown != nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
   if (Q < 1 || Q > kMaxQ || H < 1 || H > 1024 || B < 1 || P < 1 || P > B)

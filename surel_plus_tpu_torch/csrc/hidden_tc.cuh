@@ -1,20 +1,28 @@
-// The two hidden-layer backwards on the tensor cores, shared by K7 bwd
+// The hidden layer z = relu(f(k) . U + b1) on the tensor cores, shared by
+// the set sum K1 (hidden_sum.cu: z itself) and the two backwards, K7 bwd
 // (hidden_slots_bwd.cu: a per-slot cotangent) and K1 bwd
 // (hidden_sum_bwd.cu: a slot's cotangent summed over the endpoints that
-// select it). Both compute the gradient of z = relu(f(k) . U + b1) with
-// respect to u_ext [ncol + 2, H]:
+// select it). The backwards compute the gradient with respect to u_ext
+// [ncol + 2, H]:
 //
 //   dU^T [H x (ncol + 1)] = dZ^T [H x slots] . F_ext [slots x (ncol + 1)]
 //
 // with dZ = (z > 0) * (the slot's cotangent), F_ext = [f(k), 1]: the field
 // rows, then the bias row (dU row ncol + 1); dU's masking row (ncol) is 0.
-// The kernels differ only in how a slot's cotangent is formed; this header
-// holds the rest:
+// The backwards differ only in how a slot's cotangent is formed. This
+// header holds the rest:
 //
-// - `fields`: the key's ncol count fields, as the forwards unpack them.
-// - `zed`: z recomputed in the forwards' fmaf order (b1 first, then field
-//   0, 1, ...), so that every strict z > 0 decision is the forward's, bit
-//   for bit (the forwards K1 and K7 compute z on the CUDA cores).
+// - `fields`, `field`: the key's ncol count fields, as the kernels unpack
+//   them. `SumRows`: K1's and K1 bwd's operands, a query row's shared
+//   cross plane and its endpoints' own rows; `row_slot`: K1 bwd's walk over
+//   them, a lane a slot (K1 stages its tiles through shared memory, and
+//   reads a tile again with `row_slot` in its recheck).
+// - `zed`: z in the fmaf order (b1 first, then field 0, 1, ...). Every
+//   strict z > 0 decision of the three kernels is that of this order: K7
+//   computes z so on the CUDA cores, the backwards recompute it so, and K1,
+//   which forms z on the tensor cores, recomputes it so wherever its
+//   tensor-core z lies within the products' error bound of 0
+//   (`kNearShift`, hidden_sum.cu).
 // - The contraction on mma.sync.m16n8k8 in TF32: M = channels (m-tiles of
 //   16), N = the field columns and the bias column (one n-tile while
 //   ncol <= 7, two at ncol = 8), K = slots. A lane (g = lane / 4, c =
@@ -30,11 +38,11 @@
 //   truncated in turn): two products, as accurate as fp32. A bf16 dZ is
 //   exact in TF32 and takes one product. Past shift 11 the fields are
 //   split too (big and small parts of an integer below 2^22 are exact),
-//   one more product each.
+//   one more product each. K1 splits U the same way (hidden_sum.cu).
 // - Each slab of slots (a K7 bwd tile, a K1 bwd batch of at most 4
-//   k-steps) goes into a fresh accumulator that is then added to the
-//   running sums in fp32: the tensor cores' own accumulation over long K
-//   drifted past 1e-4 in the LSTM backwards (lstm_tc.cuh).
+//   k-steps, a K1 k-step) goes into a fresh accumulator that is then added
+//   to the running sums in fp32: the tensor cores' own accumulation over
+//   long K drifted past 1e-4 in the LSTM backwards (lstm_tc.cuh).
 // - `store_partial`: a block adds its warps' sums in warp order and writes
 //   one partial dU; `reduce_partials` adds the P partials of each entry in
 //   a fixed order. No float atomics: two launches give the same bits.
@@ -42,33 +50,44 @@
 // Channel slabs: a warp holds U's columns for its lane's channels in
 // registers (2 per m-tile), so a slab has `slab_mtiles` m-tiles (96
 // channels for the bench's keys, fewer for wider keys); wider H runs more
-// slabs (the grid's y). The layout constants and `slab_mtiles`, `tile_slots`
-// are mirrored in ops/kernels/hidden_sum.py (TC_*, `slab_mtiles`,
-// `tile_slots`) and held to this file by
-// tests/test_torch_port_hidden_bwd_tc.py.
+// slabs (the grid's y). K1's slab is K1 bwd's. The layout constants
+// and `slab_mtiles`, `tile_slots` are mirrored in
+// ops/kernels/hidden_sum.py (TC_*, `slab_mtiles`, `tile_slots`) and held
+// to this file by
+// tests/test_torch_port_hidden_bwd_tc.py and
+// tests/test_torch_port_hidden_fwd_tc.py.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
+
 namespace htc {
 
-constexpr int kWarps = 4;            // warps of a block, both backwards
+using smem::allow_smem;
+using smem::copies_commit;
+using smem::copies_wait;
+using smem::copy_async;
+
+constexpr int kWarps = 4;            // warps of a block: K1, both backwards
 constexpr int kStages = 2;           // K7 bwd: tiles in a warp's ring
 constexpr int kStageBytes = 6144;    // K7 bwd: cotangent bytes a stage holds
 constexpr int kRowPad = 32;          // bytes past a staged row (banks)
-constexpr int kMaxQ = 4;             // endpoints per query (K1 bwd)
+constexpr int kMaxQ = 4;             // endpoints per query (K1, K1 bwd)
 constexpr int kQueue = 64;           // K1 bwd: compacted slots a warp holds
 constexpr int kExactShift = 11;      // fields below 2^11 are exact in TF32
+constexpr int kNearShift = 16;       // K1: |z| < S / 2^16 is rechecked
 constexpr int kReduceThreads = 256;
 
 // m-tiles (16 channels) of a channel slab for keys of ncol fields, for K7
-// bwd (`slots`) or K1 bwd. A warp keeps its slab's U columns and sums in
-// registers, and a slab narrower than H walks the slots once more. On an
-// H100 at H = 96 one slab of 96 channels was the fastest for both at four
-// fields, and for K7 bwd at five; K1 bwd, whose warps also keep a queue,
-// ran faster at five fields in two slabs of 48 (more warps an SM).
+// bwd (`slots`) or K1 bwd and K1. A warp keeps its slab's U columns and
+// sums in registers, and a slab narrower than H walks the slots once more.
+// On an H100 at H = 96 one slab of 96 channels was the fastest for all
+// three at four fields, and for K7 bwd at five; K1 bwd, whose warps also
+// keep a queue, ran faster at five fields in two slabs of 48 (more warps
+// an SM).
 __host__ __device__ constexpr int slab_mtiles(int ncol, bool slots) {
   return slots ? (ncol <= 5 ? 6 : (ncol <= 6 ? 4 : 3)) : (ncol <= 4 ? 6 : 3);
 }
@@ -104,6 +123,67 @@ __device__ __forceinline__ void fields(uint32_t key, int32_t root, int shift,
       f[i] = (float)((key >> (i * shift)) & fm);
     }
   }
+}
+
+// Field i alone (i < NCOL, known at run time).
+template <int NCOL, bool ROOT>
+__device__ __forceinline__ float field(uint32_t key, int32_t root, int shift,
+                                       int i) {
+  if (i == NCOL - 1)
+    return ROOT ? (float)root : (float)((key >> (i * shift)) & 1u);
+  return (float)((key >> (i * shift)) & ((1u << shift) - 1u));
+}
+
+// The operands of K1 and K1 bwd: a query row b is the shared cross plane
+// [B, Lc] (selected per endpoint by mcross) and each endpoint's own row.
+struct SumRows {
+  const uint32_t* kown;    // [Q, B, Lo]
+  const uint8_t* mown;     // [Q, B, Lo] bool
+  const uint32_t* kcross;  // [B, Lc]
+  const uint8_t* mcross;   // [Q, B, Lc] bool
+  const int32_t* rown;     // [Q, B, Lo] or null
+  const int32_t* rcross;   // [B, Lc] or null
+  int Q, B, Lo, Lc;
+  __device__ int cross_tiles() const { return (Lc + 31) / 32; }
+  __device__ int own_tiles() const { return (Lo + 31) / 32; }
+};
+
+// A lane's slot of a tile: its key, root and endpoint bits (0: unselected).
+struct Slot {
+  uint32_t key, bits;
+  int32_t root;
+};
+
+// Tile ti of row b, slot lane of it: the cross plane's tiles first (bit q
+// set where endpoint q selects the slot), then each endpoint's own row
+// (its bit where unmasked).
+template <bool ROOT>
+__device__ __forceinline__ Slot row_slot(const SumRows& r, int b, int ti,
+                                         int lane) {
+  Slot s{0u, 0u, 0};
+  const int ncross = r.cross_tiles();
+  if (ti < ncross) {
+    const int l = 32 * ti + lane;
+    if (l < r.Lc) {
+      const size_t at = (size_t)b * r.Lc + l;
+      for (int q = 0; q < r.Q; ++q)
+        s.bits |= (uint32_t)(r.mcross[((size_t)q * r.B + b) * r.Lc + l] != 0)
+                  << q;
+      s.key = r.kcross[at];
+      if (ROOT) s.root = r.rcross[at];
+    }
+  } else {
+    const int nown = r.own_tiles();
+    const int seg = (ti - ncross) / nown;
+    const int l = 32 * (ti - ncross - seg * nown) + lane;
+    if (l < r.Lo) {
+      const size_t at = ((size_t)seg * r.B + b) * r.Lo + l;
+      s.bits = (uint32_t)(r.mown[at] != 0) << seg;
+      s.key = r.kown[at];
+      if (ROOT) s.root = r.rown[at];
+    }
+  }
+  return s;
 }
 
 // Column n of F_ext = [f, 1, 0 ...]: the B fragment value of a lane.
@@ -169,6 +249,17 @@ __device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d = A B + c, with c in registers of its own (K1: b1 starts the sum).
+__device__ __forceinline__ void mma_to(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1, float c0,
+                                       float c1, float c2, float c3) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c0), "f"(c1), "f"(c2), "f"(c3));
 }
 
 // The B fragments of a k-step: column 8 nt + g of the lane's K entries c
@@ -303,39 +394,6 @@ __global__ void reduce_partials(const float* part, float* du, int ncol,
     __syncthreads();
   }
   if (threadIdx.x == 0) du[e] = red[0];
-}
-
-// --------------------------------------------------- asynchronous copies
-
-template <int BYTES>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES)
-                 : "memory");
-}
-
-__device__ __forceinline__ void copies_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Dynamic shared memory above the default 48 KB needs an opt-in per kernel.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 }  // namespace htc

@@ -23,6 +23,7 @@ not apply.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -61,14 +62,18 @@ SLOTS_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 # csrc/hidden_tc.cuh's layout, mirrored for the tests:
 # warps a block, stages of K7 bwd's ring and the cotangent bytes a stage
-# holds, K1 bwd's queue, and the widest field exact in TF32.
+# holds, K1 bwd's queue, the widest field exact in TF32, and K1's recheck
+# bound: a tensor-core z within S / 2^TC_NEAR_SHIFT of 0 is recomputed in
+# the fmaf order (a slot's S = max |b1| + sum_i f_i max |U_i| over the
+# slab's channels, 0 where its fields meet no nonzero U row).
 TC_WARPS, TC_STAGES, TC_STAGE_BYTES, TC_QUEUE, TC_EXACT_SHIFT = \
     4, 2, 6144, 64, 11
+TC_NEAR_SHIFT = 16
 
 
 def slab_mtiles(ncol: int, slots: bool) -> int:
-    """m-tiles (16 channels) of a channel slab of K7 bwd (`slots`) or K1
-    bwd."""
+    """m-tiles (16 channels) of a channel slab of K7 bwd (`slots`), or of
+    K1 bwd and K1."""
     if slots:
         return 6 if ncol <= 5 else (4 if ncol <= 6 else 3)
     return 6 if ncol <= 4 else 3
@@ -109,6 +114,34 @@ def _fields_ext(keys, inv, shift: int, ncol: int, root=None):
     fields = torch.stack(cols, dim=-1).to(torch.float32)
     return torch.cat([fields, inv[..., None].to(torch.float32),
                       torch.ones_like(fields[..., :1])], dim=-1)
+
+
+def fma32(a, b, c):
+    """fmaf on float32 tensors: a * b + c rounded once to float32, where
+    a * b is exact in float64 (a an integer below 2^29). The sum is taken
+    in float64 and rounded to odd (its last bit set where it was inexact,
+    its error from TwoSum), then to float32: rounding to odd with 29 bits to
+    spare and then to nearest is the sum rounded once."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.where(err > 0, math.inf, -math.inf))
+    return torch.where((err != 0) & even, away, s).float()
+
+
+def zed_fmaf(fields, u_ext):
+    """z = f . U + b1 [..., H] in the fmaf order of csrc/hidden_tc.cuh's
+    `zed` (b1 first, then field 0, 1, ...): the relu decisions (z > 0)
+    that K1 keeps and its backward recomputes. `fields` [..., ncol]
+    float32, integers below 2^29."""
+    ncol = fields.shape[-1]
+    z = u_ext[ncol + 1].expand(*fields.shape[:-1], u_ext.shape[1])
+    for i in range(ncol):
+        z = fma32(fields[..., i:i + 1], u_ext[i], z)
+    return z
 
 
 def fused_key_hidden_sum_plain(kown, mask_own, kcross, mask_cross, u_ext,
