@@ -46,8 +46,8 @@ NVIDIA GPU. Run from the repository root:
    merge (K2) at [4096, 301] x 2, at [4096, 801] x 2, at odd widths, on
    rows of many equal keys across a and b (all equal among them), at
    la = 1 and at la + lb = MAX_ROW, exactly, two launches bit for bit,
-   and its launch times' spread (`k2_spread`: flushed by zeroing or by
-   reading, the outputs allocated once, and back to back); the masked LSTM over given rows (K5) on the encoding-table
+   and its launch times' spread (`launch_spread`: flushed by zeroing or
+   by reading, the outputs allocated once, and back to back); the masked LSTM over given rows (K5) on the encoding-table
    path's real input (the pair-summed hidden rows of a table join, fp32
    [8192, L, 96], with the join's prefix masks) at (a) L=301 and (b)
    L=801, (c) at B=999, L=203, (d) on masks with holes, (e) with an
@@ -58,12 +58,16 @@ NVIDIA GPU. Run from the repository root:
    on the same six cases, each of dx, dwi, dwh, dbh within 1e-4
    of its largest entry with the rows sorted and unsorted, two launches
    bit for bit, dx exactly 0 at every masked slot and empty rows silent;
-   the cross lookup of both key words (K6) exactly against its plain
-   version (the [B, L, L] equality mask), in both directions, on the
-   join rows of the lo-only [4096, 301] and lead-in-hi [4096, 801]
-   batches and of sets in the general hi/lo layout (M=1000, S'=4, 4096
-   seeds of the graph), at odd B and L and with full 32-bit payload
-   words; the per-slot hidden rows from the keys (K7) on the lo-only
+   the cross lookup of both key words in both directions of a join, one
+   launch (K6), exactly against its plain version (the [B, L, L]
+   equality mask) in both directions, two launches bit for bit, on rows
+   checked ascending on the card (the kernel's precondition): the join
+   rows of the lo-only [4096, 301] and lead-in-hi [4096, 801] batches
+   and of sets in the general hi/lo layout (M=1000, S'=4, 4096 seeds of
+   the graph: [2048, 4001]), at odd B and L, with full 32-bit payload
+   words, on rows whose nodes repeat, rows of padding only, rows with no
+   common node and at L=1, timed at the three join shapes as issued and
+   queued (`launch_spread`); the per-slot hidden rows from the keys (K7) on the lo-only
    [2, 4096, 301] batch with fp32 and bf16 output, the lead-in-hi
    [2, 4096, 801] batch with root planes (both outputs), at B=999, L=203
    and at Q=4, fp32 at rtol = atol = 1e-5 and bf16 within one bf16
@@ -83,7 +87,8 @@ NVIDIA GPU. Run from the repository root:
    holds), holds each LSTM autograd Function's gradients with its
    training stash split into row groups (the stash budget lowered) to
    the whole stash's (within 1e-4 of each tensor's largest), the
-   merge route's cross lookup for K6, and for K7 and K7 bwd the
+   merge route's cross lookup and the `torch.searchsorted` lookup for
+   K6, and for K7 and K7 bwd the
    feature-pair route they replace (the join's unpack, the hidden layer
    and the pair sum in bf16, and its backward); K1's bound as the larger
    of its bytes, its CUDA-core operations and its products at the TF32
@@ -394,7 +399,7 @@ def queue_ahead(fn, iters: int) -> None:
     """Hold the device in a wait long enough for the host to queue `iters`
     calls of `fn` (its host time, from one call, 1.5 times over; at most
     QUEUE_AHEAD_MAX_S), so that no launch's timed window holds an idle gap
-    while the host is still issuing it: `k2_spread` shows how much of a
+    while the host is still issuing it: `launch_spread` shows how much of a
     short kernel's time as issued (`time_ms`) is the host's (PERF.md)."""
     t0 = time.perf_counter()
     fn()
@@ -440,6 +445,14 @@ def time_ms(fn, iters: int = TIMED_ITERS) -> float:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
     return float(np.median(launch_times(fn, iters, flush.zero_,
                                         queued=False)))
+
+
+def queued_ms(fn, iters: int = TIMED_ITERS) -> float:
+    """Median device time of `fn` in ms, L2 flushed before each run by
+    zeroing, the runs queued behind a device wait (`queue_ahead`): the
+    time without the host's launch gap."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
+    return float(np.median(launch_times(fn, iters, flush.zero_)))
 
 
 def nbytes(*tensors) -> int:
@@ -1903,25 +1916,17 @@ def k2_compare(args, label):
     return err
 
 
-def k2_spread(args, label):
-    """K2's launch times at `args`: min, median and max of TIMED_ITERS
-    launches with the L2 flushed before each by zeroing a 128 MB buffer
+def launch_spread(name, label, wrapper, direct):
+    """A kernel's launch times: min, median and max of TIMED_ITERS launches
+    of `wrapper` with the L2 flushed before each by zeroing a 128 MB buffer
     (which leaves it dirty in L2), issued as they come (the way `time_ms`
-    times) and queued behind a device wait (`queue_ahead`);
-    queued, with the L2 flushed by reading that buffer (clean lines); and
-    queued with the outputs allocated once (the kernel's C entry called
-    directly); then the mean of 200 back-to-back launches, queued and
-    without a flush (inputs and outputs L2-resident after the first), by
-    the wrapper and by the direct call."""
-    ka, pa, kb, pb = args
-    rows, la = ka.shape
-    lb = kb.shape[1]
+    times) and queued behind a device wait (`queue_ahead`); queued, with
+    the L2 flushed by reading that buffer (clean lines); and queued through
+    `direct` (the kernel's C entry called on outputs allocated once); then
+    the mean of 200 back-to-back launches, queued and without a flush
+    (inputs and outputs L2-resident after the first), by the wrapper and
+    by the direct call. `name` and `label` head the printed lines."""
     buf = torch.empty(128 << 20, dtype=torch.uint8, device=DEVICE)
-    ko = torch.empty(rows, la + lb, dtype=torch.int32, device=DEVICE)
-    po = torch.empty_like(ko)
-    wrapper = lambda: merge.merge_pairs_cuda(*args)
-    direct = lambda: merge.KERNEL(ka.device, *map(build.ptr, (
-        ka, pa, kb, pb, ko, po)), rows, la, lb)
     ways = {"zeroed flush, as issued": (wrapper, buf.zero_, False),
             "zeroed flush, queued": (wrapper, buf.zero_, True),
             "read flush, queued": (wrapper, lambda: buf.max(), True),
@@ -1931,15 +1936,26 @@ def k2_spread(args, label):
     for way, (fn, flush, queued) in ways.items():
         t = launch_times(fn, TIMED_ITERS, flush, queued)
         out[way] = (min(t), float(np.median(t)), max(t))
-        say(f"K2 spread {label}, {way}: min {out[way][0]:.4f}, median "
+        say(f"{name} spread {label}, {way}: min {out[way][0]:.4f}, median "
             f"{out[way][1]:.4f}, max {out[way][2]:.4f} ms over {len(t)} "
             f"launches; sorted: " + " ".join(f"{x:.4f}" for x in sorted(t)))
     for way, fn in (("wrapper", wrapper), ("direct call", direct)):
         mean = launch_times(fn, 200)[0]
         out[f"back to back, {way}"] = mean
-        say(f"K2 spread {label}: mean of 200 back-to-back launches, queued, "
-            f"no flush, {way}: {mean:.4f} ms")
+        say(f"{name} spread {label}: mean of 200 back-to-back launches, "
+            f"queued, no flush, {way}: {mean:.4f} ms")
     return out
+
+
+def k2_direct(args):
+    """K2's C entry on `args`, its outputs allocated once."""
+    ka, pa, kb, pb = args
+    rows, la = ka.shape
+    lb = kb.shape[1]
+    ko = torch.empty(rows, la + lb, dtype=torch.int32, device=DEVICE)
+    po = torch.empty_like(ko)
+    return lambda: merge.KERNEL(ka.device, *map(build.ptr, (
+        ka, pa, kb, pb, ko, po)), rows, la, lb)
 
 
 def k2_bound(args):
@@ -1953,54 +1969,176 @@ def k2_bound(args):
     return bound(moved, ops)
 
 
-def k6_rows(spgk, rows, flip=False):
-    """K6's operands on a join's rows [2, B, L] of `spgk`: (a, b, hi_b,
-    lo_b) for the u -> v lookup, or v -> u with `flip`."""
+def k6_rows(spgk, rows):
+    """K6's operands on a join's rows [2, B, L] of `spgk`: (nodes_u,
+    nodes_v, hi_u, lo_u, hi_v, lo_v)."""
     n, hi, lo = spgk.nodes[rows], spgk.khi[rows], spgk.klo[rows]
-    a, b = (1, 0) if flip else (0, 1)
-    return tuple(t.contiguous() for t in (n[a], n[b], hi[b], lo[b]))
+    return tuple(t.contiguous()
+                 for t in (n[0], n[1], hi[0], lo[0], hi[1], lo[1]))
+
+
+def k6_shapes(spl, spw, rows, gsets):
+    """K6's operands at the three timed shapes: the join rows of the
+    lo-only and lead-in-hi batches and of the general layout's sets."""
+    gspgk, grows = gsets
+    return {"[4096, 301]": k6_rows(spl, rows),
+            "[4096, 801]": k6_rows(spw, rows),
+            "[2048, 4001]": k6_rows(gspgk, grows)}
 
 
 def k6_variant(args, b=None, ell=None, words=None):
     """K6's operands cut to the first b rows and ell slots (sets stay
     sets), or with payload words drawn over all 32 bits from `words` (a
     generator)."""
-    a, bb, hi, lo = (t[:b, :ell].contiguous() for t in args)
-    if words is not None:
-        draw = lambda: torch.randint(-(1 << 31), 1 << 31, hi.shape,
-                                     generator=words,
-                                     dtype=torch.int32).to(DEVICE)
-        hi, lo = draw(), draw()
-    return a, bb, hi, lo
+    cut = tuple(t[:b, :ell].contiguous() for t in args)
+    if words is None:
+        return cut
+    draw = lambda: torch.randint(-(1 << 31), 1 << 31, cut[0].shape,
+                                 generator=words,
+                                 dtype=torch.int32).to(DEVICE)
+    return (*cut[:2], *(draw() for _ in range(4)))
+
+
+def k6_tied(gen, rows, ell, top):
+    """K6's operands on ascending rows whose nodes repeat: ids drawn from
+    [0, top) (runs within a row, common nodes across u and v), 0 to ell
+    valid slots a row (rows of padding only among them), payload words
+    over all 32 bits."""
+    def nodes():
+        x = torch.randint(0, top, (rows, ell), generator=gen).sort(dim=1)
+        n = torch.randint(0, ell + 1, (rows, 1), generator=gen)
+        return torch.where(torch.arange(ell) < n, x.values,
+                           walk_ops.INT32_MAX).to(torch.int32)
+    draw = lambda: torch.randint(-(1 << 31), 1 << 31, (rows, ell),
+                                 generator=gen, dtype=torch.int32)
+    return tuple(t.to(DEVICE) for t in (nodes(), nodes(), draw(), draw(),
+                                        draw(), draw()))
+
+
+def k6_padded(args):
+    """K6's operands with every 5th row of u and every 7th of v padding
+    only (every 35th both)."""
+    nu, nv = args[0].clone(), args[1].clone()
+    nu[::5] = walk_ops.INT32_MAX
+    nv[::7] = walk_ops.INT32_MAX
+    return (nu, nv, *args[2:])
+
+
+def k6_disjoint(args):
+    """K6's operands with no node common to u and v: u's ids doubled, v's
+    doubled plus one (order and padding kept)."""
+    pad = walk_ops.INT32_MAX
+    nu, nv = args[0], args[1]
+    return (torch.where(nu == pad, nu, 2 * nu),
+            torch.where(nv == pad, nv, 2 * nv + 1), *args[2:])
+
+
+def k6_ascending(args) -> bool:
+    """Every node row of K6's operands ascending, checked on the card."""
+    return all(bool((x[:, 1:] >= x[:, :-1]).all()) for x in args[:2])
 
 
 def k6_compare(args, label):
-    """K6 against its plain version (the [B, L, L] equality mask),
-    exactly, and two launches bit for bit."""
-    got = xlookup.cross_lookup_cuda(*args)
-    again = xlookup.cross_lookup_cuda(*args)
-    want = xlookup.cross_lookup_plain(*args)
+    """K6 against its plain version (the [B, L, L] equality mask, both
+    directions), exactly, and two launches bit for bit, on rows checked
+    ascending (the kernel's precondition)."""
+    require(k6_ascending(args), f"K6 {label}: rows not ascending")
+    got = xlookup.cross_lookup_pair_cuda(*args)
+    again = xlookup.cross_lookup_pair_cuda(*args)
+    want = xlookup.cross_lookup_pair_plain(*args)
     sync()
     exact = all(torch.equal(x, y) for x, y in zip(got, want))
     same = all(torch.equal(x, y) for x, y in zip(got, again))
-    found = int(((got[0] != 0) | (got[1] != 0)).sum())
+    found = [int(((got[d] != 0) | (got[d + 1] != 0)).sum()) for d in (0, 2)]
+    valid = lambda x: float((x != walk_ops.INT32_MAX).float().mean())
     say(f"K6 {label}: [{args[0].shape[0]}, {args[0].shape[1]}], valid "
-        f"slots {float((args[0] != walk_ops.INT32_MAX).float().mean()):.3f}"
-        f", {found} slots with a nonzero payload found; equal to plain: "
-        f"{exact}; repeat bit-identical: {same} "
-        f"{'exact' if exact and same else 'FAIL'}")
+        f"slots u {valid(args[0]):.3f}, v {valid(args[1]):.3f}; slots with "
+        f"a nonzero payload found u -> v {found[0]}, v -> u {found[1]}; "
+        f"both directions equal to plain: {exact}; repeat bit-identical: "
+        f"{same} {'exact' if exact and same else 'FAIL'}")
     require(exact, f"K6 {label} differs from its plain version")
     require(same, f"K6 {label}: two launches differ")
     return 0.0
 
 
-def k6_bound(args):
-    """K6's least time: the four input planes read and the two output
-    planes written once; a binary search of b per slot of a (b is sorted)
-    for the operations."""
+def k6_direct(args):
+    """K6's C entry on `args`, its outputs allocated once."""
     rows, ell = args[0].shape
-    moved = nbytes(*args) + 2 * rows * ell * 4
-    return bound(moved, rows * ell * math.ceil(math.log2(ell + 1)))
+    outs = [torch.empty(rows, ell, dtype=torch.int32, device=DEVICE)
+            for _ in range(4)]
+    return lambda: xlookup.KERNEL(args[0].device, *map(build.ptr, (
+        *args, *outs)), rows, ell)
+
+
+def k6_timing(name, label, pair, direct):
+    """A join's cross lookup `pair` at one shape: its median time as issued
+    (`time_ms`) and its launch spread (`launch_spread`), whose queued
+    median is the time without the host's launch gap."""
+    ms = time_ms(pair)
+    spread = launch_spread(name, label, pair, direct)
+    return dict(ms=ms, queued=spread["zeroed flush, queued"][1],
+                back_to_back=spread["back to back, direct call"])
+
+
+def k6_library(args):
+    """The same lookup on sets through one `torch.searchsorted` a
+    direction: the lower bound of each slot's node in the other row, both
+    payload words gathered there and kept where the node is found (and is
+    not padding). The port never calls it."""
+    nu, nv, hu, lu, hv, lv = args
+    last = nu.shape[1] - 1
+
+    def one(a, b, hi, lo):
+        j = torch.searchsorted(b, a).clamp_(max=last)
+        hit = (b.gather(1, j) == a) & (a != walk_ops.INT32_MAX)
+        return (torch.where(hit, hi.gather(1, j), 0),
+                torch.where(hit, lo.gather(1, j), 0))
+
+    return lambda: (*one(nu, nv, hv, lv), *one(nv, nu, hu, lu))
+
+
+def sectors(mask) -> int:
+    """The 32-byte sectors of a [B, L] 4-byte plane (its base aligned, as
+    the allocator's are) that hold a slot where `mask` is true."""
+    flat = mask.reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, -flat.numel() % 8))
+    return int(flat.reshape(-1, 8).any(dim=1).sum())
+
+
+def k6_bound(args, label=None):
+    """K6's least time for a join, from this run's data: the four
+    output planes written whole; of the node rows, the sectors up to each
+    row's first padding slot (where a row's end is read); of the four
+    payload planes, only the sectors that hold a slot found from the other
+    row (no search needs the payload of a slot it does not find). The
+    operations: a lower-bound search of the other row's valid prefix for
+    every valid slot, ceil(log2(n + 1)) steps, both ways, and each row's
+    two searches for its valid length. With `label`, prints the bytes."""
+    u, v = args[:2]
+    rows, ell = u.shape
+    pad = walk_ops.INT32_MAX
+    slot = torch.arange(ell, device=u.device)
+    n = [(x != pad).sum(dim=1) for x in (u, v)]
+    ends = sum(sectors(slot <= k[:, None]) for k in n)
+
+    def found(a, b):                     # slots of b holding a node of a
+        j = torch.searchsorted(a, b).clamp_(max=ell - 1)
+        return (a.gather(1, j) == b) & (b != pad)
+
+    hits = 2 * (sectors(found(u, v)) + sectors(found(v, u)))
+    outs = 4 * rows * ell * 4
+    moved = 32 * (ends + hits) + outs
+    if label is not None:
+        say(f"K6 bound {label}: node rows up to each end {32 * ends / 1e6:.3f}"
+            f" MB (whole rows {2 * rows * ell * 4 / 1e6:.3f}), payload "
+            f"sectors holding a hit {32 * hits / 1e6:.3f} MB (all four "
+            f"planes {4 * rows * ell * 4 / 1e6:.3f}), outputs "
+            f"{outs / 1e6:.3f} MB")
+    steps = lambda m: torch.where(
+        m > 0, torch.floor(torch.log2(m.double().clamp(min=1))) + 1, 0)
+    ops = float((n[0] * steps(n[1]) + n[1] * steps(n[0])).sum()) \
+        + 2 * rows * math.ceil(math.log2(ell + 1))
+    return bound(moved, ops)
 
 
 def general_sets(g):
@@ -2024,46 +2162,64 @@ def general_sets(g):
 
 
 def cross_lookup_vs_plain(spl, spw, rows, gsets):
-    """Phase 2 for K6: exactly its plain version in both directions on the
+    """Phase 2 for K6, one launch a join: exactly its plain version in both
+    directions, two launches bit for bit, on rows checked ascending: the
     join rows of the lo-only [4096, 301] and lead-in-hi [4096, 801]
-    batches and of the general layout's sets, at odd B and L, and with
-    full 32-bit payload words; times at [4096, 301], beside the merge
-    route's cross lookup of the same rows."""
-    words = torch.Generator().manual_seed(8)
-    lo = k6_rows(spl, rows)
-    cases = [(lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}, u -> v"),
-             (k6_rows(spl, rows, flip=True),
-              f"lo-only M={NUM_WALKS} S'={NUM_STEPS}, v -> u"),
-             (k6_rows(spw, rows), f"lead-in-hi M={WIDE_WALKS} "
-                                  f"S'={WIDE_STEPS}, u -> v"),
-             (k6_rows(spw, rows, flip=True), f"lead-in-hi M={WIDE_WALKS} "
-                                             f"S'={WIDE_STEPS}, v -> u"),
-             (k6_variant(lo, b=999, ell=203), "odd B and L, lo-only"),
-             (k6_variant(lo, words=words), "full 32-bit payload words")]
-    gspgk, grows = gsets
-    cases += [(k6_rows(gspgk, grows, flip=f), f"general M={GEN_WALKS} "
-               f"S'={GEN_STEPS}, {'v -> u' if f else 'u -> v'}")
-              for f in (False, True)]
+    batches and of the general layout's sets [2048, 4001], at odd B and L,
+    with full 32-bit payload words, on rows whose nodes repeat, rows of
+    padding only, rows with no common node and at L=1; times at the three
+    shapes as issued and queued (`k6_timing`), beside the bound, the
+    `torch.searchsorted` lookup (`k6_library`, held to K6 on the sets),
+    and at [4096, 301] the plain version and the merge route's cross
+    lookup of the same rows."""
+    shapes = k6_shapes(spl, spw, rows, gsets)
+    lo = shapes["[4096, 301]"]
+    gen = torch.Generator().manual_seed(8)
+    layouts = (f"lo-only M={NUM_WALKS} S'={NUM_STEPS}",
+               f"lead-in-hi M={WIDE_WALKS} S'={WIDE_STEPS}",
+               f"general M={GEN_WALKS} S'={GEN_STEPS}")
+    cases = [(a, f"{name}, {shape}")
+             for (shape, a), name in zip(shapes.items(), layouts)]
+    cases += [(k6_variant(lo, b=999, ell=203), "odd B and L, lo-only"),
+              (k6_variant(lo, words=gen), "full 32-bit payload words"),
+              (k6_tied(gen, 4096, 301, 64), "repeated nodes, ids below 64"),
+              (k6_tied(gen, 1000, 801, 8), "repeated nodes, ids below 8"),
+              (k6_padded(lo), "rows of padding only, lo-only"),
+              (k6_disjoint(lo), "no common node, lo-only"),
+              (k6_variant(lo, ell=1), "L=1, lo-only"),
+              (k6_tied(gen, 999, 1, 2), "L=1, ids below 2")]
     err = max(k6_compare(a, label) for a, label in cases)
-    back = cases[1][0]
-    cuda = xlookup.cross_lookup_cuda
-    ms = time_ms(lambda: cuda(*lo))
-    plain_ms = time_ms(lambda: xlookup.cross_lookup_plain(*lo), iters=5)
-    both_ms = time_ms(lambda: (cuda(*lo), cuda(*back)))
-    hi_ms = time_ms(lambda: cuda(*cases[2][0]))
+
+    cuda = xlookup.cross_lookup_pair_cuda
+    times = {}
+    for shape, a in shapes.items():
+        lib = k6_library(a)
+        require(all(torch.equal(x, y) for x, y in zip(lib(), cuda(*a))),
+                f"the searchsorted lookup differs from K6 at {shape}")
+        t = k6_timing("K6", shape, lambda a=a: cuda(*a), k6_direct(a))
+        t["library"] = time_ms(lib)
+        t["library_queued"] = queued_ms(lib)
+        t["bound"] = k6_bound(a, shape)
+        times[shape] = t
+        say(f"K6 {shape}, a join (both directions, one launch): as issued "
+            f"{t['ms']:.4f} ms, queued {t['queued']:.4f} ms, back to back "
+            f"{t['back_to_back']:.4f} ms; bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]}); torch.searchsorted lookup as issued "
+            f"{t['library']:.4f} ms, queued {t['library_queued']:.4f} ms")
+    plain_ms = time_ms(lambda: xlookup.cross_lookup_pair_plain(*lo),
+                       iters=5)
     nodes = spl.nodes[rows]
     pays = (spl.khi[rows], spl.klo[rows])
     merge_ms = time_ms(lambda: join_ops._cross_lookup_bidir_multi(
         nodes[0], nodes[1], (pays[0][0], pays[1][0]),
         (pays[0][1], pays[1][1])))
-    bound_ms, by = k6_bound(lo)
-    say(f"K6 lo-only [4096, 301]: kernel {ms:.4f} ms a direction, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}); both "
-        f"directions {both_ms:.4f} ms against the merge route's two-word "
-        f"cross lookup of the same rows (K2, hit detection, un-sort) "
-        f"{merge_ms:.4f} ms; lead-in-hi [4096, 801] {hi_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound=(bound_ms, by))
+    main = times["[4096, 301]"]
+    say(f"K6 lo-only [4096, 301]: a join {main['ms']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, against the merge route's two-word cross "
+        f"lookup of the same rows (K2, hit detection, un-sort) "
+        f"{merge_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=main["ms"], plain_ms=plain_ms,
+                library_ms=main["library"], bound=main["bound"])
 
 
 def k7_inputs(joined, u_ext, shift, out_dtype, b=None, ell=None,
@@ -2300,7 +2456,7 @@ def main_batches(g, gen):
 
 def k1_k2_vs_plain(spl, spw, rows, jlo, a_lo, a_hi):
     """K1 and K2 against their plain versions, their times and bounds, and
-    K2's spread (`k2_spread`); returns their stats."""
+    K2's spread (`launch_spread`); returns their stats."""
     gen = torch.Generator().manual_seed(14)  # the later draws stay
     err1 = k1_compare(a_lo, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}")
     err1 = max(err1, k1_compare(a_hi, f"lead-in-hi M={WIDE_WALKS} "
@@ -2359,8 +2515,10 @@ def k1_k2_vs_plain(spl, spw, rows, jlo, a_lo, a_hi):
     say(f"K2 lo-only [4096, 301] x 2: kernel {k2_ms:.4f} ms, bound "
         f"{k2_b[0]:.4f} ms ({k2_b[1]}); lead-in-hi [4096, 801] x 2: kernel "
         f"{k2_hi_ms:.4f} ms, bound {k2_hb[0]:.4f} ms ({k2_hb[1]})")
-    k2_spread(m_main, "[4096, 301] x 2")
-    k2_spread(m_hi, "[4096, 801] x 2")
+    for args, shape in ((m_main, "[4096, 301] x 2"),
+                        (m_hi, "[4096, 801] x 2")):
+        launch_spread("K2", shape, lambda a=args: merge.merge_pairs_cuda(*a),
+                      k2_direct(args))
     return {"hidden_sum_fwd": dict(
                 max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain,
                 library_ms=None, bound=k1_bound(a_lo)),

@@ -39,40 +39,17 @@ namespace {
 
 using smem::copies_commit;
 using smem::copies_wait;
-using smem::copy_async;
+using smem::misalign;
+using smem::region;
+using smem::stage;
 
 constexpr int kThreads = 128;  // a block: four warps
 constexpr int kWarpRows = 4;   // rows a block when a warp takes a row
-
-// Words of shared memory an array of n words takes: room for up to 3 words
-// ahead of it (its device address modulo 16 bytes), a multiple of 4.
-__host__ __device__ constexpr int region(int n) { return (n + 7) & ~3; }
 
 // Words of shared memory a row takes: keys and payloads of a and b, and the
 // output tile's keys and payloads.
 __host__ __device__ constexpr int row_words(int la, int lb) {
   return 2 * region(la) + 2 * region(lb) + 2 * region(la + lb);
-}
-
-__device__ __forceinline__ int misalign(const void* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
-}
-
-// Copy n words from src (device) into the region at dst16 (16-byte
-// aligned), at the offset matching src modulo 16 bytes, as thread t of T;
-// returns where the copy starts. The copies are left in flight.
-__device__ __forceinline__ uint32_t* stage(uint32_t* dst16,
-                                           const uint32_t* src, int n, int t,
-                                           int T) {
-  uint32_t* dst = dst16 + misalign(src);
-  const int head = min((4 - misalign(src)) & 3, n);
-  const int body = (n - head) / 4;
-  for (int i = t; i < head; i += T) copy_async<4>(dst + i, src + i);
-  for (int i = t; i < body; i += T)
-    copy_async<16>(dst + head + 4 * i, src + head + 4 * i);
-  for (int i = head + 4 * body + t; i < n; i += T)
-    copy_async<4>(dst + i, src + i);
-  return dst;
 }
 
 // Store n words of a tile laid out like dst (modulo 16 bytes) to dst.

@@ -1,10 +1,12 @@
 // Staging in shared memory: asynchronous copies from device memory
-// (cp.async) and the opt-in to more than 48 KB of dynamic shared memory.
-// Shared by the hidden-layer kernels (hidden_tc.cuh) and the merge
-// (merge.cu).
+// (cp.async), a row of any width staged in 16-byte pieces, and the opt-in
+// to more than 48 KB of dynamic shared memory. Shared by the hidden-layer
+// kernels (hidden_tc.cuh), the merge (merge.cu) and the cross lookup
+// (cross_lookup.cu).
 
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace smem {
@@ -43,6 +45,34 @@ __device__ __forceinline__ void copies_commit() {
 template <int N>
 __device__ __forceinline__ void copies_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Words of shared memory an array of n words takes when staged: room for up
+// to 3 words ahead of it (its device address modulo 16 bytes), a multiple
+// of 4.
+__host__ __device__ constexpr int region(int n) { return (n + 7) & ~3; }
+
+// A 4-byte aligned address's offset in words from the 16 bytes below it.
+__device__ __forceinline__ int misalign(const void* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Copy n words from src (device) into the region at dst16 (16-byte
+// aligned), at the offset matching src modulo 16 bytes, as thread t of T:
+// 16-byte copies between a ragged head and tail of 4-byte ones. Returns
+// where the copy starts; the copies are left in flight.
+__device__ __forceinline__ uint32_t* stage(uint32_t* dst16,
+                                           const uint32_t* src, int n, int t,
+                                           int T) {
+  uint32_t* dst = dst16 + misalign(src);
+  const int head = min((4 - misalign(src)) & 3, n);
+  const int body = (n - head) / 4;
+  for (int i = t; i < head; i += T) copy_async<4>(dst + i, src + i);
+  for (int i = t; i < body; i += T)
+    copy_async<16>(dst + head + 4 * i, src + head + 4 * i);
+  for (int i = head + 4 * body + t; i < n; i += T)
+    copy_async<4>(dst + i, src + i);
+  return dst;
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in per kernel.

@@ -15,7 +15,8 @@ the aligned keys, the unfused routes the feature pairs
 (`Net.join_outputs`).
 
 Two joins carry no key planes, as in the JAX package: impl="pallas" (the
-cross lookup of both key words on K6, `ops/kernels/cross_lookup.py`) and
+cross lookup of both key words in both directions, one launch of K6,
+`ops/kernels/cross_lookup.py`) and
 the general hi/lo key layout (count fields in the hi word, e.g. M=1000,
 S'=4), whose merge carries both words. They build the feature pairs and
 the mask, whatever `aligned` and `features` say.
@@ -27,7 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from surel_plus_tpu_torch.ops.kernels.cross_lookup import cross_lookup
+from surel_plus_tpu_torch.ops.kernels.cross_lookup import cross_lookup_pair
 from surel_plus_tpu_torch.ops.merge_net import merge_pairs
 from surel_plus_tpu_torch.ops.walk import (
     INT32_MAX,
@@ -209,9 +210,9 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
     layout (fields fill the lo word, the root bit is the hi word's bit 0),
     with the key planes the fused routes read; in the general hi/lo layout
     the merge carries both words and the join gives the feature pairs
-    only. impl "pallas": the cross lookup of both words in each direction
-    (K6), for any layout, the feature pairs only (JAX join.py:329-336,
-    :366).
+    only. impl "pallas": the cross lookup of both words in both directions
+    (one launch of K6 over the node-sorted rows), for any layout, the
+    feature pairs only (JAX join.py:329-336, :366).
     """
     if impl not in ("merge", "pallas"):
         raise ValueError(f"unknown join impl {impl!r}")
@@ -222,10 +223,9 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
     mask = rows_nodes != INT32_MAX
     if impl == "pallas" or not (lo_only or lead_hi):
         if impl == "pallas":
-            cross_hi_u, cross_lo_u = cross_lookup(nu, nv, rows_hi[1],
-                                                  rows_lo[1])
-            cross_hi_v, cross_lo_v = cross_lookup(nv, nu, rows_hi[0],
-                                                  rows_lo[0])
+            (cross_hi_u, cross_lo_u, cross_hi_v,
+             cross_lo_v) = cross_lookup_pair(nu, nv, rows_hi[0], rows_lo[0],
+                                             rows_hi[1], rows_lo[1])
         else:
             ((cross_hi_u, cross_lo_u),
              (cross_hi_v, cross_lo_v)) = _cross_lookup_bidir_multi(
