@@ -171,6 +171,16 @@ NVIDIA GPU. Run from the repository root:
    general hi/lo layout (M=1000, S'=4, L=4001: K5 over the feature
    pairs, its 75.5 GB stash split into row groups), each with its peak
    device memory (below the card's) and the rows of a stash group.
+   Last, the link-prediction CLI (`cli_path`): `run_experiment` on four
+   rows of scripts/run_jax_matrix.sh at its flags (fixture-collabs mean,
+   attn and lstm, fixture-cites mean), one run of 4 epochs each (data
+   prep, sampling, training, evaluation after epochs 0 and 2), each
+   row's launches counted as its own path; every evaluated value must be
+   finite and the best (valid, test) above CLI_FLOOR. After each row, its
+   kernels on its own shapes (S'=2, L=101 or 41): the first training
+   batch joined over the row's sets, with the weights its run left; K1
+   and K1 bwd (mean rows), K3 and K3 bwd (attn) or K4 and K4 bwd (lstm),
+   and K2, each against its plain version at phase 2's tolerances.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the card's name
@@ -190,6 +200,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -202,6 +213,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np
 import torch
 
+from surel_plus_tpu_torch.cli.main import run_experiment
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import Net
 from surel_plus_tpu_torch.ops import join as join_ops
@@ -234,6 +246,10 @@ from surel_plus_tpu_torch.train.device import (
     batch_loss,
     device_mrr,
     trainer_from_keys,
+)
+from surel_plus_tpu_torch.utils.config import (
+    ExperimentConfig,
+    apply_dataset_overrides,
 )
 
 DEVICE = "cuda"
@@ -273,6 +289,23 @@ UNFUSED_LSTM_EPOCHS = 1
 K7_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # one bf16 ulp
 K7_ATOL = 1e-5
 K7B_TOL = 1e-4          # of each dU row's largest magnitude
+# the CLI's rows: scripts/run_jax_matrix.sh's flags, one run each, the
+# epochs cut to CLI_EPOCHS (evaluations after epochs 0 and 2)
+CLI_EPOCHS = 4
+CLI_ROWS = {
+    "collabs_mean": dict(dataset="fixture-collabs", aggrs="mean",
+                         num_walks=50, k=10, batch_size=4096),
+    "collabs_attn": dict(dataset="fixture-collabs", aggrs="attn",
+                         num_walks=50, k=10, batch_size=4096),
+    "collabs_lstm": dict(dataset="fixture-collabs", aggrs="lstm",
+                         num_walks=20, k=5, batch_size=1024),
+    "cites_mean": dict(dataset="fixture-cites", aggrs="mean", num_walks=50,
+                       k=10, batch_size=4096),
+}
+# the least best (valid, test) a row must reach; random scores give about
+# 50 / 100,000 Hits@50 on the collabs fixture and H(51) / 51 = 0.088 MRR
+# against the cites fixture's 50 negatives a source
+CLI_FLOOR = {"Hits@50": 0.01, "MRR": 0.2}
 # operations of one LSTM cell update per unit: three sigmoids (exp, add,
 # divide) and two tanh (counted as 3 each), the cell's 3 and the output's 1
 LSTM_CELL_OPS = 19
@@ -357,7 +390,15 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "unfused_attn_train": ("hidden_slots_fwd", "hidden_slots_bwd",
                                 "merge_pairs"),
          "unfused_lstm_train": ("hidden_slots_fwd", "hidden_slots_bwd",
-                                "merge_pairs")}
+                                "merge_pairs"),
+         "cli_collabs_mean": ("hidden_sum_fwd", "hidden_sum_bwd",
+                              "merge_pairs"),
+         "cli_collabs_attn": ("attn_pool_fwd", "attn_pool_bwd",
+                              "merge_pairs"),
+         "cli_collabs_lstm": ("lstm_keys_fwd", "lstm_keys_bwd",
+                              "merge_pairs"),
+         "cli_cites_mean": ("hidden_sum_fwd", "hidden_sum_bwd",
+                            "merge_pairs")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
@@ -3409,6 +3450,101 @@ def unfused_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
         profile_train(trainer, edges, labels, gen, steps=steps)
 
 
+def cli_path(label, launches) -> None:
+    """The link-prediction CLI on the fixtures: `run_experiment` on the
+    card for each of CLI_ROWS (data prep, sampling, training, evaluation,
+    early stopping), its log in a temporary directory. Prints each row's
+    evaluations, best (valid, test) and seconds; requires every evaluated
+    value finite and the best pair above CLI_FLOOR; counts each row's
+    launches; then holds the row's kernels to their plain versions on its
+    own sets and weights (`cli_kernels`)."""
+    for row, kw in CLI_ROWS.items():
+        cfg = apply_dataset_overrides(ExperimentConfig(
+            num_steps=3, epochs=CLI_EPOCHS, eval_steps=2, early_stop=10,
+            runs=1, **kw))
+        with tempfile.TemporaryDirectory() as log_dir:
+            cfg.log_dir = log_dir
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = run_experiment(cfg, device=DEVICE)
+            sync()
+            dt = time.perf_counter() - t0
+        path = f"cli_{row}"
+        launches[path] = counts()
+        per_key = out["results"].results
+        per_key = per_key if isinstance(per_key, dict) else {
+            cfg.metric: per_key}
+        evals = per_key[cfg.metric][0]
+        best = out["best"][0]
+        say(f"cli {row} ({cfg.dataset}, {cfg.aggrs}, M={cfg.num_walks}, "
+            f"batch {cfg.batch_size}, {CLI_EPOCHS} epochs): {cfg.metric} "
+            f"(valid, test) by eval {[tuple(e[1:]) for e in evals]}, best "
+            f"{best} in {dt:.2f} s; launches "
+            f"{ {k: v for k, v in launches[path].items() if v} }; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"[{label}]")
+        values = [x for res in per_key.values() for e in res[0]
+                  for x in e[1:]]
+        require(len(evals) == 2 and all(math.isfinite(x) for x in values),
+                f"cli {row}: an evaluation is missing or not finite")
+        require(min(best) > CLI_FLOOR[cfg.metric],
+                f"cli {row}: best {cfg.metric} {best} not above "
+                f"{CLI_FLOOR[cfg.metric]}")
+        cli_kernels(row, out["trainer"], out["edges"])
+        del out
+
+
+def cli_kernels(row, trainer, edges) -> None:
+    """The row's kernels on the row's own operands: the first batch of its
+    training edges joined over its sets by its trainer, with the weights
+    its run left, each folded as `Net.forward` folds them. The forward and
+    the backward of the row's aggregator kernel (K1, K3 or K4; the
+    backward on a seeded cotangent) and K2 on the batch's merge rows, each
+    against its plain version at the tolerances of phase 2."""
+    model, sets = trainer.model, trainer.sets
+    be = edges[:, :trainer.config.batch_size]
+    with torch.no_grad():
+        joined, _ = trainer._batch(be)
+        shift = int(model.key_layout[0]).bit_length()
+        u_ext = model._u_ext()
+        w2, bias2 = (t.to(torch.float32) for t in
+                     model.pe_embedding.project_raw())
+        c2 = 2.0 * bias2[None]
+        if model.aggrs == "attn":
+            gate = model.aggr.gate_nn
+            wg = gate.weight.t().to(torch.float32)
+            gv = torch.cat([w2 @ wg, c2 @ wg + gate.bias.to(torch.float32)])
+        elif model.aggrs == "lstm":
+            cd, wi = model.dtype, model.aggr.wi
+            wi_eff = (w2.to(cd) @ wi.to(cd)).to(torch.float32)
+            bh_eff = model.aggr.bh.to(torch.float32) + (
+                c2 @ wi.to(torch.float32)).reshape(-1)
+            wh = model.aggr.wh.detach().to(torch.float32)
+    nw, ns = model.key_layout
+    tag = (f"cli {row} (M={nw}, S'={ns}, trained weights, a training "
+           f"batch)")
+    gen = torch.Generator().manual_seed(21)
+    g = torch.randn(2, be.shape[1], model.hidden_dim,
+                    generator=gen).to(DEVICE)
+    if model.aggrs == "mean":
+        args = (joined.kown, joined.mask, joined.kcross, joined.kcross_mask,
+                u_ext, shift, joined.kown_root, joined.kcross_root)
+        k1_compare(args, tag)
+        k1b_compare(args, g, tag)
+    elif model.aggrs == "attn":
+        args = (joined.kown, joined.kcross_al, joined.mask, u_ext, gv,
+                shift, joined.kown_root, joined.kcross_al_root)
+        attn_compare(args, tag)
+        attn_bwd_compare(args, g, tag)
+    else:
+        args = (joined.kown, joined.kcross_al, joined.mask, u_ext, wi_eff,
+                wh, bh_eff, shift, joined.kown_root, joined.kcross_al_root)
+        lstm_compare(args, tag)
+        lstm_bwd_compare(args, g, tag)
+    k2_compare(merge_rows(sets.nodes[be], sets.klo[be]), tag)
+
+
 def counts():
     return {name: k["kernel"].launches for name, k in KERNELS.items()}
 
@@ -3533,6 +3669,8 @@ def main() -> int:
     spw, _, _ = joined_batch(g, WIDE_WALKS, WIDE_STEPS, seed=12)
     wide_lstm_fits(spw, gsets, label)
     del spw
+    # the link-prediction CLI on the committed fixtures
+    cli_path(label, launches)
 
     # phase 4
     for path, names in PATHS.items():

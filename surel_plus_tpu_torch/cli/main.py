@@ -1,0 +1,277 @@
+"""Experiment runner for link prediction on the device engine (port of
+the device-engine link-prediction branch of surel_plus_tpu/cli/main.py).
+
+Loads a dataset, masks a share of its train edges as training positives
+and samples their negatives (`load_link_data`), samples a packed-key set
+for every node of the observed graph (training) and of the inference
+graph (scoring), then per run trains with `DeviceTrainer.fit` between
+evaluations (`evaluate_device`), stops early on the validation metric
+(`ResultLogger`) and logs the statistics over runs. The trainer and the
+scorer wrap one `Net` (bfloat16), so the scorer reads the weights the
+trainer just stepped; the scorer's optimizer is never stepped.
+
+Usage:
+  python -m surel_plus_tpu_torch.cli.main --dataset fixture-collabs \\
+      --aggrs mean --num_walks 50 --num_steps 3 --epochs 20 ...
+
+It runs on the CUDA device. `SUREL_PLATFORM=cpu` runs it on the CPU, the
+kernels' plain versions in their place; without that variable and with no
+CUDA device it raises. The JAX package's `--engine auto` takes its host
+engine on a CPU backend; this port has only the device engine, so on the
+CPU it runs the device engine's code on CPU tensors.
+
+Not ported, and raising NotImplementedError: `--engine host` and
+`--balance_widths` (the host engine and balanced batching), `--sencoder`
+other than LP (the scalar encoders), `--resume`, `--inf_only` /
+`--load_model`, `--use_pretrain` and the MAG datasets, and `ogbl-*`
+datasets (they download). No checkpoint is written: the JAX package
+writes one at each evaluation, the port's come with its checkpoint
+module.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from surel_plus_tpu_torch.graph.csr import CSRGraph
+from surel_plus_tpu_torch.graph.datasets import (
+    LinkPropDataset,
+    RawLinkData,
+    fixture_link_data,
+    npz_link_data,
+    synthetic_link_data,
+)
+from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
+from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops.sampler import subg_matrix_device_keys
+from surel_plus_tpu_torch.train import TrainConfig
+from surel_plus_tpu_torch.train.device import (
+    evaluate_device,
+    trainer_from_keys,
+)
+from surel_plus_tpu_torch.utils.config import (
+    ExperimentConfig,
+    add_config_args,
+    apply_dataset_overrides,
+    config_from_args,
+)
+from surel_plus_tpu_torch.utils.logger import (
+    ResultLogger,
+    capture_stdout,
+    set_up_log,
+)
+from surel_plus_tpu_torch.utils.profiling import metrics
+from surel_plus_tpu_torch.utils.seeding import set_random_seed
+
+
+class LinkData(NamedTuple):
+    ds: LinkPropDataset
+    graphs: Dict[str, CSRGraph]     # "train" (observed), "val", "test"
+    train_edge: Tuple[np.ndarray, np.ndarray]  # (pos, neg) int32 [2, E]
+    inf_edge: Dict[str, Tuple[np.ndarray, np.ndarray]]  # valid, test
+
+
+def unported(cfg: ExperimentConfig) -> None:
+    """Raise NotImplementedError for an option this port does not run."""
+    reasons = [
+        (cfg.engine == "host", "--engine host (the host engine)"),
+        (bool(cfg.balance_widths), "--balance_widths (balanced batching)"),
+        (cfg.sencoder != "LP", f"--sencoder {cfg.sencoder} (the scalar "
+                               f"encoders)"),
+        (cfg.resume is not None, "--resume (checkpoints)"),
+        (cfg.inf_only or cfg.load_model is not None,
+         "--inf_only / --load_model (checkpoints)"),
+        (cfg.use_pretrain, "--use_pretrain (pretrained embeddings)"),
+        ("mag" in cfg.dataset, f"dataset {cfg.dataset} (the heterogeneous "
+                               f"MAG datasets)"),
+    ]
+    for hit, what in reasons:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.engine not in ("auto", "device"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+
+
+def load_raw(cfg: ExperimentConfig) -> RawLinkData:
+    if cfg.dataset.startswith("ogbl-"):
+        raise NotImplementedError(
+            f"dataset {cfg.dataset}: OGB datasets are downloaded, which "
+            f"this port does not do; export one with the JAX package's "
+            f"README recipe and pass --dataset npz:<file>")
+    if cfg.dataset.startswith("fixture-"):
+        return fixture_link_data(cfg.dataset.split("-", 1)[1])
+    if cfg.dataset.startswith("npz:"):
+        # a RawLinkData npz export; name the file after the dataset (e.g.
+        # ogbl-collab.npz) so the per-dataset overrides match
+        return npz_link_data(cfg.dataset[4:])
+    if "synth" in cfg.dataset:
+        return synthetic_link_data(
+            num_nodes=cfg.synth_nodes, num_edges=cfg.synth_edges,
+            seed=cfg.seed, num_feature=16 if cfg.use_raw else 0,
+            mrr_style=("MRR" in cfg.metric))
+    raise NotImplementedError(cfg.dataset)
+
+
+def load_link_data(cfg: ExperimentConfig, rng: np.random.Generator,
+                   logger) -> LinkData:
+    """The data prep, drawing from `rng` in the JAX CLI's order: the mask
+    permutation and the training negatives (`LinkPropDataset.process`),
+    then the valid and test query edges."""
+    raw = load_raw(cfg)
+    ds = LinkPropDataset(
+        raw, mask_ratio=cfg.train_ratio, k=cfg.k,
+        use_weight=cfg.use_weight, use_coalesce=cfg.use_weight,
+        use_feature=cfg.use_raw, use_val=cfg.use_val, rng=rng,
+        vessel_mode=("vessel" in cfg.dataset))
+    graphs = ds.process(logger)
+
+    train_edge = (ds.pos_edge.T.astype(np.int32),
+                  ds.neg_edge.T.astype(np.int32))
+    val_edge = get_pos_neg_edges("valid", raw.split_edge, raw.edge_index,
+                                 ds.num_nodes, percent=cfg.valid_perc,
+                                 rng=rng)
+    test_edge = get_pos_neg_edges("test", raw.split_edge, raw.edge_index,
+                                  ds.num_nodes, rng=rng)
+    return LinkData(ds, graphs, train_edge,
+                    {"valid": val_edge, "test": test_edge})
+
+
+def run_experiment(cfg: ExperimentConfig, logger=None,
+                   device="cuda") -> Dict:
+    """Returns {'best': [(valid, test) per run], 'results': ResultLogger,
+    'trainer': the training DeviceTrainer, its model as the last run left
+    it, 'edges': the training query edges [2, E] on the device}. The
+    phase timer is reset first, so its report covers this call."""
+    unported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: set SUREL_PLATFORM=cpu (or "
+                           "pass device='cpu') to run on the CPU")
+    metrics.reset()
+    rng = set_random_seed(cfg.seed)
+    if logger is None:
+        logger = set_up_log(cfg.log_dir, cfg.dataset,
+                            args_repr=str(dataclasses.asdict(cfg)))
+    if cfg.debug:
+        capture_stdout(logger)
+
+    data = load_link_data(cfg, rng, logger)
+    G_obsrv, G_inf = data.graphs["train"], data.graphs["test"]
+
+    prep_start = time.time()
+    feature = data.ds.x if cfg.use_raw else None
+    x_dim = feature.shape[1] if feature is not None else data.ds.num_feature
+    tcfg = TrainConfig(batch_size=cfg.batch_size, lr=cfg.lr,
+                       epochs=cfg.epochs, eval_steps=cfg.eval_steps,
+                       early_stop=cfg.early_stop, seed=cfg.seed)
+    bucket = cfg.bucket if cfg.bucket and cfg.bucket > 0 else None
+    x_keys = subg_matrix_device_keys(
+        G_obsrv, np.arange(G_obsrv.num_nodes, dtype=np.int32),
+        num_walks=cfg.num_walks, num_steps=cfg.num_steps, seed=cfg.seed,
+        bucket=bucket, device=device)
+    z_keys = subg_matrix_device_keys(
+        G_inf, np.arange(G_inf.num_nodes, dtype=np.int32),
+        num_walks=cfg.num_walks, num_steps=cfg.num_steps, seed=cfg.seed,
+        bucket=bucket, device=device)
+    fused = {"auto": None, "on": True, "off": False}[cfg.fused_hidden]
+    model = Net(input_dim=cfg.num_steps, hidden_dim=cfg.hidden_channels,
+                out_dim=1, x_dim=x_dim, dropout=cfg.dropout,
+                use_feature=cfg.use_raw, aggrs=cfg.aggrs, dtype="bfloat16",
+                fused_hidden=fused, device=device)
+    feat_dev = (None if feature is None else
+                torch.as_tensor(feature, dtype=torch.float32).to(device))
+    # both stores come from one cfg, so they share the key layout that
+    # trainer_from_keys sets on the shared model
+    trainer = trainer_from_keys(model, x_keys, tcfg, feature=feat_dev)
+    scorer = trainer_from_keys(model, z_keys, tcfg, feature=feat_dev)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    logger.info("Prep. Runtime (%s): %.2fs", cfg.sencoder,
+                time.time() - prep_start)
+    metrics.add("prep", time.time() - prep_start)
+
+    edges = np.concatenate(data.train_edge, axis=1)
+    labels = np.concatenate([
+        np.ones(data.train_edge[0].shape[1], np.float32),
+        np.zeros(data.train_edge[1].shape[1], np.float32)])
+    edges_dev = torch.as_tensor(edges, dtype=torch.int64).to(device)
+    labels_dev = torch.as_tensor(labels).to(device)
+    inf_dev = {split: tuple(torch.as_tensor(e, dtype=torch.int64).to(device)
+                            for e in pair)
+               for split, pair in data.inf_edge.items()}
+
+    rlog = ResultLogger(runs=cfg.runs, metric=cfg.metric,
+                        early_stop=cfg.early_stop)
+    for run in range(cfg.runs):
+        trainer.init(torch.Generator().manual_seed(cfg.seed + run))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(cfg.seed + 1000 + run)
+        epoch = 0
+        while epoch < cfg.epochs:
+            # train up to and including the next eval epoch (e where
+            # e % eval_steps == 0) as one block
+            n = (1 - epoch) % cfg.eval_steps
+            if n == 0:
+                n = cfg.eval_steps
+            n = min(n, cfg.epochs - epoch)
+            with metrics.phase("train_epoch", items=edges.shape[1] * n):
+                losses, aucs = trainer.fit(edges_dev, labels_dev, n, gen)
+                losses, aucs = losses.cpu().numpy(), aucs.cpu().numpy()
+            for i in range(n):
+                logger.info("Run: %02d, Epoch: %02d, Loss: %.4f, "
+                            "AUC: %.4f", run + 1, epoch + i,
+                            float(losses[i]), float(aucs[i]))
+            epoch += n
+            last = epoch - 1
+            if last % cfg.eval_steps == 0:
+                with metrics.phase("eval"):
+                    results, d_inf = evaluate_device(scorer, inf_dev,
+                                                     cfg.metric)
+                logger.info("eval: %s (T_test %.2f)", results, d_inf)
+                if rlog.add_result(run, results):
+                    break
+        rlog.print_statistics(run=run, logger=logger)
+    if cfg.runs > 1:
+        rlog.print_statistics(logger=logger)
+    for name, st in metrics.report().items():
+        logger.info("phase %s: %.2fs x%d (%.0f items/s)", name, st.total_s,
+                    st.count, st.items_per_s)
+    return {"results": rlog,
+            "best": [rlog.best(r) for r in range(cfg.runs)],
+            "trainer": trainer, "edges": edges_dev}
+
+
+def platform_device() -> str:
+    """The device `main` runs on: the CPU when SUREL_PLATFORM=cpu, else
+    the CUDA device, which must exist."""
+    platform = os.environ.get("SUREL_PLATFORM", "cuda")
+    if platform == "cpu":
+        return "cpu"
+    if platform != "cuda":
+        raise ValueError(f"SUREL_PLATFORM={platform!r}: this port runs on "
+                         f"'cpu' or 'cuda'")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: set SUREL_PLATFORM=cpu to run "
+                           "on the CPU")
+    return "cuda"
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="SUREL+ on PyTorch/CUDA: link prediction")
+    add_config_args(parser)
+    args = parser.parse_args(argv)
+    cfg = apply_dataset_overrides(config_from_args(args))
+    out = run_experiment(cfg, device=platform_device())
+    print(out.get("best"))
+
+
+if __name__ == "__main__":
+    main()

@@ -47,6 +47,24 @@ class CSRGraph:
                 torch.as_tensor(self.indices, dtype=torch.int64).to(device))
 
 
+def coalesce_edge_list(edges: np.ndarray, weights: np.ndarray):
+    """Deduplicate directed (u, v) pairs summing weights, sorted by (u, v):
+    torch_sparse.coalesce's semantics, which the reference applies to the
+    train edge list before the mask split."""
+    edges = np.asarray(edges, dtype=np.int64)
+    weights = np.asarray(weights)
+    order = np.lexsort((edges[:, 1], edges[:, 0]))
+    e, w = edges[order], weights[order]
+    if not len(e):
+        return e, w
+    new = np.empty(len(e), dtype=bool)
+    new[0] = True
+    new[1:] = (e[1:, 0] != e[:-1, 0]) | (e[1:, 1] != e[:-1, 1])
+    seg = np.cumsum(new) - 1
+    w_out = np.bincount(seg, weights=w).astype(weights.dtype)
+    return e[new], w_out
+
+
 def csr_from_edges(
     edges: np.ndarray,
     num_nodes: Optional[int] = None,

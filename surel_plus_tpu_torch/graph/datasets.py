@@ -1,0 +1,297 @@
+"""Dataset pipeline for link prediction: raw link data -> observed and
+inference graphs (port of the link-prediction part of
+surel_plus_tpu/graph/datasets.py).
+
+`RawLinkData` is the provider-independent payload; `npz_link_data` reads
+an export of it, `fixture_link_data` the committed fixtures,
+`synthetic_link_data` builds an OGB-shaped RMAT stand-in. `LinkPropDataset`
+masks a share of the train edges as training positives, samples their
+negatives and builds the observed graph (the rest of the train edges, and
+the valid edges with use_val) and the inference graph. Every draw comes
+from the caller's numpy `Generator`, in the JAX package's order.
+
+Not ported: `from_ogb` (it downloads), the heterogeneous (MAG) and
+hypergraph datasets.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+from surel_plus_tpu_torch.graph.csr import (
+    CSRGraph,
+    coalesce_edge_list,
+    csr_from_edges,
+)
+from surel_plus_tpu_torch.graph.negative import negative_sampling
+from surel_plus_tpu_torch.graph.synthetic import rmat_graph
+
+log = logging.getLogger(__name__)
+
+# the committed fixtures, read where the JAX package keeps them (data, not
+# code: nothing of that package is imported)
+FIXTURE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "surel_plus_tpu", "data", "fixtures")
+
+
+@dataclasses.dataclass
+class RawLinkData:
+    """Provider-independent raw payload: graph edge_index, per-split query
+    edges (OGB layout), features."""
+
+    edge_index: np.ndarray            # [2, E] graph edges (as loaded)
+    split_edge: Dict                  # OGB-layout split dict
+    num_nodes: int
+    x: Optional[np.ndarray] = None    # [N, F] features
+    edge_weight: Optional[np.ndarray] = None
+    directed: bool = False
+
+
+def npz_link_data(path: str) -> RawLinkData:
+    """Load a RawLinkData npz export (`--dataset npz:<path>`).
+
+    Two layouts are accepted:
+
+    Hits-style (collab/ppa/ddi/vessel):
+      train_edge [E,2], valid_edge/test_edge [Ev,2],
+      valid_neg/test_neg [En,2], num_nodes; optional train_weight/
+      valid_weight/test_weight [E], x [N,F].
+
+    MRR-style (citation2 — directed, per-source negatives):
+      train_src/train_dst [E], valid_src/valid_dst/test_src/test_dst,
+      valid_neg/test_neg [Ev, k] (target_node_neg), num_nodes;
+      optional x.
+    """
+    z = np.load(path)
+    num_nodes = int(z["num_nodes"])
+    x = np.asarray(z["x"]) if "x" in z.files else None
+    if "train_src" in z.files:  # MRR-style (directed)
+        split_edge = {
+            "train": {"source_node": np.asarray(z["train_src"]),
+                      "target_node": np.asarray(z["train_dst"])},
+            "valid": {"source_node": np.asarray(z["valid_src"]),
+                      "target_node": np.asarray(z["valid_dst"]),
+                      "target_node_neg": np.asarray(z["valid_neg"])},
+            "test": {"source_node": np.asarray(z["test_src"]),
+                     "target_node": np.asarray(z["test_dst"]),
+                     "target_node_neg": np.asarray(z["test_neg"])},
+        }
+        edge_index = np.stack([np.asarray(z["train_src"]),
+                               np.asarray(z["train_dst"])]).astype(
+                                   np.int64)
+        return RawLinkData(edge_index=edge_index, split_edge=split_edge,
+                           num_nodes=num_nodes, x=x, directed=True)
+    train_e = np.asarray(z["train_edge"], dtype=np.int64)
+    has_w = "train_weight" in z.files
+    split_edge = {
+        "train": {"edge": train_e},
+        "valid": {"edge": np.asarray(z["valid_edge"], dtype=np.int64),
+                  "edge_neg": np.asarray(z["valid_neg"], dtype=np.int64)},
+        "test": {"edge": np.asarray(z["test_edge"], dtype=np.int64),
+                 "edge_neg": np.asarray(z["test_neg"], dtype=np.int64)},
+    }
+    if has_w:
+        split_edge["train"]["weight"] = z["train_weight"]
+        for s in ("valid", "test"):
+            key = f"{s}_weight"
+            if key in z.files:
+                split_edge[s]["weight"] = z[key]
+    return RawLinkData(
+        edge_index=train_e.T,
+        split_edge=split_edge,
+        num_nodes=num_nodes,
+        x=x,
+        edge_weight=np.asarray(z["train_weight"]) if has_w else None,
+        directed=False,
+    )
+
+
+def fixture_link_data(name: str = "collab") -> RawLinkData:
+    """Load a committed recorded-split fixture (`collabs`, `collab`,
+    `cites`) from FIXTURE_DIR."""
+    return npz_link_data(os.path.join(FIXTURE_DIR, f"{name}_fixture.npz"))
+
+
+def synthetic_link_data(
+    num_nodes: int = 2000,
+    num_edges: int = 8000,
+    seed: int = 0,
+    val_frac: float = 0.05,
+    test_frac: float = 0.05,
+    num_feature: int = 0,
+    mrr_style: bool = False,
+    neg_per_query: int = 50,
+) -> RawLinkData:
+    """OGB-shaped synthetic data: an RMAT graph split into train/valid/test
+    query edges with sampled evaluation negatives."""
+    rng = np.random.default_rng(seed)
+    g = rmat_graph(num_nodes, num_edges, seed=seed)
+    # unique undirected edges (u < v), in the CSR's row-major order
+    row = np.repeat(np.arange(g.num_nodes), g.degrees())
+    keep = row < g.indices
+    edges = np.stack([row[keep], g.indices[keep]]).astype(np.int64)
+    E = edges.shape[1]
+    perm = rng.permutation(E)
+    n_val, n_test = int(E * val_frac), int(E * test_frac)
+    test_e = edges[:, perm[:n_test]]
+    val_e = edges[:, perm[n_test:n_test + n_val]]
+    train_e = edges[:, perm[n_test + n_val:]]
+
+    if mrr_style:
+        split_edge = {
+            "train": {"source_node": train_e[0], "target_node": train_e[1]},
+            "valid": {"source_node": val_e[0], "target_node": val_e[1],
+                      "target_node_neg": rng.integers(
+                          0, num_nodes, size=(n_val, neg_per_query))},
+            "test": {"source_node": test_e[0], "target_node": test_e[1],
+                     "target_node_neg": rng.integers(
+                         0, num_nodes, size=(n_test, neg_per_query))},
+        }
+    else:
+        split_edge = {
+            "train": {"edge": train_e.T},
+            "valid": {"edge": val_e.T,
+                      "edge_neg": negative_sampling(
+                          edges, num_nodes, n_val * 2, rng=rng).T},
+            "test": {"edge": test_e.T,
+                     "edge_neg": negative_sampling(
+                         edges, num_nodes, n_test * 2, rng=rng).T},
+        }
+    x = (rng.standard_normal((num_nodes, num_feature)).astype(np.float32)
+         if num_feature else None)
+    return RawLinkData(edge_index=train_e, split_edge=split_edge,
+                       num_nodes=num_nodes, x=x,
+                       directed=mrr_style)
+
+
+class LinkPropDataset:
+    """Observed-graph construction with edge masking, negative sampling,
+    and use_val inference-graph merging."""
+
+    def __init__(self, raw: RawLinkData, mask_ratio: float = 0.05,
+                 k: int = 10, use_weight: bool = False,
+                 use_coalesce: bool = False, use_feature: bool = False,
+                 use_val: bool = False, rng: Optional[np.random.Generator]
+                 = None, vessel_mode: bool = False):
+        self.raw = raw
+        self.mask_ratio = mask_ratio
+        self.k = k
+        self.use_weight = use_weight and raw.edge_weight is not None
+        self.use_coalesce = use_coalesce
+        self.use_feature = use_feature
+        self.use_val = use_val
+        self.vessel_mode = vessel_mode
+        self.rng = rng if rng is not None else np.random.default_rng(0)
+        self.num_nodes = raw.num_nodes
+        self.num_feature = raw.x.shape[1] if raw.x is not None else 0
+
+        if raw.directed:
+            # citation2-style: the full graph edge list is the train edge
+            # pool
+            self.train_edge = raw.edge_index.T.copy()     # [E, 2]
+        else:
+            self.train_edge = np.asarray(
+                raw.split_edge["train"]["edge"], dtype=np.int64)
+        self.train_weight = (np.asarray(raw.edge_weight)
+                             if self.use_weight else None)
+        if self.use_weight and use_coalesce:
+            # the reference coalesces the train edge list BEFORE the mask
+            # split: this changes which edges get masked, not just the
+            # weights
+            self.train_edge, self.train_weight = coalesce_edge_list(
+                self.train_edge, self.train_weight)
+        self.len_train = len(self.train_edge)
+
+        if use_feature and raw.x is not None and vessel_mode:
+            # vessel column-normalizes features
+            norms = np.linalg.norm(raw.x, axis=0, keepdims=True)
+            self.x = raw.x / np.maximum(norms, 1e-12)
+        else:
+            self.x = raw.x
+
+    def process(self, logger=None) -> Dict[str, CSRGraph]:
+        lg = logger or log
+        lg.info("node size %d, feature dim %d, edge size %d, mask %.3f",
+                self.num_nodes, self.num_feature, self.len_train,
+                self.mask_ratio)
+
+        if self.vessel_mode:
+            pos_edge, obsrv_edge, idx = self._vessel_split()
+            force_undirected = True
+        else:
+            self.num_pos = int(self.len_train * self.mask_ratio)
+            idx = self.rng.permutation(self.len_train)
+            pos_edge = self.train_edge[idx[:self.num_pos]]
+            obsrv_edge = self.train_edge[idx[self.num_pos:]]
+            force_undirected = False
+        self.pos_edge = pos_edge
+
+        # negatives indexed by the same permutation prefix: the reference's
+        # selection quirk
+        neg = negative_sampling(
+            self.raw.edge_index, num_nodes=self.num_nodes,
+            num_neg_samples=self.len_train + 1, rng=self.rng,
+            force_undirected=force_undirected)
+        take = idx[:min(self.num_pos * self.k, self.len_train)]
+        self.neg_edge = neg[:, take].T
+
+        obsrv_w = (self.train_weight[idx[self.num_pos:]]
+                   if self.use_weight else None)
+        val_w = self.train_weight if self.use_weight else None
+
+        val_edge = self.train_edge
+        if self.use_val:
+            valid_e = np.asarray(self.raw.split_edge["valid"]["edge"],
+                                 dtype=np.int64)
+            obsrv_edge = np.concatenate([obsrv_edge, valid_e])
+            inf_edge = np.concatenate([self.train_edge, valid_e])
+            if self.use_weight:
+                vw = np.asarray(self.raw.split_edge["valid"]["weight"])
+                obsrv_w = np.concatenate([obsrv_w, vw])
+                inf_w = np.concatenate([val_w, vw])
+            else:
+                inf_w = None
+        else:
+            inf_edge, inf_w = None, None
+
+        n = self.num_nodes
+        # always coalesce at CSR build (the reference's scipy csr_matrix
+        # sums duplicate entries); use_coalesce only governs the edge-list
+        # coalescing in __init__
+        G_obsrv = csr_from_edges(obsrv_edge, num_nodes=n, weights=obsrv_w,
+                                 coalesce=True)
+        G_val = csr_from_edges(val_edge, num_nodes=n, weights=val_w)
+        if self.use_val:
+            G_full = csr_from_edges(inf_edge, num_nodes=n, weights=inf_w)
+        else:
+            G_full = G_val
+
+        lg.info("observed graph: %d nodes, %d (sym) edges",
+                int((G_obsrv.degrees() > 0).sum()), G_obsrv.num_edges // 2)
+        return {"train": G_obsrv, "val": G_val, "test": G_full}
+
+    def _vessel_split(self):
+        """3-hop-subgraph positive masking around low-degree nodes."""
+        e = self.train_edge
+        deg = np.bincount(e[:, 0], minlength=self.num_nodes)
+        order = np.argsort(deg, kind="stable")
+        target = order[deg[order] > 0]
+        pick = self.rng.permutation(len(target))
+        seeds = target[pick[:int(self.len_train * self.mask_ratio)]]
+        # 3-hop BFS node closure over the (undirected) edge list
+        in_hop = np.zeros(self.num_nodes, dtype=bool)
+        in_hop[seeds] = True
+        for _ in range(3):
+            touched = in_hop[e[:, 0]] | in_hop[e[:, 1]]
+            in_hop[e[touched, 0]] = True
+            in_hop[e[touched, 1]] = True
+        edge_mask = in_hop[e[:, 0]] & in_hop[e[:, 1]]
+        self.num_pos = int(edge_mask.sum())
+        return e[edge_mask], e[~edge_mask], self.rng.permutation(
+            self.len_train)

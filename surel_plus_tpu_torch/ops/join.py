@@ -148,7 +148,8 @@ def gather_join(nodes: torch.Tensor, eidx: torch.Tensor,
     if edges.shape[0] != 2:
         raise ValueError("gather_join handles Q=2 (higher-order queries "
                          "are not ported)")
-    edges = edges.to(torch.int64)
+    # a contiguous index gathers contiguous rows, which the merge takes
+    edges = edges.to(torch.int64).contiguous()
     rows_nodes, rows_eidx = nodes[edges], eidx[edges]          # [2, B, L]
     eu, ev = rows_eidx[0], rows_eidx[1]
     (cross_u,), (cross_v,) = _cross_lookup_bidir_multi(
@@ -188,7 +189,8 @@ def make_keys_join(num_walks: int, num_steps: int, impl: str = "merge",
     with edges [2, B] row indices."""
 
     def join(nodes, khi, klo, sizes, edges):
-        edges = edges.to(torch.int64)
+        # a contiguous index gathers contiguous rows, which the kernels take
+        edges = edges.to(torch.int64).contiguous()
         return join_gathered_keys(nodes[edges], khi[edges], klo[edges],
                                   sizes[edges], num_walks, num_steps,
                                   impl=impl, aligned=aligned,

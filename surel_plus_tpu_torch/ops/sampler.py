@@ -250,6 +250,19 @@ def sample_gsets(
                num_steps=num_steps)
 
 
+def subg_matrix_device_keys(graph: CSRGraph, seeds: np.ndarray,
+                            num_walks: int = 200, num_steps: int = 4,
+                            seed: int = 111413,
+                            bucket: Optional[int] = None,
+                            block_size: int = DEFAULT_BLOCK,
+                            device="cuda") -> SpGKeys:
+    """CLI-convention wrapper over sample_gsets_device_keys: walks have
+    `num_steps - 1` steps."""
+    return sample_gsets_device_keys(graph, seeds, num_walks, num_steps - 1,
+                                    seed=seed, bucket=bucket,
+                                    block_size=block_size, device=device)
+
+
 def subg_matrix_device(graph: CSRGraph, seeds: np.ndarray,
                        num_walks: int = 200, num_steps: int = 4,
                        seed: int = 111413, bucket: Optional[int] = None,

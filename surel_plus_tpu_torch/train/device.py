@@ -12,11 +12,14 @@ weighted BCE, backward, clip + Adam) on the sets' device, and keeps the
 epoch loss and the histogram AUC on the device: nothing in the loop
 waits for the device. `predict` scores query edges batch by batch, with
 the tail batch padded with zero edges as in the reference.
+`evaluate_device` scores the valid and test splits with a trainer and
+reduces them to Hits@K, AUC or MRR on the device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.nn import functional as F
@@ -280,3 +283,44 @@ def trainer_from_keys(model, spgk: SpGKeys, config: TrainConfig,
     else:
         join = join_factory(spgk.num_walks, spgk.num_steps)
     return DeviceTrainer(model, spgk, config, join, feature=feature)
+
+
+def evaluate_device(trainer: DeviceTrainer,
+                    inf_edge: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                    metric: str):
+    """Score the valid and test splits with the trainer's model and reduce
+    them on the device; the host reads only the final scalars.
+    inf_edge[split] = (pos_edge [Q, Ep], neg_edge [Q, En]). Returns
+    (results, seconds of the test split): for a "Hits" metric
+    {"Hits@K": (0, valid, test)} for K in 10, 20, 50, 100; for "AUC"
+    (0, valid, test); otherwise the MRR (0, valid, test), each split's
+    negatives taken k a positive (k = En // Ep, in the order
+    `get_pos_neg_edges` lays them out)."""
+
+    def split_scores(split):
+        pos_edge, neg_edge = inf_edge[split]
+        return trainer.predict(pos_edge), trainer.predict(neg_edge)
+
+    pos_v, neg_v = split_scores("valid")
+    t0 = time.time()
+    pos_t, neg_t = split_scores("test")
+
+    if "Hits" in metric:
+        results = {}
+        for k in (10, 20, 50, 100):
+            results[f"Hits@{k}"] = (
+                0,
+                float(device_hits_at_k(pos_v, neg_v, k)),
+                float(device_hits_at_k(pos_t, neg_t, k)),
+            )
+        return results, time.time() - t0
+    if "AUC" in metric:
+        def auc(pos, neg):
+            labels = torch.cat([torch.ones_like(pos), torch.zeros_like(neg)])
+            return float(device_auc(labels, torch.cat([pos, neg])))
+        return (0, auc(pos_v, neg_v), auc(pos_t, neg_t)), time.time() - t0
+
+    def mrr(pos, neg):
+        k = neg.shape[0] // max(pos.shape[0], 1)
+        return float(device_mrr(pos, neg[:pos.shape[0] * k].reshape(-1, k)))
+    return (0, mrr(pos_v, neg_v), mrr(pos_t, neg_t)), time.time() - t0
