@@ -171,6 +171,26 @@ NVIDIA GPU. Run from the repository root:
    general hi/lo layout (M=1000, S'=4, L=4001: K5 over the feature
    pairs, its 75.5 GB stash split into row groups), each with its peak
    device memory (below the card's) and the rows of a stash group.
+   Then HONet, the hyperedge path (bench.py:274-307, `honet_path`), on
+   the main path's sets: `HONet(96, dropout 0.1)` from a seeded
+   generator through `trainer_from_keys` over the hyperedge join
+   (`make_keys_hjoin`, its feature pairs left out on the fused route),
+   `predict` over 65,536 random hyperedges, the fused route (K1 as two
+   Q=2 launches over the halves of the join's [B, 4L] cross plane)
+   against the unfused one (the feature pairs) on one batch (fp32,
+   1e-4), the card against the
+   port's CPU path on 256 queries (1e-4), a cold 2-epoch fit (no
+   synchronizing call) and a timed one over those hyperedges with random
+   0/1 labels, the card against the CPU after 4 training steps, a
+   profile of a few steps; K1, K1 bwd and K2 on HONet's own batch with
+   its weights, K1 in both forms (one Q=4 launch over [B, 4L], two Q=2
+   launches over its halves), at phase 2's tolerances, two launches bit
+   for bit; and the two forms timed (kernels forward, backward and both
+   as issued and queued, each form's forward and its forward and
+   backward through autograd). Then the same at the tags-math
+   class shape (M=200, S'=4, L=801, root planes) on the wide sets: a
+   cold and a timed fit of 16 steps at batch 2048, the kernels and the
+   two forms' times.
    Last, the link-prediction CLI (`cli_path`): `run_experiment` on four
    rows of scripts/run_jax_matrix.sh at its flags (fixture-collabs mean,
    attn and lstm, fixture-cites mean), one run of 4 epochs each (data
@@ -181,10 +201,18 @@ NVIDIA GPU. Run from the repository root:
    batch joined over the row's sets, with the weights its run left; K1
    and K1 bwd (mean rows), K3 and K3 bwd (attn) or K4 and K4 bwd (lstm),
    and K2, each against its plain version at phase 2's tolerances.
+   Then the higher-order CLI (`cli_horder_path`):
+   `main_horder.run_experiment` on the tags fixture at its row's flags
+   (M=50, k=10, batch 4096, `--valid_perc 25`), one run of 4 epochs
+   (evaluations after epochs 0, 2 and 3), its launches counted as
+   `cli_tags_honet`, every MRR finite and the best pair above
+   CLI_FLOOR, then its K1 (both forms), K1 bwd and K2 on its first
+   training batch with the weights its run left.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
-   after), prints one JSON line describing each kernel, the card's name
-   and power limit, and, last, the result line.
+   after), prints one JSON line describing each kernel, the run's total
+   seconds, the card's name and power limit, and, last, the result
+   line.
 
 Exits non-zero, printing no result line, when there is no CUDA device or
 any phase fails.
@@ -194,6 +222,7 @@ any phase fails.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import os
@@ -213,14 +242,17 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np
 import torch
 
+from surel_plus_tpu_torch.cli import main_horder
 from surel_plus_tpu_torch.cli.main import run_experiment
 from surel_plus_tpu_torch.graph import rmat_graph
-from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.models import HONet, Net
+from surel_plus_tpu_torch.models.honet import group_set_sums
 from surel_plus_tpu_torch.ops import join as join_ops
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import (
     gather_join,
     join_gathered_keys,
+    make_keys_hjoin,
     make_keys_join,
     unpack_key_features,
 )
@@ -306,6 +338,20 @@ CLI_ROWS = {
 # 50 / 100,000 Hits@50 on the collabs fixture and H(51) / 51 = 0.088 MRR
 # against the cites fixture's 50 negatives a source
 CLI_FLOOR = {"Hits@50": 0.01, "MRR": 0.2}
+# HONet: bench.py:274-307 (2 epochs over 65,536 random hyperedges, batch
+# 4096, on the main path's sets), then the tags-math class shape (M=200,
+# S'=4, L=801: the lead-in-hi layout) at batch 2048 for TAGS_STEPS steps
+H_EPOCHS, H_EDGES = 2, N_BATCHES * BATCH // 2
+TAGS_BATCH, TAGS_STEPS = 2048, 16
+# the tags fixture's HONet row (FIXTURE_RESULTS.md:72), one run of
+# CLI_EPOCHS epochs: evaluations after epochs 0, 2 and 3 (the JAX CLI's
+# blocks); random scores give H(51) / 51 = 0.088 MRR against its 50
+# negatives a triplet
+TAGS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "surel_plus_tpu", "data", "fixtures",
+                            "tags_fixture.npz")
+CLI_HROW = dict(dataset=f"npz:{TAGS_FIXTURE}", num_walks=50, k=10,
+                batch_size=4096, valid_perc=25)
 # operations of one LSTM cell update per unit: three sigmoids (exp, add,
 # divide) and two tanh (counted as 3 each), the cell's 3 and the output's 1
 LSTM_CELL_OPS = 19
@@ -398,6 +444,12 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "cli_collabs_lstm": ("lstm_keys_fwd", "lstm_keys_bwd",
                               "merge_pairs"),
          "cli_cites_mean": ("hidden_sum_fwd", "hidden_sum_bwd",
+                            "merge_pairs"),
+         "honet_serve": ("hidden_sum_fwd", "merge_pairs"),
+         "honet_train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs"),
+         "honet_tags_train": ("hidden_sum_fwd", "hidden_sum_bwd",
+                              "merge_pairs"),
+         "cli_tags_honet": ("hidden_sum_fwd", "hidden_sum_bwd",
                             "merge_pairs")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
@@ -2747,12 +2799,12 @@ def pair_join(num_walks, num_steps):
 
 
 def path_name(trainer) -> str:
-    """The aggregator, which store the trainer reads, and the unfused
-    route where the model takes it."""
+    """The aggregator (or HONet), which store the trainer reads, and the
+    unfused route where the model takes it."""
     table = isinstance(trainer.sets, SpGDevice)
     unfused = trainer.model.fused_hidden is False
-    return (f"{trainer.model.aggrs}{', table' if table else ''}"
-            f"{', unfused' if unfused else ''}")
+    return (f"{getattr(trainer.model, 'aggrs', 'honet')}"
+            f"{', table' if table else ''}{', unfused' if unfused else ''}")
 
 
 def subset(sets, edges: torch.Tensor):
@@ -2913,10 +2965,10 @@ def fit_timed(trainer, edges, labels, gen, epochs, label) -> None:
     dt = time.perf_counter() - t0
     losses, aucs = losses.cpu(), aucs.cpu()
     n = epochs * edges.shape[1]
+    steps = epochs * -(-edges.shape[1] // trainer.config.batch_size)
     say(f"train ({path_name(trainer)}): {epochs} epochs x {edges.shape[1]}"
         f" queries in {dt:.4f} s -> {n / dt:.1f} queries/s "
-        f"({epochs * N_BATCHES} steps, "
-        f"{1e3 * dt / (epochs * N_BATCHES):.4f} ms/step) [{label}]")
+        f"({steps} steps, {1e3 * dt / steps:.4f} ms/step) [{label}]")
     say(f"  epoch losses {[round(float(x), 6) for x in losses]}")
     say(f"  epoch AUCs   {[round(float(x), 6) for x in aucs]}")
     require(bool(torch.isfinite(losses).all()), "a loss is not finite")
@@ -3545,6 +3597,308 @@ def cli_kernels(row, trainer, edges) -> None:
     k2_compare(merge_rows(sets.nodes[be], sets.klo[be]), tag)
 
 
+# ------------------------------------------------------------ HONet
+def make_honet(sets: SpGKeys, device=None, **kw) -> HONet:
+    """HONet at the bench width (hidden 96) over `sets`' encodings, on the
+    card unless `device` says otherwise."""
+    return HONet(sets.num_steps + 1, HIDDEN,
+                 device=DEVICE if device is None else device, **kw)
+
+
+def honet_trainer(net: HONet, sets: SpGKeys, cfg):
+    """`trainer_from_keys` over the hyperedge join, which builds what the
+    model reads on the sets' device."""
+    return trainer_from_keys(net, sets, cfg, join_factory=functools.partial(
+        make_keys_hjoin, **net.join_outputs(sets.nodes.device)))
+
+
+def honet_setup(sets: SpGKeys, batch: int, n_edges: int, seed: int = 0):
+    """bench.py:274-293 on the port: HONet(96, dropout 0.1) from a seeded
+    generator, its trainer over `sets`, `n_edges` random hyperedges with
+    random 0/1 labels, and the generator of the permutations and dropout
+    masks."""
+    net = make_honet(sets, dropout=0.1,
+                     generator=torch.Generator().manual_seed(0))
+    trainer = honet_trainer(net, sets, TrainConfig(
+        batch_size=batch, lr=LR, grad_clip=GRAD_CLIP))
+    rng = np.random.default_rng(seed)
+    hedges = torch.as_tensor(rng.integers(
+        0, sets.nodes.shape[0], size=(3, n_edges))).to(DEVICE)
+    labels = torch.as_tensor((rng.random(n_edges) < 0.5).astype(
+        np.float32)).to(DEVICE)
+    return trainer, hedges, labels, torch.Generator(
+        device=DEVICE).manual_seed(5)
+
+
+def honet_check_routes(sets: SpGKeys, net: HONet, hedges) -> None:
+    """The fused route (K1 over the key planes) against the unfused route
+    (the hidden layer over the feature pairs) on one batch, both on the
+    card, fp32 at CPU_TOL; then the card against the port's CPU path on
+    N_REF queries (scores at CPU_TOL)."""
+    state = net.state_dict()
+    be = hedges[:, :BATCH]
+    rows = (sets.nodes, sets.khi, sets.klo, sets.sizes, be)
+    nw, ns = sets.num_walks, sets.num_steps
+    plain = make_honet(sets, fused_hidden=False)
+    plain.load_state_dict(state)
+    with torch.inference_mode():
+        keys = make_keys_hjoin(nw, ns, **net.join_outputs(DEVICE))(*rows)
+        require(keys.eidx is None and keys.kcross is not None,
+                "HONet's join on the card builds feature pairs")
+        got = net.eval()(keys)
+        want = plain.eval()(make_keys_hjoin(nw, ns)(*rows))
+    require(got.shape == (BATCH,) and bool(torch.isfinite(got).all()),
+            "HONet's fused route gave bad logits")
+    err = float((got - want).abs().max())
+    say(f"HONet fused vs unfused route, one batch of {BATCH} (fp32): max "
+        f"|d logit| = {err:.3e}, max |logit| = {float(want.abs().max()):.3e}"
+        f" (rtol = atol = {CPU_TOL})")
+    require(torch.allclose(got, want, rtol=CPU_TOL, atol=CPU_TOL),
+            "HONet's fused route disagrees with its unfused route")
+    small, cpu_small, remap = subset(sets, be[:, :N_REF])
+    scores = {}
+    for dev, part in ((DEVICE, small), ("cpu", cpu_small)):
+        m = make_honet(sets, device=dev)
+        m.load_state_dict(state)
+        scores[dev] = honet_trainer(m, part, TrainConfig(
+            batch_size=N_REF)).predict(remap.to(dev)).cpu()
+    err = float((scores[DEVICE] - scores["cpu"]).abs().max())
+    say(f"HONet card vs CPU path, {N_REF} queries (fp32): max |d score| = "
+        f"{err:.3e} (rtol = atol = {CPU_TOL})")
+    require(torch.allclose(scores[DEVICE], scores["cpu"], rtol=CPU_TOL,
+                           atol=CPU_TOL),
+            "HONet on the card disagrees with the port's CPU path")
+
+
+def honet_train_cpu(sets: SpGKeys, net: HONet, hedges, labels) -> None:
+    """REF_STEPS training steps on the card (the fused route: K1, K1 bwd,
+    K2) against the port's CPU path (the unfused route), fp32, dropout 0,
+    one shared permutation."""
+    n = REF_STEPS * REF_BATCH
+    small, cpu_small, remap = subset(sets, hedges[:, :n])
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(4))
+    cfg = TrainConfig(batch_size=REF_BATCH, lr=LR, grad_clip=GRAD_CLIP)
+    out = {}
+    for dev, part in ((DEVICE, small), ("cpu", cpu_small)):
+        m = make_honet(sets, dropout=0.0, device=dev)
+        m.load_state_dict(net.state_dict())
+        losses, _ = honet_trainer(m, part, cfg).fit(
+            remap.to(dev), labels[:n].to(dev), 1,
+            torch.Generator(device=dev),
+            perms=[perm.reshape(REF_STEPS, REF_BATCH)])
+        out[dev] = (losses.cpu(), {k: v.cpu() for k, v in
+                                   m.state_dict().items()})
+    (lg, pg), (lc, pc) = out[DEVICE], out["cpu"]
+    err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    ok = all(torch.allclose(pg[k], pc[k], rtol=CPU_TRAIN_RTOL,
+                            atol=CPU_TRAIN_ATOL) for k in pc)
+    say(f"HONet card vs CPU training, {REF_STEPS} steps x {REF_BATCH} "
+        f"queries (fp32): loss {float(lg[0]):.6f} vs {float(lc[0]):.6f}, "
+        f"max |d param| = {err:.3e} (rtol {CPU_TRAIN_RTOL}, atol "
+        f"{CPU_TRAIN_ATOL}) {'ok' if ok else 'FAIL'}")
+    require(ok and torch.allclose(lg, lc, rtol=1e-5),
+            "HONet's training on the card disagrees with the port's CPU "
+            "path")
+
+
+def k1_halves(q4):
+    """K1's operands over a hyperedge join's [B, 4L] plane (`q4`) as the
+    two Q=2 halves `group_set_sums` launches: groups 0-1 over the plane's
+    first half, 2-3 over its second, the cross planes row-strided views."""
+    kown, mown, kcross, mcross, u_ext, shift, rown, rcross = q4
+    half = kcross.shape[1] // 2
+    out = []
+    for g, c in ((slice(0, 2), slice(0, half)),
+                 (slice(2, 4), slice(half, 2 * half))):
+        out.append((kown[g], mown[g], kcross[:, c], mcross[g, :, c], u_ext,
+                    shift, None if rown is None else rown[g],
+                    None if rcross is None else rcross[:, c]))
+    return out
+
+
+def honet_batch(trainer, hedges):
+    """The first training batch of `hedges` joined by the HONet trainer,
+    with the weights its model holds: the join, K1's operands in both
+    forms (Q=4 over [B, 4L], the two Q=2 halves) and the two merges'
+    operands, (u, w) and (v, w)."""
+    model, sets = trainer.model, trainer.sets
+    be = hedges[:, :trainer.config.batch_size].contiguous()
+    with torch.no_grad():
+        joined, _ = trainer._batch(be)
+        u_ext = model._u_ext()
+    shift = int(model.key_layout[0]).bit_length()
+    q4 = (joined.kown, joined.mask, joined.kcross, joined.kcross_mask,
+          u_ext, shift, joined.kown_root, joined.kcross_root)
+    rn, rl = sets.nodes[be], sets.klo[be]
+    merges = [merge_rows(torch.stack([rn[a], rn[2]]),
+                         torch.stack([rl[a], rl[2]])) for a in (0, 1)]
+    return joined, q4, k1_halves(q4), merges
+
+
+def honet_kernels(trainer, hedges, tag, gen):
+    """K1 (both forms), K1 bwd on a seeded cotangent and K2 (both merges) on
+    one HONet batch (`honet_batch`), each against its plain version at
+    phase 2's tolerances, two launches bit for bit. Returns the batch and
+    the cotangent."""
+    joined, q4, halves, merges = honet_batch(trainer, hedges)
+    g4 = torch.randn(4, q4[0].shape[1], trainer.model.hidden_dim,
+                     generator=gen).to(DEVICE)
+    k1_compare(q4, f"{tag}, Q=4 over [B, 4L]")
+    k1b_compare(q4, g4, f"{tag}, Q=4 over [B, 4L]")
+    for i, h in enumerate(halves):
+        k1_compare(h, f"{tag}, Q=2 half {i}")
+        k1b_compare(h, g4[2 * i:2 * i + 2], f"{tag}, Q=2 half {i}")
+    for m, which in zip(merges, ("(u, w)", "(v, w)")):
+        k2_compare(m, f"{tag}, merge {which}")
+    return joined, q4, halves, g4
+
+
+def honet_form_times(batch, label) -> None:
+    """The fused route's set sums in its two forms, one Q=4 launch over
+    [B, 4L] against the route's two Q=2 launches over the halves
+    (row-strided views): the kernels' forward, backward, and forward and
+    backward together, each as issued and queued (the last, queued, is
+    what chose the route), and each form's forward and its forward and
+    backward through autograd, as issued."""
+    joined, q4, halves, g4 = batch
+    fwd = hidden_sum.fused_key_hidden_sum_cuda
+    bwd = hidden_sum.fused_key_hidden_sum_bwd_cuda
+    u_ext, shift = q4[4], q4[5]
+
+    def k1_both(args, g):
+        fwd(*args)
+        k1b_call(bwd, args, g)
+
+    def sums_q4(u):
+        kown, mown, kcross, mcross, _, _, rown, rcross = q4
+        return hidden_sum.fused_key_hidden_sum(
+            kown, mown, kcross, mcross, u, shift, root_own=rown,
+            root_cross=rcross)
+
+    def through_autograd(sums, backward):
+        u = u_ext.detach().requires_grad_(backward)
+        out = sums(u)
+        if backward:
+            out.backward(g4)
+
+    kernels = {
+        "K1 forward, one Q=4 launch": lambda: fwd(*q4),
+        "K1 forward, two Q=2 launches": lambda: [fwd(*h) for h in halves],
+        "K1 bwd, one Q=4 launch": lambda: k1b_call(bwd, q4, g4),
+        "K1 bwd, two Q=2 launches": lambda: [
+            k1b_call(bwd, h, g4[2 * i:2 * i + 2])
+            for i, h in enumerate(halves)],
+        "K1 forward and bwd, one Q=4 launch each": lambda: k1_both(q4, g4),
+        "K1 forward and bwd, two Q=2 launches each": lambda: [
+            k1_both(h, g4[2 * i:2 * i + 2]) for i, h in enumerate(halves)]}
+    for name, fn in kernels.items():
+        say(f"HONet set sums {label}, {name}: {time_ms(fn):.4f} ms as "
+            f"issued, {queued_ms(fn):.4f} ms queued")
+    b1, b1b = k1_bound(q4), k1b_bound(q4, g4)
+    say(f"HONet set sums {label}: K1's bound {b1[0]:.4f} ms ({b1[1]}), "
+        f"K1 bwd's {b1b[0]:.4f} ms ({b1b[1]}), either form")
+    for form, sums in (("one Q=4 launch", sums_q4),
+                       ("two Q=2 launches, the route",
+                        lambda u: group_set_sums(joined, u, shift))):
+        with torch.no_grad():
+            t_f = time_ms(lambda: through_autograd(sums, False))
+        t_fb = time_ms(lambda: through_autograd(sums, True))
+        say(f"HONet set sums {label}, {form}: forward {t_f:.4f} ms, "
+            f"forward and backward through autograd {t_fb:.4f} ms, as "
+            f"issued")
+
+
+def honet_path(spgk: SpGKeys, spw: SpGKeys, label, launches) -> None:
+    """HONet, the hyperedge path (bench.py:274-307), on the main path's
+    sets: `predict` over 65,536 random hyperedges (`honet_serve`), the
+    fused route against the unfused one and the card against the CPU, a
+    cold fit (no synchronizing call) and a timed fit of 2 epochs
+    (`honet_train`), card-vs-CPU training, a profile of a few steps, its
+    kernels on its own batch and the two forms' times; then a fit at the
+    tags-math class shape (M=200, S'=4, L=801, batch 2048:
+    `honet_tags_train`) with its kernels and the two forms' times there."""
+    trainer, hedges, labels, gen = honet_setup(spgk, BATCH, H_EDGES)
+    net = trainer.model
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    timed_predict(trainer, hedges, label, "honet")
+    launches["honet_serve"] = counts()
+    say(f"launches on the HONet serving path: {launches['honet_serve']}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    honet_check_routes(spgk, net, hedges)
+    fit_cold(trainer, hedges, labels, gen, H_EPOCHS)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fit_timed(trainer, hedges, labels, gen, H_EPOCHS, label)
+    launches["honet_train"] = counts()
+    say(f"launches on the HONet training path (timed fit): "
+        f"{launches['honet_train']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    honet_train_cpu(spgk, net, hedges, labels)
+    profile_train(trainer, hedges, labels, gen)
+    kgen = torch.Generator().manual_seed(22)
+    honet_form_times(honet_kernels(
+        trainer, hedges, f"HONet lo-only M={NUM_WALKS} S'={NUM_STEPS}",
+        kgen), f"lo-only (L={spgk.nodes.shape[1]}, B={BATCH})")
+    del trainer, hedges, labels
+
+    ttrainer, thedges, tlabels, tgen = honet_setup(
+        spw, TAGS_BATCH, TAGS_BATCH * TAGS_STEPS, seed=1)
+    fit_cold(ttrainer, thedges, tlabels, tgen, 1)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    fit_timed(ttrainer, thedges, tlabels, tgen, 1, label)
+    launches["honet_tags_train"] = counts()
+    say(f"launches on the HONet fit at the tags-math class shape (M="
+        f"{spw.num_walks}, S'={spw.num_steps}, L={spw.nodes.shape[1]}, "
+        f"batch {TAGS_BATCH}): {launches['honet_tags_train']}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    honet_form_times(honet_kernels(
+        ttrainer, thedges, f"HONet lead-in-hi M={spw.num_walks} "
+        f"S'={spw.num_steps}", kgen),
+        f"lead-in-hi (L={spw.nodes.shape[1]}, B={TAGS_BATCH})")
+
+
+def cli_horder_path(label, launches) -> None:
+    """The higher-order CLI on the tags fixture: `main_horder.run_experiment`
+    on the card at the row's flags (CLI_HROW), one run of CLI_EPOCHS epochs,
+    its log in a temporary directory, its launches counted as
+    `cli_tags_honet`; every evaluated MRR finite and the best pair above
+    CLI_FLOOR; then its kernels on its first training batch over its sets,
+    with the weights its run left."""
+    cfg = ExperimentConfig(num_steps=3, epochs=CLI_EPOCHS, eval_steps=2,
+                           early_stop=10, runs=1, **CLI_HROW)
+    with tempfile.TemporaryDirectory() as log_dir:
+        cfg.log_dir = log_dir
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = main_horder.run_experiment(cfg, device=DEVICE)
+        sync()
+        dt = time.perf_counter() - t0
+    launches["cli_tags_honet"] = counts()
+    evals = out["results"].results[0]
+    best = out["best"][0]
+    say(f"cli tags_honet (tags fixture, HONet, M={cfg.num_walks}, batch "
+        f"{cfg.batch_size}, {CLI_EPOCHS} epochs): MRR (valid, test) by eval "
+        f"{[tuple(e[1:]) for e in evals]}, best {best} in {dt:.2f} s; "
+        f"launches "
+        f"{ {k: v for k, v in launches['cli_tags_honet'].items() if v} }; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{label}]")
+    require(len(evals) == 3 and all(math.isfinite(x) for e in evals
+                                    for x in e[1:]),
+            "cli tags_honet: an evaluation is missing or not finite")
+    require(min(best) > CLI_FLOOR["MRR"],
+            f"cli tags_honet: best MRR {best} not above {CLI_FLOOR['MRR']}")
+    sets = out["trainer"].sets
+    honet_kernels(out["trainer"], out["edges"],
+                  f"cli tags_honet (M={sets.num_walks}, S'={sets.num_steps},"
+                  f" trained weights, a training batch)",
+                  torch.Generator().manual_seed(23))
+
+
 def counts():
     return {name: k["kernel"].launches for name, k in KERNELS.items()}
 
@@ -3555,6 +3909,7 @@ def zero_counts() -> None:
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3668,9 +4023,14 @@ def main() -> int:
     # the general layout
     spw, _, _ = joined_batch(g, WIDE_WALKS, WIDE_STEPS, seed=12)
     wide_lstm_fits(spw, gsets, label)
+    # HONet, the hyperedge path, on the main path's sets, then at the
+    # tags-math class shape on the wide sets
+    honet_path(spgk, spw, label, launches)
     del spw
     # the link-prediction CLI on the committed fixtures
     cli_path(label, launches)
+    # the higher-order CLI on the tags fixture
+    cli_horder_path(label, launches)
 
     # phase 4
     for path, names in PATHS.items():
@@ -3691,6 +4051,7 @@ def main() -> int:
             plain_ms=st["plain_ms"], bound_ms=st["bound"][0],
             bound_by=st["bound"][1], library_ms=st["library_ms"]))
     say(json.dumps({"kernels": rows}))
+    say(f"total: {time.perf_counter() - start:.1f} s")
     say(label)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

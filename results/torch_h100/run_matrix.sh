@@ -1,9 +1,10 @@
 #!/bin/bash
 # The fixture accuracy matrix of the PyTorch/CUDA port on one GPU: the
 # rows of scripts/run_jax_matrix.sh, with its flags and run counts, through
-# the port's CLI. Run from anywhere:
+# the port's CLI, and the tags fixture's HONet row (FIXTURE_RESULTS.md:72)
+# through the port's higher-order CLI. Run from anywhere:
 #
-#   bash results/torch_h100/run_matrix.sh [ROW[@SEED] ...]  (default: the six)
+#   bash results/torch_h100/run_matrix.sh [ROW[@SEED] ...]  (default: all 7)
 #
 # Writes, per row, results/torch_h100/<row>.out (stdout: the best (valid,
 # test) per run), <row>.err (stderr) and <row>.log (the run's log file,
@@ -28,12 +29,18 @@ declare -A ARGS=(
   [collab_mean]="--dataset fixture-collab --aggrs mean --num_walks 200 --num_steps 3 --k 10 --epochs 30 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096"
   [collab_attn]="--dataset fixture-collab --aggrs attn --num_walks 200 --num_steps 3 --k 10 --epochs 30 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096"
   [cites_mean]="--dataset fixture-cites --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 16 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096"
+  # JAX's command for this row is on record only in part (FIXTURE_RESULTS.md:72:
+  # 12 epochs, M=50, k=10, batch 4096, --valid_perc 25, 3 runs);
+  # --num_steps 3, --eval_steps 2 and --early_stop 10 are the other rows'
+  [tags_honet]="--dataset npz:surel_plus_tpu/data/fixtures/tags_fixture.npz --num_walks 50 --num_steps 3 --k 10 --epochs 12 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --valid_perc 25"
   # a row re-run with twice its runs, named only on the command line
   [collabs_attn_x2]="--dataset fixture-collabs --aggrs attn --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 12 --batch_size 4096"
   [cites_mean_x2]="--dataset fixture-cites --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 16 --eval_steps 2 --early_stop 10 --runs 6 --batch_size 4096"
 )
+# the CLI of each row: link prediction, or higher-order prediction
+declare -A CLI=([tags_honet]=surel_plus_tpu_torch.cli.main_horder)
 ROWS=("$@")
-[ ${#ROWS[@]} -eq 0 ] && ROWS=(collabs_mean collabs_attn collabs_lstm collab_mean collab_attn cites_mean)
+[ ${#ROWS[@]} -eq 0 ] && ROWS=(collabs_mean collabs_attn collabs_lstm collab_mean collab_attn cites_mean tags_honet)
 
 # ROW@S runs ROW with --seed S (its data prep, sets, weights and batch
 # orders all from S) and names its files ROW_seedS
@@ -47,14 +54,17 @@ for row in "${ROWS[@]}"; do
     name=${base}_seed${row#*@}
   fi
   NAMES+=("$name")
-  echo "=== $name: $(date -u +%H:%M:%S) python -m surel_plus_tpu_torch.cli.main $args --log_dir $out/logs/$name"
+  cli=${CLI[$base]:-surel_plus_tpu_torch.cli.main}
+  echo "=== $name: $(date -u +%H:%M:%S) python -m $cli $args --log_dir $out/logs/$name"
   rm -rf $out/logs/$name
   start=$(date +%s%N)
-  python -m surel_plus_tpu_torch.cli.main $args --log_dir $out/logs/$name \
+  python -m $cli $args --log_dir $out/logs/$name \
     > $out/$name.out 2> $out/$name.err
   rc=$?
   ms=$(( ($(date +%s%N) - start) / 1000000 ))
-  mv $out/logs/$name/*/*.log $out/$name.log && rm -r $out/logs/$name
+  # the log sits under logs/<row>/<dataset>/, the dataset a path for npz:
+  find $out/logs/$name -name '*.log' -exec mv {} $out/$name.log \; \
+    && rm -r $out/logs/$name
   echo "=== $name done rc=$rc in $ms ms ($out/$name.log)"
   tail -n 3 $out/$name.err
   grep -h "phase" $out/$name.log | sed 's/.* - INFO - /  /'

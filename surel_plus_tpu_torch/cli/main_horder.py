@@ -1,0 +1,195 @@
+"""Higher-order pattern prediction on the device engine (port of the device
+branch of surel_plus_tpu/cli/main_horder.py, the reference's
+main_horder.py:24-141): 3-node hyperedge (triplet) queries over one
+encoder graph, HONet, MRR against k random third nodes a triplet.
+
+Loads a triplet dataset and draws its training negatives
+(`DEHyperDataset.process`), samples a packed-key set for every node of
+the encoder graph, then per run trains with `DeviceTrainer.fit` over the
+hyperedge join (`make_keys_hjoin`) between evaluations
+(`evaluate_device`, MRR), stops early on the validation MRR
+(`ResultLogger`) and logs each run's statistics. The epoch blocks are the
+JAX CLI's: epoch 0 alone, then `eval_steps` epochs a block (the last one
+shorter), an evaluation after each block.
+
+Usage:
+  python -m surel_plus_tpu_torch.cli.main_horder \\
+      --dataset npz:surel_plus_tpu/data/fixtures/tags_fixture.npz \\
+      --num_walks 50 --num_steps 3 --k 10 --epochs 12 ...
+
+It runs on the CUDA device. `SUREL_PLATFORM=cpu` runs it on the CPU, the
+kernels' plain versions in their place; without that variable and with no
+CUDA device it raises.
+
+Not ported, and raising NotImplementedError: `--engine host` (the host
+engine), `--inf_only` / `--load_model` and `--resume` (checkpoints), and
+the reference's `./dataset/sgrl/<name>.pl` pickles (`--dataset` other
+than `synth*` and `npz:`). No checkpoint is written: the JAX CLI writes
+one at each best validation MRR; the port's come with its checkpoint
+module.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from surel_plus_tpu_torch.cli.main import platform_device
+from surel_plus_tpu_torch.graph.datasets import (
+    DEHyperDataset,
+    synthetic_hyper_data,
+)
+from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
+from surel_plus_tpu_torch.models import HONet
+from surel_plus_tpu_torch.ops.join import make_keys_hjoin
+from surel_plus_tpu_torch.ops.sampler import subg_matrix_device_keys
+from surel_plus_tpu_torch.train import TrainConfig
+from surel_plus_tpu_torch.train.device import (
+    evaluate_device,
+    trainer_from_keys,
+)
+from surel_plus_tpu_torch.utils.config import (
+    ExperimentConfig,
+    add_config_args,
+    config_from_args,
+)
+from surel_plus_tpu_torch.utils.logger import ResultLogger, set_up_log
+from surel_plus_tpu_torch.utils.profiling import metrics
+from surel_plus_tpu_torch.utils.seeding import set_random_seed
+
+
+def unported(cfg: ExperimentConfig) -> None:
+    """Raise NotImplementedError for an option this port does not run."""
+    reasons = [
+        (cfg.engine == "host", "--engine host (the host engine)"),
+        (cfg.resume is not None, "--resume (checkpoints)"),
+        (cfg.inf_only or cfg.load_model is not None,
+         "--inf_only / --load_model (checkpoints)"),
+    ]
+    for hit, what in reasons:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.engine not in ("auto", "device"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+
+
+def load_hyper(cfg: ExperimentConfig) -> DEHyperDataset:
+    if "synth" in cfg.dataset:
+        return synthetic_hyper_data(num_nodes=cfg.synth_nodes,
+                                    num_triplets=cfg.synth_edges,
+                                    seed=cfg.seed)
+    if cfg.dataset.startswith("npz:"):
+        return DEHyperDataset.from_npz(cfg.dataset[4:], k=cfg.k)
+    raise NotImplementedError(
+        f"dataset {cfg.dataset}: the reference's ./dataset/sgrl/<name>.pl "
+        f"pickles are not read by this port; export one with the JAX "
+        f"package's README recipe and pass --dataset npz:<file>")
+
+
+def run_experiment(cfg: ExperimentConfig, logger=None,
+                   device="cuda") -> Dict:
+    """Returns {'best': [(valid, test) per run], 'results': ResultLogger,
+    'trainer': the DeviceTrainer, its HONet as the last run left it,
+    'edges': the training hyperedges [3, E] on the device}. The phase
+    timer is reset first, so its report covers this call."""
+    unported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: set SUREL_PLATFORM=cpu (or "
+                           "pass device='cpu') to run on the CPU")
+    metrics.reset()
+    set_random_seed(cfg.seed)
+    if logger is None:
+        logger = set_up_log(cfg.log_dir, cfg.dataset,
+                            args_repr=str(dataclasses.asdict(cfg)))
+    cfg.metric = "MRR"  # always MRR (the reference's main_horder.py:69)
+
+    ds = load_hyper(cfg)
+    G_enc = ds.process(logger)
+
+    prep_start = time.time()
+    fused = {"auto": None, "on": True, "off": False}[cfg.fused_hidden]
+    model = HONet(input_dim=cfg.num_steps, hidden_dim=cfg.hidden_channels,
+                  dropout=cfg.dropout, fused_hidden=fused, device=device)
+    tcfg = TrainConfig(batch_size=cfg.batch_size, lr=cfg.lr,
+                       epochs=cfg.epochs, eval_steps=cfg.eval_steps,
+                       early_stop=cfg.early_stop, seed=cfg.seed)
+    spgk = subg_matrix_device_keys(
+        G_enc, np.arange(G_enc.num_nodes, dtype=np.int32),
+        num_walks=cfg.num_walks, num_steps=cfg.num_steps, seed=cfg.seed,
+        device=device)
+    trainer = trainer_from_keys(model, spgk, tcfg, join_factory=(
+        functools.partial(make_keys_hjoin, **model.join_outputs(device))))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    logger.info("Prep. Runtime (LP): %.2fs", time.time() - prep_start)
+    metrics.add("prep", time.time() - prep_start)
+
+    pos = ds.pos_hedge.T.astype(np.int32)
+    neg = ds.neg_hedge.T.astype(np.int32)
+    edges = np.concatenate([pos, neg], axis=1)
+    labels = np.concatenate([np.ones(pos.shape[1], np.float32),
+                             np.zeros(neg.shape[1], np.float32)])
+    val_edge = get_pos_neg_edges("valid", ds.split_edge, None,
+                                 ds.num_nodes, percent=cfg.valid_perc)
+    test_edge = get_pos_neg_edges("test", ds.split_edge, None,
+                                  ds.num_nodes)
+    edges_dev = torch.as_tensor(edges, dtype=torch.int64).to(device)
+    labels_dev = torch.as_tensor(labels).to(device)
+    inf_dev = {split: tuple(torch.as_tensor(e, dtype=torch.int64).to(device)
+                            for e in pair)
+               for split, pair in (("valid", val_edge), ("test", test_edge))}
+
+    rlog = ResultLogger(runs=cfg.runs, metric="MRR",
+                        early_stop=cfg.early_stop)
+    for run in range(cfg.runs):
+        trainer.init(torch.Generator().manual_seed(cfg.seed + run))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(cfg.seed + 1000 + run)
+        epoch = 0
+        while epoch < cfg.epochs:
+            # epoch 0 alone, then blocks of eval_steps epochs, an
+            # evaluation after each block
+            n = 1 if epoch == 0 else min(cfg.eval_steps,
+                                         cfg.epochs - epoch)
+            with metrics.phase("train_epoch", items=edges.shape[1] * n):
+                losses, aucs = trainer.fit(edges_dev, labels_dev, n, gen)
+                losses, aucs = losses.cpu().numpy(), aucs.cpu().numpy()
+            for i in range(n):
+                logger.info("Run: %02d, Epoch: %02d, Loss: %.4f, "
+                            "AUC: %.4f", run + 1, epoch + i,
+                            float(losses[i]), float(aucs[i]))
+            epoch += n
+            with metrics.phase("eval"):
+                results, d_inf = evaluate_device(trainer, inf_dev, "MRR")
+            logger.info("eval MRR: %s (T_test %.2f)", results, d_inf)
+            if rlog.add_result(run, results):
+                break
+        rlog.print_statistics(run=run, logger=logger)
+    for name, st in metrics.report().items():
+        logger.info("phase %s: %.2fs x%d (%.0f items/s)", name, st.total_s,
+                    st.count, st.items_per_s)
+    return {"results": rlog,
+            "best": [rlog.best(r) for r in range(cfg.runs)],
+            "trainer": trainer, "edges": edges_dev}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="SUREL+ on PyTorch/CUDA: higher-order pattern "
+                    "prediction")
+    add_config_args(parser)
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    out = run_experiment(cfg, device=platform_device())
+    print(out.get("best"))
+
+
+if __name__ == "__main__":
+    main()

@@ -399,9 +399,9 @@ hidden_sum_fwd_kernel(Args a) {
   };
   auto tile = [&](Cursor cu) {
     if (cu.seg < 0) {
-      const size_t at = (size_t)b * r.Lc + cu.l0;
+      const size_t at = (size_t)b * r.ldc + cu.l0;
       return Tile{r.kcross + at, ROOT ? r.rcross + at : nullptr,
-                  r.mcross + at, (size_t)r.B * r.Lc, r.Lc, r.Q};
+                  r.mcross + at, (size_t)r.B * r.ldc, r.Lc, r.Q};
     }
     const size_t at = ((size_t)cu.seg * r.B + b) * r.Lo + cu.l0;
     return Tile{r.kown + at, ROOT ? r.rown + at : nullptr, r.mown + at, 0,
@@ -545,16 +545,16 @@ extern "C" int hidden_sum_fwd_launch(const void* kown, const void* mown,
                                      const void* kcross, const void* mcross,
                                      const void* rown, const void* rcross,
                                      const void* u, void* out, int Q, int B,
-                                     int Lo, int Lc, int H, int ncol,
-                                     int shift, void* stream) {
+                                     int Lo, int Lc, int ldc, int H,
+                                     int ncol, int shift, void* stream) {
   const Args a{SumRows{(const uint32_t*)kown, (const uint8_t*)mown,
                        (const uint32_t*)kcross, (const uint8_t*)mcross,
                        (const int32_t*)rown, (const int32_t*)rcross, Q, B,
-                       Lo, Lc},
+                       Lo, Lc, ldc},
                (const float*)u, (float*)out, H, shift};
   const bool root = rown != nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (Q < 1 || Q > kMaxQ || H < 1 || H > 1024 || B < 1)
+  if (Q < 1 || Q > kMaxQ || H < 1 || H > 1024 || B < 1 || ldc < Lc)
     return (int)cudaErrorInvalidValue;
   switch (ncol) {
     case 2: return (int)launch<2>(a, root, s);

@@ -236,16 +236,17 @@ extern "C" int hidden_sum_bwd_launch(const void* kown, const void* mown,
                                      const void* rown, const void* rcross,
                                      const void* u, const void* g, void* part,
                                      void* du, int Q, int B, int Lo, int Lc,
-                                     int H, int ncol, int shift, int P,
-                                     void* stream) {
+                                     int ldc, int H, int ncol, int shift,
+                                     int P, void* stream) {
   const Args a{SumRows{(const uint32_t*)kown, (const uint8_t*)mown,
                        (const uint32_t*)kcross, (const uint8_t*)mcross,
                        (const int32_t*)rown, (const int32_t*)rcross, Q, B,
-                       Lo, Lc},
+                       Lo, Lc, ldc},
                (const float*)u, (const float*)g, (float*)part, H, shift, P};
   const bool root = rown != nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (Q < 1 || Q > kMaxQ || H < 1 || H > 1024 || B < 1 || P < 1 || P > B)
+  if (Q < 1 || Q > kMaxQ || H < 1 || H > 1024 || B < 1 || P < 1 || P > B
+      || ldc < Lc)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (ncol) {

@@ -136,14 +136,16 @@ __device__ __forceinline__ float field(uint32_t key, int32_t root, int shift,
 
 // The operands of K1 and K1 bwd: a query row b is the shared cross plane
 // [B, Lc] (selected per endpoint by mcross) and each endpoint's own row.
+// The cross planes' rows lie ldc >= Lc elements apart (a mask plane B ldc
+// apart): HONet's halves of its [B, 4L] plane are such row-strided views.
 struct SumRows {
   const uint32_t* kown;    // [Q, B, Lo]
   const uint8_t* mown;     // [Q, B, Lo] bool
-  const uint32_t* kcross;  // [B, Lc]
-  const uint8_t* mcross;   // [Q, B, Lc] bool
+  const uint32_t* kcross;  // [B, Lc], rows ldc apart
+  const uint8_t* mcross;   // [Q, B, Lc] bool, rows ldc apart
   const int32_t* rown;     // [Q, B, Lo] or null
-  const int32_t* rcross;   // [B, Lc] or null
-  int Q, B, Lo, Lc;
+  const int32_t* rcross;   // [B, Lc], rows ldc apart, or null
+  int Q, B, Lo, Lc, ldc;
   __device__ int cross_tiles() const { return (Lc + 31) / 32; }
   __device__ int own_tiles() const { return (Lo + 31) / 32; }
 };
@@ -165,9 +167,9 @@ __device__ __forceinline__ Slot row_slot(const SumRows& r, int b, int ti,
   if (ti < ncross) {
     const int l = 32 * ti + lane;
     if (l < r.Lc) {
-      const size_t at = (size_t)b * r.Lc + l;
+      const size_t at = (size_t)b * r.ldc + l;
       for (int q = 0; q < r.Q; ++q)
-        s.bits |= (uint32_t)(r.mcross[((size_t)q * r.B + b) * r.Lc + l] != 0)
+        s.bits |= (uint32_t)(r.mcross[((size_t)q * r.B + b) * r.ldc + l] != 0)
                   << q;
       s.key = r.kcross[at];
       if (ROOT) s.root = r.rcross[at];

@@ -1,5 +1,6 @@
 """Dataset pipeline for link prediction: raw link data -> observed and
-inference graphs (port of the link-prediction part of
+inference graphs, and for hyperedge (triplet) prediction: triplet splits
+-> the encoder graph (port of the link-prediction and hypergraph parts of
 surel_plus_tpu/graph/datasets.py).
 
 `RawLinkData` is the provider-independent payload; `npz_link_data` reads
@@ -10,8 +11,14 @@ negatives and builds the observed graph (the rest of the train edges, and
 the valid edges with use_val) and the inference graph. Every draw comes
 from the caller's numpy `Generator`, in the JAX package's order.
 
-Not ported: `from_ogb` (it downloads), the heterogeneous (MAG) and
-hypergraph datasets.
+`DEHyperDataset` holds triplet splits (train triplets, valid and test
+triplets with k random-node negatives each) and the pairwise encoder
+graph; `synthetic_hyper_data` builds a random one. Their draws are the
+JAX package's: the split from numpy's global generator, the training
+negatives from the dataset's own `Generator`.
+
+Not ported: `from_ogb` (it downloads) and the heterogeneous (MAG)
+datasets.
 """
 
 from __future__ import annotations
@@ -295,3 +302,95 @@ class LinkPropDataset:
         self.num_pos = int(edge_mask.sum())
         return e[edge_mask], e[~edge_mask], self.rng.permutation(
             self.len_train)
+
+
+class DEHyperDataset:
+    """Hypergraph triplet prediction data (the reference's
+    dataloader.py:241-296)."""
+
+    def __init__(self, edge_index: np.ndarray, triplets: Dict,
+                 num_nodes: Optional[int] = None, k: int = 10,
+                 rng: Optional[np.random.Generator] = None):
+        """edge_index: [E, 2] pairwise projection edges, the encoder graph;
+        triplets: split dict whose splits hold 'hedge' [T, 3] (and, for
+        valid and test, 'hedge_neg' [T k, 3]). rng: the training negatives'
+        generator, np.random.default_rng(0) by default (not --seed's, as
+        in the JAX package)."""
+        self.obsrv_edge = np.asarray(edge_index, dtype=np.int64)
+        self.split_edge = triplets
+        self.k = k
+        self.rng = rng if rng is not None else np.random.default_rng(0)
+        self.num_nodes = (num_nodes if num_nodes is not None
+                          else int(self.obsrv_edge.max()) + 1)
+        self.num_feature = 0
+
+    @staticmethod
+    def make_edge_split(tuples: np.ndarray, ratio: float = 0.6,
+                        k: int = 1000, seed: int = 2021) -> Dict:
+        """Train/valid/test triplet split with k random-node negatives per
+        eval triplet (dataloader.py:255-269), drawn from numpy's global
+        generator after np.random.seed(seed)."""
+        np.random.seed(seed)
+        tuples = np.asarray(tuples)
+        idx = np.random.permutation(len(tuples))
+        num_train = int(ratio * len(tuples))
+        split = {"train": {"hedge": tuples[idx[:num_train]]}}
+        hold = idx[num_train:]
+        val_idx, test_idx = hold[:len(hold) // 2], hold[len(hold) // 2:]
+        for name, part in (("valid", val_idx), ("test", test_idx)):
+            hedge = tuples[part]
+            node_neg = np.random.randint(tuples.max(), size=(len(part), k))
+            neg = np.concatenate([
+                np.repeat(hedge[:, :2], k, axis=0),
+                node_neg.reshape(-1, 1)], axis=1)
+            split[name] = {"hedge": hedge, "hedge_neg": neg}
+        return split
+
+    @staticmethod
+    def from_npz(path: str, **kw) -> "DEHyperDataset":
+        """Load a hypergraph npz export (`--dataset npz:<path>` of
+        cli.main_horder). Keys: num_nodes, edge_index [E, 2] (the pairwise
+        encoder-graph projection), train_hedge [T, 3], valid_hedge and
+        test_hedge [Tv, 3], valid_neg and test_neg [Tv k, 3]."""
+        z = np.load(path)
+        triplets = {
+            "train": {"hedge": np.asarray(z["train_hedge"])},
+            "valid": {"hedge": np.asarray(z["valid_hedge"]),
+                      "hedge_neg": np.asarray(z["valid_neg"])},
+            "test": {"hedge": np.asarray(z["test_hedge"]),
+                     "hedge_neg": np.asarray(z["test_neg"])},
+        }
+        return DEHyperDataset(np.asarray(z["edge_index"]), triplets,
+                              num_nodes=int(z["num_nodes"]), **kw)
+
+    def process(self, logger=None) -> CSRGraph:
+        """Draws the training negatives (each train triplet's first two
+        nodes with k random third nodes) into pos_hedge [T, 3] and
+        neg_hedge [T k, 3], and returns the encoder graph."""
+        lg = logger or log
+        pos = np.asarray(self.split_edge["train"]["hedge"])
+        node_neg = self.rng.integers(0, self.num_nodes,
+                                     size=(len(pos), self.k))
+        neg = np.concatenate([
+            np.repeat(pos[:, :2], self.k, axis=0),
+            node_neg.reshape(-1, 1)], axis=1)
+        self.pos_hedge = pos
+        self.neg_hedge = neg
+        lg.info("hypergraph: %d nodes, %d encoder edges, %d train triplets",
+                self.num_nodes, len(self.obsrv_edge), len(pos))
+        return csr_from_edges(self.obsrv_edge, num_nodes=self.num_nodes)
+
+
+def synthetic_hyper_data(num_nodes: int = 500, num_triplets: int = 2000,
+                         seed: int = 0) -> DEHyperDataset:
+    """Random triplets of distinct nodes; the encoder graph is the pairwise
+    projection of each triplet (the reference's datasets ship projected
+    edge lists)."""
+    rng = np.random.default_rng(seed)
+    tri = rng.integers(0, num_nodes, size=(num_triplets, 3))
+    tri = tri[(tri[:, 0] != tri[:, 1]) & (tri[:, 1] != tri[:, 2])
+              & (tri[:, 0] != tri[:, 2])]
+    edges = np.concatenate([tri[:, [0, 1]], tri[:, [1, 2]], tri[:, [0, 2]]])
+    split = DEHyperDataset.make_edge_split(tri, ratio=0.6, k=20, seed=seed)
+    return DEHyperDataset(edges, split, num_nodes=num_nodes,
+                          rng=np.random.default_rng(seed))

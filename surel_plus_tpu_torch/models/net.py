@@ -89,6 +89,35 @@ def _torch_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
+def key_u_ext(pe: MLP2, key_layout: Tuple[int, int]) -> torch.Tensor:
+    """u_ext [ncol + 2, H] fp32 for the fused kernels from the hidden layer
+    of `pe`: W1's rows in the kernels' field order, the masking row, b1."""
+    nw, ns = key_layout
+    w1, b1 = pe.hidden_raw()
+    return torch.cat([
+        u_core_rows(w1, nw, ns),
+        torch.full((1, w1.shape[1]), NEG, dtype=torch.float32,
+                   device=w1.device),
+        b1.to(torch.float32)[None]], dim=0).contiguous()
+
+
+def table_hsum(pe: MLP2, eidx: torch.Tensor,
+               enc_table: Optional[torch.Tensor],
+               embed_mode: str) -> torch.Tensor:
+    """The pair-summed hidden rows [Q, B, L, h] of an encoding-table join's
+    index pairs eidx [Q, B, L, 2]: by `embed_mode` "table", the hidden
+    layer over the table once and two row gathers, or "direct", the hidden
+    layer over the gathered encoding pairs."""
+    if enc_table is None:
+        raise ValueError("an encoding-table join needs enc_table")
+    if embed_mode == "direct":
+        return pe.hidden(enc_table[eidx]).sum(dim=-2)
+    if embed_mode != "table":
+        raise ValueError(f"unknown embed_mode {embed_mode!r}")
+    htable = pe.hidden(enc_table)                            # [W+1, h]
+    return htable[eidx[..., 0]] + htable[eidx[..., 1]]
+
+
 class Net(nn.Module):
     """Scores Q=2 endpoint sets per query; returns logits [B].
 
@@ -169,15 +198,7 @@ class Net(nn.Module):
         return dict(aligned=False)
 
     def _u_ext(self) -> torch.Tensor:
-        """u_ext [ncol + 2, H] fp32 for the fused kernels: W1's rows in the
-        kernels' field order, the masking row, b1."""
-        nw, ns = self.key_layout
-        w1, b1 = self.pe_embedding.hidden_raw()
-        return torch.cat([
-            u_core_rows(w1, nw, ns),
-            torch.full((1, self.hidden_dim), NEG, dtype=torch.float32,
-                       device=w1.device),
-            b1.to(torch.float32)[None]], dim=0).contiguous()
+        return key_u_ext(self.pe_embedding, self.key_layout)
 
     def forward(self, joined: JoinedBatch,
                 feature: Optional[torch.Tensor] = None,
@@ -200,8 +221,8 @@ class Net(nn.Module):
         table = joined.eidx is not None and not torch.is_floating_point(
             joined.eidx)
         if table:
-            hsum = self._table_hsum(joined.eidx, enc_table,
-                                    embed_mode or self.embed_mode)
+            hsum = table_hsum(pe, joined.eidx, enc_table,
+                              embed_mode or self.embed_mode)
         elif fused and joined.kown is not None:
             if self.key_layout is None:
                 raise ValueError("the fused keys route needs key_layout")
@@ -270,21 +291,6 @@ class Net(nn.Module):
         else:
             agg = self.aggr(pe.project(hsum) + b2v(hsum), joined.mask)
         return self._score(agg, feature, generator)
-
-    def _table_hsum(self, eidx: torch.Tensor,
-                    enc_table: Optional[torch.Tensor],
-                    embed_mode: str) -> torch.Tensor:
-        """The pair-summed hidden rows [2, B, L, h] of an encoding-table
-        join's index pairs eidx [2, B, L, 2]."""
-        if enc_table is None:
-            raise ValueError("an encoding-table join needs enc_table")
-        pe = self.pe_embedding
-        if embed_mode == "direct":
-            return pe.hidden(enc_table[eidx]).sum(dim=-2)
-        if embed_mode != "table":
-            raise ValueError(f"unknown embed_mode {embed_mode!r}")
-        htable = pe.hidden(enc_table)                        # [W+1, h]
-        return htable[eidx[..., 0]] + htable[eidx[..., 1]]
 
     def _score(self, agg: torch.Tensor, feature: Optional[torch.Tensor],
                generator: Optional[torch.Generator]) -> torch.Tensor:

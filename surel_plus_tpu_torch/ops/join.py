@@ -1,5 +1,7 @@
 """SpJoin over sampled sets (port of surel_plus_tpu/ops/join.py: the keys
-join and the encoding-table join `gather_join`).
+joins and the encoding-table joins, for link queries (Q=2: `make_keys_join`,
+`gather_join`) and 3-node hyperedge queries (`make_keys_hjoin`,
+`hgather_join`)).
 
 For a query (u, v) every node x of S_u is paired with its key w.r.t. u
 and its key w.r.t. v (0 when x is not in S_v), and symmetrically for
@@ -20,6 +22,10 @@ cross lookup of both key words in both directions, one launch of K6,
 the general hi/lo key layout (count fields in the hi word, e.g. M=1000,
 S'=4), whose merge carries both words. They build the feature pairs and
 the mask, whatever `aligned` and `features` say.
+
+A hyperedge (u, v, w) joins into four endpoint groups, u|w, w|u, v|w and
+w|v (each set's own keys paired with the partner's), which are the two
+directions of two merges, (u, w) and (v, w).
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ class JoinedBatch(NamedTuple):
            planes (impl="pallas", the general hi/lo layout).
     kcross: int32 bits [B, 2L], ONE shared plane in merged order holding
            every endpoint's partner keys at disjoint positions, selected
-           per endpoint by kcross_mask [Q, B, 2L].
+           per endpoint by kcross_mask [Q, B, 2L] (the hyperedge join's:
+           [B, 4L], its two merges side by side, and [4, B, 4L]).
     kcross_al: int32 bits [Q, B, L] slot-aligned partner lo keys
            (aligned joins only).
     *_root: int32 0/1 root-indicator planes, same shapes as the key
@@ -146,8 +153,8 @@ def gather_join(nodes: torch.Tensor, eidx: torch.Tensor,
     of the two node rows with the table indices as its payload, and the
     output does not depend on the key layout."""
     if edges.shape[0] != 2:
-        raise ValueError("gather_join handles Q=2 (higher-order queries "
-                         "are not ported)")
+        raise ValueError("gather_join handles Q=2; use hgather_join for "
+                         "higher-order queries")
     # a contiguous index gathers contiguous rows, which the merge takes
     edges = edges.to(torch.int64).contiguous()
     rows_nodes, rows_eidx = nodes[edges], eidx[edges]          # [2, B, L]
@@ -218,6 +225,9 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
     """
     if impl not in ("merge", "pallas"):
         raise ValueError(f"unknown join impl {impl!r}")
+    if rows_nodes.shape[0] != 2:
+        raise ValueError("the keys join handles Q=2; use make_keys_hjoin "
+                         "for hyperedge queries")
     lead_bit = enc_field_layout(num_walks, num_steps)[2]
     lo_only = lead_bit < 32
     lead_hi = lead_bit == 32
@@ -279,8 +289,139 @@ def join_gathered_keys(rows_nodes, rows_hi, rows_lo, rows_sizes,
 
 def _feature_pairs(rows_hi, rows_lo, cross_hi, cross_lo, num_walks: int,
                    num_steps: int) -> torch.Tensor:
-    """The unpacked feature pairs [2, B, L, 2, C]: each slot's own key and
-    its partner's ([2, B, L] words each)."""
+    """The unpacked feature pairs [Q, B, L, 2, C]: each slot's own key and
+    its partner's ([Q, B, L] words each)."""
     return unpack_key_features(torch.stack([rows_hi, cross_hi], dim=-1),
                                torch.stack([rows_lo, cross_lo], dim=-1),
                                num_walks, num_steps)
+
+
+# A hyperedge (u, v, w), rows 0, 1, 2: the two merges (u, w) and (v, w),
+# whose two directions each are the four groups u|w, w|u, v|w, w|v, and
+# the row each group's own slots come from.
+HPAIRS = ((0, 2), (1, 2))
+HGROUPS = (0, 2, 1, 2)
+
+
+def _groups(x: torch.Tensor) -> torch.Tensor:
+    """[3, ...] rows -> [4, ...] in group order (a stack, not an index
+    list, which would be copied to the device and waited for)."""
+    return torch.stack([x[a] for a in HGROUPS])
+
+
+def make_keys_hjoin(num_walks: int, num_steps: int, features: bool = True):
+    """Join function over SpGKeys rows for hyperedges: join(nodes, khi,
+    klo, sizes, hedges) with hedges [3, B] row indices (JAX
+    make_keys_hjoin). `features=False` leaves out the feature pairs (and
+    the un-sort they need) where the model reads only the key planes."""
+
+    def join(nodes, khi, klo, sizes, hedges):
+        if hedges.shape[0] != 3:
+            raise ValueError("expects [3, B] hyperedges")
+        # a contiguous index gathers contiguous rows, which the kernels take
+        hedges = hedges.to(torch.int64).contiguous()
+        return join_gathered_hkeys(nodes[hedges], khi[hedges], klo[hedges],
+                                   sizes[hedges], num_walks, num_steps,
+                                   features=features)
+
+    return join
+
+
+def join_gathered_hkeys(rn, rh, rl, rs, num_walks: int, num_steps: int,
+                        features: bool = True) -> JoinedBatch:
+    """Hyperedge keys join over pre-gathered rows ([3, B, L] each, rows u,
+    v, w): the groups u|w, w|u, v|w, w|v from one merge of (u, w) and one
+    of (v, w) (JAX join.py:392-466). mask [4, B, L] and sizes [4, B] are
+    the groups' own rows'; `features` adds the feature pairs eidx
+    [4, B, L, 2, C].
+
+    In the lo-only and lead-in-hi layouts it also gives the fused route's
+    planes: kown [4, B, L] (the groups' own lo keys), ONE cross plane
+    kcross [B, 4L] holding the two merges' merged-order planes side by
+    side, kcross_mask [4, B, 4L] (each group selects its partner's keys in
+    its own merge's half only), and in the lead-in-hi layout the root
+    planes kown_root [4, B, L] and kcross_root [B, 4L]. In the general
+    hi/lo layout both words ride the merges and only the feature pairs
+    come out, whatever `features` says."""
+    if rn.shape[0] != 3:
+        raise ValueError("the hyperedge join takes [3, B, L] rows")
+    lead_bit = enc_field_layout(num_walks, num_steps)[2]
+    lo_only = lead_bit < 32
+    lead_hi = lead_bit == 32
+    mask = _groups(rn != INT32_MAX)
+    sizes = _groups(rs)
+    cross_hi, cross_lo = [], []
+    if not (lo_only or lead_hi):
+        for a, b in HPAIRS:
+            (ca_h, ca_l), (cb_h, cb_l) = _cross_lookup_bidir_multi(
+                rn[a], rn[b], (rh[a], rl[a]), (rh[b], rl[b]))
+            cross_hi += [ca_h, cb_h]
+            cross_lo += [ca_l, cb_l]
+        feats = _feature_pairs(_groups(rh), _groups(rl),
+                               torch.stack(cross_hi), torch.stack(cross_lo),
+                               num_walks, num_steps)
+        return JoinedBatch(eidx=feats, mask=mask, sizes=sizes)
+    _, b, ell = rn.shape
+    dev = rn.device
+    kcross = torch.empty(b, 4 * ell, dtype=torch.int32, device=dev)
+    kcross_mask = torch.zeros(4, b, 4 * ell, dtype=torch.bool, device=dev)
+    kcross_root = kown_root = None
+    own_roots = []
+    if lead_hi:
+        kcross_root = torch.empty_like(kcross)
+    for i, (a, b_) in enumerate(HPAIRS):
+        half = slice(2 * ell * i, 2 * ell * (i + 1))
+        ((ca_l,), (cb_l,), (sca,), sa_mask, (scb,), sb_mask, snode,
+         stag) = _cross_lookup_bidir_multi(rn[a], rn[b_], (rl[a],),
+                                           (rl[b_],), want_sorted=True,
+                                           aligned=features)
+        # disjoint (tag-separated) positions: the sum is a select
+        torch.add(sca, scb, out=kcross[:, half])
+        kcross_mask[2 * i, :, half] = sa_mask
+        kcross_mask[2 * i + 1, :, half] = sb_mask
+        if lead_hi:
+            # the root indicator follows from node ids (join_gathered_keys)
+            rb_a, rb_b = rh[a] & 1, rh[b_] & 1
+            a_id = torch.where(rb_a > 0, rn[a], -1).amax(dim=1)[:, None]
+            b_id = torch.where(rb_b > 0, rn[b_], -1).amax(dim=1)[:, None]
+            kcross_root[:, half] = (((stag == 1) & (snode == b_id))
+                                    | ((stag == 0) & (snode == a_id)))
+            own_roots += [rb_a, rb_b]
+            if features:
+                cross_hi += [((rn[a] == b_id) & (rn[a] != INT32_MAX)),
+                             ((rn[b_] == a_id) & (rn[b_] != INT32_MAX))]
+        elif features:
+            cross_hi += [torch.zeros_like(ca_l), torch.zeros_like(cb_l)]
+        cross_lo += [ca_l, cb_l]
+    if lead_hi:
+        kown_root = torch.stack(own_roots)
+    feats = None
+    if features:
+        feats = _feature_pairs(_groups(rh), _groups(rl),
+                               torch.stack(cross_hi).to(torch.int32),
+                               torch.stack(cross_lo), num_walks, num_steps)
+    return JoinedBatch(eidx=feats, mask=mask, sizes=sizes, kown=_groups(rl),
+                       kcross=kcross, kcross_mask=kcross_mask,
+                       kown_root=kown_root, kcross_root=kcross_root)
+
+
+def hgather_join(nodes: torch.Tensor, eidx: torch.Tensor,
+                 sizes: torch.Tensor, hedges: torch.Tensor) -> JoinedBatch:
+    """Join encoding-table sets (SpGDevice rows) for hyperedges [3, B] of
+    row ids (u, v, w): the groups u|w, w|u, v|w, w|v, each pairing a set's
+    own table indices with the partner's (0, the zero row, if absent),
+    eidx [4, B, L, 2] (JAX join.py:482-512, `hgather` of the reference).
+    JAX looks each group up in one direction; here one merge of (u, w) and
+    one of (v, w) give both directions each, the same values."""
+    if hedges.shape[0] != 3:
+        raise ValueError("hgather_join expects [3, B] hyperedges")
+    hedges = hedges.to(torch.int64).contiguous()
+    rn, re = nodes[hedges], eidx[hedges]                     # [3, B, L]
+    blocks = []
+    for a, b in HPAIRS:
+        (ca,), (cb,) = _cross_lookup_bidir_multi(rn[a], rn[b], (re[a],),
+                                                 (re[b],), aligned=True)
+        blocks += [torch.stack([re[a], ca], dim=-1),
+                   torch.stack([re[b], cb], dim=-1)]
+    return JoinedBatch(eidx=torch.stack(blocks), mask=_groups(rn != INT32_MAX),
+                       sizes=_groups(sizes[hedges]))

@@ -133,9 +133,11 @@ def pick(what: str, t: torch.Tensor, cuda_fn, plain_fn):
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
-               shape: Sequence[int], device: torch.device) -> None:
-    """Raise ValueError unless `t` is a contiguous `dtype` tensor of
-    `shape` on the CUDA device `device`."""
+               shape: Sequence[int], device: torch.device,
+               contiguous: bool = True) -> None:
+    """Raise ValueError unless `t` is a `dtype` tensor of `shape` on the
+    CUDA device `device`, contiguous unless the caller checks its layout
+    itself (`contiguous=False`)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} is on {t.device}: not a CUDA tensor")
     if t.device != device:
@@ -145,5 +147,5 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -40,10 +40,10 @@ from surel_plus_tpu_torch.ops.walk import enc_field_layout
 NEG = -1e9      # masked-slot logit offset (relu clamps to 0)
 
 KERNEL = CudaKernel("hidden_sum", "hidden_sum_fwd_launch",
-                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                     + [ctypes.c_void_p])
 BWD_KERNEL = CudaKernel("hidden_sum_bwd", "hidden_sum_bwd_launch",
-                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                         + [ctypes.c_void_p])
 SLOTS_KERNEL = CudaKernel("hidden_slots", "hidden_slots_fwd_launch",
                           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
@@ -175,10 +175,34 @@ def fused_key_hidden_sum_bwd_plain(kown, mask_own, kcross, mask_cross,
             + fc.reshape(-1, ncol + 2).T @ dzc.reshape(-1, dzc.shape[-1]))
 
 
+def _cross_row_stride(kcross, mask_cross, root_cross) -> int:
+    """ldc, the elements between two rows of the cross planes that the
+    kernels read: kcross and root_cross [B, Lc] with rows ldc apart,
+    mask_cross [Q, B, Lc] with rows ldc and planes B ldc apart, each row
+    dense (contiguous planes: ldc = Lc; HONet's halves of its [B, 4L]
+    plane: 4L). Raises for any other layout. Strides of dimensions of size
+    1 do not matter."""
+    q, b, lc = mask_cross.shape
+    ldc = (kcross.stride(0) if b > 1 else mask_cross.stride(0) if q > 1
+           else lc)
+    ok = ldc >= lc
+    for t, want in ((kcross, (ldc, 1)), (mask_cross, (b * ldc, ldc, 1)),
+                    (root_cross, (ldc, 1))):
+        if t is None:
+            continue
+        ok = ok and all(n == 1 or st == w for n, st, w in
+                        zip(t.shape, t.stride(), want))
+    if not ok:
+        raise ValueError("kcross, mask_cross and root_cross must be dense "
+                         "rows the same stride apart")
+    return ldc
+
+
 def _check_operands(kown, mask_own, kcross, mask_cross, u_ext, shift,
                     root_own, root_cross):
     """Raise unless the operands are what the CUDA kernels take; returns
-    (Q, B, Lo, Lc, H, ncol)."""
+    (Q, B, Lo, Lc, ldc, H, ncol). The cross planes may be row-strided
+    views (`_cross_row_stride`); every other operand is contiguous."""
     q, b, lo = kown.shape
     lc = kcross.shape[1]
     nbx, h = u_ext.shape
@@ -186,16 +210,20 @@ def _check_operands(kown, mask_own, kcross, mask_cross, u_ext, shift,
     dev = kown.device
     check_cuda("kown", kown, torch.int32, (q, b, lo), dev)
     check_cuda("mask_own", mask_own, torch.bool, (q, b, lo), dev)
-    check_cuda("kcross", kcross, torch.int32, (b, lc), dev)
-    check_cuda("mask_cross", mask_cross, torch.bool, (q, b, lc), dev)
+    check_cuda("kcross", kcross, torch.int32, (b, lc), dev,
+               contiguous=False)
+    check_cuda("mask_cross", mask_cross, torch.bool, (q, b, lc), dev,
+               contiguous=False)
     check_cuda("u_ext", u_ext, torch.float32, (nbx, h), dev)
     if (root_own is None) != (root_cross is None):
         raise ValueError("pass both root planes or neither")
     if root_own is not None:
         check_cuda("root_own", root_own, torch.int32, (q, b, lo), dev)
-        check_cuda("root_cross", root_cross, torch.int32, (b, lc), dev)
+        check_cuda("root_cross", root_cross, torch.int32, (b, lc), dev,
+                   contiguous=False)
+    ldc = _cross_row_stride(kcross, mask_cross, root_cross)
     _check_layout(q, ncol, h, shift, root_own is not None)
-    return q, b, lo, lc, h, ncol
+    return q, b, lo, lc, ldc, h, ncol
 
 
 def _check_layout(q: int, ncol: int, h: int, shift: int, root: bool):
@@ -212,7 +240,7 @@ def _check_layout(q: int, ncol: int, h: int, shift: int, root: bool):
 def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
                               shift: int, root_own=None, root_cross=None):
     """Launch the set-sum kernel; see csrc/hidden_sum.cu."""
-    q, b, lo, lc, h, ncol = _check_operands(
+    q, b, lo, lc, ldc, h, ncol = _check_operands(
         kown, mask_own, kcross, mask_cross, u_ext, shift, root_own,
         root_cross)
     out = torch.empty(q, b, h, dtype=torch.float32, device=kown.device)
@@ -220,7 +248,7 @@ def fused_key_hidden_sum_cuda(kown, mask_own, kcross, mask_cross, u_ext,
         KERNEL(kown.device, ptr(kown), ptr(mask_own), ptr(kcross),
                ptr(mask_cross), ptr_or_null(root_own),
                ptr_or_null(root_cross), ptr(u_ext), ptr(out), q, b, lo, lc,
-               h, ncol, shift)
+               ldc, h, ncol, shift)
     return out
 
 
@@ -229,7 +257,7 @@ def fused_key_hidden_sum_bwd_cuda(kown, mask_own, kcross, mask_cross, u_ext,
                                   root_cross=None):
     """Launch the backward kernel and its reduction pass; see
     csrc/hidden_sum_bwd.cu. g: contiguous fp32 [Q, B, H]."""
-    q, b, lo, lc, h, ncol = _check_operands(
+    q, b, lo, lc, ldc, h, ncol = _check_operands(
         kown, mask_own, kcross, mask_cross, u_ext, shift, root_own,
         root_cross)
     dev = kown.device
@@ -242,7 +270,7 @@ def fused_key_hidden_sum_bwd_cuda(kown, mask_own, kcross, mask_cross, u_ext,
         BWD_KERNEL(dev, ptr(kown), ptr(mask_own), ptr(kcross),
                    ptr(mask_cross), ptr_or_null(root_own),
                    ptr_or_null(root_cross), ptr(u_ext), ptr(g), ptr(scratch),
-                   ptr(du), q, b, lo, lc, h, ncol, shift, parts)
+                   ptr(du), q, b, lo, lc, ldc, h, ncol, shift, parts)
     return du
 
 
@@ -286,9 +314,11 @@ def fused_key_hidden_sum(kown: torch.Tensor, mask_own: torch.Tensor,
 
     kown [Q, B, Lo]: int32 bits of the packed lo keys, mask_own bool.
     kcross [B, Lc]: the shared cross plane, selected per endpoint by
-    mask_cross [Q, B, Lc]. u_ext float32 [ncol + 2, H] =
-    concat(u_core_rows(W1), [NEG row], [b1 row]). root_own / root_cross:
-    int32 0/1 planes replacing the key's root bit (lead-in-hi layout).
+    mask_cross [Q, B, Lc]; on the card these and root_cross may be views
+    whose rows lie the same stride apart (HONet's halves). u_ext float32
+    [ncol + 2, H] = concat(u_core_rows(W1), [NEG row], [b1 row]).
+    root_own / root_cross: int32 0/1 planes replacing the key's root bit
+    (lead-in-hi layout).
     On CUDA tensors this launches the kernels (forward, and backward when
     differentiated), on CPU tensors it takes the plain versions."""
     return FusedKeyHiddenSum.apply(kown, mask_own, kcross, mask_cross,
