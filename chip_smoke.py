@@ -148,7 +148,12 @@ NVIDIA GPU. Run from the repository root:
    of a few table lstm predict batches; then the table lstm Net's
    training on K5 and K5 bwd: the route gradient checks, a cold and a
    timed 4-epoch fit, the card-vs-CPU training check; a profile of a
-   few train steps of each table Net.
+   few train steps of each table Net. Then the host engine on the table
+   sets (`host_engine_path`): `LinkPredictor` one epoch of the mean Net
+   (fp32) at batch 4096 over the 32 x 4096 edges, its q/s beside the
+   device engine's epoch with the same Net and weights, and `evaluate`
+   (MRR, 4096 sources x 100 negatives); it reads each step back by
+   design, so no sync check.
    Then the keys join's impl "pallas" on K6: `predict` of the mean and
    lstm Nets (bf16) through `trainer_from_keys(..., join_factory=...)`
    on the 32 x 4096 edges, the joined feature pairs equal to the merge
@@ -191,23 +196,54 @@ NVIDIA GPU. Run from the repository root:
    class shape (M=200, S'=4, L=801, root planes) on the wide sets: a
    cold and a timed fit of 16 steps at batch 2048, the kernels and the
    two forms' times.
+   Then the scalar encoders (`scalar_path`): the host push
+   (`csrc/ppr_host.cpp`, the JAX CLI's alpha 0.5, eps 1e-4, topk 100,
+   normalization 'sym') over every node (a probe of 16,384 seeds must
+   predict under 60 s, else the first 65,536 rows), the PPR encoding and
+   the padded sets (L <= 100) on the card; `Net(1, 96, bf16)` mean, attn
+   and lstm through a scalar DeviceTrainer: predict on 32 x 4096 edges
+   among the rows, the fused route against the unfused one on a batch
+   (fp32 1e-4, bf16 5e-2), the card against the CPU on 256 queries, a
+   cold fit (no synchronizing call) and a timed fit (8, 4, 4 epochs), the
+   card against the CPU after 4 steps, profiles; K2 exactly on the scalar
+   join's batch (the values' bits its payload), K5 and K5 bwd on the
+   lstm's own hidden rows [8192, L, 96] at phase 2's tolerances. Then
+   the device PPR (`ppr_device_check`): 4096 random seeds on the card,
+   seeds/s beside the host push's, within the truncation bound of a
+   float64 power iteration of 512 of them, and within the push's own
+   bound (eps d_v) of the push on the shared support (the JAX test's
+   5e-4 and 90% shared support printed beside). Then balanced batching
+   on the main path's keys sets (`balanced_path`): classes at the 50th
+   and 90th percentile of the queries' larger set size (rounded up to
+   32) and 301, each class's share of queries and padded slots,
+   `predict_balanced` against `predict` (1e-6, bit-equal or not) for
+   mean and attn, a one-class `fit_balanced` at 301 against `fit` with
+   the same permutations, a balanced and a plain mean fit timed in turns
+   (3 each, medians), and one balanced attn epoch.
    Last, the link-prediction CLI (`cli_path`): `run_experiment` on four
    rows of scripts/run_jax_matrix.sh at its flags (fixture-collabs mean,
-   attn and lstm, fixture-cites mean), one run of 4 epochs each (data
+   attn and lstm, fixture-cites mean), then collabs mean with
+   `--sencoder PPR`, collabs lstm with `--sencoder SPD`, collabs mean
+   with `--balance_widths 32,64` and with `--engine host`, one run of 4
+   epochs each (data
    prep, sampling, training, evaluation after epochs 0 and 2), each
    row's launches counted as its own path; every evaluated value must be
    finite and the best (valid, test) above CLI_FLOOR. After each row, its
    kernels on its own shapes (S'=2, L=101 or 41): the first training
    batch joined over the row's sets, with the weights its run left; K1
    and K1 bwd (mean rows), K3 and K3 bwd (attn) or K4 and K4 bwd (lstm),
-   and K2, each against its plain version at phase 2's tolerances.
+   and K2, each against its plain version at phase 2's tolerances (the
+   scalar rows K2 on the values' bits, and K5, K5 bwd for lstm; the host
+   row K2 on its table join).
    Then the higher-order CLI (`cli_horder_path`):
    `main_horder.run_experiment` on the tags fixture at its row's flags
    (M=50, k=10, batch 4096, `--valid_perc 25`), one run of 4 epochs
    (evaluations after epochs 0, 2 and 3), its launches counted as
    `cli_tags_honet`, every MRR finite and the best pair above
    CLI_FLOOR, then its K1 (both forms), K1 bwd and K2 on its first
-   training batch with the weights its run left.
+   training batch with the weights its run left; then the same row on
+   the host engine (`cli_tags_honet_host`: `LinkPredictor` over
+   `hgather_join`), K2 on its (u, w) merge.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the run's total
@@ -248,7 +284,13 @@ from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import HONet, Net
 from surel_plus_tpu_torch.models.honet import group_set_sums
 from surel_plus_tpu_torch.ops import join as join_ops
+from surel_plus_tpu_torch.ops import ppr as ppr_ops
 from surel_plus_tpu_torch.ops import walk as walk_ops
+from surel_plus_tpu_torch.ops.encoders import (
+    encoding,
+    gather_join_scalar,
+    scalar_spg_from_csr,
+)
 from surel_plus_tpu_torch.ops.join import (
     gather_join,
     join_gathered_keys,
@@ -266,17 +308,19 @@ from surel_plus_tpu_torch.ops.kernels import (
 from surel_plus_tpu_torch.ops.kernels import cross_lookup as xlookup
 from surel_plus_tpu_torch.ops.kernels import lstm as lstm_x
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
+from surel_plus_tpu_torch.ops.ppr_device import ppr_topk_device
 from surel_plus_tpu_torch.ops.sampler import (
     dedup_device,
     sample_gsets_device,
     sample_gsets_device_keys,
 )
 from surel_plus_tpu_torch.spg import SpGDevice, SpGKeys
-from surel_plus_tpu_torch.train import TrainConfig
+from surel_plus_tpu_torch.train import LinkPredictor, TrainConfig, evaluate
 from surel_plus_tpu_torch.train.device import (
     DeviceTrainer,
     batch_loss,
     device_mrr,
+    riffle_permutation,
     trainer_from_keys,
 )
 from surel_plus_tpu_torch.utils.config import (
@@ -333,6 +377,20 @@ CLI_ROWS = {
                          num_walks=20, k=5, batch_size=1024),
     "cites_mean": dict(dataset="fixture-cites", aggrs="mean", num_walks=50,
                        k=10, batch_size=4096),
+    # the scalar encoders, balanced batching and the host engine on the
+    # collabs rows' flags
+    "collabs_mean_ppr": dict(dataset="fixture-collabs", aggrs="mean",
+                             num_walks=50, k=10, batch_size=4096,
+                             sencoder="PPR"),
+    "collabs_lstm_spd": dict(dataset="fixture-collabs", aggrs="lstm",
+                             num_walks=20, k=5, batch_size=1024,
+                             sencoder="SPD"),
+    "collabs_mean_balanced": dict(dataset="fixture-collabs", aggrs="mean",
+                                  num_walks=50, k=10, batch_size=4096,
+                                  balance_widths="32,64"),
+    "collabs_mean_host": dict(dataset="fixture-collabs", aggrs="mean",
+                              num_walks=50, k=10, batch_size=4096,
+                              engine="host"),
 }
 # the least best (valid, test) a row must reach; random scores give about
 # 50 / 100,000 Hits@50 on the collabs fixture and H(51) / 51 = 0.088 MRR
@@ -352,6 +410,20 @@ TAGS_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tags_fixture.npz")
 CLI_HROW = dict(dataset=f"npz:{TAGS_FIXTURE}", num_walks=50, k=10,
                 batch_size=4096, valid_perc=25)
+# the row on each engine
+CLI_HROWS = {"tags_honet": {}, "tags_honet_host": dict(engine="host")}
+# the scalar path: the JAX CLI's PPR defaults (utils/config.py:31-33); the
+# host push runs over every node unless a probe predicts more than the
+# budget, and then over the first SCALAR_ROWS_CUT rows
+SCALAR_ALPHA, SCALAR_EPS, SCALAR_TOPK = 0.5, 1e-4, 100
+PUSH_PROBE, PUSH_BUDGET_S, SCALAR_ROWS_CUT = 16_384, 60.0, 65_536
+# the device PPR check: random seeds, seeds a product, the float64
+# reference's steps ((1 - alpha)^40 < 1e-12), the JAX test's bound
+PPR_SEEDS, PPR_BLOCK, EXACT_ITERS, PPR_TOL = 4096, 512, 40, 5e-4
+# balanced batching: predict_balanced against predict, the timed turns
+BAL_PREDICT_TOL, BAL_TURNS, BAL_EPOCHS = 1e-6, 3, 2
+# the host engine's evaluation: negatives a source
+HOST_NEG = 100
 # operations of one LSTM cell update per unit: three sigmoids (exp, add,
 # divide) and two tanh (counted as 3 each), the cell's 3 and the output's 1
 LSTM_CELL_OPS = 19
@@ -450,7 +522,25 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "honet_tags_train": ("hidden_sum_fwd", "hidden_sum_bwd",
                               "merge_pairs"),
          "cli_tags_honet": ("hidden_sum_fwd", "hidden_sum_bwd",
-                            "merge_pairs")}
+                            "merge_pairs"),
+         "scalar_serve": ("merge_pairs",),
+         "scalar_lstm_serve": ("lstm_x_fwd", "merge_pairs"),
+         "scalar_train": ("merge_pairs",),
+         "scalar_attn_train": ("merge_pairs",),
+         "scalar_lstm_train": ("lstm_x_fwd", "lstm_x_bwd", "merge_pairs"),
+         "balanced_serve": ("hidden_sum_fwd", "merge_pairs"),
+         "balanced_train": ("hidden_sum_fwd", "hidden_sum_bwd",
+                            "merge_pairs"),
+         "balanced_attn_train": ("attn_pool_fwd", "attn_pool_bwd",
+                                 "merge_pairs"),
+         "host_engine": ("merge_pairs",),
+         "cli_collabs_mean_ppr": ("merge_pairs",),
+         "cli_collabs_lstm_spd": ("lstm_x_fwd", "lstm_x_bwd",
+                                  "merge_pairs"),
+         "cli_collabs_mean_balanced": ("hidden_sum_fwd", "hidden_sum_bwd",
+                                       "merge_pairs"),
+         "cli_collabs_mean_host": ("merge_pairs",),
+         "cli_tags_honet_host": ("merge_pairs",)}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
@@ -2711,11 +2801,23 @@ def check_sets(spgk: SpGKeys, seeds: torch.Tensor) -> None:
                 f"step {j} does not conserve the walk mass")
 
 
-def make_net(aggrs: str, device=None, **kw) -> Net:
-    """A Net at the bench width (4 encoding columns, hidden 96), on the
-    card unless `device` says otherwise."""
-    return Net(NUM_STEPS + 1, HIDDEN, aggrs=aggrs,
+def make_net(aggrs: str, device=None, input_dim=NUM_STEPS + 1,
+             **kw) -> Net:
+    """A Net at the bench width (4 encoding columns, or `input_dim`;
+    hidden 96), on the card unless `device` says otherwise."""
+    return Net(input_dim, HIDDEN, aggrs=aggrs,
                device=DEVICE if device is None else device, **kw)
+
+
+def in_dim(net) -> int:
+    """The input features of a Net's hidden layer."""
+    return net.pe_embedding.fc0.in_features
+
+
+def scalar_sets(sets) -> bool:
+    """Whether `sets` is a ScalarSpG's device layout (float values)."""
+    return isinstance(sets, SpGDevice) and torch.is_floating_point(
+        sets.eidx)
 
 
 def timed_predict(trainer, edges, label, what):
@@ -2783,11 +2885,12 @@ def serve_path(g, label):
 
 
 def trainer_for(net, sets, cfg, join_factory=None):
-    """The trainer of `net` over either store of sets: a table
-    DeviceTrainer over an SpGDevice, `trainer_from_keys` over an SpGKeys
-    (with `join_factory`, if given)."""
+    """The trainer of `net` over any store of sets: a table (or, over a
+    ScalarSpG's values, a scalar) DeviceTrainer over an SpGDevice,
+    `trainer_from_keys` over an SpGKeys (with `join_factory`, if given)."""
     if isinstance(sets, SpGDevice):
-        return DeviceTrainer(net, sets, cfg)
+        return DeviceTrainer(net, sets, cfg, join=(
+            gather_join_scalar if scalar_sets(sets) else None))
     return trainer_from_keys(net, sets, cfg, join_factory=join_factory)
 
 
@@ -2801,10 +2904,12 @@ def pair_join(num_walks, num_steps):
 def path_name(trainer) -> str:
     """The aggregator (or HONet), which store the trainer reads, and the
     unfused route where the model takes it."""
-    table = isinstance(trainer.sets, SpGDevice)
+    store = ""
+    if isinstance(trainer.sets, SpGDevice):
+        store = ", scalar" if scalar_sets(trainer.sets) else ", table"
     unfused = trainer.model.fused_hidden is False
     return (f"{getattr(trainer.model, 'aggrs', 'honet')}"
-            f"{', table' if table else ''}{', unfused' if unfused else ''}")
+            f"{store}{', unfused' if unfused else ''}")
 
 
 def subset(sets, edges: torch.Tensor):
@@ -2919,6 +3024,7 @@ def train_setup(sets, aggrs: str, fused_hidden=None):
     permutations and dropout masks."""
     net = make_net(aggrs, dropout=0.1, dtype="bfloat16",
                    fused_hidden=fused_hidden,
+                   input_dim=1 if scalar_sets(sets) else NUM_STEPS + 1,
                    generator=torch.Generator().manual_seed(0))
     trainer = trainer_for(net, sets, TrainConfig(
         batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
@@ -2988,7 +3094,8 @@ def route_grads(sets, net, be, dtype, fused, labels=None, cot=None,
     which leaves the scorer (MergeLayer) out of the gradient. The unfused
     route over SpGKeys reads the feature pairs, or with `pairs` False the
     aligned keys (K7)."""
-    m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=fused)
+    m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=fused,
+                 input_dim=in_dim(net))
     m.load_state_dict(net.state_dict())
     keys_pairs = not fused and pairs and isinstance(sets, SpGKeys)
     trainer = trainer_for(m, sets, TrainConfig(batch_size=BATCH),
@@ -3113,7 +3220,7 @@ def check_train_cpu(sets, net, edges, labels, fused_hidden=None) -> None:
     out = {}
     for dev, part in ((DEVICE, small), ("cpu", cpu_small)):
         m = make_net(net.aggrs, dropout=0.0, device=dev,
-                     fused_hidden=fused_hidden)
+                     fused_hidden=fused_hidden, input_dim=in_dim(net))
         m.load_state_dict(net.state_dict())
         trainer = trainer_for(m, part, cfg)
         losses, _ = trainer.fit(
@@ -3245,11 +3352,12 @@ def check_table_routes(dev: SpGDevice, spgk: SpGKeys, net, edges) -> None:
             "the card disagrees with the port's CPU path (table)")
 
 
-def table_path(g, spgk: SpGKeys, edges, labels, label, launches) -> None:
+def table_path(g, spgk: SpGKeys, edges, labels, label,
+               launches) -> SpGDevice:
     """The encoding-table path on the keys path's graph, sets and edges:
     sampling, serving (mean, attn; lstm on K5) and training (mean, attn;
     lstm on K5 and K5 bwd), with their checks; the launch counts go into
-    `launches`."""
+    `launches`. Returns the table sets."""
     dev = table_sets(g, spgk, label)
     nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
                         generator=torch.Generator().manual_seed(0))
@@ -3289,6 +3397,7 @@ def table_path(g, spgk: SpGKeys, edges, labels, label, launches) -> None:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_train_cpu(dev, trainer.model, edges, labels)
         profile_train(trainer, edges, labels, gen)
+    return dev
 
 
 def keys_pallas_path(spgk: SpGKeys, edges, label, launches, gsets) -> None:
@@ -3529,7 +3638,10 @@ def cli_path(label, launches) -> None:
             cfg.metric: per_key}
         evals = per_key[cfg.metric][0]
         best = out["best"][0]
-        say(f"cli {row} ({cfg.dataset}, {cfg.aggrs}, M={cfg.num_walks}, "
+        say(f"cli {row} ({cfg.dataset}, {cfg.aggrs}, {cfg.sencoder}, "
+            f"{cfg.engine} engine"
+            f"{', classes ' + cfg.balance_widths if cfg.balance_widths else ''}"
+            f", M={cfg.num_walks}, "
             f"batch {cfg.batch_size}, {CLI_EPOCHS} epochs): {cfg.metric} "
             f"(valid, test) by eval {[tuple(e[1:]) for e in evals]}, best "
             f"{best} in {dt:.2f} s; launches "
@@ -3553,9 +3665,20 @@ def cli_kernels(row, trainer, edges) -> None:
     its run left, each folded as `Net.forward` folds them. The forward and
     the backward of the row's aggregator kernel (K1, K3 or K4; the
     backward on a seeded cotangent) and K2 on the batch's merge rows, each
-    against its plain version at the tolerances of phase 2."""
+    against its plain version at the tolerances of phase 2; for a scalar
+    row K2 on the values' bits and, for lstm, K5 and K5 bwd
+    (`scalar_kernels`); for a host-engine row K2 on the table indices."""
+    be = torch.as_tensor(edges[:, :trainer.config.batch_size]).to(DEVICE)
+    if isinstance(trainer, LinkPredictor):
+        sets = trainer.dev
+        k2_compare(merge_rows(sets.nodes[be], sets.eidx[be]),
+                   f"cli {row} (host engine, table sets, a training batch)")
+        return
     model, sets = trainer.model, trainer.sets
-    be = edges[:, :trainer.config.batch_size]
+    if scalar_sets(sets):
+        scalar_kernels(trainer, be, f"cli {row} (scalar sets, trained "
+                                    f"weights, a training batch)")
+        return
     with torch.no_grad():
         joined, _ = trainer._batch(be)
         shift = int(model.key_layout[0]).bit_length()
@@ -3862,41 +3985,479 @@ def honet_path(spgk: SpGKeys, spw: SpGKeys, label, launches) -> None:
 
 def cli_horder_path(label, launches) -> None:
     """The higher-order CLI on the tags fixture: `main_horder.run_experiment`
-    on the card at the row's flags (CLI_HROW), one run of CLI_EPOCHS epochs,
-    its log in a temporary directory, its launches counted as
-    `cli_tags_honet`; every evaluated MRR finite and the best pair above
-    CLI_FLOOR; then its kernels on its first training batch over its sets,
-    with the weights its run left."""
-    cfg = ExperimentConfig(num_steps=3, epochs=CLI_EPOCHS, eval_steps=2,
-                           early_stop=10, runs=1, **CLI_HROW)
-    with tempfile.TemporaryDirectory() as log_dir:
-        cfg.log_dir = log_dir
+    on the card at the row's flags (CLI_HROW), on each engine of
+    CLI_HROWS, one run of CLI_EPOCHS epochs, its log in a temporary
+    directory, its launches counted as `cli_<row>`; every evaluated MRR
+    finite and the best pair above CLI_FLOOR; then its kernels on its
+    first training batch over its sets, with the weights its run left
+    (the host engine's K2 on the (u, w) rows of its table join)."""
+    for row, extra in CLI_HROWS.items():
+        cfg = ExperimentConfig(num_steps=3, epochs=CLI_EPOCHS, eval_steps=2,
+                               early_stop=10, runs=1, **CLI_HROW, **extra)
+        with tempfile.TemporaryDirectory() as log_dir:
+            cfg.log_dir = log_dir
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = main_horder.run_experiment(cfg, device=DEVICE)
+            sync()
+            dt = time.perf_counter() - t0
+        path = f"cli_{row}"
+        launches[path] = counts()
+        evals = out["results"].results[0]
+        best = out["best"][0]
+        say(f"cli {row} (tags fixture, HONet, {cfg.engine} engine, "
+            f"M={cfg.num_walks}, batch {cfg.batch_size}, {CLI_EPOCHS} "
+            f"epochs): MRR (valid, test) by eval "
+            f"{[tuple(e[1:]) for e in evals]}, best {best} in {dt:.2f} s; "
+            f"launches { {k: v for k, v in launches[path].items() if v} }; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{label}]")
+        require(len(evals) == 3 and all(math.isfinite(x) for e in evals
+                                        for x in e[1:]),
+                f"cli {row}: an evaluation is missing or not finite")
+        require(min(best) > CLI_FLOOR["MRR"],
+                f"cli {row}: best MRR {best} not above {CLI_FLOOR['MRR']}")
+        trainer = out["trainer"]
+        if isinstance(trainer, LinkPredictor):
+            be = torch.as_tensor(out["edges"][:, :cfg.batch_size]).to(DEVICE)
+            uw = torch.stack([be[0], be[2]])
+            k2_compare(merge_rows(trainer.dev.nodes[uw],
+                                  trainer.dev.eidx[uw]),
+                       f"cli {row} (host engine, table sets, the (u, w) "
+                       f"merge of a training batch)")
+            continue
+        sets = trainer.sets
+        honet_kernels(trainer, out["edges"],
+                      f"cli {row} (M={sets.num_walks}, S'={sets.num_steps},"
+                      f" trained weights, a training batch)",
+                      torch.Generator().manual_seed(23))
+
+
+
+# ------------------------------------------------------------ scalar path
+def scalar_sets_of(g, label) -> SpGDevice:
+    """The scalar path's sets (the JAX CLI's `_scalar_pipeline`): the top-k
+    PPR matrix of the host push (alpha, eps and topk the CLI's defaults),
+    normalized 'sym', for every node, or for the first SCALAR_ROWS_CUT if
+    a probe of PUSH_PROBE seeds predicts more than PUSH_BUDGET_S; the PPR
+    encoding; the padded layout on the card."""
+    t0 = time.perf_counter()
+    ppr_ops.host_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppr_ops.ppr_topk(g.indptr, g.indices, np.arange(PUSH_PROBE),
+                     SCALAR_ALPHA, SCALAR_EPS, SCALAR_TOPK)
+    probe_s = time.perf_counter() - t0
+    rows = g.num_nodes
+    if probe_s * g.num_nodes / PUSH_PROBE > PUSH_BUDGET_S:
+        rows = SCALAR_ROWS_CUT
+    idx = np.arange(rows)
+    t0 = time.perf_counter()
+    _, _, cnt = ppr_ops.ppr_topk(g.indptr, g.indices, idx, SCALAR_ALPHA,
+                                 SCALAR_EPS, SCALAR_TOPK)
+    push_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = ppr_ops.topk_ppr_matrix(g, SCALAR_ALPHA, SCALAR_EPS, idx,
+                                SCALAR_TOPK, normalization="sym")
+    x, _ = encoding(x.tocsr(), g.to_scipy(), "PPR")
+    sspg = scalar_spg_from_csr(x.tocsr())
+    dev = sspg.device(DEVICE)
+    sync()
+    prep_s = time.perf_counter() - t0
+    say(f"scalar sets: host push over {rows} of {g.num_nodes} seeds "
+        f"({'all' if rows == g.num_nodes else 'cut: the probe predicted more than ' + str(PUSH_BUDGET_S) + ' s'}), "
+        f"alpha {SCALAR_ALPHA}, eps {SCALAR_EPS}, topk {SCALAR_TOPK}, "
+        f"{ppr_ops.num_threads()} threads: {push_s:.3f} s -> "
+        f"{rows / push_s:.1f} seeds/s (build {build_s:.2f} s, probe of "
+        f"{PUSH_PROBE} seeds {probe_s:.3f} s); mean set size "
+        f"{float(cnt.mean()):.2f}; matrix, PPR encoding and padded sets "
+        f"{prep_s:.3f} s; L={sspg.bucket} [{label}]")
+    require(sspg.bucket <= SCALAR_TOPK and bool((sspg.sizes >= 1).all()),
+            "the scalar sets are wider than topk, or a set is empty")
+    return dev
+
+
+def check_scalar_routes(dev: SpGDevice, net, edges) -> None:
+    """The scalar Net's fused route against its unfused route on one batch
+    (fp32 at CPU_TOL, bf16 at ROUTE_TOL, both on the card), and the card
+    against the port's CPU path on N_REF queries (fp32)."""
+    aggrs, state = net.aggrs, net.state_dict()
+    be = edges[:, :BATCH]
+    joined = gather_join_scalar(dev.nodes, dev.eidx, dev.sizes, be)
+    for dtype, tol in (("float32", CPU_TOL), ("bfloat16", ROUTE_TOL)):
+        fused, plain = (make_net(aggrs, dropout=0.1, dtype=dtype,
+                                 fused_hidden=f, input_dim=1)
+                        for f in (True, False))
+        fused.load_state_dict(state)
+        plain.load_state_dict(state)
+        with torch.inference_mode():
+            got = fused.eval()(joined, enc_table=dev.enc)
+            want = plain.eval()(joined, enc_table=dev.enc)
+        require(got.shape == (BATCH,) and bool(torch.isfinite(got).all()),
+                f"scalar fused route ({aggrs}) gave bad logits")
+        err = float((got - want).abs().max())
+        say(f"scalar fused vs plain route ({aggrs}), one batch of {BATCH} "
+            f"({dtype}): max |d logit| = {err:.3e}, max |logit| = "
+            f"{float(want.abs().max()):.3e} (rtol = atol = {tol})")
+        require(torch.allclose(got, want, rtol=tol, atol=tol),
+                f"scalar fused route ({aggrs}, {dtype}) disagrees with the "
+                f"plain route")
+    small, cpu_small, remap = subset(dev, be[:, :N_REF])
+    cfg = TrainConfig(batch_size=N_REF)
+    gpu, cpu = (make_net(aggrs, dropout=0.1, device=d, input_dim=1)
+                for d in (DEVICE, "cpu"))
+    gpu.load_state_dict(state)
+    cpu.load_state_dict(state)
+    got = trainer_for(gpu, small, cfg).predict(remap)
+    want = trainer_for(cpu, cpu_small, cfg).predict(remap.cpu())
+    err = float((got.cpu() - want).abs().max())
+    say(f"card vs CPU path ({aggrs}, scalar), {N_REF} queries (fp32): max "
+        f"|d score| = {err:.3e} (rtol = atol = {CPU_TOL})")
+    require(torch.allclose(got.cpu(), want, rtol=CPU_TOL, atol=CPU_TOL),
+            "the card disagrees with the port's CPU path (scalar)")
+
+
+def scalar_kernels(trainer, be, tag) -> None:
+    """K2 on a scalar trainer's join batch `be` (the values' bits its
+    payload) exactly, and for the lstm Net K5 and K5 bwd on the batch's
+    own hidden rows (fp32 hsum of the Net's weights, its fold) at phase
+    2's tolerances."""
+    model, sets = trainer.model, trainer.sets
+    be = be.contiguous()
+    k2_compare(merge_rows(sets.nodes[be], sets.eidx[be].view(torch.int32)),
+               tag)
+    if model.aggrs != "lstm":
+        return
+    with torch.no_grad():
+        joined, _ = trainer._batch(be)
+        w1, b1 = (t.to(torch.float32)
+                  for t in model.pe_embedding.hidden_raw())
+        hsum = torch.relu(joined.eidx[..., None] @ w1 + b1).sum(dim=-2)
+        w2, bias2 = (t.to(torch.float32)
+                     for t in model.pe_embedding.project_raw())
+        c2 = 2.0 * bias2[None]
+        wi = model.aggr.wi.to(torch.float32)
+        wi_eff = (w2 @ wi).contiguous()
+        bh_eff = model.aggr.bh.to(torch.float32) + (c2 @ wi).reshape(-1)
+        wh = model.aggr.wh.detach().to(torch.float32)
+    q, b, ell = joined.mask.shape
+    args = (hsum.reshape(q * b, ell, model.hidden_dim).contiguous(),
+            joined.mask.reshape(q * b, ell).contiguous(), wi_eff, wh, bh_eff)
+    lstm_check("K5", lstm_x.lstm_final_hidden_cuda,
+               lstm_x.lstm_final_hidden_plain, args, args[1],
+               table_x_label(args, tag))
+    g = lstm_x_cotangent(args, torch.Generator().manual_seed(25))
+    lstm_x_bwd_compare(args, g, tag)
+
+
+def scalar_path(g, label, launches) -> None:
+    """The scalar encoders' device path at the bench width: the PPR sets of
+    every node (`scalar_sets_of`), `Net(1, 96, bf16)` with mean, attn and
+    lstm through a scalar DeviceTrainer at batch 4096; predict on the
+    32 x 4096 query edges among the rows, the route checks, a cold and a
+    timed fit, the card against the CPU after REF_STEPS steps, profiles;
+    K2 on the scalar join's batch and K5, K5 bwd on the lstm's hidden
+    rows. The launch counts go into `launches`."""
+    dev = scalar_sets_of(g, label)
+    trainers, setups = {}, {}
+    for aggrs in ("mean", "attn", "lstm"):
+        setups[aggrs] = train_setup(dev, aggrs)
+        trainers[aggrs] = setups[aggrs][0]
+    edges, labels = setups["mean"][1], setups["mean"][2]
+    zero_counts()
+    for aggrs in ("mean", "attn"):
+        timed_predict(trainers[aggrs], edges, label, f"{aggrs}, scalar")
+    launches["scalar_serve"] = counts()
+    say(f"launches on the scalar serving path (mean, attn): "
+        f"{launches['scalar_serve']}")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    lstm_serve(trainers["lstm"], edges, label)
+    launches["scalar_lstm_serve"] = counts()
+    say(f"launches on the scalar LSTM serving path: "
+        f"{launches['scalar_lstm_serve']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for aggrs in ("mean", "attn", "lstm"):
+        check_scalar_routes(dev, trainers[aggrs].model, edges)
+    profile_predict(dev, trainers["lstm"].model, edges)
+    paths = {"mean": ("scalar_train", N_EPOCHS),
+             "attn": ("scalar_attn_train", ATTN_EPOCHS),
+             "lstm": ("scalar_lstm_train", LSTM_EPOCHS)}
+    for aggrs, (path, epochs) in paths.items():
+        trainer, _, _, gen = setups[aggrs]
+        fit_cold(trainer, edges, labels, gen, epochs)
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
+        fit_timed(trainer, edges, labels, gen, epochs, label)
+        launches[path] = counts()
+        say(f"launches on the scalar training path ({aggrs}, timed fit): "
+            f"{launches[path]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_train_cpu(dev, trainer.model, edges, labels)
+        profile_train(trainer, edges, labels, gen)
+        scalar_kernels(trainer, edges[:, :BATCH],
+                       f"scalar {aggrs} (PPR sets, trained weights, a "
+                       f"training batch)")
+
+
+# ------------------------------------------------------------ device PPR
+def ppr_device_check(g, label) -> None:
+    """`ppr_topk_device` on the card for PPR_SEEDS random seeds of the
+    graph at the scalar path's settings, against a float64 power
+    iteration of the first PPR_BLOCK seeds on the card (within the
+    truncation's bound alpha eps) and against the host push on the nodes
+    both top-k lists hold (within the push's own bound eps d_v: the push
+    stops with every residual below alpha eps d_u, which on an undirected
+    graph leaves a node's score short by less than eps d_v). The JAX
+    test's 5e-4 and 90% shared support (tests/test_ppr.py:50-90) are
+    printed beside: on this graph's hubs the push's bound is far above
+    them. Prints seeds/s of both."""
+    seeds = np.sort(np.random.default_rng(3).choice(
+        g.num_nodes, PPR_SEEDS, replace=False)).astype(np.int32)
+    args = (g.indptr, g.indices, seeds, SCALAR_ALPHA, SCALAR_EPS,
+            SCALAR_TOPK)
+    t0 = time.perf_counter()
+    hn, hs, hc = ppr_ops.ppr_topk(*args)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ppr_topk_device(*args[:2], seeds[:PPR_BLOCK], *args[3:],
+                    block=PPR_BLOCK, device=DEVICE)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dn, ds, dc = ppr_topk_device(*args, block=PPR_BLOCK, device=DEVICE)
+    dev_s = time.perf_counter() - t0
+    say(f"PPR, {PPR_SEEDS} seeds, alpha {SCALAR_ALPHA}, eps {SCALAR_EPS}, "
+        f"topk {SCALAR_TOPK}: host push {host_s:.4f} s -> "
+        f"{PPR_SEEDS / host_s:.1f} seeds/s ({ppr_ops.num_threads()} "
+        f"threads); device power iteration (block {PPR_BLOCK}) "
+        f"{dev_s:.4f} s -> {PPR_SEEDS / dev_s:.1f} seeds/s (first block "
+        f"cold {cold_s:.4f} s); mean counts host {float(hc.mean()):.2f}, "
+        f"device {float(dc.mean()):.2f} [{label}]")
+    # the float64 power iteration of the first block on the card
+    n = g.num_nodes
+    deg = torch.as_tensor(np.diff(g.indptr), dtype=torch.float64).to(DEVICE)
+    adj = torch.sparse_csr_tensor(
+        torch.as_tensor(g.indptr, dtype=torch.int64),
+        torch.as_tensor(g.indices, dtype=torch.int64),
+        torch.ones(g.num_edges, dtype=torch.float64), size=(n, n),
+        check_invariants=True).to(DEVICE)
+    inv = torch.where(deg > 0, 1.0 / deg.clamp(min=1), 0.0)
+    e0 = torch.zeros(n, PPR_BLOCK, dtype=torch.float64, device=DEVICE)
+    e0[torch.as_tensor(seeds[:PPR_BLOCK]).to(DEVICE).long(),
+       torch.arange(PPR_BLOCK, device=DEVICE)] = 1.0
+    x = SCALAR_ALPHA * e0
+    for _ in range(EXACT_ITERS):
+        x = SCALAR_ALPHA * e0 + (1 - SCALAR_ALPHA) * (adj @ (x * inv[:, None]))
+    nodes = torch.as_tensor(dn[:PPR_BLOCK]).to(DEVICE).long()
+    exact = torch.gather(x.T, 1, nodes).cpu().numpy()
+    valid = np.arange(SCALAR_TOPK)[None, :] < dc[:PPR_BLOCK, None]
+    d_exact = (exact - ds[:PPR_BLOCK])[valid]
+    del x, e0, adj
+    trunc = SCALAR_ALPHA * SCALAR_EPS
+    ok_exact = bool((d_exact >= -2e-6).all() and (d_exact <= trunc + 2e-6)
+                    .all())
+    # against the host push on the shared support
+    degs = np.diff(g.indptr).astype(np.float64)
+    shared, worst, over, beyond = 0, 0.0, 0, 0
+    for i in range(PPR_SEEDS):
+        host = dict(zip(hn[i, :hc[i]].tolist(), hs[i, :hc[i]].tolist()))
+        for v, score in zip(dn[i, :dc[i]].tolist(), ds[i, :dc[i]].tolist()):
+            if v in host:
+                d = score - host[v]
+                shared += 1
+                worst = max(worst, abs(d))
+                over += abs(d) > PPR_TOL
+                beyond += not (-trunc - 1e-6 <= d
+                               <= SCALAR_EPS * degs[v] + 1e-6)
+    share = shared / max(int(hc.sum()), 1)
+    say(f"device PPR vs float64 power iteration ({PPR_BLOCK} seeds, "
+        f"{EXACT_ITERS} steps): exact - device in "
+        f"[{float(d_exact.min()):.3e}, {float(d_exact.max()):.3e}] (bound "
+        f"[-2e-6, {trunc:.1e} + 2e-6]) {'ok' if ok_exact else 'FAIL'}")
+    say(f"device PPR vs host push: {share:.4f} of the push's support "
+        f"shared (the JAX test asks 0.9); on it max |d| {worst:.3e}, "
+        f"{over} of {shared} entries beyond the JAX test's {PPR_TOL}; "
+        f"{beyond} outside the push's bound [-alpha eps, eps d_v] "
+        f"{'ok' if beyond == 0 else 'FAIL'}")
+    require(ok_exact, "the device PPR is off the float64 power iteration")
+    require(beyond == 0, "the device PPR and the host push differ by more "
+                         "than the push's bound")
+
+
+# ------------------------------------------------------------ balanced
+def balanced_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
+    """Balanced batching (`fit_balanced`, `predict_balanced`) on the main
+    path's keys sets and edges for the mean Net, and the attn Net's
+    predict and one balanced epoch: the classes are the 50th and 90th
+    percentiles of the queries' larger set size, rounded up to 32, and
+    the bucket; `predict_balanced` against `predict` (1e-6, and whether
+    bit-equal); a one-class `fit_balanced` at the bucket against `fit`
+    with the same permutations (rtol 1e-4, atol 1e-6); a balanced and a
+    plain fit timed in turns (BAL_TURNS each, medians printed)."""
+    bucket = spgk.nodes.shape[1]
+    e_h = edges.cpu().numpy()
+    req = spgk.sizes.cpu().numpy()[e_h].max(axis=0)
+    classes = tuple(sorted({min(bucket, -(-int(np.percentile(req, p))
+                                         // 32) * 32) for p in (50, 90)}
+                           | {bucket}))
+    cfg = TrainConfig(batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP)
+    nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
+                        generator=torch.Generator().manual_seed(0))
+            for a in ("mean", "attn")}
+    trainers = {a: trainer_from_keys(n, spgk, cfg) for a, n in nets.items()}
+    groups = trainers["mean"].partition_by_width(e_h, classes)
+    e = e_h.shape[1]
+    for width, sel in groups:
+        full = 2 * len(sel) * bucket
+        valid = int(spgk.sizes.cpu().numpy()[e_h[:, sel]].sum())
+        say(f"balanced class L={width}: {len(sel)} queries "
+            f"({len(sel) / e:.4f} of them); padded slots "
+            f"{1 - valid / max(2 * len(sel) * width, 1):.4f} of the class's "
+            f"tiles, {1 - valid / max(full, 1):.4f} at the bucket width")
+    for aggrs, tr in trainers.items():
+        zero_counts()
+        sync()
         t0 = time.perf_counter()
-        out = main_horder.run_experiment(cfg, device=DEVICE)
+        got = tr.predict_balanced(edges, classes)
         sync()
         dt = time.perf_counter() - t0
-    launches["cli_tags_honet"] = counts()
-    evals = out["results"].results[0]
-    best = out["best"][0]
-    say(f"cli tags_honet (tags fixture, HONet, M={cfg.num_walks}, batch "
-        f"{cfg.batch_size}, {CLI_EPOCHS} epochs): MRR (valid, test) by eval "
-        f"{[tuple(e[1:]) for e in evals]}, best {best} in {dt:.2f} s; "
-        f"launches "
-        f"{ {k: v for k, v in launches['cli_tags_honet'].items() if v} }; "
-        f"peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{label}]")
-    require(len(evals) == 3 and all(math.isfinite(x) for e in evals
-                                    for x in e[1:]),
-            "cli tags_honet: an evaluation is missing or not finite")
-    require(min(best) > CLI_FLOOR["MRR"],
-            f"cli tags_honet: best MRR {best} not above {CLI_FLOOR['MRR']}")
-    sets = out["trainer"].sets
-    honet_kernels(out["trainer"], out["edges"],
-                  f"cli tags_honet (M={sets.num_walks}, S'={sets.num_steps},"
-                  f" trained weights, a training batch)",
-                  torch.Generator().manual_seed(23))
+        if aggrs == "mean":
+            launches["balanced_serve"] = counts()
+        want = tr.predict(edges)
+        err = float((got - want).abs().max())
+        same = torch.equal(got, want)
+        say(f"predict_balanced ({aggrs}, classes {classes}): {e} queries in "
+            f"{dt:.4f} s -> {e / dt:.1f} queries/s; against predict max "
+            f"|d| {err:.3e} (tol {BAL_PREDICT_TOL}), bit-equal: {same} "
+            f"[{label}]")
+        require(err <= BAL_PREDICT_TOL,
+                f"predict_balanced ({aggrs}) differs from predict")
+    # one class at the bucket width against fit, the same permutations
+    n = REF_STEPS * BATCH
+    perms = [riffle_permutation(torch.Generator(device=DEVICE).manual_seed(
+        40 + ep), REF_STEPS, BATCH) for ep in range(2)]
+    state = nets["mean"].state_dict()
+    out = []
+    for balanced in (False, True):
+        m = make_net("mean", dropout=0.0, dtype="bfloat16")
+        m.load_state_dict(state)
+        tr = trainer_from_keys(m, spgk, cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        if balanced:
+            losses = tr.fit_balanced(edges[:, :n], labels[:n], 2, gen,
+                                     (bucket,), perms=[[p] for p in perms])[0]
+        else:
+            losses = tr.fit(edges[:, :n], labels[:n], 2, gen, perms=perms)[0]
+        out.append((losses.cpu(), {k: v.float().cpu()
+                                   for k, v in m.state_dict().items()}))
+    (lf, pf), (lb, pb) = out
+    err = max(float((pb[k] - pf[k]).abs().max()) for k in pf)
+    same = all(torch.equal(pb[k], pf[k]) for k in pf) and torch.equal(lb, lf)
+    ok = all(torch.allclose(pb[k], pf[k], rtol=1e-4, atol=1e-6) for k in pf)
+    say(f"fit_balanced, one class at L={bucket}, against fit with the same "
+        f"permutations (2 epochs x {REF_STEPS} steps): max |d param| "
+        f"{err:.3e} (rtol 1e-4, atol 1e-6), bit-equal: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "a one-class fit_balanced differs from fit")
+    # a balanced and a plain fit in turns
+    tr = trainers["mean"]
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    tr.fit_balanced(edges, labels, 1, gen, classes)
+    times = {"balanced": [], "plain": []}
+    for turn in range(BAL_TURNS):
+        for kind in ("plain", "balanced"):
+            sync()
+            t0 = time.perf_counter()
+            if kind == "plain":
+                losses = tr.fit(edges, labels, BAL_EPOCHS, gen)[0]
+            else:
+                if turn == 0:
+                    zero_counts()
+                losses = tr.fit_balanced(edges, labels, BAL_EPOCHS, gen,
+                                         classes)[0]
+            sync()
+            times[kind].append(time.perf_counter() - t0)
+            if kind == "balanced" and turn == 0:
+                launches["balanced_train"] = counts()
+            require(bool(torch.isfinite(losses).all()),
+                    f"a {kind} fit's loss is not finite")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    q = BAL_EPOCHS * e
+    say(f"balanced vs plain fit (mean, {BAL_EPOCHS} epochs x {e} queries, "
+        f"{BAL_TURNS} turns each, in turns): plain "
+        f"{[round(t, 4) for t in times['plain']]} s, median "
+        f"{med['plain']:.4f} s -> {q / med['plain']:.1f} queries/s; balanced "
+        f"{[round(t, 4) for t in times['balanced']]} s, median "
+        f"{med['balanced']:.4f} s -> {q / med['balanced']:.1f} queries/s; "
+        f"plain / balanced {med['plain'] / med['balanced']:.3f} [{label}]")
+    zero_counts()
+    trainers["attn"].fit_balanced(edges, labels, 1,
+                                  torch.Generator(device=DEVICE).manual_seed(7),
+                                  classes)
+    launches["balanced_attn_train"] = counts()
+    nonzero = lambda path: {k: v for k, v in launches[path].items() if v}
+    say(f"launches: balanced serving (mean) {nonzero('balanced_serve')}; "
+        f"balanced training (mean, one timed fit) "
+        f"{nonzero('balanced_train')}; balanced attn epoch "
+        f"{nonzero('balanced_attn_train')}")
+
+
+# ------------------------------------------------------------ host engine
+def host_engine_path(dev: SpGDevice, edges, labels, label, launches) -> None:
+    """The host engine (`LinkPredictor`) on the encoding-table sets: one
+    epoch of the mean Net (float32, as the CLI's host engine) at batch
+    4096 over the 32 x 4096 edges, then `evaluate` (MRR of N_SRC sources
+    against HOST_NEG negatives each); and beside it the device engine's
+    epoch with the same Net and weights. The host engine reads each
+    step's loss and predictions back by design: no sync check."""
+    e_h, l_h = edges.cpu().numpy(), labels.cpu().numpy()
+    cfg = TrainConfig(batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP)
+    net = make_net("mean", dropout=0.1,
+                   generator=torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    host = LinkPredictor(net, dev, cfg, device=DEVICE)
+    host.train_epoch(e_h[:, :BATCH], l_h[:BATCH], np.random.default_rng(1))
+    host.init(torch.Generator().manual_seed(0))     # the weights of `state`
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    loss, auc = host.train_epoch(e_h, l_h, np.random.default_rng(2),
+                                 torch.Generator(device=DEVICE).manual_seed(3))
+    sync()
+    dt = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, dev.nodes.shape[0], N_SRC)
+    inf = {split: (np.stack([src, rng.integers(0, dev.nodes.shape[0], N_SRC)]),
+                   np.stack([np.repeat(src, HOST_NEG), rng.integers(
+                       0, dev.nodes.shape[0], N_SRC * HOST_NEG)]))
+           for split in ("valid", "test")}
+    t0 = time.perf_counter()
+    (_, mrr_v, mrr_t), _ = evaluate(host, inf, "MRR")
+    ev = time.perf_counter() - t0
+    launches["host_engine"] = counts()
+    dnet = make_net("mean", dropout=0.1)
+    dnet.load_state_dict(state)
+    dtr = DeviceTrainer(dnet, dev, cfg)
+    dgen = torch.Generator(device=DEVICE).manual_seed(3)
+    dtr.fit(edges, labels, 1, dgen)
+    sync()
+    t0 = time.perf_counter()
+    dtr.fit(edges, labels, 1, dgen)
+    sync()
+    ddt = time.perf_counter() - t0
+    e = e_h.shape[1]
+    preds = 2 * N_SRC * (1 + HOST_NEG)
+    say(f"host engine (mean, table, fp32, batch {BATCH}): one epoch of {e} "
+        f"queries in {dt:.4f} s -> {e / dt:.1f} queries/s (loss "
+        f"{loss:.6f}, exact AUC {auc:.6f}); device engine, the same Net and "
+        f"weights: {ddt:.4f} s -> {e / ddt:.1f} queries/s; evaluate (MRR, "
+        f"{preds} scores) {ev:.4f} s -> {preds / ev:.1f} scores/s, MRR "
+        f"valid {mrr_v:.6f} test {mrr_t:.6f}; launches "
+        f"{ {k: v for k, v in launches['host_engine'].items() if v} } "
+        f"[{label}]")
+    require(math.isfinite(loss) and 0 <= auc <= 1 and 0 < mrr_v <= 1
+            and 0 < mrr_t <= 1, "the host engine gave bad values")
 
 
 def counts():
@@ -4013,8 +4574,11 @@ def main() -> int:
     profile_predict(spgk, ltrainer.model, tedges)
     profile_train(ltrainer, tedges, tlabels, lgen)
 
-    # the encoding-table path, on the same graph, sets and edges
-    table_path(g, spgk, tedges, tlabels, label, launches)
+    # the encoding-table path, on the same graph, sets and edges, then the
+    # host engine on its sets
+    tdev = table_path(g, spgk, tedges, tlabels, label, launches)
+    host_engine_path(tdev, tedges, tlabels, label, launches)
+    del tdev
     # the keys join's impl "pallas", on the same sets and edges
     keys_pallas_path(spgk, tedges, label, launches, gsets)
     # the unfused keys routes (K7, K7 bwd), on the same sets and edges
@@ -4027,6 +4591,10 @@ def main() -> int:
     # tags-math class shape on the wide sets
     honet_path(spgk, spw, label, launches)
     del spw
+    # the scalar encoders' path, the device PPR, balanced batching
+    scalar_path(g, label, launches)
+    ppr_device_check(g, label)
+    balanced_path(spgk, tedges, tlabels, label, launches)
     # the link-prediction CLI on the committed fixtures
     cli_path(label, launches)
     # the higher-order CLI on the tags fixture

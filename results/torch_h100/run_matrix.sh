@@ -4,7 +4,8 @@
 # the port's CLI, and the tags fixture's HONet row (FIXTURE_RESULTS.md:72)
 # through the port's higher-order CLI. Run from anywhere:
 #
-#   bash results/torch_h100/run_matrix.sh [ROW[@SEED] ...]  (default: all 7)
+#   bash results/torch_h100/run_matrix.sh [ROW[@SEED] ...]  (default: the 7
+#   rows of the JAX matrix; collabs_mean_ppr and the _x2 rows by name)
 #
 # Writes, per row, results/torch_h100/<row>.out (stdout: the best (valid,
 # test) per run), <row>.err (stderr) and <row>.log (the run's log file,
@@ -33,6 +34,9 @@ declare -A ARGS=(
   # 12 epochs, M=50, k=10, batch 4096, --valid_perc 25, 3 runs);
   # --num_steps 3, --eval_steps 2 and --early_stop 10 are the other rows'
   [tags_honet]="--dataset npz:surel_plus_tpu/data/fixtures/tags_fixture.npz --num_walks 50 --num_steps 3 --k 10 --epochs 12 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --valid_perc 25"
+  # collabs mean with the PPR scalar encoder: the bar is the JAX package's
+  # CPU run of the same flags, results/jax_cpu/run_scalar_row.sh
+  [collabs_mean_ppr]="--dataset fixture-collabs --aggrs mean --sencoder PPR --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096"
   # a row re-run with twice its runs, named only on the command line
   [collabs_attn_x2]="--dataset fixture-collabs --aggrs attn --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 12 --batch_size 4096"
   [cites_mean_x2]="--dataset fixture-cites --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 16 --eval_steps 2 --early_stop 10 --runs 6 --batch_size 4096"

@@ -1,14 +1,27 @@
-"""Experiment runner for link prediction on the device engine (port of
-the device-engine link-prediction branch of surel_plus_tpu/cli/main.py).
+"""Experiment runner for link prediction (port of
+surel_plus_tpu/cli/main.py).
 
 Loads a dataset, masks a share of its train edges as training positives
-and samples their negatives (`load_link_data`), samples a packed-key set
-for every node of the observed graph (training) and of the inference
-graph (scoring), then per run trains with `DeviceTrainer.fit` between
-evaluations (`evaluate_device`), stops early on the validation metric
-(`ResultLogger`) and logs the statistics over runs. The trainer and the
-scorer wrap one `Net` (bfloat16), so the scorer reads the weights the
-trainer just stepped; the scorer's optimizer is never stepped.
+and samples their negatives (`load_link_data`), builds a set for every
+node of the observed graph (training) and of the inference graph
+(scoring), then per run trains between evaluations, stops early on the
+validation metric (`ResultLogger`) and logs the statistics over runs. The
+trainer and the scorer wrap one `Net`, so the scorer reads the weights
+the trainer just stepped; the scorer's optimizer is never stepped.
+
+The sets, by `--sencoder`: LP, the landing-count sets of random walks;
+PPR, SPD or DEG, the top-k PPR sets of the host push with their scalar
+encoding (`_scalar_pipeline`; `--save_ppr` / `--load_ppr` keep the
+inference graph's matrix in `{dataset}_z_{alpha}_{topk}_{eps}.npz`).
+The engines, by `--engine`: device (and auto), `DeviceTrainer.fit`
+between `evaluate_device` calls, the Net in bfloat16, over packed-key
+sets (LP) or ScalarSpG (the scalar encoders); `--balance_widths`
+trains with `fit_balanced` over the given width classes, completed by
+the bucket. host, `LinkPredictor` (a host loop that reads each step's
+loss and predictions back) and `evaluate`, the Net in float32, over
+encoding-table sets (LP, `subg_matrix`) or ScalarSpG
+(`ScalarLinkPredictor`); `--balance_widths` is the device engine's
+only.
 
 Usage:
   python -m surel_plus_tpu_torch.cli.main --dataset fixture-collabs \\
@@ -17,12 +30,11 @@ Usage:
 It runs on the CUDA device. `SUREL_PLATFORM=cpu` runs it on the CPU, the
 kernels' plain versions in their place; without that variable and with no
 CUDA device it raises. The JAX package's `--engine auto` takes its host
-engine on a CPU backend; this port has only the device engine, so on the
-CPU it runs the device engine's code on CPU tensors.
+engine on a CPU backend; here `--engine auto` is the device engine on
+every device, so on the CPU it runs the device engine's code on CPU
+tensors.
 
-Not ported, and raising NotImplementedError: `--engine host` and
-`--balance_widths` (the host engine and balanced batching), `--sencoder`
-other than LP (the scalar encoders), `--resume`, `--inf_only` /
+Not ported, and raising NotImplementedError: `--resume`, `--inf_only` /
 `--load_model`, `--use_pretrain` and the MAG datasets, and `ogbl-*`
 datasets (they download). No checkpoint is written: the JAX package
 writes one at each evaluation, the port's come with its checkpoint
@@ -50,11 +62,20 @@ from surel_plus_tpu_torch.graph.datasets import (
 )
 from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
 from surel_plus_tpu_torch.models import Net
-from surel_plus_tpu_torch.ops.sampler import subg_matrix_device_keys
-from surel_plus_tpu_torch.train import TrainConfig
+from surel_plus_tpu_torch.ops.encoders import encoding, scalar_spg_from_csr
+from surel_plus_tpu_torch.ops.ppr import topk_ppr_matrix
+from surel_plus_tpu_torch.ops.sampler import (
+    subg_matrix,
+    subg_matrix_device_keys,
+)
+from surel_plus_tpu_torch.train import LinkPredictor, TrainConfig, evaluate
 from surel_plus_tpu_torch.train.device import (
     evaluate_device,
     trainer_from_keys,
+)
+from surel_plus_tpu_torch.train.scalar import (
+    ScalarLinkPredictor,
+    scalar_trainer_from_spg,
 )
 from surel_plus_tpu_torch.utils.config import (
     ExperimentConfig,
@@ -81,10 +102,6 @@ class LinkData(NamedTuple):
 def unported(cfg: ExperimentConfig) -> None:
     """Raise NotImplementedError for an option this port does not run."""
     reasons = [
-        (cfg.engine == "host", "--engine host (the host engine)"),
-        (bool(cfg.balance_widths), "--balance_widths (balanced batching)"),
-        (cfg.sencoder != "LP", f"--sencoder {cfg.sencoder} (the scalar "
-                               f"encoders)"),
         (cfg.resume is not None, "--resume (checkpoints)"),
         (cfg.inf_only or cfg.load_model is not None,
          "--inf_only / --load_model (checkpoints)"),
@@ -95,8 +112,10 @@ def unported(cfg: ExperimentConfig) -> None:
     for hit, what in reasons:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet")
-    if cfg.engine not in ("auto", "device"):
+    if cfg.engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
+    if cfg.sencoder not in ("LP", "PPR", "SPD", "DEG"):
+        raise ValueError(f"unknown sencoder {cfg.sencoder!r}")
 
 
 def load_raw(cfg: ExperimentConfig) -> RawLinkData:
@@ -143,12 +162,48 @@ def load_link_data(cfg: ExperimentConfig, rng: np.random.Generator,
                     {"valid": val_edge, "test": test_edge})
 
 
+def _scalar_pipeline(cfg: ExperimentConfig, G: CSRGraph, logger,
+                     save_load: bool = False):
+    """The PPR / SPD / DEG sets of every node of G (the reference's
+    main.py:181-202): the top-k PPR matrix of the host push, normalized
+    'sym', with the save / load npz cache of the inference graph's
+    matrix where `save_load`, then `encoding` and the padded layout."""
+    from scipy.sparse import load_npz, save_npz
+
+    ppr_path = (f"{cfg.dataset}_z_{cfg.alpha}_{cfg.topk}_{cfg.eps}.npz"
+                if save_load else None)
+    if save_load and cfg.load_ppr:
+        try:
+            x = load_npz(ppr_path)
+        except FileNotFoundError:
+            logger.info("%s does not exist.", ppr_path)
+            raise
+    else:
+        idx = np.arange(G.num_nodes)
+        x = topk_ppr_matrix(G, cfg.alpha, cfg.eps, idx, cfg.topk,
+                            normalization="sym", nthreads=cfg.nthread)
+        if save_load and cfg.save_ppr:
+            save_npz(ppr_path, x.tocsr())
+    x, _ = encoding(x.tocsr(), G.to_scipy(), cfg.sencoder)
+    return scalar_spg_from_csr(x.tocsr())
+
+
+def width_classes(cfg: ExperimentConfig, bucket: int) -> Tuple[int, ...]:
+    """`--balance_widths`' classes, ascending, completed by the bucket
+    width where the last is narrower."""
+    classes = tuple(sorted(int(w) for w in cfg.balance_widths.split(",")))
+    if classes[-1] < bucket:
+        classes = classes + (bucket,)
+    return classes
+
+
 def run_experiment(cfg: ExperimentConfig, logger=None,
                    device="cuda") -> Dict:
     """Returns {'best': [(valid, test) per run], 'results': ResultLogger,
-    'trainer': the training DeviceTrainer, its model as the last run left
-    it, 'edges': the training query edges [2, E] on the device}. The
-    phase timer is reset first, so its report covers this call."""
+    'trainer': the training DeviceTrainer or LinkPredictor, its model as
+    the last run left it, 'edges': the training query edges [2, E] (on
+    the device for the device engine, on the host for the host engine)}.
+    The phase timer is reset first, so its report covers this call."""
     unported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -172,25 +227,44 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                        epochs=cfg.epochs, eval_steps=cfg.eval_steps,
                        early_stop=cfg.early_stop, seed=cfg.seed)
     bucket = cfg.bucket if cfg.bucket and cfg.bucket > 0 else None
-    x_keys = subg_matrix_device_keys(
-        G_obsrv, np.arange(G_obsrv.num_nodes, dtype=np.int32),
-        num_walks=cfg.num_walks, num_steps=cfg.num_steps, seed=cfg.seed,
-        bucket=bucket, device=device)
-    z_keys = subg_matrix_device_keys(
-        G_inf, np.arange(G_inf.num_nodes, dtype=np.int32),
-        num_walks=cfg.num_walks, num_steps=cfg.num_steps, seed=cfg.seed,
-        bucket=bucket, device=device)
+    use_device_engine = cfg.engine in ("auto", "device")
+    scalar = cfg.sencoder != "LP"
     fused = {"auto": None, "on": True, "off": False}[cfg.fused_hidden]
-    model = Net(input_dim=cfg.num_steps, hidden_dim=cfg.hidden_channels,
-                out_dim=1, x_dim=x_dim, dropout=cfg.dropout,
-                use_feature=cfg.use_raw, aggrs=cfg.aggrs, dtype="bfloat16",
+    # the device engine computes in bfloat16, the host engine in float32
+    model = Net(input_dim=1 if scalar else cfg.num_steps,
+                hidden_dim=cfg.hidden_channels, out_dim=1, x_dim=x_dim,
+                dropout=cfg.dropout, use_feature=cfg.use_raw,
+                aggrs=cfg.aggrs,
+                dtype="bfloat16" if use_device_engine else "float32",
                 fused_hidden=fused, device=device)
     feat_dev = (None if feature is None else
                 torch.as_tensor(feature, dtype=torch.float32).to(device))
-    # both stores come from one cfg, so they share the key layout that
-    # trainer_from_keys sets on the shared model
-    trainer = trainer_from_keys(model, x_keys, tcfg, feature=feat_dev)
-    scorer = trainer_from_keys(model, z_keys, tcfg, feature=feat_dev)
+    seeds = lambda G: np.arange(G.num_nodes, dtype=np.int32)
+    if scalar:
+        x_spg = _scalar_pipeline(cfg, G_obsrv, logger)
+        z_spg = _scalar_pipeline(cfg, G_inf, logger, save_load=True)
+        if use_device_engine:
+            trainer, scorer = (scalar_trainer_from_spg(
+                model, spg, tcfg, feature=feat_dev, device=device)
+                for spg in (x_spg, z_spg))
+        else:
+            trainer, scorer = (ScalarLinkPredictor(
+                model, spg, tcfg, feature=feature, device=device)
+                for spg in (x_spg, z_spg))
+    elif use_device_engine:
+        x_keys, z_keys = (subg_matrix_device_keys(
+            G, seeds(G), num_walks=cfg.num_walks, num_steps=cfg.num_steps,
+            seed=cfg.seed, bucket=bucket, device=device)
+            for G in (G_obsrv, G_inf))
+        # both stores come from one cfg, so they share the key layout that
+        # trainer_from_keys sets on the shared model
+        trainer = trainer_from_keys(model, x_keys, tcfg, feature=feat_dev)
+        scorer = trainer_from_keys(model, z_keys, tcfg, feature=feat_dev)
+    else:
+        trainer, scorer = (LinkPredictor(model, subg_matrix(
+            G, seeds(G), num_walks=cfg.num_walks, num_steps=cfg.num_steps,
+            seed=cfg.seed, bucket=bucket, device=device), tcfg,
+            feature=feature, device=device) for G in (G_obsrv, G_inf))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     logger.info("Prep. Runtime (%s): %.2fs", cfg.sencoder,
@@ -201,11 +275,35 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     labels = np.concatenate([
         np.ones(data.train_edge[0].shape[1], np.float32),
         np.zeros(data.train_edge[1].shape[1], np.float32)])
-    edges_dev = torch.as_tensor(edges, dtype=torch.int64).to(device)
-    labels_dev = torch.as_tensor(labels).to(device)
-    inf_dev = {split: tuple(torch.as_tensor(e, dtype=torch.int64).to(device)
-                            for e in pair)
-               for split, pair in data.inf_edge.items()}
+    if use_device_engine:
+        edges_dev = torch.as_tensor(edges, dtype=torch.int64).to(device)
+        labels_dev = torch.as_tensor(labels).to(device)
+        inf_dev = {split: tuple(torch.as_tensor(e, dtype=torch.int64).to(
+            device) for e in pair) for split, pair in data.inf_edge.items()}
+        if cfg.balance_widths:
+            classes = width_classes(cfg, trainer.rows[0].shape[1])
+            logger.info("balanced-width batching: classes %s", classes)
+
+            def run_epochs(n, gen):
+                return trainer.fit_balanced(edges, labels_dev, n, gen,
+                                            classes)[:2]
+        else:
+            def run_epochs(n, gen):
+                return trainer.fit(edges_dev, labels_dev, n, gen)
+
+        def run_eval():
+            return evaluate_device(scorer, inf_dev, cfg.metric)
+    else:
+        edges_dev = edges
+
+        def run_epochs(n, gen):
+            # the epoch permutations continue the data prep's generator
+            losses, aucs = zip(*(trainer.train_epoch(edges, labels, rng,
+                                                     gen) for _ in range(n)))
+            return torch.tensor(losses), torch.tensor(aucs)
+
+        def run_eval():
+            return evaluate(scorer, data.inf_edge, cfg.metric)
 
     rlog = ResultLogger(runs=cfg.runs, metric=cfg.metric,
                         early_stop=cfg.early_stop)
@@ -222,8 +320,7 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                 n = cfg.eval_steps
             n = min(n, cfg.epochs - epoch)
             with metrics.phase("train_epoch", items=edges.shape[1] * n):
-                losses, aucs = trainer.fit(edges_dev, labels_dev, n, gen)
-                losses, aucs = losses.cpu().numpy(), aucs.cpu().numpy()
+                losses, aucs = (x.cpu().numpy() for x in run_epochs(n, gen))
             for i in range(n):
                 logger.info("Run: %02d, Epoch: %02d, Loss: %.4f, "
                             "AUC: %.4f", run + 1, epoch + i,
@@ -232,8 +329,7 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
             last = epoch - 1
             if last % cfg.eval_steps == 0:
                 with metrics.phase("eval"):
-                    results, d_inf = evaluate_device(scorer, inf_dev,
-                                                     cfg.metric)
+                    results, d_inf = run_eval()
                 logger.info("eval: %s (T_test %.2f)", results, d_inf)
                 if rlog.add_result(run, results):
                     break

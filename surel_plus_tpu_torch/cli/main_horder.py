@@ -1,16 +1,19 @@
-"""Higher-order pattern prediction on the device engine (port of the device
-branch of surel_plus_tpu/cli/main_horder.py, the reference's
-main_horder.py:24-141): 3-node hyperedge (triplet) queries over one
-encoder graph, HONet, MRR against k random third nodes a triplet.
+"""Higher-order pattern prediction (port of
+surel_plus_tpu/cli/main_horder.py, the reference's main_horder.py:24-141):
+3-node hyperedge (triplet) queries over one encoder graph, HONet, MRR
+against k random third nodes a triplet.
 
 Loads a triplet dataset and draws its training negatives
-(`DEHyperDataset.process`), samples a packed-key set for every node of
-the encoder graph, then per run trains with `DeviceTrainer.fit` over the
-hyperedge join (`make_keys_hjoin`) between evaluations
-(`evaluate_device`, MRR), stops early on the validation MRR
-(`ResultLogger`) and logs each run's statistics. The epoch blocks are the
-JAX CLI's: epoch 0 alone, then `eval_steps` epochs a block (the last one
-shorter), an evaluation after each block.
+(`DEHyperDataset.process`), builds a set for every node of the encoder
+graph, then per run trains between evaluations (MRR), stops early on the
+validation MRR (`ResultLogger`) and logs each run's statistics. The epoch
+blocks are the JAX CLI's: epoch 0 alone, then `eval_steps` epochs a block
+(the last one shorter), an evaluation after each block. The engines, by
+`--engine`: device (and auto), packed-key sets, `DeviceTrainer.fit` over
+the hyperedge keys join (`make_keys_hjoin`) and `evaluate_device`; host,
+encoding-table sets (`subg_matrix`), `LinkPredictor` over
+`hgather_join` (its epochs ordered by the seed's numpy Generator) and
+`evaluate`.
 
 Usage:
   python -m surel_plus_tpu_torch.cli.main_horder \\
@@ -21,8 +24,8 @@ It runs on the CUDA device. `SUREL_PLATFORM=cpu` runs it on the CPU, the
 kernels' plain versions in their place; without that variable and with no
 CUDA device it raises.
 
-Not ported, and raising NotImplementedError: `--engine host` (the host
-engine), `--inf_only` / `--load_model` and `--resume` (checkpoints), and
+Not ported, and raising NotImplementedError: `--inf_only` /
+`--load_model` and `--resume` (checkpoints), and
 the reference's `./dataset/sgrl/<name>.pl` pickles (`--dataset` other
 than `synth*` and `npz:`). No checkpoint is written: the JAX CLI writes
 one at each best validation MRR; the port's come with its checkpoint
@@ -47,9 +50,12 @@ from surel_plus_tpu_torch.graph.datasets import (
 )
 from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
 from surel_plus_tpu_torch.models import HONet
-from surel_plus_tpu_torch.ops.join import make_keys_hjoin
-from surel_plus_tpu_torch.ops.sampler import subg_matrix_device_keys
-from surel_plus_tpu_torch.train import TrainConfig
+from surel_plus_tpu_torch.ops.join import hgather_join, make_keys_hjoin
+from surel_plus_tpu_torch.ops.sampler import (
+    subg_matrix,
+    subg_matrix_device_keys,
+)
+from surel_plus_tpu_torch.train import LinkPredictor, TrainConfig, evaluate
 from surel_plus_tpu_torch.train.device import (
     evaluate_device,
     trainer_from_keys,
@@ -67,7 +73,6 @@ from surel_plus_tpu_torch.utils.seeding import set_random_seed
 def unported(cfg: ExperimentConfig) -> None:
     """Raise NotImplementedError for an option this port does not run."""
     reasons = [
-        (cfg.engine == "host", "--engine host (the host engine)"),
         (cfg.resume is not None, "--resume (checkpoints)"),
         (cfg.inf_only or cfg.load_model is not None,
          "--inf_only / --load_model (checkpoints)"),
@@ -75,7 +80,7 @@ def unported(cfg: ExperimentConfig) -> None:
     for hit, what in reasons:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet")
-    if cfg.engine not in ("auto", "device"):
+    if cfg.engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
@@ -95,8 +100,9 @@ def load_hyper(cfg: ExperimentConfig) -> DEHyperDataset:
 def run_experiment(cfg: ExperimentConfig, logger=None,
                    device="cuda") -> Dict:
     """Returns {'best': [(valid, test) per run], 'results': ResultLogger,
-    'trainer': the DeviceTrainer, its HONet as the last run left it,
-    'edges': the training hyperedges [3, E] on the device}. The phase
+    'trainer': the DeviceTrainer or LinkPredictor, its HONet as the last
+    run left it, 'edges': the training hyperedges [3, E] (on the device
+    for the device engine, on the host for the host engine)}. The phase
     timer is reset first, so its report covers this call."""
     unported(cfg)
     device = torch.device(device)
@@ -104,7 +110,7 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
         raise RuntimeError("no CUDA device: set SUREL_PLATFORM=cpu (or "
                            "pass device='cpu') to run on the CPU")
     metrics.reset()
-    set_random_seed(cfg.seed)
+    rng = set_random_seed(cfg.seed)
     if logger is None:
         logger = set_up_log(cfg.log_dir, cfg.dataset,
                             args_repr=str(dataclasses.asdict(cfg)))
@@ -120,12 +126,21 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     tcfg = TrainConfig(batch_size=cfg.batch_size, lr=cfg.lr,
                        epochs=cfg.epochs, eval_steps=cfg.eval_steps,
                        early_stop=cfg.early_stop, seed=cfg.seed)
-    spgk = subg_matrix_device_keys(
-        G_enc, np.arange(G_enc.num_nodes, dtype=np.int32),
-        num_walks=cfg.num_walks, num_steps=cfg.num_steps, seed=cfg.seed,
-        device=device)
-    trainer = trainer_from_keys(model, spgk, tcfg, join_factory=(
-        functools.partial(make_keys_hjoin, **model.join_outputs(device))))
+    seeds = np.arange(G_enc.num_nodes, dtype=np.int32)
+    use_device_engine = cfg.engine in ("auto", "device")
+    if use_device_engine:
+        spgk = subg_matrix_device_keys(
+            G_enc, seeds, num_walks=cfg.num_walks, num_steps=cfg.num_steps,
+            seed=cfg.seed, device=device)
+        trainer = trainer_from_keys(model, spgk, tcfg, join_factory=(
+            functools.partial(make_keys_hjoin,
+                              **model.join_outputs(device))))
+    else:
+        spg = subg_matrix(G_enc, seeds, num_walks=cfg.num_walks,
+                          num_steps=cfg.num_steps, seed=cfg.seed,
+                          device=device)
+        trainer = LinkPredictor(model, spg, tcfg, join_fn=hgather_join,
+                                device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     logger.info("Prep. Runtime (LP): %.2fs", time.time() - prep_start)
@@ -140,11 +155,28 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                                  ds.num_nodes, percent=cfg.valid_perc)
     test_edge = get_pos_neg_edges("test", ds.split_edge, None,
                                   ds.num_nodes)
-    edges_dev = torch.as_tensor(edges, dtype=torch.int64).to(device)
-    labels_dev = torch.as_tensor(labels).to(device)
-    inf_dev = {split: tuple(torch.as_tensor(e, dtype=torch.int64).to(device)
-                            for e in pair)
-               for split, pair in (("valid", val_edge), ("test", test_edge))}
+    inf_edge = {"valid": val_edge, "test": test_edge}
+    if use_device_engine:
+        edges_dev = torch.as_tensor(edges, dtype=torch.int64).to(device)
+        labels_dev = torch.as_tensor(labels).to(device)
+        inf_dev = {split: tuple(torch.as_tensor(e, dtype=torch.int64).to(
+            device) for e in pair) for split, pair in inf_edge.items()}
+
+        def run_epochs(n, gen):
+            return trainer.fit(edges_dev, labels_dev, n, gen)
+
+        def run_eval():
+            return evaluate_device(trainer, inf_dev, "MRR")
+    else:
+        edges_dev = edges
+
+        def run_epochs(n, gen):
+            losses, aucs = zip(*(trainer.train_epoch(edges, labels, rng,
+                                                     gen) for _ in range(n)))
+            return torch.tensor(losses), torch.tensor(aucs)
+
+        def run_eval():
+            return evaluate(trainer, inf_edge, "MRR")
 
     rlog = ResultLogger(runs=cfg.runs, metric="MRR",
                         early_stop=cfg.early_stop)
@@ -159,15 +191,14 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
             n = 1 if epoch == 0 else min(cfg.eval_steps,
                                          cfg.epochs - epoch)
             with metrics.phase("train_epoch", items=edges.shape[1] * n):
-                losses, aucs = trainer.fit(edges_dev, labels_dev, n, gen)
-                losses, aucs = losses.cpu().numpy(), aucs.cpu().numpy()
+                losses, aucs = (x.cpu().numpy() for x in run_epochs(n, gen))
             for i in range(n):
                 logger.info("Run: %02d, Epoch: %02d, Loss: %.4f, "
                             "AUC: %.4f", run + 1, epoch + i,
                             float(losses[i]), float(aucs[i]))
             epoch += n
             with metrics.phase("eval"):
-                results, d_inf = evaluate_device(trainer, inf_dev, "MRR")
+                results, d_inf = run_eval()
             logger.info("eval MRR: %s (T_test %.2f)", results, d_inf)
             if rlog.add_result(run, results):
                 break

@@ -1,4 +1,4 @@
 from surel_plus_tpu_torch.graph.csr import CSRGraph, csr_from_edges
-from surel_plus_tpu_torch.graph.synthetic import rmat_graph
+from surel_plus_tpu_torch.graph.synthetic import ring_of_cliques, rmat_graph
 
-__all__ = ["CSRGraph", "csr_from_edges", "rmat_graph"]
+__all__ = ["CSRGraph", "csr_from_edges", "ring_of_cliques", "rmat_graph"]

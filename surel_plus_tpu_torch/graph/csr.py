@@ -40,6 +40,16 @@ class CSRGraph:
     def neighbors(self, u: int) -> np.ndarray:
         return self.indices[self.indptr[u]:self.indptr[u + 1]]
 
+    def to_scipy(self):
+        """The adjacency as a scipy.sparse.csr_matrix [N, N] of the edge
+        weights, or of ones where the graph has none."""
+        import scipy.sparse as sp
+
+        data = self.data if self.data is not None else np.ones(
+            self.num_edges, dtype=np.float32)
+        n = self.num_nodes
+        return sp.csr_matrix((data, self.indices, self.indptr), shape=(n, n))
+
     def to(self, device):
         """Return (indptr, indices) as int64 torch tensors on `device`
         (int64 so that they index directly)."""

@@ -1,6 +1,7 @@
 """Synthetic graph generators (port of surel_plus_tpu/graph/synthetic.py).
 
-RMAT stands in for the power-law OGB graphs the reference benchmarks on.
+RMAT stands in for the power-law OGB graphs the reference benchmarks on;
+the ring of cliques is a small structured graph for the tests.
 """
 
 from __future__ import annotations
@@ -40,3 +41,17 @@ def rmat_graph(
     edges = np.stack([src, dst], axis=1)
     edges = edges[src != dst][:num_edges]
     return csr_from_edges(edges, num_nodes=num_nodes)
+
+
+def ring_of_cliques(num_cliques: int, clique_size: int) -> CSRGraph:
+    """num_cliques cliques of clique_size nodes, adjacent cliques bridged."""
+    edges = []
+    for q in range(num_cliques):
+        base = q * clique_size
+        for i in range(clique_size):
+            for j in range(i + 1, clique_size):
+                edges.append((base + i, base + j))
+        nxt = ((q + 1) % num_cliques) * clique_size
+        edges.append((base, nxt))
+    return csr_from_edges(np.array(edges, dtype=np.int64),
+                          num_nodes=num_cliques * clique_size)

@@ -41,7 +41,10 @@ two row gathers (the cheapest forward; its backward is a scatter-add), or
 in the backward; the trainer trains this way). So are they over a keys
 join that carries no key planes (impl="pallas", or the general hi/lo
 layout: only the feature pairs and the mask), as the JAX Net falls
-through to `pe.hidden` there. Then the fused route takes `masked_mean`
+through to `pe.hidden` there, and over a scalar join
+(`gather_join_scalar`: float value pairs eidx [2, B, L, 2], input_dim 1,
+the PPR / SPD / DEG paths), the hidden layer over each value of the pair
+and their sum. Then the fused route takes `masked_mean`
 for mean, `AttentionAggregation.folded` for attn and `lstm_final_hidden`
 (K5, and K5 bwd in training, on the card) for lstm, the projection
 folded in; the unfused route projects every slot first.
@@ -223,6 +226,9 @@ class Net(nn.Module):
         if table:
             hsum = table_hsum(pe, joined.eidx, enc_table,
                               embed_mode or self.embed_mode)
+        elif joined.eidx is not None and joined.eidx.dim() == 4:
+            # a scalar join's value pairs [2, B, L, 2]: one input feature
+            hsum = pe.hidden(joined.eidx[..., None]).sum(dim=-2)
         elif fused and joined.kown is not None:
             if self.key_layout is None:
                 raise ValueError("the fused keys route needs key_layout")

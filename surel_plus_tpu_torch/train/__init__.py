@@ -1,3 +1,8 @@
-from surel_plus_tpu_torch.train.loop import TrainConfig
+from surel_plus_tpu_torch.train.loop import (
+    LinkPredictor,
+    TrainConfig,
+    evaluate,
+    train_epoch,
+)
 
-__all__ = ["TrainConfig"]
+__all__ = ["LinkPredictor", "TrainConfig", "evaluate", "train_epoch"]

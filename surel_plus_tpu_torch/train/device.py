@@ -14,19 +14,39 @@ waits for the device. `predict` scores query edges batch by batch, with
 the tail batch padded with zero edges as in the reference.
 `evaluate_device` scores the valid and test splits with a trainer and
 reduces them to Hits@K, AUC or MRR on the device.
+
+Balanced batching (paper §3.3; `partition_by_width`, `fit_balanced`,
+`predict_balanced`) groups the queries by the tile width they need, the
+larger of their two set sizes, into ascending width classes, and runs
+each class over the stores' row tiles cut to its width: queries of small
+sets stop paying the whole bucket's padding in the join and the model.
+Each class is one segment of an epoch, with its own permutation; the
+epoch's loss and AUC histogram are shared by the classes.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import (
+    TYPE_CHECKING,
+    Callable,
+    Dict,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+    Union,
+)
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
 from surel_plus_tpu_torch.ops.join import gather_join, make_keys_join
 from surel_plus_tpu_torch.spg.spg import SpGDevice, SpGKeys
-from surel_plus_tpu_torch.train.loop import TrainConfig
+
+if TYPE_CHECKING:
+    from surel_plus_tpu_torch.train.loop import TrainConfig
 
 
 AUC_BINS = 512
@@ -119,6 +139,24 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def new_optimizer(model: torch.nn.Module, config: TrainConfig
+                  ) -> torch.optim.Optimizer:
+    """Adam with optax's defaults (eps 1e-8 outside the square root)."""
+    return torch.optim.Adam(model.parameters(), lr=config.lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def adam_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+              loss: torch.Tensor, grad_clip: float) -> None:
+    """One update: the gradients of `loss`, clipped by their global norm
+    (`clip_by_global_norm_`), then the optimizer's step."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    clip_by_global_norm_([p.grad for p in model.parameters()
+                          if p.grad is not None], grad_clip)
+    optimizer.step()
+
+
 def device_hits_at_k(pos: torch.Tensor, neg: torch.Tensor,
                      k: int) -> torch.Tensor:
     """Share of positives scoring strictly above the k-th best negative."""
@@ -171,21 +209,64 @@ class DeviceTrainer:
             self.rows = (sets.nodes, sets.khi, sets.klo, sets.sizes)
             self.join = join
             self.predict_kw = self.train_kw = {}
-        self.optimizer = self._new_optimizer()
-
-    def _new_optimizer(self) -> torch.optim.Optimizer:
-        return torch.optim.Adam(self.model.parameters(), lr=self.config.lr,
-                                betas=(0.9, 0.999), eps=1e-8)
+        self.optimizer = new_optimizer(model, config)
+        self._sizes_h = None
 
     def init(self, generator: Optional[torch.Generator] = None) -> None:
         """Fresh weights from the CPU `generator` and fresh Adam state."""
         self.model.reset_parameters(generator)
-        self.optimizer = self._new_optimizer()
+        self.optimizer = new_optimizer(self.model, self.config)
 
-    def _batch(self, edges: torch.Tensor):
-        joined = self.join(*self.rows, edges)
+    def _rows_at(self, width: Optional[int]) -> tuple:
+        """The stores' row tiles cut to their first `width` slots (a width
+        class's strided views), or whole if `width` is None."""
+        if width is None:
+            return self.rows
+        return tuple(t[:, :width] if t.dim() == 2 else t for t in self.rows)
+
+    def _batch(self, edges: torch.Tensor, rows: Optional[tuple] = None):
+        joined = self.join(*(self.rows if rows is None else rows), edges)
         feat = self.feature[edges] if self.feature is not None else None
         return joined, feat
+
+    def _segment(self, edges: torch.Tensor, labels: torch.Tensor,
+                 perm: torch.Tensor, generator: torch.Generator,
+                 acc: List[torch.Tensor], rows: Optional[tuple] = None
+                 ) -> None:
+        """The training steps over `edges` in the batches of `perm`
+        [nsteps, batch_size] (ids past the edges weigh 0), the joins over
+        `rows`; adds each step's score histograms, weighted loss and weight
+        to `acc` [pos_h, neg_h, loss_sum, w_sum] on the device."""
+        num_edges = edges.shape[1]
+        perm = perm.to(edges.device, torch.int64)
+        wmat = (perm < num_edges).to(torch.float32)
+        perm = torch.clamp(perm, max=num_edges - 1)
+        for idx, w in zip(perm, wmat):
+            bl = labels[idx]
+            joined, feat = self._batch(edges[:, idx], rows)
+            logits = self.model(joined, feat, generator=generator,
+                                **self.train_kw)
+            loss = batch_loss(logits, bl, w)
+            adam_step(self.model, self.optimizer, loss,
+                      self.config.grad_clip)
+            with torch.no_grad():
+                preds = torch.sigmoid(logits)
+                acc[0] += score_histogram(preds, w * bl, AUC_BINS)
+                acc[1] += score_histogram(preds, w * (1.0 - bl), AUC_BINS)
+                acc[2] += loss * w.sum()
+                acc[3] += w.sum()
+
+    @staticmethod
+    def _new_acc(device) -> List[torch.Tensor]:
+        hist = torch.zeros(AUC_BINS, device=device)
+        zero = torch.zeros((), device=device)
+        return [hist, hist.clone(), zero, zero.clone()]
+
+    @staticmethod
+    def _epoch_result(acc: List[torch.Tensor]):
+        """(mean loss, histogram AUC) of an epoch's accumulators."""
+        return (acc[2] / torch.clamp(acc[3], min=1.0),
+                device_auc_hist(acc[0], acc[1]))
 
     def train_epoch(self, edges: torch.Tensor, labels: torch.Tensor,
                     generator: torch.Generator,
@@ -196,38 +277,13 @@ class DeviceTrainer:
         dropout masks. Returns (mean loss, histogram AUC) as device
         scalars."""
         bs = self.config.batch_size
-        num_edges = edges.shape[1]
-        nsteps = -(-num_edges // bs)
         if perm is None:
-            perm = riffle_permutation(generator, nsteps, bs)
-        perm = perm.to(edges.device, torch.int64)
-        wmat = (perm < num_edges).to(torch.float32)
-        perm = torch.clamp(perm, max=num_edges - 1)
+            perm = riffle_permutation(generator, -(-edges.shape[1] // bs),
+                                      bs)
         self.model.train()
-        pos_h = torch.zeros(AUC_BINS, device=edges.device)
-        neg_h = torch.zeros_like(pos_h)
-        loss_sum = torch.zeros((), device=edges.device)
-        w_sum = torch.zeros_like(loss_sum)
-        for idx, w in zip(perm, wmat):
-            bl = labels[idx]
-            joined, feat = self._batch(edges[:, idx])
-            logits = self.model(joined, feat, generator=generator,
-                                **self.train_kw)
-            loss = batch_loss(logits, bl, w)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            clip_by_global_norm_(
-                [p.grad for p in self.model.parameters()
-                 if p.grad is not None], self.config.grad_clip)
-            self.optimizer.step()
-            with torch.no_grad():
-                preds = torch.sigmoid(logits)
-                pos_h += score_histogram(preds, w * bl, AUC_BINS)
-                neg_h += score_histogram(preds, w * (1.0 - bl), AUC_BINS)
-                loss_sum += loss * w.sum()
-                w_sum += w.sum()
-        return (loss_sum / torch.clamp(w_sum, min=1.0),
-                device_auc_hist(pos_h, neg_h))
+        acc = self._new_acc(edges.device)
+        self._segment(edges, labels, perm, generator, acc)
+        return self._epoch_result(acc)
 
     def fit(self, edges, labels, n_epochs: int,
             generator: torch.Generator,
@@ -244,12 +300,14 @@ class DeviceTrainer:
         return torch.stack(losses), torch.stack(aucs)
 
     @torch.inference_mode()
-    def predict(self, edges) -> torch.Tensor:
+    def predict(self, edges, width: Optional[int] = None) -> torch.Tensor:
         """Score [Q, E] query edges (numpy or tensor of SpG row ids);
-        returns sigmoid scores [E] float32 on the sets' device. Leaves
+        returns sigmoid scores [E] float32 on the sets' device. `width`
+        cuts the row tiles to a width class (`predict_balanced`). Leaves
         the model in eval mode."""
         dev = self.sets.nodes.device
         edges = torch.as_tensor(edges).to(dev, torch.int64)
+        rows = self._rows_at(width)
         bs = self.config.batch_size
         E = edges.shape[1]
         pad = (-E) % bs
@@ -259,10 +317,88 @@ class DeviceTrainer:
         self.model.eval()
         out = []
         for i in range(0, E + pad, bs):
-            joined, feat = self._batch(edges[:, i:i + bs])
+            joined, feat = self._batch(edges[:, i:i + bs], rows)
             out.append(torch.sigmoid(self.model(joined, feat,
                                                 **self.predict_kw)))
         return torch.cat(out)[:E]
+
+    # -- balanced batching (JAX device.py:282-504) -------------------------
+    def partition_by_width(self, edges, classes: Sequence[int]
+                           ) -> List[Tuple[int, np.ndarray]]:
+        """The [Q, E] queries (numpy or tensor) by width class, on the
+        host: [(width, query indices)] for each of the ascending `classes`,
+        a query in the first class at least as wide as its largest set.
+        The last class must be at least the stores' bucket; raises
+        ValueError otherwise, or if a query's set is wider than it."""
+        classes = [int(c) for c in classes]
+        if classes != sorted(classes) or classes[-1] < self.rows[0].shape[1]:
+            raise ValueError(f"width classes {classes} must ascend to at "
+                             f"least the bucket {self.rows[0].shape[1]}")
+        if self._sizes_h is None:
+            self._sizes_h = self.rows[-1].cpu().numpy()
+        if torch.is_tensor(edges):
+            edges = edges.cpu().numpy()
+        req = self._sizes_h[np.asarray(edges)].max(axis=0)       # [E]
+        out, prev = [], 0
+        for width in classes:
+            out.append((width, np.nonzero((req > prev) & (req <= width))[0]))
+            prev = width
+        if req.size and prev < req.max():
+            raise ValueError(f"a query's set ({int(req.max())} slots) is "
+                             f"wider than the last class {prev}")
+        return out
+
+    def fit_balanced(self, edges, labels, n_epochs: int,
+                     generator: torch.Generator, classes: Sequence[int],
+                     perms: Optional[Sequence[Sequence[torch.Tensor]]] = None):
+        """`n_epochs` epochs over the queries grouped by
+        `partition_by_width`: each epoch runs the classes in order, each a
+        segment over the row tiles cut to its width with its own batch
+        permutation, drawn in class order from `generator` unless
+        `perms[epoch][class]` gives it; the epoch's loss and AUC histogram
+        are shared across classes. Returns (losses [n_epochs], aucs
+        [n_epochs]) as device tensors and the partition."""
+        dev = self.sets.nodes.device
+        groups = self.partition_by_width(edges, classes)
+        edges = torch.as_tensor(edges).to(dev, torch.int64)
+        labels = torch.as_tensor(labels).to(dev, torch.float32)
+        bs = self.config.batch_size
+        segments = []
+        for ci, (width, sel) in enumerate(groups):
+            if len(sel):
+                idx = torch.as_tensor(sel).to(dev)
+                segments.append((ci, edges[:, idx], labels[idx],
+                                 self._rows_at(width)))
+        losses, aucs = [], []
+        for epoch in range(n_epochs):
+            self.model.train()
+            acc = self._new_acc(dev)
+            for ci, e_c, l_c, rows in segments:
+                if perms is None:
+                    perm = riffle_permutation(generator,
+                                              -(-e_c.shape[1] // bs), bs)
+                else:
+                    perm = perms[epoch][ci]
+                self._segment(e_c, l_c, perm, generator, acc, rows)
+            loss, auc = self._epoch_result(acc)
+            losses.append(loss)
+            aucs.append(auc)
+        return torch.stack(losses), torch.stack(aucs), groups
+
+    @torch.inference_mode()
+    def predict_balanced(self, edges, classes: Sequence[int]
+                         ) -> torch.Tensor:
+        """`predict` class by class, each over the row tiles cut to its
+        width, the scores put back in the queries' order."""
+        dev = self.sets.nodes.device
+        groups = self.partition_by_width(edges, classes)
+        edges = torch.as_tensor(edges).to(dev, torch.int64)
+        out = torch.zeros(edges.shape[1], device=dev)
+        for width, sel in groups:
+            if len(sel):
+                idx = torch.as_tensor(sel).to(dev)
+                out[idx] = self.predict(edges[:, idx], width=width)
+        return out
 
 
 def trainer_from_keys(model, spgk: SpGKeys, config: TrainConfig,

@@ -20,7 +20,8 @@ host modules under it, each against the JAX package:
   within 1e-6 when fed JAX's own scores (a float32 mean over another
   order), and end to end within one rank flip (1 / #positives);
 - `run_experiment` and `main` on the CPU at a toy size, and the options
-  this port does not run raising.
+  this port does not run raising (the host engine, balanced batching
+  and the scalar encoders: tests/test_torch_port_host_engine.py).
 """
 
 import argparse
@@ -504,12 +505,10 @@ def test_main_without_a_device_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "host"], ["--balance_widths", "64,128"],
-    ["--sencoder", "PPR"], ["--resume", "ckpt"],
+    ["--resume", "ckpt"],
     ["--inf_only", "--load_model", "ckpt"], ["--use_pretrain"],
     ["--dataset", "synth-mag"], ["--dataset", "ogbl-collab"]],
-    ids=["engine_host", "balance_widths", "sencoder", "resume", "inf_only",
-         "use_pretrain", "mag", "ogbl"])
+    ids=["resume", "inf_only", "use_pretrain", "mag", "ogbl"])
 def test_unported_options_raise(tmp_path, extra):
     cfg = _config(tconfig, ["--dataset", "synth-collab", "--log_dir",
                             str(tmp_path), *extra])

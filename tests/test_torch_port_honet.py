@@ -735,9 +735,9 @@ def test_main_without_a_device_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "host"], ["--resume", "ckpt"],
+    ["--resume", "ckpt"],
     ["--inf_only", "--load_model", "ckpt"], ["--dataset", "tags-math"]],
-    ids=["engine_host", "resume", "inf_only", "pickle"])
+    ids=["resume", "inf_only", "pickle"])
 def test_unported_options_raise(tmp_path, extra):
     cfg = _config(["--dataset", "synth-tags", "--log_dir", str(tmp_path),
                    *extra])
