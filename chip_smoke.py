@@ -244,6 +244,28 @@ NVIDIA GPU. Run from the repository root:
    training batch with the weights its run left; then the same row on
    the host engine (`cli_tags_honet_host`: `LinkPredictor` over
    `hgather_join`), K2 on its (u, w) merge.
+   Between them, the checkpoints (`cli_resume_path`): the collabs mean
+   row's run wrote `latest_0` before its epoch-2 evaluation; a
+   `--resume latest_0` run trains epoch 3 (`cli_resume`), its parameters
+   within rtol 1e-4 / atol 1e-5 of the straight run's (bitwise or not
+   printed); `--inf_only --load_model latest_0` (`cli_inf_only`) equals
+   the straight run's epoch-2 evaluation exactly; the tags row with an
+   evaluation an epoch and `--early_stop 1` (`cli_tags_honet_stop`)
+   writes its checkpoint at the first evaluation that does not improve,
+   and `--inf_only` over it (`cli_horder_inf_only`) equals that
+   evaluation exactly. Then relation prediction (`cli_mag_path`):
+   MAG(P-P) at paper Table 8's settings (M=100, num_steps 4: L=301,
+   mean, hidden 96, k=10, batch 4096, 4 epochs, evaluations after epochs
+   0 and 2) over a synthetic MAG of 100,000 authors and 150,000 papers
+   (1,000,000 writes, 2,000,000 cites; valid and test cut to their first
+   4,096 sources of 1,000 negatives each) written as `mag_cite.npz`,
+   every MRR finite and in [0, 1], the seconds of each part and the peak
+   memory printed, then K1, K1 bwd and K2 on its first training batch
+   with its trained weights. Last, the legacy walk API (`legacy_path`)
+   over 65,536 seeds of the bench graph: `walk_sampler` (M=100, S'=3),
+   `rw_matrix` (M=200, num_steps 4), `batch_sampler` and `walk_join`,
+   their invariants held and `walk_join` on the card equal to its CPU
+   result exactly.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the run's total
@@ -258,7 +280,9 @@ any phase fails.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
+import glob
 import json
 import math
 import os
@@ -281,9 +305,11 @@ import torch
 from surel_plus_tpu_torch.cli import main_horder
 from surel_plus_tpu_torch.cli.main import run_experiment
 from surel_plus_tpu_torch.graph import rmat_graph
+from surel_plus_tpu_torch.graph.datasets import synthetic_hetero_data
 from surel_plus_tpu_torch.models import HONet, Net
 from surel_plus_tpu_torch.models.honet import group_set_sums
 from surel_plus_tpu_torch.ops import join as join_ops
+from surel_plus_tpu_torch.ops import legacy
 from surel_plus_tpu_torch.ops import ppr as ppr_ops
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.encoders import (
@@ -323,10 +349,12 @@ from surel_plus_tpu_torch.train.device import (
     riffle_permutation,
     trainer_from_keys,
 )
+from surel_plus_tpu_torch.utils.checkpoint import load_checkpoint
 from surel_plus_tpu_torch.utils.config import (
     ExperimentConfig,
     apply_dataset_overrides,
 )
+from surel_plus_tpu_torch.utils.profiling import metrics
 
 DEVICE = "cuda"
 N_NODES, N_EDGES = 250_000, 2_500_000           # bench.py:114-115
@@ -412,6 +440,29 @@ CLI_HROW = dict(dataset=f"npz:{TAGS_FIXTURE}", num_walks=50, k=10,
                 batch_size=4096, valid_perc=25)
 # the row on each engine
 CLI_HROWS = {"tags_honet": {}, "tags_honet_host": dict(engine="host")}
+# the checkpoint checks: the straight run is CLI_ROWS' RESUME_ROW, which
+# writes latest_0 at its epoch-2 evaluation; the resumed run holds its
+# parameters at the card-vs-CPU tolerance (PERF.md §2). The higher-order
+# CLI's best checkpoint: the tags row, an evaluation an epoch, stopped at
+# the first evaluation that does not improve (at most HSTOP_EPOCHS)
+RESUME_ROW = "collabs_mean"
+RESUME_RTOL, RESUME_ATOL = 1e-4, 1e-5
+HSTOP_EPOCHS = 20
+# MAG(P-P), relation prediction: the paper's Table 8 settings (SURVEY.md:
+# 405: S=4, M=100; hidden 96, k=10, batch 4096) on a synthetic MAG of the
+# main path's graph size (250,000 nodes), valid and test cut to their
+# first MAG_QUERIES sources of MAG_NEG negatives each, so that an
+# evaluation scores 4096 x 1001 pairs a split as bench.py's MRR does
+MAG_DATA = dict(num_authors=100_000, num_papers=150_000,
+                num_writes=1_000_000, num_cites=2_000_000, relation="cite",
+                neg_per_query=1000)
+MAG_QUERIES = 4096
+CLI_MAG = dict(relation="cite", num_walks=100, num_steps=4, aggrs="mean",
+               hidden_channels=96, k=10, batch_size=4096)
+# the legacy walk API over the bench graph: walk_sampler at M=100, S'=3,
+# rw_matrix at M=200, num_steps 4 (walks of 3 steps), batch_sampler and
+# walk_join, each over LEGACY_SEEDS seeds
+LEGACY_SEEDS = 65_536
 # the scalar path: the JAX CLI's PPR defaults (utils/config.py:31-33); the
 # host push runs over every node unless a probe predicts more than the
 # budget, and then over the first SCALAR_ROWS_CUT rows
@@ -540,7 +591,13 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "cli_collabs_mean_balanced": ("hidden_sum_fwd", "hidden_sum_bwd",
                                        "merge_pairs"),
          "cli_collabs_mean_host": ("merge_pairs",),
-         "cli_tags_honet_host": ("merge_pairs",)}
+         "cli_tags_honet_host": ("merge_pairs",),
+         "cli_mag": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs"),
+         "cli_resume": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs"),
+         "cli_inf_only": ("hidden_sum_fwd", "merge_pairs"),
+         "cli_tags_honet_stop": ("hidden_sum_fwd", "hidden_sum_bwd",
+                                 "merge_pairs"),
+         "cli_horder_inf_only": ("hidden_sum_fwd", "merge_pairs")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
@@ -3611,26 +3668,31 @@ def unfused_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
         profile_train(trainer, edges, labels, gen, steps=steps)
 
 
-def cli_path(label, launches) -> None:
+def cli_path(label, launches, log_root):
     """The link-prediction CLI on the fixtures: `run_experiment` on the
     card for each of CLI_ROWS (data prep, sampling, training, evaluation,
-    early stopping), its log in a temporary directory. Prints each row's
-    evaluations, best (valid, test) and seconds; requires every evaluated
-    value finite and the best pair above CLI_FLOOR; counts each row's
-    launches; then holds the row's kernels to their plain versions on its
-    own sets and weights (`cli_kernels`)."""
+    early stopping, checkpoints), its log and checkpoints under
+    `log_root/<row>`. Prints each row's evaluations, best (valid, test)
+    and seconds; requires every evaluated value finite and the best pair
+    above CLI_FLOOR; counts each row's launches; then holds the row's
+    kernels to their plain versions on its own sets and weights
+    (`cli_kernels`). Returns RESUME_ROW's config, final parameters and
+    results, for `cli_resume_path`."""
+    straight = None
     for row, kw in CLI_ROWS.items():
         cfg = apply_dataset_overrides(ExperimentConfig(
             num_steps=3, epochs=CLI_EPOCHS, eval_steps=2, early_stop=10,
-            runs=1, **kw))
-        with tempfile.TemporaryDirectory() as log_dir:
-            cfg.log_dir = log_dir
-            zero_counts()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            out = run_experiment(cfg, device=DEVICE)
-            sync()
-            dt = time.perf_counter() - t0
+            runs=1, log_dir=os.path.join(log_root, row), **kw))
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run_experiment(cfg, device=DEVICE)
+        sync()
+        dt = time.perf_counter() - t0
+        if row == RESUME_ROW:
+            straight = (cfg, {k: v.detach().clone() for k, v in
+                              out["trainer"].model.state_dict().items()},
+                        out["results"])
         path = f"cli_{row}"
         launches[path] = counts()
         per_key = out["results"].results
@@ -3657,6 +3719,254 @@ def cli_path(label, launches) -> None:
                 f"{CLI_FLOOR[cfg.metric]}")
         cli_kernels(row, out["trainer"], out["edges"])
         del out
+    return straight
+
+
+def cli_resume_path(label, launches, straight, log_root) -> None:
+    """Checkpoints on the card. On RESUME_ROW's straight run (cli_path's,
+    4 epochs, `latest_0` written before its epoch-2 evaluation): a
+    `--resume latest_0` run, which trains epoch 3 alone, its parameters
+    within RESUME_RTOL / RESUME_ATOL of the straight run's (the largest
+    difference and whether they are bitwise equal printed); then
+    `--inf_only --load_model latest_0`, equal to the straight run's
+    epoch-2 evaluation exactly (K1 and K2 repeat bit for bit, and the
+    sets are sampled anew from the same seed). Then the tags row of the
+    higher-order CLI with an evaluation an epoch and `--early_stop 1`,
+    which writes its checkpoint at the first evaluation that does not
+    improve, and `--inf_only --load_model` over that checkpoint, equal to
+    the run's last evaluation exactly. Each run's launches counted as a
+    path of its own."""
+    cfg, final, results = straight
+    ckpt = f"{cfg.log_dir}/{cfg.dataset}/model/latest_0"
+    state = load_checkpoint(ckpt)
+    require(state["epoch"] == 2 and sorted(state) == [
+        "epoch", "gen", "opt_state", "params", "rng"],
+            f"cli resume: {ckpt} holds epoch {state['epoch']}, fields "
+            f"{sorted(state)}")
+
+    def run(path, fn, cfg_):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn(cfg_, device=DEVICE)
+        sync()
+        launches[path] = counts()
+        return out, time.perf_counter() - t0
+
+    out, dt = run("cli_resume", run_experiment,
+                  dataclasses.replace(cfg, resume=ckpt))
+    got = out["trainer"].model.state_dict()
+    worst, close, bitwise = 0.0, True, True
+    for k, want in final.items():
+        g = got[k].detach()
+        worst = max(worst, (g - want).abs().max().item())
+        close &= torch.allclose(g, want, rtol=RESUME_RTOL, atol=RESUME_ATOL)
+        bitwise &= torch.equal(g, want)
+    say(f"cli resume ({RESUME_ROW}, --resume latest_0 at epoch 2, epoch 3 "
+        f"trained) in {dt:.2f} s: parameters against the straight run's "
+        f"max |d| {worst:.3e} (rtol {RESUME_RTOL}, atol {RESUME_ATOL}), "
+        f"bitwise equal: {bitwise}; launches "
+        f"{ {k: v for k, v in launches['cli_resume'].items() if v} } "
+        f"[{label}]")
+    require(close, f"cli resume: parameters differ from the straight "
+                   f"run's by up to {worst:.3e}")
+    del out
+
+    out, dt = run("cli_inf_only", run_experiment,
+                  dataclasses.replace(cfg, inf_only=True, load_model=ckpt))
+    per_key = results.results
+    want = ({k: v[0][1] for k, v in per_key.items()}
+            if isinstance(per_key, dict) else per_key[0][1])
+    say(f"cli inf_only ({RESUME_ROW}, --load_model latest_0) in {dt:.2f} s:"
+        f" {out['results']}; the straight run's epoch-2 evaluation {want}; "
+        f"equal: {out['results'] == want}; launches "
+        f"{ {k: v for k, v in launches['cli_inf_only'].items() if v} } "
+        f"[{label}]")
+    require(out["results"] == want,
+            "cli inf_only: the evaluation differs from the straight run's")
+
+    hcfg = ExperimentConfig(num_steps=3, epochs=HSTOP_EPOCHS, eval_steps=1,
+                            early_stop=1, runs=1,
+                            log_dir=os.path.join(log_root, "tags_stop"),
+                            **CLI_HROW)
+    out, dt = run("cli_tags_honet_stop", main_horder.run_experiment, hcfg)
+    evals = out["results"].results[0]
+    stops = glob.glob(f"{hcfg.log_dir}/{hcfg.dataset}/model/*_0")
+    say(f"cli tags_honet --early_stop 1 in {dt:.2f} s: MRR (valid, test) "
+        f"by epoch {[tuple(e[1:]) for e in evals]}; checkpoints {stops}")
+    require(len(evals) < HSTOP_EPOCHS and len(stops) == 1,
+            "cli tags_honet --early_stop 1: no stop, or no checkpoint")
+    require(load_checkpoint(stops[0])["epoch"] == len(evals) - 1,
+            "cli tags_honet: the checkpoint is not of the stopping epoch")
+    del out
+    out, dt = run("cli_horder_inf_only", main_horder.run_experiment,
+                  dataclasses.replace(hcfg, inf_only=True,
+                                      load_model=stops[0]))
+    say(f"cli horder inf_only (--load_model {os.path.basename(stops[0])}) "
+        f"in {dt:.2f} s: {out['results']}; the run's evaluation at epoch "
+        f"{len(evals) - 1} {evals[-1]}; equal: {out['results'] == evals[-1]}"
+        f"; launches "
+        f"{ {k: v for k, v in launches['cli_horder_inf_only'].items() if v} }"
+        f" [{label}]")
+    require(out["results"] == evals[-1],
+            "cli horder inf_only: the evaluation differs from the run's")
+
+
+def mag_npz(path) -> float:
+    """MAG_DATA's relation, valid and test cut to their first MAG_QUERIES
+    sources, written to `path` (named mag_cite.npz, so that the CLI's mag
+    branch reads it). Returns the seconds it took."""
+    t0 = time.perf_counter()
+    ds = synthetic_hetero_data(**MAG_DATA)
+    for split in ("valid", "test"):
+        ds.split_edge[split] = {k: v[:MAG_QUERIES]
+                                for k, v in ds.split_edge[split].items()}
+    ds.to_npz(path)
+    return time.perf_counter() - t0
+
+
+def cli_mag_path(label, launches, log_root) -> None:
+    """Relation prediction on the card: `run_experiment` on MAG(P-P) at
+    CLI_MAG over a MAG_DATA npz (`mag_npz`), one run of CLI_EPOCHS epochs
+    (evaluations after epochs 0 and 2), its launches counted as
+    `cli_mag`. Prints each evaluation, the seconds of the data, the CLI's
+    prep (sampling both graphs), training and evaluation, and the peak
+    device memory; requires every MRR finite and in [0, 1] (uniform random
+    relations carry no signal, so no floor); then holds K1, K1 bwd and K2
+    to their plain versions on the row's first training batch with its
+    trained weights (`cli_kernels`)."""
+    path = os.path.join(log_root, "mag_cite.npz")
+    t_data = mag_npz(path)
+    cfg = apply_dataset_overrides(ExperimentConfig(
+        dataset=f"npz:{path}", epochs=CLI_EPOCHS, eval_steps=2,
+        early_stop=10, runs=1, log_dir=os.path.join(log_root, "mag"),
+        **CLI_MAG))
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run_experiment(cfg, device=DEVICE)
+    sync()
+    dt = time.perf_counter() - t0
+    launches["cli_mag"] = counts()
+    phases = metrics.report()
+    evals = out["results"].results[0]
+    values = [x for e in evals for x in e[1:]]
+    trainer = out["trainer"]
+    say(f"cli mag (MAG(P-P) cites, {MAG_DATA['num_authors'] + MAG_DATA['num_papers']} "
+        f"nodes, {MAG_DATA['num_writes']} writes, {MAG_DATA['num_cites']} "
+        f"cites; M={cfg.num_walks}, num_steps {cfg.num_steps} "
+        f"(L={trainer.rows[0].shape[1]}), {cfg.aggrs}, hidden "
+        f"{cfg.hidden_channels}, k={cfg.k}, batch {cfg.batch_size}, "
+        f"{MAG_QUERIES} x {MAG_DATA['neg_per_query'] + 1} pairs a split, "
+        f"{CLI_EPOCHS} epochs of {out['edges'].shape[1]} queries): {cfg.metric} "
+        f"(valid, test) by eval {[tuple(e[1:]) for e in evals]} in "
+        f"{dt:.2f} s (data written in {t_data:.2f} s; prep "
+        f"{phases['prep'].total_s:.2f} s, training "
+        f"{phases['train_epoch'].total_s:.2f} s, evaluation "
+        f"{phases['eval'].total_s:.2f} s, the rest the load and the host "
+        f"data prep); launches "
+        f"{ {k: v for k, v in launches['cli_mag'].items() if v} }; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB [{label}]")
+    require(cfg.metric == "MRR" and len(evals) == 2
+            and all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in values),
+            "cli mag: an evaluation is missing, not finite or not in [0, 1]")
+    cli_kernels("mag", trainer, out["edges"])
+
+
+def on_edges(indptr, indices, a, b) -> bool:
+    """Whether every step a -> b follows an edge of the CSR graph, or stays
+    on a node without one."""
+    n = indptr.shape[0] - 1
+    keys = torch.repeat_interleave(
+        torch.arange(n, device=indptr.device), indptr[1:] - indptr[:-1]
+    ) * n + indices
+    want = a * n + b
+    pos = torch.searchsorted(keys, want).clamp(max=keys.shape[0] - 1)
+    dead = indptr[a + 1] == indptr[a]
+    return bool(torch.where(dead, a == b, keys[pos] == want).all())
+
+
+def legacy_path(g, label) -> None:
+    """The SUREL-v1 legacy API over LEGACY_SEEDS seeds of the bench graph,
+    on the card: `walk_sampler` (M=100, S'=3; every walk starts at its
+    root and steps along edges, each column's landing mass is M, the sets
+    hold the walks' nodes), `rw_matrix` (M=200, num_steps 4: 1-based
+    values, the zero row, a real dedup, each value pointing at its node's
+    count row), `batch_sampler` (the union sorted, holding the walks and
+    the queries) and `walk_join` over random pairs of the walks' rows,
+    exactly its CPU result. Prints each call's seconds."""
+    seeds = np.arange(LEGACY_SEEDS, dtype=np.int32)
+    indptr, indices = g.to(DEVICE)
+    t0 = time.perf_counter()
+    walks, (nodes, counts, sizes) = legacy.walk_sampler(
+        g, seeds, num_walks=NUM_WALKS, num_steps=NUM_STEPS, device=DEVICE)
+    t_walk = time.perf_counter() - t0
+    w = torch.as_tensor(walks, dtype=torch.int64).to(DEVICE).reshape(
+        LEGACY_SEEDS, NUM_WALKS, NUM_STEPS + 1)
+    roots = bool((w[:, :, 0] == torch.as_tensor(seeds).to(DEVICE)[:, None]
+                  ).all())
+    steps = on_edges(indptr, indices, w[..., :-1].reshape(-1),
+                     w[..., 1:].reshape(-1))
+    valid = np.arange(nodes.shape[1])[None, :] < sizes[:, None]
+    mass = bool(((counts * valid[:, :, None]).sum(axis=1) == NUM_WALKS).all())
+    sets = all(np.array_equal(nodes[i, :sizes[i]], np.unique(walks[i]))
+               for i in range(0, LEGACY_SEEDS, 4099))
+    say(f"legacy walk_sampler ({LEGACY_SEEDS} seeds, M={NUM_WALKS}, "
+        f"S'={NUM_STEPS}): {t_walk:.2f} s; roots at position 0: {roots}, "
+        f"steps along edges: {steps}, landing mass M a column: {mass}, "
+        f"sets the walks' nodes (every 4099th seed): {sets} [{label}]")
+    require(roots and steps and mass and sets,
+            "legacy walk_sampler: an invariant fails")
+
+    t0 = time.perf_counter()
+    z, freqs = legacy.rw_matrix(g, seeds, num_walks=WIDE_WALKS,
+                                num_steps=WIDE_STEPS, device=DEVICE)
+    t_rw = time.perf_counter() - t0
+    keys, rows, rsizes = legacy.np_sampling(
+        g, seeds, bsize=65536, num_walks=WIDE_WALKS,
+        num_steps=WIDE_STEPS - 1, device=DEVICE)
+    owner = np.repeat(seeds, rsizes)
+    pick = np.arange(0, len(keys), 997)
+    points = np.array_equal(
+        freqs[np.asarray(z[owner[pick], keys[pick]]).ravel()], rows[pick])
+    ok = (z.data.min() >= 1 and z.data.max() == len(freqs) - 1
+          and not freqs[0].any() and len(freqs) - 1 < z.nnz == len(keys)
+          and points)
+    say(f"legacy rw_matrix ({LEGACY_SEEDS} seeds, M={WIDE_WALKS}, "
+        f"num_steps {WIDE_STEPS}): {t_rw:.2f} s; {z.nnz} entries, "
+        f"{len(freqs) - 1} distinct count rows; values 1-based, zero row, "
+        f"values pointing at their rows (every 997th): {ok} [{label}]")
+    require(ok, "legacy rw_matrix: an invariant fails")
+
+    t0 = time.perf_counter()
+    union, bwalks = legacy.batch_sampler(g, seeds, num_walks=NUM_WALKS,
+                                         num_steps=NUM_STEPS, device=DEVICE)
+    t_batch = time.perf_counter() - t0
+    ok = (bool(np.all(np.diff(union) > 0))
+          and np.array_equal(union, np.union1d(seeds, bwalks.ravel())))
+    say(f"legacy batch_sampler ({LEGACY_SEEDS} queries, M={NUM_WALKS}, "
+        f"S'={NUM_STEPS}): {t_batch:.2f} s; union of {len(union)} nodes, "
+        f"sorted and exactly the queries' and walks' nodes: {ok} [{label}]")
+    require(ok, "legacy batch_sampler: an invariant fails")
+
+    rng = np.random.default_rng(17)
+    queries = rng.integers(0, LEGACY_SEEDS, size=(2, LEGACY_SEEDS))
+    legacy.walk_join(walks[:8], seeds[:8], queries[:, :8] % 8,
+                     device=DEVICE)                  # warm
+    sync()
+    t0 = time.perf_counter()
+    left, right = legacy.walk_join(walks, seeds, queries, device=DEVICE)
+    t_join = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cleft, cright = legacy.walk_join(walks, seeds, queries, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    same = np.array_equal(left, cleft) and np.array_equal(right, cright)
+    say(f"legacy walk_join ({LEGACY_SEEDS} queries x {walks.shape[1]} walk "
+        f"slots): card {t_join:.3f} s (with the copies both ways), CPU "
+        f"{t_cpu:.3f} s; card equal to the CPU exactly: {same}; slots "
+        f"found in the partner's walks {float((left > 0).mean()):.4f} "
+        f"[{label}]")
+    require(same, "legacy walk_join: the card differs from the CPU")
 
 
 def cli_kernels(row, trainer, edges) -> None:
@@ -4595,10 +4905,18 @@ def main() -> int:
     scalar_path(g, label, launches)
     ppr_device_check(g, label)
     balanced_path(spgk, tedges, tlabels, label, launches)
-    # the link-prediction CLI on the committed fixtures
-    cli_path(label, launches)
-    # the higher-order CLI on the tags fixture
-    cli_horder_path(label, launches)
+    with tempfile.TemporaryDirectory() as log_root:
+        # the link-prediction CLI on the committed fixtures, then its
+        # checkpoints: a resumed and an inference-only run, and the
+        # higher-order CLI's best checkpoint
+        straight = cli_path(label, launches, log_root)
+        cli_resume_path(label, launches, straight, log_root)
+        # the higher-order CLI on the tags fixture
+        cli_horder_path(label, launches)
+        # relation prediction: MAG(P-P) at the paper's settings
+        cli_mag_path(label, launches, log_root)
+    # the legacy walk API
+    legacy_path(g, label)
 
     # phase 4
     for path, names in PATHS.items():

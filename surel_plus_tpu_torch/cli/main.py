@@ -1,7 +1,8 @@
-"""Experiment runner for link prediction (port of
+"""Experiment runner for link and relation prediction (port of
 surel_plus_tpu/cli/main.py).
 
-Loads a dataset, masks a share of its train edges as training positives
+Loads a dataset (link data, or with 'mag' in its name a MAG relation:
+`load_hetero`), masks a share of its train edges as training positives
 and samples their negatives (`load_link_data`), builds a set for every
 node of the observed graph (training) and of the inference graph
 (scoring), then per run trains between evaluations, stops early on the
@@ -34,11 +35,18 @@ engine on a CPU backend; here `--engine auto` is the device engine on
 every device, so on the CPU it runs the device engine's code on CPU
 tensors.
 
-Not ported, and raising NotImplementedError: `--resume`, `--inf_only` /
-`--load_model`, `--use_pretrain` and the MAG datasets, and `ogbl-*`
-datasets (they download). No checkpoint is written: the JAX package
-writes one at each evaluation, the port's come with its checkpoint
-module.
+Checkpoints (`utils/checkpoint.py`), at the JAX CLI's moments: before
+each evaluation `{log_dir}/{dataset}/model/latest_{run}` (parameters,
+optimizer state, epoch and the generators' states), and at an early stop
+`{stamp}_{run}` (parameters and epoch). `--resume PATH` restores run 0
+from a `latest` checkpoint and goes on at the epoch after it;
+`--inf_only --load_model PATH` loads the parameters into the Net the
+scorer shares, evaluates once and returns {'results': ...}.
+`--use_pretrain` (with `--use_raw` and node features) appends
+`pretrain_embedding.pt` of the working directory to the features.
+
+Not ported, and raising NotImplementedError: `ogbl-*` datasets (they
+download).
 """
 
 from __future__ import annotations
@@ -47,17 +55,19 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
 from surel_plus_tpu_torch.graph.csr import CSRGraph
 from surel_plus_tpu_torch.graph.datasets import (
+    DEHDataset,
     LinkPropDataset,
     RawLinkData,
     fixture_link_data,
     npz_link_data,
+    synthetic_hetero_data,
     synthetic_link_data,
 )
 from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
@@ -77,6 +87,10 @@ from surel_plus_tpu_torch.train.scalar import (
     ScalarLinkPredictor,
     scalar_trainer_from_spg,
 )
+from surel_plus_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
 from surel_plus_tpu_torch.utils.config import (
     ExperimentConfig,
     add_config_args,
@@ -93,25 +107,14 @@ from surel_plus_tpu_torch.utils.seeding import set_random_seed
 
 
 class LinkData(NamedTuple):
-    ds: LinkPropDataset
+    ds: Union[LinkPropDataset, DEHDataset]
     graphs: Dict[str, CSRGraph]     # "train" (observed), "val", "test"
     train_edge: Tuple[np.ndarray, np.ndarray]  # (pos, neg) int32 [2, E]
     inf_edge: Dict[str, Tuple[np.ndarray, np.ndarray]]  # valid, test
 
 
-def unported(cfg: ExperimentConfig) -> None:
-    """Raise NotImplementedError for an option this port does not run."""
-    reasons = [
-        (cfg.resume is not None, "--resume (checkpoints)"),
-        (cfg.inf_only or cfg.load_model is not None,
-         "--inf_only / --load_model (checkpoints)"),
-        (cfg.use_pretrain, "--use_pretrain (pretrained embeddings)"),
-        ("mag" in cfg.dataset, f"dataset {cfg.dataset} (the heterogeneous "
-                               f"MAG datasets)"),
-    ]
-    for hit, what in reasons:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet")
+def check_options(cfg: ExperimentConfig) -> None:
+    """Raise ValueError for an engine or set encoder the CLI has not."""
     if cfg.engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if cfg.sencoder not in ("LP", "PPR", "SPD", "DEG"):
@@ -138,25 +141,49 @@ def load_raw(cfg: ExperimentConfig) -> RawLinkData:
     raise NotImplementedError(cfg.dataset)
 
 
+def load_hetero(cfg: ExperimentConfig,
+                rng: np.random.Generator) -> DEHDataset:
+    """A MAG relation (the reference's main.py:131-133): `synth*` a random
+    one, `npz:<file>` an export, else the reference's pickle
+    `./dataset/sgrl/{dataset}_{relation}.pl`."""
+    kw = dict(mask_ratio=cfg.train_ratio, k=cfg.k, rng=rng)
+    if "synth" in cfg.dataset:
+        return synthetic_hetero_data(relation=cfg.relation, seed=cfg.seed,
+                                     **kw)
+    if cfg.dataset.startswith("npz:"):
+        # keep 'mag' in the file name, so that the dataset routes here
+        return DEHDataset.from_npz(cfg.dataset[4:], **kw)
+    return DEHDataset.from_pickle(
+        f"./dataset/sgrl/{cfg.dataset}_{cfg.relation}.pl", cfg.relation,
+        **kw)
+
+
 def load_link_data(cfg: ExperimentConfig, rng: np.random.Generator,
                    logger) -> LinkData:
     """The data prep, drawing from `rng` in the JAX CLI's order: the mask
-    permutation and the training negatives (`LinkPropDataset.process`),
-    then the valid and test query edges."""
-    raw = load_raw(cfg)
-    ds = LinkPropDataset(
-        raw, mask_ratio=cfg.train_ratio, k=cfg.k,
-        use_weight=cfg.use_weight, use_coalesce=cfg.use_weight,
-        use_feature=cfg.use_raw, use_val=cfg.use_val, rng=rng,
-        vessel_mode=("vessel" in cfg.dataset))
+    permutation and the training negatives (the dataset's `process`),
+    then the valid and test query edges. A dataset with 'mag' in its name
+    is a MAG relation (`load_hetero`), whose queries come from its splits
+    and its predicted relation's train edges."""
+    if "mag" in cfg.dataset:
+        ds = load_hetero(cfg, rng)
+        split_edge, edge_index = ds.split_edge, ds.train_edge.T
+    else:
+        raw = load_raw(cfg)
+        ds = LinkPropDataset(
+            raw, mask_ratio=cfg.train_ratio, k=cfg.k,
+            use_weight=cfg.use_weight, use_coalesce=cfg.use_weight,
+            use_feature=cfg.use_raw, use_val=cfg.use_val, rng=rng,
+            vessel_mode=("vessel" in cfg.dataset))
+        split_edge, edge_index = raw.split_edge, raw.edge_index
     graphs = ds.process(logger)
 
     train_edge = (ds.pos_edge.T.astype(np.int32),
                   ds.neg_edge.T.astype(np.int32))
-    val_edge = get_pos_neg_edges("valid", raw.split_edge, raw.edge_index,
+    val_edge = get_pos_neg_edges("valid", split_edge, edge_index,
                                  ds.num_nodes, percent=cfg.valid_perc,
                                  rng=rng)
-    test_edge = get_pos_neg_edges("test", raw.split_edge, raw.edge_index,
+    test_edge = get_pos_neg_edges("test", split_edge, edge_index,
                                   ds.num_nodes, rng=rng)
     return LinkData(ds, graphs, train_edge,
                     {"valid": val_edge, "test": test_edge})
@@ -197,14 +224,28 @@ def width_classes(cfg: ExperimentConfig, bucket: int) -> Tuple[int, ...]:
     return classes
 
 
+def node_features(cfg: ExperimentConfig, ds):
+    """The raw node features [N, F] with --use_raw (None where the dataset
+    has none), and with --use_pretrain the pretrained embeddings of
+    `pretrain_embedding.pt` in the working directory appended (the
+    reference's main.py:157-160)."""
+    feature = getattr(ds, "x", None) if cfg.use_raw else None
+    if cfg.use_raw and cfg.use_pretrain and feature is not None:
+        pre = torch.load("pretrain_embedding.pt", map_location="cpu").numpy()
+        feature = np.concatenate([feature, pre], axis=-1)
+    return feature
+
+
 def run_experiment(cfg: ExperimentConfig, logger=None,
                    device="cuda") -> Dict:
-    """Returns {'best': [(valid, test) per run], 'results': ResultLogger,
+    """Returns {'best': [(valid, test) per run, None for a resumed run
+    that ended before an evaluation], 'results': ResultLogger,
     'trainer': the training DeviceTrainer or LinkPredictor, its model as
     the last run left it, 'edges': the training query edges [2, E] (on
-    the device for the device engine, on the host for the host engine)}.
-    The phase timer is reset first, so its report covers this call."""
-    unported(cfg)
+    the device for the device engine, on the host for the host engine)};
+    with --inf_only --load_model, {'results': the evaluation}. The phase
+    timer is reset first, so its report covers this call."""
+    check_options(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: set SUREL_PLATFORM=cpu (or "
@@ -221,7 +262,7 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     G_obsrv, G_inf = data.graphs["train"], data.graphs["test"]
 
     prep_start = time.time()
-    feature = data.ds.x if cfg.use_raw else None
+    feature = node_features(cfg, data.ds)
     x_dim = feature.shape[1] if feature is not None else data.ds.num_feature
     tcfg = TrainConfig(batch_size=cfg.batch_size, lr=cfg.lr,
                        epochs=cfg.epochs, eval_steps=cfg.eval_steps,
@@ -305,13 +346,32 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
         def run_eval():
             return evaluate(scorer, data.inf_edge, cfg.metric)
 
+    if cfg.inf_only and cfg.load_model:
+        model.load_state_dict(load_checkpoint(cfg.load_model)["params"])
+        results, d_inf = run_eval()
+        logger.info("inference-only results: %s (T_test %.2fs)",
+                    results, d_inf)
+        return {"results": results}
+
     rlog = ResultLogger(runs=cfg.runs, metric=cfg.metric,
                         early_stop=cfg.early_stop)
+    stamp = time.strftime("%m%d%y_%H%M%S")
+    model_dir = f"{cfg.log_dir}/{cfg.dataset}/model"
     for run in range(cfg.runs):
         trainer.init(torch.Generator().manual_seed(cfg.seed + run))
         gen = torch.Generator(device=device)
         gen.manual_seed(cfg.seed + 1000 + run)
         epoch = 0
+        if cfg.resume and run == 0:
+            # the weights, Adam's state and both generators as they were
+            # after the checkpoint's epoch
+            state = load_checkpoint(cfg.resume)
+            model.load_state_dict(state["params"])
+            trainer.optimizer.load_state_dict(state["opt_state"])
+            gen.set_state(state["gen"])
+            rng.bit_generator.state = state["rng"]
+            epoch = int(state["epoch"]) + 1
+            logger.info("resumed from %s at epoch %d", cfg.resume, epoch)
         while epoch < cfg.epochs:
             # train up to and including the next eval epoch (e where
             # e % eval_steps == 0) as one block
@@ -328,19 +388,31 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
             epoch += n
             last = epoch - 1
             if last % cfg.eval_steps == 0:
+                save_checkpoint(
+                    {"params": model.state_dict(),
+                     "opt_state": trainer.optimizer.state_dict(),
+                     "epoch": last, "gen": gen.get_state(),
+                     "rng": rng.bit_generator.state},
+                    f"{model_dir}/latest_{run}")
                 with metrics.phase("eval"):
                     results, d_inf = run_eval()
                 logger.info("eval: %s (T_test %.2f)", results, d_inf)
                 if rlog.add_result(run, results):
+                    save_checkpoint(
+                        {"params": model.state_dict(), "epoch": last},
+                        f"{model_dir}/{stamp}_{run}")
                     break
-        rlog.print_statistics(run=run, logger=logger)
-    if cfg.runs > 1:
+        if rlog.evaluated(run):
+            rlog.print_statistics(run=run, logger=logger)
+    evaluated = [rlog.evaluated(r) for r in range(cfg.runs)]
+    if cfg.runs > 1 and all(evaluated):
         rlog.print_statistics(logger=logger)
     for name, st in metrics.report().items():
         logger.info("phase %s: %.2fs x%d (%.0f items/s)", name, st.total_s,
                     st.count, st.items_per_s)
     return {"results": rlog,
-            "best": [rlog.best(r) for r in range(cfg.runs)],
+            "best": [rlog.best(r) if ok else None
+                     for r, ok in enumerate(evaluated)],
             "trainer": trainer, "edges": edges_dev}
 
 

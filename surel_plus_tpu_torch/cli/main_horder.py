@@ -24,12 +24,15 @@ It runs on the CUDA device. `SUREL_PLATFORM=cpu` runs it on the CPU, the
 kernels' plain versions in their place; without that variable and with no
 CUDA device it raises.
 
-Not ported, and raising NotImplementedError: `--inf_only` /
-`--load_model` and `--resume` (checkpoints), and
-the reference's `./dataset/sgrl/<name>.pl` pickles (`--dataset` other
-than `synth*` and `npz:`). No checkpoint is written: the JAX CLI writes
-one at each best validation MRR; the port's come with its checkpoint
-module.
+Datasets: `synth*` a random one, `npz:<file>` an export, else the
+reference's torch pickle `./dataset/sgrl/<dataset>.pl`. At an early stop
+the CLI writes the checkpoint `{log_dir}/{dataset}/model/{stamp}_{run}`
+(the HONet's parameters and the epoch, `utils/checkpoint.py`), as the
+JAX CLI does; `--inf_only --load_model PATH` loads the parameters,
+evaluates once and returns {'results': ...}.
+
+`--resume` raises NotImplementedError: the JAX package's higher-order
+CLI has no resume either (it ignores the flag).
 """
 
 from __future__ import annotations
@@ -60,6 +63,10 @@ from surel_plus_tpu_torch.train.device import (
     evaluate_device,
     trainer_from_keys,
 )
+from surel_plus_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+)
 from surel_plus_tpu_torch.utils.config import (
     ExperimentConfig,
     add_config_args,
@@ -70,16 +77,13 @@ from surel_plus_tpu_torch.utils.profiling import metrics
 from surel_plus_tpu_torch.utils.seeding import set_random_seed
 
 
-def unported(cfg: ExperimentConfig) -> None:
-    """Raise NotImplementedError for an option this port does not run."""
-    reasons = [
-        (cfg.resume is not None, "--resume (checkpoints)"),
-        (cfg.inf_only or cfg.load_model is not None,
-         "--inf_only / --load_model (checkpoints)"),
-    ]
-    for hit, what in reasons:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet")
+def check_options(cfg: ExperimentConfig) -> None:
+    """Raise NotImplementedError for --resume, ValueError for an engine
+    the CLI has not."""
+    if cfg.resume is not None:
+        raise NotImplementedError(
+            "--resume: the higher-order CLI has no mid-training resume "
+            "(the JAX package's main_horder has none either)")
     if cfg.engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
 
@@ -91,10 +95,13 @@ def load_hyper(cfg: ExperimentConfig) -> DEHyperDataset:
                                     seed=cfg.seed)
     if cfg.dataset.startswith("npz:"):
         return DEHyperDataset.from_npz(cfg.dataset[4:], k=cfg.k)
-    raise NotImplementedError(
-        f"dataset {cfg.dataset}: the reference's ./dataset/sgrl/<name>.pl "
-        f"pickles are not read by this port; export one with the JAX "
-        f"package's README recipe and pass --dataset npz:<file>")
+    # tags-math / DBLP-coauthor pickles (dataloader.py:243), read by the
+    # same torch.load call as the JAX package's
+    data = torch.load(f"./dataset/sgrl/{cfg.dataset}.pl")
+    return DEHyperDataset(np.asarray(data["edge_index"]),
+                          {k: {kk: np.asarray(vv) for kk, vv in v.items()}
+                           for k, v in data["triplets"].items()},
+                          k=cfg.k)
 
 
 def run_experiment(cfg: ExperimentConfig, logger=None,
@@ -102,9 +109,10 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     """Returns {'best': [(valid, test) per run], 'results': ResultLogger,
     'trainer': the DeviceTrainer or LinkPredictor, its HONet as the last
     run left it, 'edges': the training hyperedges [3, E] (on the device
-    for the device engine, on the host for the host engine)}. The phase
-    timer is reset first, so its report covers this call."""
-    unported(cfg)
+    for the device engine, on the host for the host engine)}; with
+    --inf_only --load_model, {'results': the evaluation}. The phase timer
+    is reset first, so its report covers this call."""
+    check_options(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: set SUREL_PLATFORM=cpu (or "
@@ -178,8 +186,17 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
         def run_eval():
             return evaluate(trainer, inf_edge, "MRR")
 
+    if cfg.inf_only and cfg.load_model:
+        # the reference's main_horder.py:134-137
+        model.load_state_dict(load_checkpoint(cfg.load_model)["params"])
+        results, d_inf = run_eval()
+        logger.info("inference-only results: %s (T_test %.2fs)",
+                    results, d_inf)
+        return {"results": results}
+
     rlog = ResultLogger(runs=cfg.runs, metric="MRR",
                         early_stop=cfg.early_stop)
+    stamp = time.strftime("%m%d%y_%H%M%S")
     for run in range(cfg.runs):
         trainer.init(torch.Generator().manual_seed(cfg.seed + run))
         gen = torch.Generator(device=device)
@@ -201,6 +218,10 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                 results, d_inf = run_eval()
             logger.info("eval MRR: %s (T_test %.2f)", results, d_inf)
             if rlog.add_result(run, results):
+                # the checkpoint at the stop (main_horder.py:107)
+                save_checkpoint(
+                    {"params": model.state_dict(), "epoch": epoch - 1},
+                    f"{cfg.log_dir}/{cfg.dataset}/model/{stamp}_{run}")
                 break
         rlog.print_statistics(run=run, logger=logger)
     for name, st in metrics.report().items():

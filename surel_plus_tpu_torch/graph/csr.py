@@ -40,6 +40,11 @@ class CSRGraph:
     def neighbors(self, u: int) -> np.ndarray:
         return self.indices[self.indptr[u]:self.indptr[u + 1]]
 
+    def has_edge(self, u: int, v: int) -> bool:
+        row = self.neighbors(u)
+        i = np.searchsorted(row, v)
+        return bool(i < len(row) and row[i] == v)
+
     def to_scipy(self):
         """The adjacency as a scipy.sparse.csr_matrix [N, N] of the edge
         weights, or of ones where the graph has none."""

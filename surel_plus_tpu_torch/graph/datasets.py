@@ -1,6 +1,6 @@
-"""Dataset pipeline for link prediction: raw link data -> observed and
-inference graphs, and for hyperedge (triplet) prediction: triplet splits
--> the encoder graph (port of the link-prediction and hypergraph parts of
+"""Dataset pipeline for link and relation prediction: raw link data ->
+observed and inference graphs, and for hyperedge (triplet) prediction:
+triplet splits -> the encoder graph (port of
 surel_plus_tpu/graph/datasets.py).
 
 `RawLinkData` is the provider-independent payload; `npz_link_data` reads
@@ -17,8 +17,13 @@ graph; `synthetic_hyper_data` builds a random one. Their draws are the
 JAX package's: the split from numpy's global generator, the training
 negatives from the dataset's own `Generator`.
 
-Not ported: `from_ogb` (it downloads) and the heterogeneous (MAG)
-datasets.
+`DEHDataset` holds a relation of the heterogeneous MAG graph (a predicted
+relation's splits and the other relation's edges): `from_pickle` reads the
+reference's torch pickles, `from_npz` an export of them,
+`synthetic_hetero_data` builds a random one. Its draws are the JAX
+package's, from the caller's `Generator`.
+
+Not ported: `from_ogb` (it downloads).
 """
 
 from __future__ import annotations
@@ -302,6 +307,171 @@ class LinkPropDataset:
         self.num_pos = int(edge_mask.sum())
         return e[edge_mask], e[~edge_mask], self.rng.permutation(
             self.len_train)
+
+
+class DEHDataset:
+    """Heterogeneous relation-prediction data: MAG author-writes-paper and
+    paper-cites-paper (the reference's dataloader.py:155-238). Node ids of
+    all types share one id space, as in the reference's pickles.
+
+    `process` masks a share of the predicted relation's train edges as
+    training positives and samples their negatives; the observed graph is
+    the rest of those edges and the other relation's (`obsrv_edge`), the
+    inference graph all of both."""
+
+    def __init__(self, train_edge: np.ndarray, obsrv_edge: np.ndarray,
+                 split_edge: Dict, num_nodes: int,
+                 node_types: Optional[list] = None, mask_ratio: float = 0.05,
+                 k: int = 10, rng: Optional[np.random.Generator] = None):
+        self.train_edge = np.asarray(train_edge, dtype=np.int64)  # [E, 2]
+        self.obsrv_edge = np.asarray(obsrv_edge, dtype=np.int64)
+        self.split_edge = split_edge
+        self.num_nodes = num_nodes
+        self.node_type = node_types or ["node"]
+        self.mask_ratio = mask_ratio
+        self.k = k
+        self.rng = rng if rng is not None else np.random.default_rng(0)
+        self.num_feature = len(self.node_type)
+        self.len_train = len(self.train_edge)
+
+    @staticmethod
+    def from_pickle(path: str, relation: str, **kw) -> "DEHDataset":
+        """Load the reference's torch pickle (dataloader.py:157-164): a dict
+        of 'split_edge', 'num_nodes_dict' and 'edge_index' keyed by
+        (src_type, rel, dst_type). `torch.load(path)` with torch's default
+        `weights_only`, so this reads, or refuses, what the JAX package's
+        loader does."""
+        import torch
+
+        data = torch.load(path)
+        rel_key = (("author", "writes", "paper") if relation == "cite"
+                   else ("paper", "cites", "paper"))
+        obsrv = np.asarray(data["edge_index"][rel_key])
+        if obsrv.shape[0] == 2:
+            obsrv = obsrv.T
+        split_edge = {s: {k2: np.asarray(v2) for k2, v2 in d.items()}
+                      for s, d in data["split_edge"].items()}
+        train_edge = DEHDataset._train_pairs(split_edge)
+        num_nodes = int(max(train_edge.max(), obsrv.max())) + 1
+        return DEHDataset(train_edge, obsrv, split_edge, num_nodes,
+                          node_types=list(data["num_nodes_dict"]), **kw)
+
+    @staticmethod
+    def _train_pairs(split_edge: Dict) -> np.ndarray:
+        """[E, 2] train pairs from either split layout (the reference
+        handles both, dataloader.py:173-178)."""
+        train = split_edge["train"]
+        if "source_node" in train:
+            return np.stack([np.asarray(train["source_node"]),
+                             np.asarray(train["target_node"])], axis=1)
+        return np.asarray(train["edge"])
+
+    @staticmethod
+    def from_npz(path: str, **kw) -> "DEHDataset":
+        """Load a MAG relation npz export (`--dataset npz:<path>` with
+        'mag' in the file name). Keys: num_nodes, obsrv_edge [E2, 2] (the
+        other relation), train_src and train_dst [E], valid_src,
+        valid_dst and valid_neg [Qv, k], test_src, test_dst and test_neg
+        [Qt, k] (the source-node MRR layout of the MAG pickles);
+        optionally node_types (strings)."""
+        z = np.load(path)
+        split_edge = {
+            "train": {"source_node": np.asarray(z["train_src"]),
+                      "target_node": np.asarray(z["train_dst"])},
+            "valid": {"source_node": np.asarray(z["valid_src"]),
+                      "target_node": np.asarray(z["valid_dst"]),
+                      "target_node_neg": np.asarray(z["valid_neg"])},
+            "test": {"source_node": np.asarray(z["test_src"]),
+                     "target_node": np.asarray(z["test_dst"]),
+                     "target_node_neg": np.asarray(z["test_neg"])},
+        }
+        train_edge = DEHDataset._train_pairs(split_edge)
+        node_types = ([str(t) for t in z["node_types"]]
+                      if "node_types" in z.files else None)
+        return DEHDataset(train_edge, np.asarray(z["obsrv_edge"]),
+                          split_edge, int(z["num_nodes"]),
+                          node_types=node_types, **kw)
+
+    def to_npz(self, path: str) -> None:
+        """Write the relation in `from_npz`'s layout (source-node splits)."""
+        s = self.split_edge
+        np.savez(path, num_nodes=self.num_nodes, obsrv_edge=self.obsrv_edge,
+                 node_types=np.asarray(self.node_type),
+                 **{f"{split}_{name}": np.asarray(s[split][key])
+                    for split in ("train", "valid", "test")
+                    for name, key in (("src", "source_node"),
+                                      ("dst", "target_node"),
+                                      ("neg", "target_node_neg"))
+                    if key in s[split]})
+
+    def process(self, logger=None) -> Dict[str, CSRGraph]:
+        """Draws, in the JAX package's order, the mask permutation, the
+        negatives and their slice, and returns the observed graph
+        ("train") and the inference graph ("val", "test")."""
+        lg = logger or log
+        lg.info("hetero: %d nodes, %d train edges, %d obsrv edges, mask %.3f",
+                self.num_nodes, self.len_train, len(self.obsrv_edge),
+                self.mask_ratio)
+        self.num_pos = int(self.len_train * self.mask_ratio)
+        idx = self.rng.permutation(self.len_train)
+        self.pos_edge = self.train_edge[idx[:self.num_pos]]
+        obsrv_edge = np.concatenate(
+            [self.train_edge[idx[self.num_pos:]], self.obsrv_edge])
+
+        neg = negative_sampling(self.train_edge.T, num_nodes=self.num_nodes,
+                                num_neg_samples=self.len_train,
+                                rng=self.rng)
+        take = idx[:min(self.num_pos * self.k, self.len_train)]
+        self.neg_edge = neg[:, take].T
+
+        val_edge = np.concatenate([self.train_edge, self.obsrv_edge])
+        n = self.num_nodes
+        G_obsrv = csr_from_edges(obsrv_edge, num_nodes=n)
+        G_val = csr_from_edges(val_edge, num_nodes=n)
+        lg.info("observed graph: %d nodes, %d (sym) edges",
+                int((G_obsrv.degrees() > 0).sum()), G_obsrv.num_edges // 2)
+        return {"train": G_obsrv, "val": G_val, "test": G_val}
+
+
+def synthetic_hetero_data(num_authors: int = 300, num_papers: int = 500,
+                          num_writes: int = 1500, num_cites: int = 2000,
+                          relation: str = "cite", seed: int = 0,
+                          neg_per_query: int = 20, **kw) -> DEHDataset:
+    """MAG-shaped random data: author ids [0, A), paper ids [A, A+P) in one
+    id space, uniform 'writes' (author, paper) and 'cites' (paper, paper)
+    edges. As in the reference's naming (dataloader.py:162), relation
+    'cite' predicts the cites with the writes as the observed relation,
+    and any other relation the reverse. A tenth of the predicted edges
+    each are the test and the valid queries, with `neg_per_query` random
+    target nodes each."""
+    rng = np.random.default_rng(seed)
+    n = num_authors + num_papers
+    writes = np.stack([
+        rng.integers(0, num_authors, num_writes),
+        rng.integers(num_authors, n, num_writes)], axis=1)
+    cites = np.stack([
+        rng.integers(num_authors, n, num_cites),
+        rng.integers(num_authors, n, num_cites)], axis=1)
+    cites = cites[cites[:, 0] != cites[:, 1]]
+    pred, obsrv = (cites, writes) if relation == "cite" else (writes, cites)
+    perm = rng.permutation(len(pred))
+    n_eval = max(len(pred) // 10, 1)
+    test_e, val_e, train_e = (pred[perm[:n_eval]],
+                              pred[perm[n_eval:2 * n_eval]],
+                              pred[perm[2 * n_eval:]])
+    split_edge = {
+        "train": {"source_node": train_e[:, 0],
+                  "target_node": train_e[:, 1]},
+        "valid": {"source_node": val_e[:, 0], "target_node": val_e[:, 1],
+                  "target_node_neg": rng.integers(
+                      0, n, (len(val_e), neg_per_query))},
+        "test": {"source_node": test_e[:, 0], "target_node": test_e[:, 1],
+                 "target_node_neg": rng.integers(
+                     0, n, (len(test_e), neg_per_query))},
+    }
+    kw.setdefault("rng", np.random.default_rng(seed))
+    return DEHDataset(train_e, obsrv, split_edge, n,
+                      node_types=["author", "paper"], **kw)
 
 
 class DEHyperDataset:

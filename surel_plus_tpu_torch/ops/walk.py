@@ -263,3 +263,123 @@ def sample_block(indptr: torch.Tensor, etab: torch.Tensor,
                               num_steps, bits)
     return build_sets_packed_block(seeds, walks, num_walks, num_steps,
                                    bucket)
+
+
+# ------------------------------------------------------------ the legacy walk
+# The SUREL-v1 surface (ops/legacy.py): walks over the CSR arrays without
+# the edge tables, optionally with a with-replacement first hop, and the
+# landing counts as [B, bucket, S+1] count rows rather than packed keys.
+
+def rows_searchsorted(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Row-wise lower bound: the first index where a[b, i] >= t[b, j].
+
+    a: [B, N] rows sorted ascending; t: [B, T] -> int64 [B, T] in [0, N].
+    """
+    return torch.searchsorted(a.contiguous(), t.to(a.dtype).contiguous())
+
+
+def walk_block(indptr: torch.Tensor, indices: torch.Tensor,
+               shuffled_indices: torch.Tensor, seeds: torch.Tensor,
+               num_walks: int, num_steps: int, bits: torch.Tensor,
+               first_bits: torch.Tensor = None) -> torch.Tensor:
+    """Run `num_walks` walks of `num_steps` steps from each seed, reading
+    the CSR arrays at every step.
+
+    The first hop takes `first_bits[b, m] % deg` (uniform, with
+    replacement: the SUREL-v1 `random_walk`) where `first_bits` [B, M] is
+    given, else the (m % deg)-th entry of the seed's shuffled row (without
+    replacement). Later hops pick `bits[t] % deg` ([num_steps - 1, B, M]
+    values in [0, 2^32), `walk_bits`). Walkers on a degree-0 node stay.
+    Returns int64 [B, num_walks, num_steps] node ids.
+    """
+    last = indices.shape[0] - 1
+    seeds = seeds.to(torch.int64)
+    start = indptr[seeds]
+    deg = indptr[seeds + 1] - start
+    if first_bits is not None:
+        offs = first_bits % deg[:, None].clamp(min=1)
+        row = indices
+    else:
+        m = torch.arange(num_walks, device=seeds.device)
+        offs = m[None, :] % deg[:, None].clamp(min=1)
+        row = shuffled_indices
+    # gather indices clamped like XLA's: a degree-0 row's slot may sit one
+    # past the end, and its value is discarded
+    w0 = row[(start[:, None] + offs).clamp(max=last)]
+    cur = torch.where(deg[:, None] > 0, w0, seeds[:, None])
+    out = [cur]
+    for t in range(num_steps - 1):
+        st = indptr[cur]
+        d = indptr[cur + 1] - st
+        nxt = indices[(st + bits[t] % d.clamp(min=1)).clamp(max=last)]
+        cur = torch.where(d > 0, nxt, cur)
+        out.append(cur)
+    return torch.stack(out, dim=-1)
+
+
+def build_sets_block(seeds: torch.Tensor, walks: torch.Tensor,
+                     num_walks: int, num_steps: int, bucket: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dedup each seed's visits and count its landings by step.
+
+    walks: [B, M, S] (no root column). Returns
+      nodes:  int64 [B, bucket] the distinct visited nodes ascending,
+              padded with INT32_MAX;
+      counts: int64 [B, bucket, S+1] landing counts a step, column 0
+              num_walks at the root's slot and 0 elsewhere;
+      sizes:  int64 [B] set sizes (at least 1: the root).
+    A set of more than `bucket` nodes keeps the `bucket` smallest ids.
+    """
+    block = seeds.shape[0]
+    dev = seeds.device
+    ncol = num_steps + 1
+    visits = 1 + num_walks * num_steps
+    seeds = seeds.to(torch.int64)
+    nodes = torch.cat([seeds[:, None],
+                       walks.reshape(block, -1).to(torch.int64)], dim=1)
+    cols = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.arange(1, ncol, device=dev).repeat(num_walks)])
+    # visits sorted by (node, column) in one int64 key
+    skey = torch.sort(nodes * ncol + cols[None, :], dim=1).values
+    snodes, scols = skey // ncol, skey % ncol
+
+    first = torch.ones_like(snodes, dtype=torch.bool)
+    first[:, 1:] = snodes[:, 1:] != snodes[:, :-1]
+    compact = torch.cumsum(first, dim=1) - 1
+    sizes = (compact[:, -1] + 1).clamp(max=bucket)
+
+    # slot s's node sits at the first visit of compact value s
+    slots = torch.arange(bucket, device=dev)
+    pos = rows_searchsorted(compact, slots.expand(block, bucket))
+    nodes_out = torch.gather(snodes, 1, pos.clamp(max=visits - 1))
+    valid = slots[None, :] < sizes[:, None]
+    nodes_out = torch.where(valid, nodes_out, INT32_MAX)
+
+    # the visits of (slot, column) d lie between the lower bounds of d and
+    # d + 1 in the sorted dense keys; slots past the bucket fall outside
+    dkey = compact * ncol + scols
+    targets = torch.arange(bucket * ncol + 1, device=dev)
+    bounds = rows_searchsorted(dkey, targets.expand(block, -1))
+    counts = (bounds[:, 1:] - bounds[:, :-1]).reshape(block, bucket, ncol)
+
+    # the root's one column-0 visit weighs num_walks (subg_acc.c:751)
+    root_slot = rows_searchsorted(nodes_out, seeds[:, None])[:, 0]
+    counts[:, :, 0] += (num_walks - 1) * (slots[None, :]
+                                          == root_slot[:, None])
+    return nodes_out, counts, sizes
+
+
+def walk_block_with_rpe(indptr: torch.Tensor, indices: torch.Tensor,
+                        shuffled_indices: torch.Tensor, seeds: torch.Tensor,
+                        bits: torch.Tensor, first_bits: torch.Tensor = None,
+                        *, num_walks: int, num_steps: int, bucket: int):
+    """The SUREL-v1 surface (the C `walk_sampler` and `rpe_encoder`,
+    subg_acc.c:316-389, 249-314): raw walks and each seed's relative
+    positional encoding. Returns (walks [B, M, S+1] with the root at
+    position 0, nodes [B, bucket], counts [B, bucket, S+1], sizes [B])."""
+    steps = walk_block(indptr, indices, shuffled_indices, seeds, num_walks,
+                       num_steps, bits, first_bits)
+    root = seeds.to(torch.int64)[:, None, None].expand(*steps.shape[:2], 1)
+    nodes, counts, sizes = build_sets_block(seeds, steps, num_walks,
+                                            num_steps, bucket)
+    return torch.cat([root, steps], dim=-1), nodes, counts, sizes

@@ -100,6 +100,11 @@ class ResultLogger:
             return self.results[self.metric][run]
         return self.results[run]
 
+    def evaluated(self, run: int) -> bool:
+        """Whether the run has a result (a resumed run may end before its
+        next evaluation)."""
+        return len(self._run_results(run)) > 0
+
     def add_result(self, run: int, result) -> bool:
         if isinstance(result, dict):
             for key, val in result.items():

@@ -19,9 +19,11 @@ host modules under it, each against the JAX package:
   scores within rtol 1e-4 (the routes sum in other orders), each result
   within 1e-6 when fed JAX's own scores (a float32 mean over another
   order), and end to end within one rank flip (1 / #positives);
-- `run_experiment` and `main` on the CPU at a toy size, and the options
-  this port does not run raising (the host engine, balanced batching
-  and the scalar encoders: tests/test_torch_port_host_engine.py).
+- `run_experiment` and `main` on the CPU at a toy size, and `ogbl-*`
+  datasets (a download) raising (the host engine, balanced batching and
+  the scalar encoders: tests/test_torch_port_host_engine.py; MAG:
+  tests/test_torch_port_hetero.py; checkpoints, --resume, --inf_only and
+  --use_pretrain: tests/test_torch_port_checkpoint.py).
 """
 
 import argparse
@@ -504,11 +506,8 @@ def test_main_without_a_device_raises(monkeypatch):
         cli.run_experiment(_config(tconfig, ["--dataset", "synth-collab"]))
 
 
-@pytest.mark.parametrize("extra", [
-    ["--resume", "ckpt"],
-    ["--inf_only", "--load_model", "ckpt"], ["--use_pretrain"],
-    ["--dataset", "synth-mag"], ["--dataset", "ogbl-collab"]],
-    ids=["resume", "inf_only", "use_pretrain", "mag", "ogbl"])
+@pytest.mark.parametrize("extra", [["--dataset", "ogbl-collab"]],
+                         ids=["ogbl"])
 def test_unported_options_raise(tmp_path, extra):
     cfg = _config(tconfig, ["--dataset", "synth-collab", "--log_dir",
                             str(tmp_path), *extra])

@@ -734,10 +734,7 @@ def test_main_without_a_device_raises(monkeypatch):
         cli.run_experiment(_config(["--dataset", "synth-tags"]))
 
 
-@pytest.mark.parametrize("extra", [
-    ["--resume", "ckpt"],
-    ["--inf_only", "--load_model", "ckpt"], ["--dataset", "tags-math"]],
-    ids=["resume", "inf_only", "pickle"])
+@pytest.mark.parametrize("extra", [["--resume", "ckpt"]], ids=["resume"])
 def test_unported_options_raise(tmp_path, extra):
     cfg = _config(["--dataset", "synth-tags", "--log_dir", str(tmp_path),
                    *extra])

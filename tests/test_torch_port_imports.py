@@ -1,5 +1,5 @@
-"""PyTorch port: nothing of it imports JAX, flax, optax, sklearn or the
-JAX package. A subprocess whose import system refuses those names
+"""PyTorch port: nothing of it imports JAX, flax, optax, orbax, sklearn
+or the JAX package. A subprocess whose import system refuses those names
 (a `sys.meta_path` finder placed first) imports every module of
 `surel_plus_tpu_torch`, then `chip_smoke`; the card's machine has none of
 them but torch's own dependencies."""
@@ -9,7 +9,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "sklearn", "surel_plus_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
+           "surel_plus_tpu")
 
 GUARD = r"""
 import importlib, pkgutil, sys
@@ -43,7 +44,7 @@ def test_the_port_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 40
+    assert int(out.stdout.split()[-1]) >= 44
 
 
 def test_the_guard_refuses_what_it_blocks():
