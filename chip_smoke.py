@@ -265,7 +265,33 @@ NVIDIA GPU. Run from the repository root:
    over 65,536 seeds of the bench graph: `walk_sampler` (M=100, S'=3),
    `rw_matrix` (M=200, num_steps 4), `batch_sampler` and `walk_join`,
    their invariants held and `walk_join` on the card equal to its CPU
-   result exactly.
+   result exactly. Then the multi-device path (`multi_device_path`,
+   `surel_plus_tpu_torch/parallel/`): four ranks started by
+   `parallel.launch.run_ranks`, sharing the one card over gloo (mesh data
+   2 x graph 2; they share its SMs and exchange through host memory, so
+   the rates measure no scaling). Each rank (`multi_device_rank`) builds
+   the main path's graph, partitions it four ways (`partition_csr`),
+   samples every node's set through the frontier exchange
+   (`sample_gsets_partitioned`, the probe over the edge tables; sets/s)
+   and holds its rows to `sample_block` over the whole seed block from
+   the same generator, exactly; the capacity routing and the grouped
+   sampler (group 2) to the probe's rows; moves the rows to their graph
+   shards (`shard_spg_keys`) and holds them to the store's; times the
+   psum and the all-to-all row gathers on a batch's ids (equal exactly);
+   runs `DistributedKeysTrainStep` with `Net(96, mean, bf16)` at batch
+   4096 (2048 a data rank): a cold step, then 16 timed (ms a step, q/s
+   for each rank); the fp32 mean step held to rank 0's single-process
+   `DeviceTrainer` step on the same batch (loss rtol 1e-5, gradients and
+   parameters rtol 1e-4 / atol 1e-5, a parameter whose gradient is
+   rounding noise within 2 lr), the attn and lstm steps (loss within
+   1e-4); HONet(96, fp32)'s step over 4096 hyperedges held the same way
+   and its scorer's scores within 1e-4 of `predict`; the fp32 mean
+   Net's `DistributedKeysScorer` within 1e-4 of `predict` on 4096 x 101
+   pairs, then `evaluate_distributed`'s MRR over 4096 sources x 1001
+   candidates (pairs/s). The ranks' launch counts are summed into the
+   `multi_device*` paths. Then `dryrun_multichip` at world 1 over NCCL,
+   and over NCCL across min(4, cards) cards where the machine has more
+   than one.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the run's total
@@ -282,6 +308,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import glob
 import json
 import math
@@ -319,6 +346,7 @@ from surel_plus_tpu_torch.ops.encoders import (
 )
 from surel_plus_tpu_torch.ops.join import (
     gather_join,
+    join_gathered_hkeys,
     join_gathered_keys,
     make_keys_hjoin,
     make_keys_join,
@@ -597,7 +625,15 @@ PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
          "cli_inf_only": ("hidden_sum_fwd", "merge_pairs"),
          "cli_tags_honet_stop": ("hidden_sum_fwd", "hidden_sum_bwd",
                                  "merge_pairs"),
-         "cli_horder_inf_only": ("hidden_sum_fwd", "merge_pairs")}
+         "cli_horder_inf_only": ("hidden_sum_fwd", "merge_pairs"),
+         "multi_device": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs"),
+         "multi_device_attn": ("attn_pool_fwd", "attn_pool_bwd",
+                               "merge_pairs"),
+         "multi_device_lstm": ("lstm_keys_fwd", "lstm_keys_bwd",
+                               "merge_pairs"),
+         "multi_device_honet": ("hidden_sum_fwd", "hidden_sum_bwd",
+                                "merge_pairs"),
+         "multi_device_serve": ("hidden_sum_fwd", "merge_pairs")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
@@ -4769,6 +4805,380 @@ def host_engine_path(dev: SpGDevice, edges, labels, label, launches) -> None:
     require(math.isfinite(loss) and 0 <= auc <= 1 and 0 < mrr_v <= 1
             and 0 < mrr_t <= 1, "the host engine gave bad values")
 
+# ------------------------------------------------------ the multi-device path
+# four ranks share the card over gloo, mesh data 2 x graph 2
+MD_RANKS, MD_GRAPH_AXIS, MD_BACKEND = 4, 2, "gloo"
+MD_STEPS, MD_SEED = 16, 0               # timed steps; the sampler's seed
+MD_TIMEOUT_S = 900
+MD_GATHER_REPS = 10
+# the MRR's splits: a valid split of MD_VALID_SRC sources, the test split
+# N_SRC x (K_NEG + 1) pairs; the scores of MD_CHECK_NEG negatives a source
+# held to `predict`
+MD_VALID_SRC, MD_CHECK_NEG = 64, 100
+# a gradient entry below this is rounding noise; Adam's first step moves
+# its parameter by up to lr either way there
+MD_NOISE_GRAD = 1e-6
+MD_KEYS = ("nodes", "khi", "klo", "sizes")
+
+
+def md_config() -> dict:
+    """The multi-device phase's sizes, written for the ranks: the main
+    path's graph, sets, width and batch."""
+    return dict(nodes=N_NODES, edges=N_EDGES, walks=NUM_WALKS,
+                steps=NUM_STEPS, hidden=HIDDEN, batch=BATCH, timed=MD_STEPS,
+                n_src=N_SRC, k_neg=K_NEG, valid_src=MD_VALID_SRC,
+                check_neg=MD_CHECK_NEG, graph_axis=MD_GRAPH_AXIS,
+                seed=MD_SEED, lr=LR, grad_clip=GRAD_CLIP,
+                gather_reps=MD_GATHER_REPS)
+
+
+def md_same_sets(a: SpGKeys, b: SpGKeys, rows=slice(None)) -> bool:
+    """Whether `a`'s rows equal rows `rows` of `b` exactly."""
+    return all(torch.equal(getattr(a, k), getattr(b, k)[rows])
+               for k in MD_KEYS)
+
+
+def md_step_state(loss, model, opt) -> tuple:
+    """(loss, parameters, Adam's first moment = 0.1 g) after one step, on
+    the host."""
+    host = lambda t: t.detach().float().cpu()
+    return (float(loss),
+            {n: host(p) for n, p in model.named_parameters()},
+            {n: host(opt.state[p]["exp_avg"])
+             for n, p in model.named_parameters()})
+
+
+def md_compare(dist_state, single_state, loss_rtol, params: bool) -> dict:
+    """A distributed step against the single-process one: the loss's
+    relative error and, with `params`, the gradients' and parameters'
+    worst excess over rtol 1e-4 / atol 1e-5 (parameters whose gradient is
+    rounding noise, below MD_NOISE_GRAD, held to 2 lr). ok when none
+    exceeds."""
+    loss, p, mu = dist_state
+    want_loss, want_p, want_mu = single_state
+    loss_err = abs(loss - want_loss) / max(abs(want_loss), 1e-30)
+    out = dict(loss=loss, single_loss=want_loss, loss_rel_err=loss_err,
+               ok=loss_err <= loss_rtol)
+    if params:
+        worst = 0.0
+        for name, w in want_p.items():
+            g, wg = mu[name] / 0.1, want_mu[name] / 0.1
+            worst = max(worst, float(((g - wg).abs()
+                                      - (1e-5 + 1e-4 * wg.abs())).max()))
+            noise = wg.abs() < MD_NOISE_GRAD
+            tol = torch.where(noise, 2 * LR, 1e-5 + 1e-4 * w.abs())
+            worst = max(worst, float(((p[name] - w).abs() - tol).max()))
+        out.update(excess=worst, ok=out["ok"] and worst <= 0)
+    return out
+
+
+def multi_device_rank(ctx) -> dict:
+    """One rank of the multi-device phase (`parallel.launch.run_ranks`
+    calls it): the main path's graph and sets, partitioned sampling over
+    every node against `sample_block` over the same seeds and generator
+    (exactly), the capacity routing and the grouped sampler (group 2)
+    against the probe, the rows moved to their graph shards, the row
+    gathers (psum against all-to-all), the bf16 mean keys step (a cold
+    step, then MD_STEPS timed), the fp32 mean, attn and lstm steps and
+    the fp32 HONet step and scorer against rank 0's single-process
+    trainer, and the scorer's MRR over N_SRC x (K_NEG + 1) pairs. Returns
+    what the parent checks, and the kernels' launch counts of each step
+    and of the scoring."""
+    from surel_plus_tpu_torch.parallel import dist as pdist
+    from surel_plus_tpu_torch.parallel import partition as ppart
+    from surel_plus_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = torch.load(os.path.join(ctx.payload_dir, "config.pt"))
+    dev = ctx.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(graph_axis=cfg["graph_axis"], device=dev)
+    world, lead = mesh.world_size, ctx.rank == 0
+    M, S, B, H = cfg["walks"], cfg["steps"], cfg["batch"], cfg["hidden"]
+    out = dict(rank=ctx.rank, shape=dict(mesh.shape), device=str(dev),
+               launches={}, checks={})
+
+    def wait():
+        """The device idle and every rank here."""
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        torch.distributed.barrier()
+
+    def timed(fn):
+        wait()
+        t0 = time.perf_counter()
+        res = fn()
+        wait()
+        return res, time.perf_counter() - t0
+
+    g = rmat_graph(cfg["nodes"], cfg["edges"], seed=0)
+    seeds = np.arange(g.num_nodes, dtype=np.int32)
+    n = len(seeds)
+    n_pad = -(-n // world) * world
+    pcsr = ppart.partition_csr(g, world, seed=cfg["seed"])
+    local, out["sample_s"] = timed(lambda: ppart.sample_gsets_partitioned(
+        pcsr, seeds, M, S, mesh, seed=cfg["seed"]))
+    pad = np.zeros(n_pad, np.int32)
+    pad[:n] = seeds
+    ref = sample_gsets_device_keys(g, pad, M, S, seed=cfg["seed"],
+                                   block_size=n_pad, device=dev)
+    rows = slice(local.start, local.start + local.sets.nodes.shape[0])
+    out["checks"]["partitioned = sample_block"] = md_same_sets(
+        local.sets, ref, rows)
+    out["rows"] = local.sets.nodes.shape[0]
+    for name, fn in (
+            ("capacity routing", lambda: ppart.sample_gsets_partitioned(
+                pcsr, seeds, M, S, mesh, seed=cfg["seed"],
+                routing="capacity")),
+            ("grouped (2)", lambda: ppart.sample_gsets_grouped(
+                g, seeds, M, S, mesh, 2, seed=cfg["seed"]))):
+        other, out[f"{name} s"] = timed(fn)
+        out["checks"][f"{name} = probe"] = md_same_sets(other.sets,
+                                                       local.sets)
+        del other
+    sspg, out["shard_s"] = timed(lambda: pdist.shard_spg_keys(local, mesh))
+    rps, gi = sspg.rows_per_shard, mesh.graph_index
+    lo, hi = gi * rps, min((gi + 1) * rps, n)
+    shard = SpGKeys(nodes=sspg.nodes[:hi - lo], khi=sspg.khi[:hi - lo],
+                    klo=sspg.klo[:hi - lo], sizes=sspg.sizes[:hi - lo],
+                    num_walks=M, num_steps=S)
+    out["checks"]["graph shard = its rows"] = md_same_sets(
+        shard, ref, slice(lo, hi))
+    del local, shard, pcsr
+    if not lead:
+        del ref
+
+    rng = np.random.default_rng(0)
+    nb = cfg["timed"] + 1
+    edges = torch.as_tensor(rng.integers(0, n, size=(2, nb * B))).to(dev)
+    labels = torch.as_tensor((rng.random(nb * B) < 0.5).astype(
+        np.float32)).to(dev)
+    weights = torch.ones(nb * B, device=dev)
+
+    def batch(i):
+        return tuple(x[..., i * B:(i + 1) * B] for x in (edges, labels,
+                                                         weights))
+
+    d, dp = mesh.data_index, mesh.shape["data"]
+    ids = edges[:, d * B // dp:(d + 1) * B // dp].contiguous()
+    graph = mesh.axis("graph")
+    got = {}
+    for kind, fn in (("psum", pdist.dist_gather_rows),
+                     ("all-to-all", pdist.dist_gather_rows_a2a)):
+        fn(sspg.rows, ids, rps, graph)
+        got[kind], dt = timed(lambda: [fn(sspg.rows, ids, rps, graph)
+                                       for _ in range(cfg["gather_reps"])])
+        got[kind] = got[kind][-1]
+        out[f"gather {kind} ms"] = dt / cfg["gather_reps"] * 1e3
+    out["checks"]["psum gather = all-to-all gather"] = torch.equal(
+        got["psum"], got["all-to-all"])
+    if lead:
+        whole = torch.cat([ref.nodes, ref.khi, ref.klo, ref.sizes[:, None]],
+                          dim=1)
+        out["checks"]["gathered rows = the store's"] = torch.equal(
+            got["psum"], whole[ids])
+        del whole
+    del got
+
+    def net(aggrs="mean", dtype="float32", dropout=0.0, cls=Net):
+        kw = dict(aggrs=aggrs, dtype=dtype) if cls is Net else {}
+        m = cls(S + 1, H, dropout=dropout, key_layout=(M, S),
+                generator=torch.Generator().manual_seed(0), device=dev,
+                **kw)
+        return m, torch.optim.Adam(m.parameters(), lr=cfg["lr"], eps=1e-8)
+
+    # the bf16 mean step at the bench width: a cold step, then timed ones
+    m, opt = net(dtype="bfloat16", dropout=0.1)
+    step = pdist.DistributedKeysTrainStep(m, opt, mesh, sspg,
+                                          grad_clip=cfg["grad_clip"])
+    _, out["cold_step_s"] = timed(lambda: float(step(*batch(0))))
+    zero_counts()
+    losses, dt = timed(lambda: [step(*batch(i)) for i in range(1, nb)])
+    out["launches"]["multi_device"] = counts()
+    out["step_ms"] = dt / cfg["timed"] * 1e3
+    out["queries_per_s"] = cfg["timed"] * B / dt
+    out["checks"]["bf16 losses finite"] = bool(torch.isfinite(
+        torch.stack(losses)).all())
+    del step, m, opt
+
+    cfg_single = TrainConfig(batch_size=B, lr=cfg["lr"],
+                             grad_clip=cfg["grad_clip"])
+    perm = torch.arange(B, device=dev)[None]
+    single_gen = torch.Generator(device=dev).manual_seed(1)
+
+    def single_step(model, be, bl, join_factory=None):
+        trainer = trainer_from_keys(model, ref, cfg_single,
+                                    join_factory=join_factory)
+        loss, _ = trainer.train_epoch(be, bl, single_gen, perm=perm)
+        return trainer, md_step_state(loss, model, trainer.optimizer)
+
+    kept = {}
+    for aggrs, path in (("mean", None), ("attn", "multi_device_attn"),
+                        ("lstm", "multi_device_lstm")):
+        m, opt = net(aggrs)
+        step = pdist.DistributedKeysTrainStep(m, opt, mesh, sspg,
+                                              grad_clip=cfg["grad_clip"])
+        zero_counts()
+        loss = float(step(*batch(0)))
+        wait()
+        if path:
+            out["launches"][path] = counts()
+        state = md_step_state(loss, m, opt)
+        if lead:
+            sm, _ = net(aggrs)
+            trainer, want = single_step(sm, *batch(0)[:2])
+            out[f"{aggrs} step"] = md_compare(
+                state, want, 1e-5 if aggrs == "mean" else 1e-4,
+                params=aggrs == "mean")
+            if aggrs == "mean":
+                kept["trainer"] = trainer
+        if aggrs == "mean":
+            kept["model"] = m
+        del step, opt
+        wait()
+
+    # HONet: its step over B hyperedges and its scorer
+    hedges = torch.as_tensor(rng.integers(0, n, size=(3, 2 * B))).to(dev)
+    hb = (hedges[:, :B], labels[:B], weights[:B])
+    honet, hopt = net(cls=HONet)
+    hstep = pdist.DistributedKeysHTrainStep(honet, hopt, mesh, sspg,
+                                            grad_clip=cfg["grad_clip"])
+    zero_counts()
+    loss = float(hstep(*hb))
+    wait()
+    out["launches"]["multi_device_honet"] = counts()
+    hstate = md_step_state(loss, honet, hopt)
+    hscorer = pdist.DistributedKeysScorer(
+        honet, mesh, sspg, batch_size=B, join_gathered=join_gathered_hkeys)
+    hscores = hscorer(hedges[:, B:])
+    if lead:
+        sh, _ = net(cls=HONet)
+        trainer, want = single_step(sh, *hb[:2], join_factory=(
+            functools.partial(make_keys_hjoin, **sh.join_outputs(dev))))
+        out["honet step"] = md_compare(hstate, want, 1e-5, params=True)
+        sh.load_state_dict(honet.state_dict())
+        err = float((hscores - trainer.predict(hedges[:, B:])).abs().max())
+        out["honet scores"] = dict(max_abs_err=err, ok=err <= CPU_TOL)
+        del trainer, sh
+    del hstep, honet, hopt, hscorer
+    wait()
+
+    # the scorer and evaluate_distributed's MRR (fp32 mean, after its step)
+    model = kept["model"]
+    gen = np.random.default_rng(7)
+    k = cfg["k_neg"]
+
+    def split(n_src):
+        src = gen.integers(0, n, n_src)
+        pos = np.stack([src, gen.integers(0, n, n_src)])
+        neg = np.stack([np.repeat(src, k), gen.integers(0, n, n_src * k)])
+        return pos, neg
+
+    valid, test = split(cfg["valid_src"]), split(cfg["n_src"])
+    scorer = pdist.DistributedKeysScorer(model, mesh, sspg, batch_size=B)
+    negs = test[1].reshape(2, -1, k)[:, :, :cfg["check_neg"]]
+    check = np.concatenate([test[0], negs.reshape(2, -1)], axis=1)
+    scores = scorer(check)
+    if lead:
+        trainer = kept["trainer"]
+        trainer.model.load_state_dict(model.state_dict())
+        err = float((scores - trainer.predict(check)).abs().max())
+        out["scores"] = dict(max_abs_err=err, ok=err <= CPU_TOL)
+        pos_s = trainer.predict(test[0])
+        neg_s = trainer.predict(test[1]).reshape(-1, k)
+        out["single_mrr"] = float(device_mrr(pos_s, neg_s))
+    zero_counts()
+    res, t_test = pdist.evaluate_distributed(
+        scorer, {"valid": valid, "test": test}, "MRR")
+    wait()
+    out["launches"]["multi_device_serve"] = counts()
+    out["mrr"], out["mrr_s"] = res[2], t_test
+    out["pairs_per_s"] = test[0].shape[1] * (k + 1) / t_test
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def multi_device_path(label, launches) -> None:
+    """The multi-device phase: MD_RANKS ranks on the one card over gloo
+    (`multi_device_rank` in each, through `run_ranks`; a rank that fails
+    fails the run), their checks and numbers, the launch counts summed
+    over the ranks into `launches`; then the dry run at world 1 over NCCL,
+    and over NCCL across cards where the machine has more than one."""
+    from surel_plus_tpu_torch.parallel.dryrun import dryrun_multichip
+    from surel_plus_tpu_torch.parallel.launch import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"multi-device: {MD_RANKS} ranks over {MD_BACKEND} on one card "
+        f"(mesh data {MD_RANKS // MD_GRAPH_AXIS} x graph {MD_GRAPH_AXIS}): "
+        f"the four ranks share one card's SMs and exchange through host "
+        f"memory, so the rates below measure no scaling [{label}]")
+    with tempfile.TemporaryDirectory() as payload:
+        torch.save(md_config(), os.path.join(payload, "config.pt"))
+        t0 = time.perf_counter()
+        res = run_ranks("chip_smoke:multi_device_rank", MD_RANKS,
+                        MD_BACKEND, DEVICE, payload, MD_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    lead = res[0]
+    say(f"multi-device: {len(res)} ranks done in {wall:.1f} s (processes "
+        f"started, graph, sampling, steps, scoring); mesh {lead['shape']}, "
+        f"devices {sorted({r['device'] for r in res})}")
+    say(f"multi-device sampling: partitioned (probe, edge tables) "
+        f"{N_NODES} sets, M={NUM_WALKS}, S'={NUM_STEPS}, "
+        f"{max(r['sample_s'] for r in res):.3f} s -> "
+        f"{N_NODES / max(r['sample_s'] for r in res):.1f} sets/s; "
+        f"capacity routing {max(r['capacity routing s'] for r in res):.3f} "
+        f"s; grouped (2) {max(r['grouped (2) s'] for r in res):.3f} s; "
+        f"rows to their graph shards {max(r['shard_s'] for r in res):.3f} "
+        f"s [{label}]")
+    say(f"multi-device row gathers ([2, {BATCH // 2}] ids a data rank, "
+        f"packed rows of {3 * (NUM_WALKS * NUM_STEPS + 1) + 1} int32): "
+        f"psum {np.mean([r['gather psum ms'] for r in res]):.3f} ms, "
+        f"all-to-all {np.mean([r['gather all-to-all ms'] for r in res]):.3f}"
+        f" ms (mean over ranks) [{label}]")
+    say(f"multi-device train (Net(96, mean, bf16), batch {BATCH}, "
+        f"{BATCH // (MD_RANKS // MD_GRAPH_AXIS)} a data rank): cold step "
+        f"{lead['cold_step_s']:.3f} s; {MD_STEPS} steps at "
+        + ", ".join(f"rank {r['rank']} {r['step_ms']:.3f} ms/step "
+                    f"({r['queries_per_s']:.1f} q/s)" for r in res)
+        + f" [{label}]")
+    for what in ("mean step", "attn step", "lstm step", "honet step",
+                 "honet scores", "scores"):
+        say(f"multi-device {what} against the single-process trainer "
+            f"(rank 0): {lead[what]}")
+    say(f"multi-device MRR: {N_SRC} sources x {K_NEG + 1} candidates, "
+        f"evaluate_distributed {lead['mrr']:.6f} (single process "
+        f"{lead['single_mrr']:.6f}), test split {lead['mrr_s']:.3f} s -> "
+        f"{lead['pairs_per_s']:.1f} pairs/s; peak device memory a rank "
+        f"{max(r.get('peak_gib', 0.0) for r in res):.2f} GiB [{label}]")
+    for r in res:
+        for what, ok in r["checks"].items():
+            require(ok, f"multi-device rank {r['rank']}: {what} fails")
+    for what in ("mean step", "attn step", "lstm step", "honet step",
+                 "honet scores", "scores"):
+        require(lead[what]["ok"], f"multi-device {what}: {lead[what]}")
+    require(math.isfinite(lead["mrr"]) and 0 < lead["mrr"] <= 1,
+            f"multi-device MRR {lead['mrr']} out of range")
+    for path in res[0]["launches"]:
+        launches[path] = {name: sum(r["launches"][path][name] for r in res)
+                          for name in KERNELS}
+        say(f"launches on the {path} path (summed over the ranks): "
+            f"{launches[path]}")
+
+    t0 = time.perf_counter()
+    dryrun_multichip(1, "nccl", DEVICE)
+    say(f"dry run over NCCL, world 1: {time.perf_counter() - t0:.1f} s")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        t0 = time.perf_counter()
+        dryrun_multichip(min(4, cards), "nccl", DEVICE)
+        say(f"dry run over NCCL across {min(4, cards)} cards: "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        say("the dry run over NCCL across cards waits for a machine with "
+            f"more than one card (this one has {cards})")
+
 
 def counts():
     return {name: k["kernel"].launches for name, k in KERNELS.items()}
@@ -4917,6 +5327,8 @@ def main() -> int:
         cli_mag_path(label, launches, log_root)
     # the legacy walk API
     legacy_path(g, label)
+    # the multi-device path: four ranks on the card, then the dry runs
+    multi_device_path(label, launches)
 
     # phase 4
     for path, names in PATHS.items():

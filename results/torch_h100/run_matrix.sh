@@ -40,6 +40,11 @@ declare -A ARGS=(
   # a row re-run with twice its runs, named only on the command line
   [collabs_attn_x2]="--dataset fixture-collabs --aggrs attn --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 12 --batch_size 4096"
   [cites_mean_x2]="--dataset fixture-cites --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 16 --eval_steps 2 --early_stop 10 --runs 6 --batch_size 4096"
+  # the two rows outside their bands, re-run once the samplers' first hop
+  # read the native per-row shuffle (the JAX package's), named only on the
+  # command line; the earlier rows' files stay as they were
+  [collabs_attn_native]="--dataset fixture-collabs --aggrs attn --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 6 --batch_size 4096"
+  [cites_mean_native]="--dataset fixture-cites --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 16 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096"
 )
 # the CLI of each row: link prediction, or higher-order prediction
 declare -A CLI=([tags_honet]=surel_plus_tpu_torch.cli.main_horder)

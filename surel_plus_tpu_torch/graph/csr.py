@@ -55,11 +55,29 @@ class CSRGraph:
         n = self.num_nodes
         return sp.csr_matrix((data, self.indices, self.indptr), shape=(n, n))
 
+    @staticmethod
+    def from_scipy(mat) -> "CSRGraph":
+        """A scipy sparse matrix as a CSR graph, rows sorted, weights
+        float32."""
+        mat = mat.tocsr()
+        mat.sort_indices()
+        return CSRGraph(
+            indptr=np.asarray(mat.indptr, dtype=np.int32),
+            indices=np.asarray(mat.indices, dtype=np.int32),
+            data=np.asarray(mat.data, dtype=np.float32),
+        )
+
     def to(self, device):
         """Return (indptr, indices) as int64 torch tensors on `device`
         (int64 so that they index directly)."""
         return (torch.as_tensor(self.indptr, dtype=torch.int64).to(device),
                 torch.as_tensor(self.indices, dtype=torch.int64).to(device))
+
+
+# from this edge count on, `csr_from_edges` takes the C++/OpenMP
+# counting-sort build (`graph/native.py`: the same semantics, O(E)), as
+# the JAX package does
+NATIVE_BUILD_THRESHOLD = 2_000_000
 
 
 def coalesce_edge_list(edges: np.ndarray, weights: np.ndarray):
@@ -87,13 +105,31 @@ def csr_from_edges(
     symmetrize: bool = True,
     coalesce: bool = True,
     drop_self_loops: bool = True,
+    prefer_native: Optional[bool] = None,
 ) -> CSRGraph:
     """Build a CSR graph from an edge list of shape [E, 2].
 
     `G = A + A^T` with the diagonal dropped: symmetrize sums the weights
-    of (u, v) and (v, u); coalesce sums duplicate entries. numpy only.
+    of (u, v) and (v, u); coalesce sums duplicate entries.
+
+    `prefer_native=None` takes the native O(E) build
+    (`native.build_csr_weighted_native`) from NATIVE_BUILD_THRESHOLD
+    edges on, the numpy lexsort below that; True or False forces either.
+    The native build takes node ids below 2^31 - 1 and at most 2^31 - 1
+    entries; other edge lists take the numpy path, as in the JAX package.
     """
     edges = np.asarray(edges, dtype=np.int64)
+    if prefer_native is None:
+        prefer_native = len(edges) >= NATIVE_BUILD_THRESHOLD
+    if (prefer_native and len(edges) and int(edges.max()) < 2**31 - 1
+            and len(edges) * (2 if symmetrize else 1) < 2**31):
+        from surel_plus_tpu_torch.graph.native import (
+            build_csr_weighted_native,
+        )
+        return build_csr_weighted_native(
+            edges, weights=weights, num_nodes=num_nodes,
+            symmetrize=symmetrize, coalesce=coalesce,
+            drop_self_loops=drop_self_loops)
     if edges.ndim != 2 or edges.shape[1] != 2:
         raise ValueError(f"edges must be [E, 2], got {edges.shape}")
     if num_nodes is None:

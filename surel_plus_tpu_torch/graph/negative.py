@@ -1,7 +1,8 @@
 """Negative edge sampling on the host, numpy (port of
 surel_plus_tpu/graph/negative.py): random node pairs, uniform, rejecting
 existing edges and self-loops, with an optional force_undirected mode
-(the vessel split). The draws are the JAX package's, one for one.
+(the vessel split); and uniform random targets. The draws are the JAX
+package's, one for one.
 """
 
 from __future__ import annotations
@@ -59,3 +60,10 @@ def negative_sampling(
         raise RuntimeError(
             f"negative_sampling: only {got}/{num_neg_samples} found")
     return out.astype(np.int32)
+
+
+def random_targets(num_nodes: int, shape, rng: np.random.Generator
+                   ) -> np.ndarray:
+    """Uniform random nodes int32 of `shape`: the train-time MRR
+    negatives (the reference's `torch.randint`, utils.py:82-83)."""
+    return rng.integers(0, num_nodes, size=shape).astype(np.int32)

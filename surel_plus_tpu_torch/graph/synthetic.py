@@ -1,7 +1,8 @@
 """Synthetic graph generators (port of surel_plus_tpu/graph/synthetic.py).
 
 RMAT stands in for the power-law OGB graphs the reference benchmarks on;
-the ring of cliques is a small structured graph for the tests.
+the Erdos-Renyi graph a uniform one; the ring of cliques is a small
+structured graph for the tests.
 """
 
 from __future__ import annotations
@@ -41,6 +42,18 @@ def rmat_graph(
     edges = np.stack([src, dst], axis=1)
     edges = edges[src != dst][:num_edges]
     return csr_from_edges(edges, num_nodes=num_nodes)
+
+
+def erdos_renyi(num_nodes: int, num_edges: int, seed: int = 0) -> CSRGraph:
+    """Uniform random graph: about num_edges random node pairs, self
+    loops dropped, symmetrized and coalesced (weights summed)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_nodes, size=int(num_edges * 1.1) + 8)
+    dst = rng.integers(0, num_nodes, size=len(src))
+    edges = np.stack([src, dst], axis=1)
+    edges = edges[src != dst][:num_edges]
+    return CSRGraph.from_scipy(
+        csr_from_edges(edges, num_nodes=num_nodes).to_scipy())
 
 
 def ring_of_cliques(num_cliques: int, clique_size: int) -> CSRGraph:

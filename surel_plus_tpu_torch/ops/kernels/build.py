@@ -6,6 +6,9 @@ plain C interface, for `sm_90a` (Hopper), under `_build/` in the package
 source and of the shared headers (`csrc/*.cuh`), so an edited source
 builds anew. `build_all` starts one nvcc per source, all at once.
 
+The host libraries (`csrc/*.cpp`: the PPR push, the graph ingest) build
+the same way with g++ (`host_library`).
+
 Every C entry point takes its pointers and the CUDA stream as
 `c_void_p`, its sizes as `c_int`, and returns `cudaGetLastError()`; a
 `CudaKernel` raises when that is not 0 and counts its launches.
@@ -25,6 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+# the JAX package adds -march=native to its host builds; left out here, so
+# that a library built on one host runs on another
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-fopenmp", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -76,6 +82,30 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+def host_library(src: Path, build_dir: Path = BUILD_DIR) -> Path:
+    """The g++ build of the C++ source `src` (a plain C interface) in
+    `build_dir`, named by a hash of its source and flags, built on first
+    use; raises RuntimeError with the compiler's output if the build
+    fails."""
+    digest = hashlib.sha1(src.read_bytes() + " ".join(CXX_FLAGS).encode())
+    so = build_dir / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
+    if so.exists():
+        return so
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", *CXX_FLAGS, str(src), "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"cannot run the host compiler to build {src}: "
+                           f"{exc}") from exc
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {src} failed ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    return so
 
 
 class CudaKernel:

@@ -14,51 +14,28 @@ the top-k scores with its 'row' / 'sym' / 'col' degree normalizations
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from typing import Tuple
 
 import numpy as np
 
-from surel_plus_tpu_torch.ops.kernels.build import BUILD_DIR, CSRC
+from surel_plus_tpu_torch.ops.kernels.build import (
+    BUILD_DIR,
+    CSRC,
+    host_library as build_host_library,
+)
 
 SOURCE = CSRC / "ppr_host.cpp"
-# the JAX package adds -march=native; left out here, so that a library
-# built on one host runs on another (on the tests' graphs the scores are
-# the same to the bit either way)
-CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-fopenmp", "-std=c++17"]
 
 _LIB = None
 
 
-def library_path():
-    """The library's path, named by a hash of its source and flags."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libppr_host-{digest.hexdigest()[:12]}.so"
-
-
 def host_library() -> ctypes.CDLL:
-    """The push library, built on first use; raises RuntimeError with the
-    compiler's output if the build fails."""
+    """The push library, built on first use (`build.host_library`); raises
+    RuntimeError with the compiler's output if the build fails."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as exc:
-            raise RuntimeError(f"cannot run the host compiler to build "
-                               f"{SOURCE}: {exc}") from exc
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {SOURCE} failed ({' '.join(cmd)})"
-                               f":\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(build_host_library(SOURCE, BUILD_DIR)))
     i32p = ctypes.POINTER(ctypes.c_int32)
     lib.ppr_topk.restype = None
     lib.ppr_topk.argtypes = [

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from surel_plus_tpu_torch.graph.csr import CSRGraph
+from surel_plus_tpu_torch.graph.native import shuffle_rows_native
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import unpack_key_features
 from surel_plus_tpu_torch.spg.spg import SpG, SpGDevice, SpGKeys
@@ -56,16 +57,14 @@ def device_graph(graph: CSRGraph, device):
 
 def shuffled_indices_for(graph: CSRGraph, seed: int, device):
     """Per-row random permutation of the CSR indices, computed on the host
-    (np.lexsort over (row, rand)) and uploaded once per (graph, seed)."""
+    by the native per-row Fisher-Yates shuffle (`native.shuffle_rows_native`,
+    the JAX package's first-hop source: the same rows for the same seed)
+    and uploaded once per (graph, seed, device)."""
     device = torch.device(device)
     cache = _cache(graph)
     key = ("shuffle", seed, str(device))
     if key not in cache:
-        rng = np.random.default_rng(seed)
-        row_ids = np.repeat(np.arange(graph.num_nodes, dtype=np.int64),
-                            graph.degrees().astype(np.int64))
-        order = np.lexsort((rng.random(graph.num_edges), row_ids))
-        shuffled = graph.indices[order]
+        shuffled = shuffle_rows_native(graph, seed)
         cache[key] = torch.as_tensor(shuffled, dtype=torch.int64).to(device)
     return cache[key]
 
@@ -96,8 +95,8 @@ def sample_gsets_device_keys(
 ) -> SpGKeys:
     """Sample one set per seed and store each slot's packed landing-count
     key. Walk bits come from a `torch.Generator` on `device` seeded with
-    `seed`; the first-hop row shuffle from numpy with `shuffle_seed`
-    (default: `seed`). Seeds run in blocks of `block_size`.
+    `seed`; the first-hop row shuffle from the native shuffle with
+    `shuffle_seed` (default: `seed`). Seeds run in blocks of `block_size`.
 
     Returns SpGKeys(nodes, khi, klo, sizes) on `device`.
     """

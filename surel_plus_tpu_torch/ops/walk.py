@@ -76,6 +76,20 @@ def unpack_encodings(packed: np.ndarray, num_walks: int,
     return out
 
 
+def shuffle_csr_rows(row_ids: torch.Tensor, indices: torch.Tensor,
+                     rand: torch.Tensor) -> torch.Tensor:
+    """Permute CSR `indices` within each row by one stable sort of
+    (row id, random key): `rand` holds one 32-bit key an entry (values in
+    [0, 2^32), as `walk_bits` draws them), and `row_ids` is each entry's
+    row (np.repeat(arange(N), degrees)). Afterwards out[indptr[u] + j] is
+    the j-th element of a uniform random permutation of u's row; with
+    the JAX package's keys (jax.random.bits of its key) the result is
+    its `shuffle_csr_rows`' exactly."""
+    key = (row_ids.to(torch.int64) << 32) | u32(rand)
+    order = torch.sort(key, stable=True).indices
+    return indices[order]
+
+
 def build_walk_tables(indptr: torch.Tensor, indices: torch.Tensor,
                       shuffled_indices: torch.Tensor):
     """Edge tables for the one-gather-per-step walk, int64 [E, 3]:
