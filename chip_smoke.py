@@ -3,13 +3,21 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py
 
-1. Builds the twelve CUDA kernels from `surel_plus_tpu_torch/csrc/` (one
+1. Builds the thirteen CUDA kernels from `surel_plus_tpu_torch/csrc/` (one
    nvcc per source, started together) and prints the build time, each
    source's registers and spills, and ptxas's lines for every instance of
    the set sum (K1) and the two hidden-layer backwards.
 2. Holds each kernel against its plain PyTorch version on the card, on
    sets sampled from the main path's graph at the main path's shapes:
-   the fused key hidden set sum (K1) in the lo-only layout (M=100, S'=3,
+   first the threefry words (K8, `threefry_vs_plain`): Random123's and
+   JAX's known answers (constants), the kernel bit for bit against its
+   plain version at 1, 1023, 4097 and 6,553,600 words (a sampler block's
+   step draw) and across 2^32, the sets of a 4,000-node graph sampled on
+   the card against the port's CPU sets (exactly: the tests hold those
+   to JAX's), its time beside its bound (integer operations at
+   INT32_OPS_PER_S against the words written) and the main path's walk
+   draws beside `torch.randint` of the same shapes; then the fused key
+   hidden set sum (K1) in the lo-only layout (M=100, S'=3,
    L=301) and the lead-in-hi layout (M=200, S'=4, L=801), at Q=4 with
    odd B, L and Lc, on seeded keys at H=100, H=1024, ncol=8 and shift 12
    (with the root bit and with root planes), and on weights that put z at
@@ -274,7 +282,7 @@ NVIDIA GPU. Run from the repository root:
    samples every node's set through the frontier exchange
    (`sample_gsets_partitioned`, the probe over the edge tables; sets/s)
    and holds its rows to `sample_block` over the whole seed block from
-   the same generator, exactly; the capacity routing and the grouped
+   the same key, exactly; the capacity routing and the grouped
    sampler (group 2) to the probe's rows; moves the rows to their graph
    shards (`shard_spg_keys`) and holds them to the store's; times the
    psum and the all-to-all row gathers on a batch's ids (equal exactly);
@@ -338,6 +346,7 @@ from surel_plus_tpu_torch.models.honet import group_set_sums
 from surel_plus_tpu_torch.ops import join as join_ops
 from surel_plus_tpu_torch.ops import legacy
 from surel_plus_tpu_torch.ops import ppr as ppr_ops
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.encoders import (
     encoding,
@@ -358,6 +367,7 @@ from surel_plus_tpu_torch.ops.kernels import (
     hidden_sum,
     lstm_keys,
     merge,
+    threefry,
 )
 from surel_plus_tpu_torch.ops.kernels import cross_lookup as xlookup
 from surel_plus_tpu_torch.ops.kernels import lstm as lstm_x
@@ -365,8 +375,10 @@ from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.ppr_device import ppr_topk_device
 from surel_plus_tpu_torch.ops.sampler import (
     dedup_device,
+    device_graph,
     sample_gsets_device,
     sample_gsets_device_keys,
+    walk_tables_for,
 )
 from surel_plus_tpu_torch.spg import SpGDevice, SpGKeys
 from surel_plus_tpu_torch.train import LinkPredictor, TrainConfig, evaluate
@@ -514,6 +526,26 @@ LSTM_CELL_BWD_OPS = 31
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12      # CUDA cores, outside the tensor cores
 TF32_OPS_PER_S = 495e12     # tensor cores, TF32, dense
+# the data sheet gives no integer rate: an H100 SM issues at most four
+# warp instructions a clock, 128 lanes, the lanes behind FP32_OPS_PER_S
+# (which counts an FMA as two operations), whatever pipe runs them
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
+# K8 (threefry2x32-20): its known answers, as constants (no JAX on the
+# card): Random123's test vector (key (0, 0), counter (0, 0)), and JAX
+# 0.9's jax.random on the CPU: bits(PRNGKey(0), [8], uint32),
+# split(PRNGKey(0), 2) and fold_in(PRNGKey(111413), 7)
+THREEFRY_KAT = (0x6B200159, 0x99BA4EFE)
+JAX_BITS_KEY0 = (4070199207, 4202968722, 1427181096, 2012915765,
+                 2447653815, 710830403, 1332275837, 2961296638)
+JAX_SPLIT_KEY0 = [(1797259609, 2579123966), (928981903, 3453687069)]
+JAX_FOLD_111413_7 = (559376686, 1310254177)
+# the sizes K8 is held to its plain version at (the last: a sampler
+# block's step draw), and a start counter just below 2^32
+K8_SIZES = (1, 1023, 4097, SAMPLE_BLOCK * NUM_WALKS)
+K8_HIGH_OFFSET = (1 << 32) - 3
+# 32-bit integer operations a word: 20 rounds of an add, a rotate and a
+# xor, 12 key additions, the counter's split and the final xor
+THREEFRY_OPS = 20 * 3 + 12 + 2 + 1
 # the hidden-layer kernels and the merge, which each profile lists wherever
 # they rank
 LISTED_KERNELS = re.compile(
@@ -567,10 +599,16 @@ KERNELS = {
         kernel=hidden_sum.SLOTS_BWD_KERNEL,
         source="surel_plus_tpu_torch/csrc/hidden_slots_bwd.cu",
         replaces="surel_plus_tpu/ops/pallas/hidden_sum_kernel.py:402"),
+    # no Pallas kernel: the walk's jax.random.bits, which XLA computes
+    "threefry_bits": dict(
+        kernel=threefry.KERNEL,
+        source="surel_plus_tpu_torch/csrc/threefry.cu",
+        replaces="surel_plus_tpu/ops/walk.py:183"),
 }
 # the kernels each main path must launch
-PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs"),
-         "train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs"),
+PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs", "threefry_bits"),
+         "train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs",
+                   "threefry_bits"),
          "attn_serve": ("attn_pool_fwd", "merge_pairs"),
          "attn_train": ("attn_pool_fwd", "attn_pool_bwd", "merge_pairs"),
          "lstm_serve": ("lstm_keys_fwd", "merge_pairs"),
@@ -642,7 +680,8 @@ MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "lstm_x_bwd": "table_lstm_train",
              "cross_lookup": "keys_pallas_serve",
              "hidden_slots_fwd": "unfused_train",
-             "hidden_slots_bwd": "unfused_train"}
+             "hidden_slots_bwd": "unfused_train",
+             "threefry_bits": "serve"}
 
 
 
@@ -2803,9 +2842,81 @@ def k1_k2_vs_plain(spl, spw, rows, jlo, a_lo, a_hi):
                 library_ms=k2_lib, bound=k2_b)}
 
 
+def threefry_vs_plain(g) -> dict:
+    """K8: the known answers (the kernel's words included), the kernel
+    against its plain version bit for bit at K8_SIZES and across 2^32,
+    two launches alike; sets sampled on the card from a small graph
+    against the port's CPU sets from the same inputs (nodes, keys, sizes
+    exactly: the CPU sets are what the tests hold to JAX's); its time at a
+    sampler block's draw beside its plain version and its bound; and the
+    main path's whole draw on K8 beside `torch.randint` of the same shapes
+    (the draw the port made before)."""
+    tf = threefry
+    require(tf.threefry2x32(0, 0, 0, 0) == THREEFRY_KAT,
+            "threefry2x32 misses Random123's known answer")
+    require(prng.split(prng.prng_key(0), 2) == JAX_SPLIT_KEY0
+            and prng.fold_in(prng.prng_key(111413), 7) == JAX_FOLD_111413_7,
+            "split or fold_in misses JAX's known answer")
+    kat = tf.threefry_bits(0, 0, 0, torch.empty(1, dtype=torch.int64,
+                                                device=DEVICE))
+    require(int(kat[0]) == THREEFRY_KAT[0] ^ THREEFRY_KAT[1],
+            "K8 misses Random123's known answer")
+    require(prng.bits(prng.prng_key(0), [8], DEVICE).tolist()
+            == list(JAX_BITS_KEY0), "K8 misses jax.random.bits' answer")
+    err, cases = 0, [(n, 0) for n in K8_SIZES] + [(4097, K8_HIGH_OFFSET)]
+    for i, (n, offset) in enumerate(cases):
+        k0, k1 = prng.fold_in(prng.prng_key(i), n)
+        out = [tf.threefry_bits(k0, k1, offset, torch.empty(
+            n, dtype=torch.int64, device=DEVICE)) for _ in range(2)]
+        plain = torch.empty(n, dtype=torch.int64, device=DEVICE)
+        tf.threefry_bits_plain(k0, k1, offset, plain)
+        same = torch.equal(out[0], plain) and torch.equal(out[0], out[1])
+        err = max(err, int((out[0] - plain).abs().max()))
+        say(f"K8 n={n} offset={offset}: against plain bit for bit {same}")
+        require(same, f"K8 differs from its plain version at n={n}, "
+                      f"offset {offset}")
+    small = rmat_graph(4000, 40_000, seed=5)
+    for nw, ns, n_seeds in ((NUM_WALKS, NUM_STEPS, 4000),
+                            (WIDE_WALKS, WIDE_STEPS, 1000)):
+        seeds = np.arange(n_seeds)
+        card, cpu = (sample_gsets_device_keys(
+            small, seeds, nw, ns, seed=3, block_size=1024, device=dev)
+            for dev in (DEVICE, "cpu"))
+        same = all(torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+                   for k in ("nodes", "khi", "klo", "sizes"))
+        say(f"K8 sets on the card against the CPU's (M={nw}, S'={ns}, "
+            f"{n_seeds} seeds of a 4,000-node graph): equal {same}")
+        require(same, "the card's sets differ from the CPU's")
+    n = K8_SIZES[-1]
+    out = torch.empty(n, dtype=torch.int64, device=DEVICE)
+    ms = time_ms(lambda: tf.threefry_bits_cuda(1, 2, 0, out))
+    plain_ms = time_ms(lambda: tf.threefry_bits_plain(1, 2, 0, out), iters=5)
+    t = {"bytes": 8 * n / HBM_BYTES_PER_S,
+         "operations": THREEFRY_OPS * n / INT32_OPS_PER_S}
+    by = max(t, key=t.get)
+    # the main path's draw: a block's S' - 1 step draws, every block
+    blocks = [min(SAMPLE_BLOCK, g.num_nodes - lo)
+              for lo in range(0, g.num_nodes, SAMPLE_BLOCK)]
+    key = prng.prng_key(0)
+    draw_ms = time_ms(lambda: [walk_ops.walk_bits(key, b, NUM_WALKS,
+                                                  NUM_STEPS, DEVICE)
+                               for b in blocks])
+    randint_ms = time_ms(lambda: [torch.randint(
+        0, 1 << 32, (NUM_STEPS - 1, b, NUM_WALKS), dtype=torch.int64,
+        device=DEVICE) for b in blocks])
+    say(f"K8 at n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{t[by] * 1e3:.4f} ms ({by}; bytes {t['bytes'] * 1e3:.4f} ms, "
+        f"operations {t['operations'] * 1e3:.4f} ms); the main path's "
+        f"walk draws ({len(blocks)} blocks x {NUM_STEPS - 1} steps x "
+        f"{NUM_WALKS} walks, {g.num_nodes} sets): K8 {draw_ms:.4f} ms, "
+        f"torch.randint of the same shapes {randint_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound=(t[by] * 1e3, by))
+
+
 def kernels_vs_plain(g, gsets):
     gen = torch.Generator().manual_seed(1)
-    stats = {}
+    stats = {"threefry_bits": threefry_vs_plain(g)}
     spl, spw, rows, jlo, jhi, a_lo, a_hi = main_batches(g, gen)
     g2 = torch.randn(2, BATCH, HIDDEN, generator=gen).to(DEVICE)
     err1b = k1b_compare(a_lo, g2, f"lo-only M={NUM_WALKS} S'={NUM_STEPS}")
@@ -3113,7 +3224,7 @@ def train_setup(sets, aggrs: str, fused_hidden=None):
     """bench.py:153-165 (and :206-212 for attn and lstm) on the port: the
     bench Net of `aggrs` (on the route `fused_hidden` picks) from a seeded
     generator, its trainer over `sets` (SpGKeys or SpGDevice), 32 x 4096
-    random query edges with random 0/1 labels, and the generator of the
+    random query edges with random 0/1 labels, and the key of the
     permutations and dropout masks."""
     net = make_net(aggrs, dropout=0.1, dtype="bfloat16",
                    fused_hidden=fused_hidden,
@@ -3127,11 +3238,10 @@ def train_setup(sets, aggrs: str, fused_hidden=None):
         0, sets.nodes.shape[0], size=(2, n))).to(DEVICE)
     labels = torch.as_tensor((rng.random(n) < 0.5).astype(
         np.float32)).to(DEVICE)
-    gen = torch.Generator(device=DEVICE).manual_seed(1)
-    return trainer, edges, labels, gen
+    return trainer, edges, labels, prng.prng_key(1)
 
 
-def fit_cold(trainer, edges, labels, gen, epochs) -> None:
+def fit_cold(trainer, edges, labels, key, epochs) -> None:
     """The first fit, under CUDA's sync debug mode: the epoch loop must
     never wait for the device (the losses and AUCs stay on it)."""
     t0 = time.perf_counter()
@@ -3139,7 +3249,7 @@ def fit_cold(trainer, edges, labels, gen, epochs) -> None:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            losses, _ = trainer.fit(edges, labels, epochs, gen)
+            losses, _ = trainer.fit(edges, labels, epochs, key)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = collections.Counter(
@@ -3154,12 +3264,12 @@ def fit_cold(trainer, edges, labels, gen, epochs) -> None:
     require(not syncs, "the fit waits for the device")
 
 
-def fit_timed(trainer, edges, labels, gen, epochs, label) -> None:
+def fit_timed(trainer, edges, labels, key, epochs, label) -> None:
     """The timed fit (bench.py:178-186, :218-224), with its checks."""
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     sync()
     t0 = time.perf_counter()
-    losses, aucs = trainer.fit(edges, labels, epochs, gen)
+    losses, aucs = trainer.fit(edges, labels, epochs, key)
     sync()
     dt = time.perf_counter() - t0
     losses, aucs = losses.cpu(), aucs.cpu()
@@ -3194,11 +3304,10 @@ def route_grads(sets, net, be, dtype, fused, labels=None, cot=None,
     trainer = trainer_for(m, sets, TrainConfig(batch_size=BATCH),
                           join_factory=pair_join if keys_pairs else None)
     joined, _ = trainer._batch(be)
-    drop = torch.Generator(device=DEVICE).manual_seed(3)
     seen = []
     hook = m.affinity_score.register_forward_pre_hook(
         lambda mod, args: seen.append(torch.cat(args[0], dim=-1)))
-    logits = m.train()(joined, generator=drop, **trainer.train_kw)
+    logits = m.train()(joined, key=prng.prng_key(3), **trainer.train_kw)
     hook.remove()
     if cot is None:
         loss = batch_loss(logits, labels,
@@ -3317,7 +3426,7 @@ def check_train_cpu(sets, net, edges, labels, fused_hidden=None) -> None:
         m.load_state_dict(net.state_dict())
         trainer = trainer_for(m, part, cfg)
         losses, _ = trainer.fit(
-            remap.to(dev), labels[:n].to(dev), 1, torch.Generator(device=dev),
+            remap.to(dev), labels[:n].to(dev), 1, prng.prng_key(0),
             perms=[perm.reshape(REF_STEPS, REF_BATCH)])
         out[dev] = (losses.cpu(), {k: v.cpu() for k, v in
                                    m.state_dict().items()})
@@ -3354,9 +3463,9 @@ def lstm_serve(trainer, edges, label) -> None:
     timed_predict(trainer, edges, label, path_name(trainer))
 
 
-def profile_train(trainer, edges, labels, gen, steps: int = 8) -> None:
+def profile_train(trainer, edges, labels, key, steps: int = 8) -> None:
     be, bl = edges[:, :steps * BATCH], labels[:steps * BATCH]
-    profile(lambda: trainer.train_epoch(be, bl, gen), steps,
+    profile(lambda: trainer.train_epoch(be, bl, key), steps,
             f"train steps ({path_name(trainer)})")
 
 
@@ -3477,19 +3586,19 @@ def table_path(g, spgk: SpGKeys, edges, labels, label,
              "attn": ("table_attn_train", ATTN_EPOCHS),
              "lstm": ("table_lstm_train", LSTM_EPOCHS)}
     for aggrs, (path, epochs) in paths.items():
-        trainer, _, _, gen = train_setup(dev, aggrs)
+        trainer, _, _, key = train_setup(dev, aggrs)
         if aggrs == "lstm":
             check_train_routes(dev, trainer.model, edges, labels)
-        fit_cold(trainer, edges, labels, gen, epochs)
+        fit_cold(trainer, edges, labels, key, epochs)
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
-        fit_timed(trainer, edges, labels, gen, epochs, label)
+        fit_timed(trainer, edges, labels, key, epochs, label)
         launches[path] = counts()
         say(f"launches on the table training path ({aggrs}, timed fit): "
             f"{launches[path]}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_train_cpu(dev, trainer.model, edges, labels)
-        profile_train(trainer, edges, labels, gen)
+        profile_train(trainer, edges, labels, key)
     return dev
 
 
@@ -3592,7 +3701,7 @@ def wide_lstm_fits(spw: SpGKeys, gsets, label) -> None:
             0, sets.nodes.shape[0], size=(2, n))).to(DEVICE)
         labels = torch.as_tensor((rng.random(n) < 0.5).astype(
             np.float32)).to(DEVICE)
-        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        key = prng.prng_key(1)
         ell = sets.nodes.shape[1]
         rows = 2 * BATCH
         group = lstm_keys.stash_group(rows, ell, HIDDEN)
@@ -3604,7 +3713,7 @@ def wide_lstm_fits(spw: SpGKeys, gsets, label) -> None:
         torch.cuda.reset_peak_memory_stats()
         sync()
         t0 = time.perf_counter()
-        losses, _ = trainer.fit(edges, labels, 1, gen)
+        losses, _ = trainer.fit(edges, labels, 1, key)
         sync()
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -3683,7 +3792,7 @@ def unfused_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
              "attn": ("unfused_attn_train", ATTN_EPOCHS, 8),
              "lstm": ("unfused_lstm_train", UNFUSED_LSTM_EPOCHS, 2)}
     for aggrs, (path, epochs, steps) in paths.items():
-        trainer, _, _, gen = train_setup(spgk, aggrs, fused_hidden=False)
+        trainer, _, _, key = train_setup(spgk, aggrs, fused_hidden=False)
         m = trainer.model
         be = edges[:, :BATCH]
         pair = [route_grads(spgk, m, be, "float32", fused, pairs=False,
@@ -3692,16 +3801,16 @@ def unfused_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
                       "hidden rows from the keys)", m, pair,
                       GRAD_ROUTE_TOL["float32"])
         del pair
-        fit_cold(trainer, edges, labels, gen, epochs)
+        fit_cold(trainer, edges, labels, key, epochs)
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
-        fit_timed(trainer, edges, labels, gen, epochs, label)
+        fit_timed(trainer, edges, labels, key, epochs, label)
         launches[path] = counts()
         say(f"launches on the unfused training path ({aggrs}, timed fit): "
             f"{launches[path]}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_train_cpu(spgk, m, edges, labels, fused_hidden=False)
-        profile_train(trainer, edges, labels, gen, steps=steps)
+        profile_train(trainer, edges, labels, key, steps=steps)
 
 
 def cli_path(label, launches, log_root):
@@ -3776,7 +3885,7 @@ def cli_resume_path(label, launches, straight, log_root) -> None:
     ckpt = f"{cfg.log_dir}/{cfg.dataset}/model/latest_0"
     state = load_checkpoint(ckpt)
     require(state["epoch"] == 2 and sorted(state) == [
-        "epoch", "gen", "opt_state", "params", "rng"],
+        "epoch", "key", "opt_state", "params", "rng"],
             f"cli resume: {ckpt} holds epoch {state['epoch']}, fields "
             f"{sorted(state)}")
 
@@ -4084,7 +4193,7 @@ def honet_trainer(net: HONet, sets: SpGKeys, cfg):
 def honet_setup(sets: SpGKeys, batch: int, n_edges: int, seed: int = 0):
     """bench.py:274-293 on the port: HONet(96, dropout 0.1) from a seeded
     generator, its trainer over `sets`, `n_edges` random hyperedges with
-    random 0/1 labels, and the generator of the permutations and dropout
+    random 0/1 labels, and the key of the permutations and dropout
     masks."""
     net = make_honet(sets, dropout=0.1,
                      generator=torch.Generator().manual_seed(0))
@@ -4095,8 +4204,7 @@ def honet_setup(sets: SpGKeys, batch: int, n_edges: int, seed: int = 0):
         0, sets.nodes.shape[0], size=(3, n_edges))).to(DEVICE)
     labels = torch.as_tensor((rng.random(n_edges) < 0.5).astype(
         np.float32)).to(DEVICE)
-    return trainer, hedges, labels, torch.Generator(
-        device=DEVICE).manual_seed(5)
+    return trainer, hedges, labels, prng.prng_key(5)
 
 
 def honet_check_routes(sets: SpGKeys, net: HONet, hedges) -> None:
@@ -4152,8 +4260,7 @@ def honet_train_cpu(sets: SpGKeys, net: HONet, hedges, labels) -> None:
         m = make_honet(sets, dropout=0.0, device=dev)
         m.load_state_dict(net.state_dict())
         losses, _ = honet_trainer(m, part, cfg).fit(
-            remap.to(dev), labels[:n].to(dev), 1,
-            torch.Generator(device=dev),
+            remap.to(dev), labels[:n].to(dev), 1, prng.prng_key(0),
             perms=[perm.reshape(REF_STEPS, REF_BATCH)])
         out[dev] = (losses.cpu(), {k: v.cpu() for k, v in
                                    m.state_dict().items()})
@@ -4286,7 +4393,7 @@ def honet_path(spgk: SpGKeys, spw: SpGKeys, label, launches) -> None:
     kernels on its own batch and the two forms' times; then a fit at the
     tags-math class shape (M=200, S'=4, L=801, batch 2048:
     `honet_tags_train`) with its kernels and the two forms' times there."""
-    trainer, hedges, labels, gen = honet_setup(spgk, BATCH, H_EDGES)
+    trainer, hedges, labels, key = honet_setup(spgk, BATCH, H_EDGES)
     net = trainer.model
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -4296,28 +4403,28 @@ def honet_path(spgk: SpGKeys, spw: SpGKeys, label, launches) -> None:
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     honet_check_routes(spgk, net, hedges)
-    fit_cold(trainer, hedges, labels, gen, H_EPOCHS)
+    fit_cold(trainer, hedges, labels, key, H_EPOCHS)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    fit_timed(trainer, hedges, labels, gen, H_EPOCHS, label)
+    fit_timed(trainer, hedges, labels, key, H_EPOCHS, label)
     launches["honet_train"] = counts()
     say(f"launches on the HONet training path (timed fit): "
         f"{launches['honet_train']}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     honet_train_cpu(spgk, net, hedges, labels)
-    profile_train(trainer, hedges, labels, gen)
+    profile_train(trainer, hedges, labels, key)
     kgen = torch.Generator().manual_seed(22)
     honet_form_times(honet_kernels(
         trainer, hedges, f"HONet lo-only M={NUM_WALKS} S'={NUM_STEPS}",
         kgen), f"lo-only (L={spgk.nodes.shape[1]}, B={BATCH})")
     del trainer, hedges, labels
 
-    ttrainer, thedges, tlabels, tgen = honet_setup(
+    ttrainer, thedges, tlabels, tkey = honet_setup(
         spw, TAGS_BATCH, TAGS_BATCH * TAGS_STEPS, seed=1)
-    fit_cold(ttrainer, thedges, tlabels, tgen, 1)
+    fit_cold(ttrainer, thedges, tlabels, tkey, 1)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    fit_timed(ttrainer, thedges, tlabels, tgen, 1, label)
+    fit_timed(ttrainer, thedges, tlabels, tkey, 1, label)
     launches["honet_tags_train"] = counts()
     say(f"launches on the HONet fit at the tags-math class shape (M="
         f"{spw.num_walks}, S'={spw.num_steps}, L={spw.nodes.shape[1]}, "
@@ -4531,17 +4638,17 @@ def scalar_path(g, label, launches) -> None:
              "attn": ("scalar_attn_train", ATTN_EPOCHS),
              "lstm": ("scalar_lstm_train", LSTM_EPOCHS)}
     for aggrs, (path, epochs) in paths.items():
-        trainer, _, _, gen = setups[aggrs]
-        fit_cold(trainer, edges, labels, gen, epochs)
+        trainer, _, _, key = setups[aggrs]
+        fit_cold(trainer, edges, labels, key, epochs)
         zero_counts()
         torch.cuda.reset_peak_memory_stats()
-        fit_timed(trainer, edges, labels, gen, epochs, label)
+        fit_timed(trainer, edges, labels, key, epochs, label)
         launches[path] = counts()
         say(f"launches on the scalar training path ({aggrs}, timed fit): "
             f"{launches[path]}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_train_cpu(dev, trainer.model, edges, labels)
-        profile_train(trainer, edges, labels, gen)
+        profile_train(trainer, edges, labels, key)
         scalar_kernels(trainer, edges[:, :BATCH],
                        f"scalar {aggrs} (PPR sets, trained weights, a "
                        f"training batch)")
@@ -4681,20 +4788,20 @@ def balanced_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
                 f"predict_balanced ({aggrs}) differs from predict")
     # one class at the bucket width against fit, the same permutations
     n = REF_STEPS * BATCH
-    perms = [riffle_permutation(torch.Generator(device=DEVICE).manual_seed(
-        40 + ep), REF_STEPS, BATCH) for ep in range(2)]
+    perms = [riffle_permutation(prng.prng_key(40 + ep), REF_STEPS, BATCH,
+                                device=DEVICE) for ep in range(2)]
     state = nets["mean"].state_dict()
     out = []
     for balanced in (False, True):
         m = make_net("mean", dropout=0.0, dtype="bfloat16")
         m.load_state_dict(state)
         tr = trainer_from_keys(m, spgk, cfg)
-        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        key = prng.prng_key(5)
         if balanced:
-            losses = tr.fit_balanced(edges[:, :n], labels[:n], 2, gen,
+            losses = tr.fit_balanced(edges[:, :n], labels[:n], 2, key,
                                      (bucket,), perms=[[p] for p in perms])[0]
         else:
-            losses = tr.fit(edges[:, :n], labels[:n], 2, gen, perms=perms)[0]
+            losses = tr.fit(edges[:, :n], labels[:n], 2, key, perms=perms)[0]
         out.append((losses.cpu(), {k: v.float().cpu()
                                    for k, v in m.state_dict().items()}))
     (lf, pf), (lb, pb) = out
@@ -4708,19 +4815,19 @@ def balanced_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
     require(ok, "a one-class fit_balanced differs from fit")
     # a balanced and a plain fit in turns
     tr = trainers["mean"]
-    gen = torch.Generator(device=DEVICE).manual_seed(6)
-    tr.fit_balanced(edges, labels, 1, gen, classes)
+    key = prng.prng_key(6)
+    tr.fit_balanced(edges, labels, 1, key, classes)
     times = {"balanced": [], "plain": []}
     for turn in range(BAL_TURNS):
         for kind in ("plain", "balanced"):
             sync()
             t0 = time.perf_counter()
             if kind == "plain":
-                losses = tr.fit(edges, labels, BAL_EPOCHS, gen)[0]
+                losses = tr.fit(edges, labels, BAL_EPOCHS, key)[0]
             else:
                 if turn == 0:
                     zero_counts()
-                losses = tr.fit_balanced(edges, labels, BAL_EPOCHS, gen,
+                losses = tr.fit_balanced(edges, labels, BAL_EPOCHS, key,
                                          classes)[0]
             sync()
             times[kind].append(time.perf_counter() - t0)
@@ -4738,8 +4845,7 @@ def balanced_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
         f"{med['balanced']:.4f} s -> {q / med['balanced']:.1f} queries/s; "
         f"plain / balanced {med['plain'] / med['balanced']:.3f} [{label}]")
     zero_counts()
-    trainers["attn"].fit_balanced(edges, labels, 1,
-                                  torch.Generator(device=DEVICE).manual_seed(7),
+    trainers["attn"].fit_balanced(edges, labels, 1, prng.prng_key(7),
                                   classes)
     launches["balanced_attn_train"] = counts()
     nonzero = lambda path: {k: v for k, v in launches[path].items() if v}
@@ -4763,13 +4869,14 @@ def host_engine_path(dev: SpGDevice, edges, labels, label, launches) -> None:
                    generator=torch.Generator().manual_seed(0))
     state = {k: v.clone() for k, v in net.state_dict().items()}
     host = LinkPredictor(net, dev, cfg, device=DEVICE)
-    host.train_epoch(e_h[:, :BATCH], l_h[:BATCH], np.random.default_rng(1))
+    host.train_epoch(e_h[:, :BATCH], l_h[:BATCH], np.random.default_rng(1),
+                     prng.prng_key(1))
     host.init(torch.Generator().manual_seed(0))     # the weights of `state`
     zero_counts()
     sync()
     t0 = time.perf_counter()
     loss, auc = host.train_epoch(e_h, l_h, np.random.default_rng(2),
-                                 torch.Generator(device=DEVICE).manual_seed(3))
+                                 prng.prng_key(3))
     sync()
     dt = time.perf_counter() - t0
     rng = np.random.default_rng(4)
@@ -4785,11 +4892,10 @@ def host_engine_path(dev: SpGDevice, edges, labels, label, launches) -> None:
     dnet = make_net("mean", dropout=0.1)
     dnet.load_state_dict(state)
     dtr = DeviceTrainer(dnet, dev, cfg)
-    dgen = torch.Generator(device=DEVICE).manual_seed(3)
-    dtr.fit(edges, labels, 1, dgen)
+    dtr.fit(edges, labels, 1, prng.prng_key(3))
     sync()
     t0 = time.perf_counter()
-    dtr.fit(edges, labels, 1, dgen)
+    dtr.fit(edges, labels, 1, prng.prng_key(4))
     sync()
     ddt = time.perf_counter() - t0
     e = e_h.shape[1]
@@ -4875,7 +4981,7 @@ def md_compare(dist_state, single_state, loss_rtol, params: bool) -> dict:
 def multi_device_rank(ctx) -> dict:
     """One rank of the multi-device phase (`parallel.launch.run_ranks`
     calls it): the main path's graph and sets, partitioned sampling over
-    every node against `sample_block` over the same seeds and generator
+    every node against `sample_block` over the same seeds and key
     (exactly), the capacity routing and the grouped sampler (group 2)
     against the probe, the rows moved to their graph shards, the row
     gathers (psum against all-to-all), the bf16 mean keys step (a cold
@@ -4920,8 +5026,15 @@ def multi_device_rank(ctx) -> dict:
         pcsr, seeds, M, S, mesh, seed=cfg["seed"]))
     pad = np.zeros(n_pad, np.int32)
     pad[:n] = seeds
-    ref = sample_gsets_device_keys(g, pad, M, S, seed=cfg["seed"],
-                                   block_size=n_pad, device=dev)
+    # the whole padded block from the partitioned sampler's key
+    indptr, _ = device_graph(g, dev)
+    etab, stab = walk_tables_for(g, cfg["seed"], dev)
+    nodes, sizes, khi, klo = walk_ops.sample_block(
+        indptr, etab, stab, torch.as_tensor(pad).to(dev), num_walks=M,
+        num_steps=S, bucket=M * S + 1, key=prng.prng_key(cfg["seed"]))
+    ref = SpGKeys(nodes=nodes, khi=khi, klo=klo, sizes=sizes, num_walks=M,
+                  num_steps=S)
+    del nodes, sizes, khi, klo, indptr, etab, stab
     rows = slice(local.start, local.start + local.sets.nodes.shape[0])
     out["checks"]["partitioned = sample_block"] = md_same_sets(
         local.sets, ref, rows)
@@ -4991,9 +5104,11 @@ def multi_device_rank(ctx) -> dict:
     m, opt = net(dtype="bfloat16", dropout=0.1)
     step = pdist.DistributedKeysTrainStep(m, opt, mesh, sspg,
                                           grad_clip=cfg["grad_clip"])
-    _, out["cold_step_s"] = timed(lambda: float(step(*batch(0))))
+    _, out["cold_step_s"] = timed(lambda: float(step(*batch(0),
+                                                     prng.prng_key(0))))
     zero_counts()
-    losses, dt = timed(lambda: [step(*batch(i)) for i in range(1, nb)])
+    losses, dt = timed(lambda: [step(*batch(i), prng.prng_key(i))
+                                for i in range(1, nb)])
     out["launches"]["multi_device"] = counts()
     out["step_ms"] = dt / cfg["timed"] * 1e3
     out["queries_per_s"] = cfg["timed"] * B / dt
@@ -5004,12 +5119,11 @@ def multi_device_rank(ctx) -> dict:
     cfg_single = TrainConfig(batch_size=B, lr=cfg["lr"],
                              grad_clip=cfg["grad_clip"])
     perm = torch.arange(B, device=dev)[None]
-    single_gen = torch.Generator(device=dev).manual_seed(1)
 
     def single_step(model, be, bl, join_factory=None):
         trainer = trainer_from_keys(model, ref, cfg_single,
                                     join_factory=join_factory)
-        loss, _ = trainer.train_epoch(be, bl, single_gen, perm=perm)
+        loss, _ = trainer.train_epoch(be, bl, prng.prng_key(1), perm=perm)
         return trainer, md_step_state(loss, model, trainer.optimizer)
 
     kept = {}
@@ -5235,21 +5349,21 @@ def main() -> int:
     check_routes(spgk, net, edges)
     profile_predict(spgk, net, edges)
 
-    trainer, tedges, tlabels, tgen = train_setup(spgk, "mean")
+    trainer, tedges, tlabels, tkey = train_setup(spgk, "mean")
     check_train_routes(spgk, trainer.model, tedges, tlabels)
-    fit_cold(trainer, tedges, tlabels, tgen, N_EPOCHS)
+    fit_cold(trainer, tedges, tlabels, tkey, N_EPOCHS)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    fit_timed(trainer, tedges, tlabels, tgen, N_EPOCHS, label)
+    fit_timed(trainer, tedges, tlabels, tkey, N_EPOCHS, label)
     launches["train"] = counts()
     say(f"launches on the training path (timed fit): {launches['train']}; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_train_cpu(spgk, trainer.model, tedges, tlabels)
-    profile_train(trainer, tedges, tlabels, tgen)
+    profile_train(trainer, tedges, tlabels, tkey)
 
     # the attention path (bench.py:203-234), on the same sets and edges
-    atrainer, _, _, agen = train_setup(spgk, "attn")
+    atrainer, _, _, akey = train_setup(spgk, "attn")
     zero_counts()
     timed_predict(atrainer, tedges, label, "attn")
     launches["attn_serve"] = counts()
@@ -5257,10 +5371,10 @@ def main() -> int:
         f"{launches['attn_serve']}")
     check_routes(spgk, atrainer.model, tedges)
     check_train_routes(spgk, atrainer.model, tedges, tlabels)
-    fit_cold(atrainer, tedges, tlabels, agen, ATTN_EPOCHS)
+    fit_cold(atrainer, tedges, tlabels, akey, ATTN_EPOCHS)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    fit_timed(atrainer, tedges, tlabels, agen, ATTN_EPOCHS, label)
+    fit_timed(atrainer, tedges, tlabels, akey, ATTN_EPOCHS, label)
     launches["attn_train"] = counts()
     say(f"launches on the attention training path (timed fit): "
         f"{launches['attn_train']}; peak device memory "
@@ -5268,10 +5382,10 @@ def main() -> int:
     timed_predict(atrainer, tedges, label, "attn, after the fit")
     check_train_cpu(spgk, atrainer.model, tedges, tlabels)
     profile_predict(spgk, atrainer.model, tedges)
-    profile_train(atrainer, tedges, tlabels, agen)
+    profile_train(atrainer, tedges, tlabels, akey)
 
     # the LSTM paths (bench.py:206-231), on the same sets and edges
-    ltrainer, _, _, lgen = train_setup(spgk, "lstm")
+    ltrainer, _, _, lkey = train_setup(spgk, "lstm")
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     lstm_serve(ltrainer, tedges, label)
@@ -5281,10 +5395,10 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check_routes(spgk, ltrainer.model, tedges)
     check_train_routes(spgk, ltrainer.model, tedges, tlabels)
-    fit_cold(ltrainer, tedges, tlabels, lgen, LSTM_EPOCHS)
+    fit_cold(ltrainer, tedges, tlabels, lkey, LSTM_EPOCHS)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
-    fit_timed(ltrainer, tedges, tlabels, lgen, LSTM_EPOCHS, label)
+    fit_timed(ltrainer, tedges, tlabels, lkey, LSTM_EPOCHS, label)
     launches["lstm_train"] = counts()
     say(f"launches on the LSTM training path (timed fit): "
         f"{launches['lstm_train']}; peak device memory "
@@ -5292,7 +5406,7 @@ def main() -> int:
     timed_predict(ltrainer, tedges, label, "lstm, after the fit")
     check_train_cpu(spgk, ltrainer.model, tedges, tlabels)
     profile_predict(spgk, ltrainer.model, tedges)
-    profile_train(ltrainer, tedges, tlabels, lgen)
+    profile_train(ltrainer, tedges, tlabels, lkey)
 
     # the encoding-table path, on the same graph, sets and edges, then the
     # host engine on its sets

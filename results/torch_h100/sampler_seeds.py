@@ -36,6 +36,7 @@ from surel_plus_tpu.graph.csr import CSRGraph as JaxCSRGraph  # noqa: E402
 from surel_plus_tpu.ops import sampler as jax_sampler  # noqa: E402
 from surel_plus_tpu_torch.cli.main import load_link_data  # noqa: E402
 from surel_plus_tpu_torch.models import Net  # noqa: E402
+from surel_plus_tpu_torch.ops.prng import prng_key  # noqa: E402
 from surel_plus_tpu_torch.ops.sampler import (  # noqa: E402
     subg_matrix_device_keys,
 )
@@ -112,7 +113,7 @@ def main():
                 scorer = trainer_from_keys(net, zk, tcfg)
                 trainer.init(torch.Generator().manual_seed(run))
                 trainer.fit(edges, labels, args.epochs,
-                            torch.Generator().manual_seed(1000 + run))
+                            prng_key(1000 + run))
                 res.append(100 * test_metric(scorer, inf_edge,
                                              cfg.metric))
             per_seed.append(np.mean(res))

@@ -37,16 +37,23 @@ tensors.
 
 Checkpoints (`utils/checkpoint.py`), at the JAX CLI's moments: before
 each evaluation `{log_dir}/{dataset}/model/latest_{run}` (parameters,
-optimizer state, epoch and the generators' states), and at an early stop
+optimizer state, epoch, the epoch key as JAX stores it (two uint32 words
+under "key") and the numpy generator's state), and at an early stop
 `{stamp}_{run}` (parameters and epoch). `--resume PATH` restores run 0
 from a `latest` checkpoint and goes on at the epoch after it;
 `--inf_only --load_model PATH` loads the parameters into the Net the
 scorer shares, evaluates once and returns {'results': ...}.
 `--use_pretrain` (with `--use_raw` and node features) appends
 `pretrain_embedding.pt` of the working directory to the features.
+`ogbl-*` datasets load through `from_ogb` (the `ogb` package, which
+downloads them).
 
-Not ported, and raising NotImplementedError: `ogbl-*` datasets (they
-download).
+The draws are the JAX CLI's: the sets from `--seed`'s key tree
+(`ops/sampler.py`), run r's epochs from `prng_key(seed + 1000 + r)`,
+split once an evaluation block (`key, sub = split(key)`, sub the block's
+`fit` key, or split again into one dropout key an epoch on the host
+engine). Only the weights' initialisation keeps a torch generator
+(seeded `seed + r`): flax's initialisers do not carry over bit for bit.
 """
 
 from __future__ import annotations
@@ -66,12 +73,14 @@ from surel_plus_tpu_torch.graph.datasets import (
     LinkPropDataset,
     RawLinkData,
     fixture_link_data,
+    from_ogb,
     npz_link_data,
     synthetic_hetero_data,
     synthetic_link_data,
 )
 from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.encoders import encoding, scalar_spg_from_csr
 from surel_plus_tpu_torch.ops.ppr import topk_ppr_matrix
 from surel_plus_tpu_torch.ops.sampler import (
@@ -123,10 +132,7 @@ def check_options(cfg: ExperimentConfig) -> None:
 
 def load_raw(cfg: ExperimentConfig) -> RawLinkData:
     if cfg.dataset.startswith("ogbl-"):
-        raise NotImplementedError(
-            f"dataset {cfg.dataset}: OGB datasets are downloaded, which "
-            f"this port does not do; export one with the JAX package's "
-            f"README recipe and pass --dataset npz:<file>")
+        return from_ogb(cfg.dataset)
     if cfg.dataset.startswith("fixture-"):
         return fixture_link_data(cfg.dataset.split("-", 1)[1])
     if cfg.dataset.startswith("npz:"):
@@ -325,22 +331,23 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
             classes = width_classes(cfg, trainer.rows[0].shape[1])
             logger.info("balanced-width batching: classes %s", classes)
 
-            def run_epochs(n, gen):
-                return trainer.fit_balanced(edges, labels_dev, n, gen,
+            def run_epochs(n, key):
+                return trainer.fit_balanced(edges, labels_dev, n, key,
                                             classes)[:2]
         else:
-            def run_epochs(n, gen):
-                return trainer.fit(edges_dev, labels_dev, n, gen)
+            def run_epochs(n, key):
+                return trainer.fit(edges_dev, labels_dev, n, key)
 
         def run_eval():
             return evaluate_device(scorer, inf_dev, cfg.metric)
     else:
         edges_dev = edges
 
-        def run_epochs(n, gen):
-            # the epoch permutations continue the data prep's generator
-            losses, aucs = zip(*(trainer.train_epoch(edges, labels, rng,
-                                                     gen) for _ in range(n)))
+        def run_epochs(n, key):
+            # the epoch permutations continue the data prep's generator,
+            # the dropout keys split the block's key an epoch
+            losses, aucs = zip(*(trainer.train_epoch(edges, labels, rng, sub)
+                                 for sub in prng.split(key, n)))
             return torch.tensor(losses), torch.tensor(aucs)
 
         def run_eval():
@@ -358,17 +365,19 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     stamp = time.strftime("%m%d%y_%H%M%S")
     model_dir = f"{cfg.log_dir}/{cfg.dataset}/model"
     for run in range(cfg.runs):
+        # the weights from the run's own generator; the epochs' draws from
+        # the JAX CLI's key tree
         trainer.init(torch.Generator().manual_seed(cfg.seed + run))
-        gen = torch.Generator(device=device)
-        gen.manual_seed(cfg.seed + 1000 + run)
+        key = prng.prng_key(cfg.seed + 1000 + run)
         epoch = 0
         if cfg.resume and run == 0:
-            # the weights, Adam's state and both generators as they were
-            # after the checkpoint's epoch
+            # the weights, Adam's state, the epoch key (JAX's two words)
+            # and the numpy generator as they were after the checkpoint's
+            # epoch
             state = load_checkpoint(cfg.resume)
             model.load_state_dict(state["params"])
             trainer.optimizer.load_state_dict(state["opt_state"])
-            gen.set_state(state["gen"])
+            key = prng.as_key(state["key"])
             rng.bit_generator.state = state["rng"]
             epoch = int(state["epoch"]) + 1
             logger.info("resumed from %s at epoch %d", cfg.resume, epoch)
@@ -379,8 +388,9 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
             if n == 0:
                 n = cfg.eval_steps
             n = min(n, cfg.epochs - epoch)
+            key, sub = prng.split(key)
             with metrics.phase("train_epoch", items=edges.shape[1] * n):
-                losses, aucs = (x.cpu().numpy() for x in run_epochs(n, gen))
+                losses, aucs = (x.cpu().numpy() for x in run_epochs(n, sub))
             for i in range(n):
                 logger.info("Run: %02d, Epoch: %02d, Loss: %.4f, "
                             "AUC: %.4f", run + 1, epoch + i,
@@ -391,7 +401,8 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                 save_checkpoint(
                     {"params": model.state_dict(),
                      "opt_state": trainer.optimizer.state_dict(),
-                     "epoch": last, "gen": gen.get_state(),
+                     "epoch": last,
+                     "key": torch.from_numpy(prng.key_words(key)),
                      "rng": rng.bit_generator.state},
                     f"{model_dir}/latest_{run}")
                 with metrics.phase("eval"):

@@ -31,8 +31,11 @@ the CLI writes the checkpoint `{log_dir}/{dataset}/model/{stamp}_{run}`
 JAX CLI does; `--inf_only --load_model PATH` loads the parameters,
 evaluates once and returns {'results': ...}.
 
-`--resume` raises NotImplementedError: the JAX package's higher-order
-CLI has no resume either (it ignores the flag).
+`--resume` is ignored, as the JAX package's higher-order CLI ignores it
+(it has no mid-training resume). The draws are the JAX CLI's: the sets
+from `--seed`'s key tree, run r's epochs from `prng_key(seed + 1000 +
+r)`, split once an evaluation block; the weights' initialisation keeps
+a torch generator (seeded `seed + r`).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from surel_plus_tpu_torch.graph.datasets import (
 )
 from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
 from surel_plus_tpu_torch.models import HONet
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import hgather_join, make_keys_hjoin
 from surel_plus_tpu_torch.ops.sampler import (
     subg_matrix,
@@ -78,12 +82,7 @@ from surel_plus_tpu_torch.utils.seeding import set_random_seed
 
 
 def check_options(cfg: ExperimentConfig) -> None:
-    """Raise NotImplementedError for --resume, ValueError for an engine
-    the CLI has not."""
-    if cfg.resume is not None:
-        raise NotImplementedError(
-            "--resume: the higher-order CLI has no mid-training resume "
-            "(the JAX package's main_horder has none either)")
+    """Raise ValueError for an engine the CLI has not."""
     if cfg.engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
 
@@ -170,17 +169,17 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
         inf_dev = {split: tuple(torch.as_tensor(e, dtype=torch.int64).to(
             device) for e in pair) for split, pair in inf_edge.items()}
 
-        def run_epochs(n, gen):
-            return trainer.fit(edges_dev, labels_dev, n, gen)
+        def run_epochs(n, key):
+            return trainer.fit(edges_dev, labels_dev, n, key)
 
         def run_eval():
             return evaluate_device(trainer, inf_dev, "MRR")
     else:
         edges_dev = edges
 
-        def run_epochs(n, gen):
-            losses, aucs = zip(*(trainer.train_epoch(edges, labels, rng,
-                                                     gen) for _ in range(n)))
+        def run_epochs(n, key):
+            losses, aucs = zip(*(trainer.train_epoch(edges, labels, rng, sub)
+                                 for sub in prng.split(key, n)))
             return torch.tensor(losses), torch.tensor(aucs)
 
         def run_eval():
@@ -199,16 +198,16 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     stamp = time.strftime("%m%d%y_%H%M%S")
     for run in range(cfg.runs):
         trainer.init(torch.Generator().manual_seed(cfg.seed + run))
-        gen = torch.Generator(device=device)
-        gen.manual_seed(cfg.seed + 1000 + run)
+        key = prng.prng_key(cfg.seed + 1000 + run)
         epoch = 0
         while epoch < cfg.epochs:
             # epoch 0 alone, then blocks of eval_steps epochs, an
             # evaluation after each block
             n = 1 if epoch == 0 else min(cfg.eval_steps,
                                          cfg.epochs - epoch)
+            key, sub = prng.split(key)
             with metrics.phase("train_epoch", items=edges.shape[1] * n):
-                losses, aucs = (x.cpu().numpy() for x in run_epochs(n, gen))
+                losses, aucs = (x.cpu().numpy() for x in run_epochs(n, sub))
             for i in range(n):
                 logger.info("Run: %02d, Epoch: %02d, Loss: %.4f, "
                             "AUC: %.4f", run + 1, epoch + i,

@@ -3,8 +3,10 @@ observed and inference graphs, and for hyperedge (triplet) prediction:
 triplet splits -> the encoder graph (port of
 surel_plus_tpu/graph/datasets.py).
 
-`RawLinkData` is the provider-independent payload; `npz_link_data` reads
-an export of it, `fixture_link_data` the committed fixtures,
+`RawLinkData` is the provider-independent payload; `from_ogb` reads an
+OGB linkproppred dataset through the `ogb` package (imported when called,
+as the JAX package does), `npz_link_data` reads an export of it,
+`fixture_link_data` the committed fixtures,
 `synthetic_link_data` builds an OGB-shaped RMAT stand-in. `LinkPropDataset`
 masks a share of the train edges as training positives, samples their
 negatives and builds the observed graph (the rest of the train edges, and
@@ -22,8 +24,6 @@ relation's splits and the other relation's edges): `from_pickle` reads the
 reference's torch pickles, `from_npz` an export of them,
 `synthetic_hetero_data` builds a random one. Its draws are the JAX
 package's, from the caller's `Generator`.
-
-Not ported: `from_ogb` (it downloads).
 """
 
 from __future__ import annotations
@@ -63,6 +63,33 @@ class RawLinkData:
     x: Optional[np.ndarray] = None    # [N, F] features
     edge_weight: Optional[np.ndarray] = None
     directed: bool = False
+
+
+def from_ogb(name: str) -> RawLinkData:
+    """Load an OGB linkproppred dataset through the `ogb` package
+    (`PygLinkPropPredDataset`, which downloads it when it is not on
+    disk); raises ImportError where `ogb` is not installed, as the JAX
+    package's `from_ogb` does."""
+    from ogb.linkproppred import PygLinkPropPredDataset
+
+    ds = PygLinkPropPredDataset(name=name)
+    graph = ds[0]
+    x = graph["x"].numpy() if "x" in graph else None
+    num_nodes = (x.shape[0] if x is not None
+                 else int(graph["edge_index"].max()) + 1)
+    se = _torch_split_to_numpy(ds.get_edge_split())
+    ew = (graph["edge_weight"].numpy().reshape(-1)
+          if "edge_weight" in graph else None)
+    return RawLinkData(edge_index=graph["edge_index"].numpy(),
+                       split_edge=se, num_nodes=num_nodes, x=x,
+                       edge_weight=ew,
+                       directed="source_node" in se["train"])
+
+
+def _torch_split_to_numpy(split_edge) -> Dict:
+    """OGB's split dict of tensors -> the same dict of numpy arrays."""
+    return {split: {k: np.asarray(v) for k, v in d.items()}
+            for split, d in split_edge.items()}
 
 
 def npz_link_data(path: str) -> RawLinkData:

@@ -35,6 +35,7 @@ from torch import nn
 
 from surel_plus_tpu_torch.models.layers import MergeLayer, MLP2, masked_mean
 from surel_plus_tpu_torch.models.net import key_u_ext, table_hsum
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import JoinedBatch
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import fused_key_hidden_sum
 
@@ -114,11 +115,12 @@ class HONet(nn.Module):
 
     def forward(self, joined: JoinedBatch,
                 feature: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
+                key: Optional[prng.Key] = None,
                 enc_table: Optional[torch.Tensor] = None,
                 embed_mode: str = "table") -> torch.Tensor:
-        """joined: a hyperedge JoinedBatch ([4, B, L] groups); generator:
-        the dropout mask's generator in training mode; enc_table: the
+        """joined: a hyperedge JoinedBatch ([4, B, L] groups); key: the
+        apply's dropout key in training mode (flax's rngs={"dropout":
+        key}); enc_table: the
         normalized encoding table [W+1, input_dim] that an encoding-table
         join indexes, embed_mode how its hidden rows are formed (the same
         values either way). HONet reads no raw node features."""
@@ -147,6 +149,5 @@ class HONet(nn.Module):
         # each valid slot carries two second-layer biases
         agg = pe.project(mean) + pe.project(mean.new_zeros(
             1, self.hidden_dim))                                 # [4, B, h]
-        score = self.affinity_score([agg[0], agg[1], agg[2], agg[3]],
-                                    generator)
+        score = self.affinity_score([agg[0], agg[1], agg[2], agg[3]], key)
         return score.squeeze(-1)

@@ -15,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.kernels.attn_pool import fused_attn_pool
 from surel_plus_tpu_torch.ops.kernels.lstm import lstm_final_hidden
 from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
@@ -80,14 +81,19 @@ class MLP2(nn.Module):
         return self.fc1.weight.t(), self.fc1.bias
 
 
+# flax's scope path of the JAX package's one nn.Dropout: the MergeLayer
+# that Net and HONet both name "affinity_score" (models/net.py:251-253,
+# models/honet.py:101-103), its compact Dropout_0 (models/layers.py:90),
+# and the scope's dropout rng counter after its one make_rng of an apply
+DROPOUT_PATH = ("affinity_score", "Dropout_0", 1)
+
+
 class MergeLayer(nn.Module):
     """Two-layer scorer over concatenated endpoint embeddings. The first
     layer runs in the compute dtype, the last in float32 for a stable
-    logit. In training mode, dropout after the first layer keeps each
-    activation with probability 1 - dropout and scales it by
-    1 / (1 - dropout), as flax's Dropout does; its mask is drawn from the
-    `generator` given to forward (one on the activations' device), or
-    from the device's default generator."""
+    logit. In training mode, dropout after the first layer is flax's
+    Dropout under the JAX package's scope path (`dropout`), so that the
+    apply's dropout `key` drops what flax drops."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int = 1,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
@@ -103,15 +109,32 @@ class MergeLayer(nn.Module):
             nn.init.zeros_(layer.bias)
 
     def forward(self, xs: Sequence[torch.Tensor],
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                key: Optional[prng.Key] = None) -> torch.Tensor:
         x = torch.cat(list(xs), dim=-1)
         h = torch.relu(_dense(x, self.fc0, self.dtype))
         if self.training and self.dropout > 0:
-            keep = 1.0 - self.dropout
-            draw = torch.rand(h.shape, generator=generator, device=h.device)
-            h = torch.where(draw < keep, h / keep, 0.0)
+            h = dropout(h, self.dropout, key)
         return self.fc1(h.to(torch.float32))
+
+
+def dropout(h: torch.Tensor, rate: float,
+            key: Optional[prng.Key]) -> torch.Tensor:
+    """flax's nn.Dropout(rate) at the scope path DROPOUT_PATH under the
+    apply's dropout key `key`: keep where bernoulli(fold_in_static(key,
+    DROPOUT_PATH), 1 - rate, h.shape), kept entries divided by 1 - rate
+    rounded to h's dtype (as JAX divides by a weakly typed scalar), the
+    others 0. Raises, as flax does, when there is no key to draw from."""
+    if rate >= 1.0:
+        return torch.zeros_like(h)
+    if key is None:
+        raise ValueError("dropout in training mode needs a key (the JAX "
+                         "package's dropout rng)")
+    keep = 1.0 - rate
+    mask = prng.bernoulli(prng.fold_in_static(key, DROPOUT_PATH), keep,
+                          h.shape, h.device)
+    # device scalars (a fill, not a host copy): a true division, no sync
+    scale = torch.full((), keep, dtype=h.dtype, device=h.device)
+    return torch.where(mask, h / scale, torch.zeros_like(scale))
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -76,6 +76,7 @@ from surel_plus_tpu_torch.models.layers import (
     MLP2,
     masked_mean,
 )
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import JoinedBatch
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     NEG,
@@ -205,12 +206,12 @@ class Net(nn.Module):
 
     def forward(self, joined: JoinedBatch,
                 feature: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None,
+                key: Optional[prng.Key] = None,
                 enc_table: Optional[torch.Tensor] = None,
                 embed_mode: Optional[str] = None) -> torch.Tensor:
         """joined: JoinedBatch over [2, B, L] rows; feature: optional raw
-        endpoint features [2, B, x_dim]; generator: the dropout mask's
-        generator in training mode; enc_table: the normalized encoding
+        endpoint features [2, B, x_dim]; key: the apply's dropout key in
+        training mode (flax's rngs={"dropout": key}); enc_table: the normalized encoding
         table [W+1, input_dim] an encoding-table join indexes; embed_mode:
         overrides the model's for this call. Returns logits [B] float32."""
         pe = self.pe_embedding
@@ -253,7 +254,7 @@ class Net(nn.Module):
                         joined.kown, joined.kcross_al, joined.mask, u_ext,
                         shift, joined.kown_root, joined.kcross_al_root),
                         dtype=cd)
-                return self._score(agg, feature, generator)
+                return self._score(agg, feature, key)
             sums = fused_key_hidden_sum(
                 joined.kown, joined.mask, joined.kcross, joined.kcross_mask,
                 u_ext, shift, root_own=joined.kown_root,
@@ -261,7 +262,7 @@ class Net(nn.Module):
             cnt = joined.mask.sum(dim=-1).clamp(min=1)          # [Q, B]
             mean = (sums / cnt[..., None].to(torch.float32)).to(cd)
             return self._score(pe.project(mean) + b2v(mean), feature,
-                               generator)
+                               key)
         elif joined.eidx is None and joined.kcross_al is not None:
             # the unfused routes over the aligned keys: the per-slot
             # hidden rows straight from the keys (K7, and K7 bwd in
@@ -296,10 +297,10 @@ class Net(nn.Module):
                 agg = self.aggr(hsum, joined.mask, fold=(w2, c2), fast=True)
         else:
             agg = self.aggr(pe.project(hsum) + b2v(hsum), joined.mask)
-        return self._score(agg, feature, generator)
+        return self._score(agg, feature, key)
 
     def _score(self, agg: torch.Tensor, feature: Optional[torch.Tensor],
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               key: Optional[prng.Key]) -> torch.Tensor:
         """Endpoint concat + optional raw-feature branch + MergeLayer."""
         agg = agg.to(torch.float32)
         xl, xr = agg[0], agg[1]                              # [B, h]
@@ -309,4 +310,4 @@ class Net(nn.Module):
             femb = self.feature_embedding(feature).to(torch.float32)
             xl = torch.cat([xl, femb[0]], dim=-1)
             xr = torch.cat([xr, femb[1]], dim=-1)
-        return self.affinity_score([xl, xr], generator).squeeze(-1)
+        return self.affinity_score([xl, xr], key).squeeze(-1)

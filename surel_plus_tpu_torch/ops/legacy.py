@@ -13,7 +13,9 @@ sampler; two drive the legacy walk pipeline, two are exposed but unused
   walk_join     (subg_acc.c:509-647)  each query's walk-slot index pairs
 
 The walks and the sets run on a torch device (`walk.walk_block_with_rpe`,
-the walk bits from a `torch.Generator` seeded with `seed`), as does
+the walk bits from the JAX package's key tree: block b of `walk_sampler`
+walks from `fold_in(prng_key(seed), b + 1)`, `batch_sampler` from
+`fold_in(prng_key(seed), 1)`, so a seed gives JAX's walks), as does
 `walk_join` (row sorts, a cumsum and a row-wise search). The host keeps
 what the JAX package keeps there: the dedup of count rows and the scipy
 matrix of `rw_matrix`, and the union of `batch_sampler`.
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from surel_plus_tpu_torch.graph.csr import CSRGraph
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.sampler import (
     device_graph,
@@ -65,21 +68,14 @@ def walk_sampler(graph: CSRGraph, seeds: np.ndarray, num_walks: int = 100,
     indptr, indices = device_graph(graph, device)
     shuffled = (indices if replacement
                 else shuffled_indices_for(graph, seed, device))
-    gen = torch.Generator(device=indptr.device)
-    gen.manual_seed(seed)
+    root = prng.prng_key(seed)
     seeds_dev = torch.as_tensor(seeds, dtype=torch.int64).to(indptr.device)
 
-    parts = []
-    for lo in range(0, n, block_size):
-        blk = seeds_dev[lo:lo + block_size]
-        first = (torch.randint(0, 1 << 32, (blk.shape[0], num_walks),
-                               generator=gen, dtype=torch.int64,
-                               device=gen.device)
-                 if replacement else None)
-        bits = walk_ops.walk_bits(gen, blk.shape[0], num_walks, num_steps)
-        parts.append(walk_ops.walk_block_with_rpe(
-            indptr, indices, shuffled, blk, bits, first,
-            num_walks=num_walks, num_steps=num_steps, bucket=bucket))
+    parts = [walk_ops.walk_block_with_rpe(
+        indptr, indices, shuffled, seeds_dev[lo:lo + block_size],
+        prng.fold_in(root, b + 1), num_walks=num_walks,
+        num_steps=num_steps, bucket=bucket, replacement=replacement)
+        for b, lo in enumerate(range(0, n, block_size))]
     walks, nodes, counts, sizes = (
         torch.cat(x).to(torch.int32).cpu().numpy() for x in zip(*parts))
     return walks.reshape(n, -1), (nodes, counts, sizes)
@@ -149,12 +145,10 @@ def batch_sampler(graph: CSRGraph, query_nodes: np.ndarray,
         thld = (num_walks * num_steps + 1) * len(query_nodes)
     indptr, indices = device_graph(graph, device)
     shuffled = shuffled_indices_for(graph, seed, device)
-    gen = torch.Generator(device=indptr.device)
-    gen.manual_seed(seed)
     q = torch.as_tensor(query_nodes, dtype=torch.int64).to(indptr.device)
-    bits = walk_ops.walk_bits(gen, len(query_nodes), num_walks, num_steps)
     walks = walk_ops.walk_block(indptr, indices, shuffled, q, num_walks,
-                                num_steps, bits)
+                                num_steps, prng.fold_in(prng.prng_key(seed),
+                                                        1))
     walks = walks.to(torch.int32).cpu().numpy()
     union = np.unique(np.concatenate([query_nodes, walks.ravel()]))
     if len(union) > thld:

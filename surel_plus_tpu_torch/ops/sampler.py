@@ -1,9 +1,14 @@
 """Set sampling (port of surel_plus_tpu/ops/sampler.py): the packed-key
 store, and the encoding-table stores with the global encoding dedup.
 
-Every sampler walks on a torch device with `walk.sample_block` and one
-`torch.Generator` stream, so with the same seed the table samplers' nodes
-and sizes equal the keys sampler's. The dedup turns each valid slot's
+Every sampler walks on a torch device with `walk.sample_block`, over
+the seeds in blocks of `block_size`, and draws from the JAX package's key
+tree: root = `prng_key(seed)`, block b's key `fold_in(root, b + 1)`. So
+the same seed gives the JAX package's sets bit for bit, and the table
+samplers' nodes and sizes equal the keys sampler's. JAX pads the last
+block to `block_size` seeds; a draw depends only on its flat index, so
+the real rows' draws are a prefix of the padded block's, and the port
+walks the real rows alone. The dedup turns each valid slot's
 packed key into a 1-based index of a sorted table of the unique keys'
 encodings: on the device (`sample_gsets_device`) by one `torch.unique`
 over the valid slots' 64-bit keys, on the host (`sample_gsets`) by
@@ -26,6 +31,7 @@ import torch
 
 from surel_plus_tpu_torch.graph.csr import CSRGraph
 from surel_plus_tpu_torch.graph.native import shuffle_rows_native
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import unpack_key_features
 from surel_plus_tpu_torch.spg.spg import SpG, SpGDevice, SpGKeys
@@ -94,9 +100,10 @@ def sample_gsets_device_keys(
     device="cuda",
 ) -> SpGKeys:
     """Sample one set per seed and store each slot's packed landing-count
-    key. Walk bits come from a `torch.Generator` on `device` seeded with
-    `seed`; the first-hop row shuffle from the native shuffle with
-    `shuffle_seed` (default: `seed`). Seeds run in blocks of `block_size`.
+    key. Seeds run in blocks of `block_size`, block b's walk bits drawn
+    from `fold_in(prng_key(seed), b + 1)`; the first-hop row shuffle is
+    the native shuffle with `shuffle_seed` (default: `seed`). The JAX
+    package's sets from the same arguments, bit for bit.
 
     Returns SpGKeys(nodes, khi, klo, sizes) on `device`.
     """
@@ -113,13 +120,13 @@ def sample_gsets_device_keys(
     indptr, _ = device_graph(graph, device)
     sseed = seed if shuffle_seed is None else shuffle_seed
     etab, stab = walk_tables_for(graph, sseed, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    root = prng.prng_key(seed)
 
     parts = [walk_ops.sample_block(
         indptr, etab, stab, seeds[lo:lo + block_size],
         num_walks=num_walks, num_steps=num_steps, bucket=bucket,
-        generator=gen) for lo in range(0, n, block_size)]
+        key=prng.fold_in(root, b + 1))
+        for b, lo in enumerate(range(0, n, block_size))]
     nodes, sizes, hi, lo = (torch.cat(x) for x in zip(*parts))
     log.info("sample_gsets_device_keys: n=%d bucket=%d dispatched %.2fs",
              n, bucket, time.time() - t0)

@@ -2,9 +2,10 @@
 (port of surel_plus_tpu/ops/walk.py: the edge-table walk, the packed
 set builder and the host unpacking of deduplicated keys).
 
-The random bits are an argument of the walk: `walk_bits` draws them
-from a `torch.Generator`, and `walk_block_tables` walks from given bits,
-so a test can feed it the JAX package's bits and compare exactly.
+The random bits come from the JAX package's key tree (`ops/prng.py`):
+`walk_bits` draws step t's words as `bits(split(key, S-1)[t], [B, M])`,
+the JAX walk's `jax.random.bits` of its step keys, so the same block key
+walks the same walks. `walk_block_tables` walks from given bits.
 
 Unsigned 32-bit words (keys, random bits) are held in int64 tensors with
 values in [0, 2^32) while they are computed, and stored as int32 bit
@@ -17,6 +18,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from surel_plus_tpu_torch.ops import prng
+from surel_plus_tpu_torch.ops.kernels.threefry import threefry_bits
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 U32 = 0xFFFFFFFF
@@ -104,15 +108,23 @@ def build_walk_tables(indptr: torch.Tensor, indices: torch.Tensor,
     return etab, stab
 
 
-def walk_bits(generator: torch.Generator, num_seeds: int, num_walks: int,
-              num_steps: int) -> torch.Tensor:
-    """Uniform 32-bit draws for the steps after the first hop:
-    int64 [num_steps - 1, num_seeds, num_walks] with values in [0, 2^32),
-    on the generator's device."""
-    return torch.randint(0, 1 << 32,
-                         (max(num_steps - 1, 0), num_seeds, num_walks),
-                         generator=generator, dtype=torch.int64,
-                         device=generator.device)
+# folded into a block key for the with-replacement first hop's draw
+FIRST_HOP_FOLD = 0x5EED
+
+
+def walk_bits(key: prng.Key, num_seeds: int, num_walks: int,
+              num_steps: int, device, row0: int = 0) -> torch.Tensor:
+    """The 32-bit draws of the steps after the first hop: int64
+    [num_steps - 1, num_seeds, num_walks] with values in [0, 2^32) on
+    `device`, step t's the rows row0 .. row0 + num_seeds - 1 of
+    `bits(split(key, num_steps - 1)[t], [*, num_walks])` (one launch of
+    K8 a step on a CUDA device)."""
+    out = torch.empty(max(num_steps - 1, 0), num_seeds, num_walks,
+                      dtype=torch.int64, device=device)
+    if num_steps > 1:
+        for t, k in enumerate(prng.split(key, num_steps - 1)):
+            threefry_bits(*k, row0 * num_walks, out[t])
+    return out
 
 
 def walk_block_tables(indptr: torch.Tensor, etab: torch.Tensor,
@@ -266,13 +278,15 @@ def build_sets_packed_block(seeds: torch.Tensor, walks: torch.Tensor,
 def sample_block(indptr: torch.Tensor, etab: torch.Tensor,
                  stab: torch.Tensor, seeds: torch.Tensor, *,
                  num_walks: int, num_steps: int, bucket: int,
-                 generator: torch.Generator):
-    """Per-block pipeline: walk bits from `generator` -> walks -> sets ->
-    packed keys.
+                 key: prng.Key):
+    """Per-block pipeline: walk bits from the block `key` -> walks ->
+    sets -> packed keys (the JAX package's `sample_block` over the
+    edge tables).
 
     Returns (nodes [B, bucket], sizes [B], hi [B, bucket], lo [B, bucket]).
     """
-    bits = walk_bits(generator, seeds.shape[0], num_walks, num_steps)
+    bits = walk_bits(key, seeds.shape[0], num_walks, num_steps,
+                     seeds.device)
     walks = walk_block_tables(indptr, etab, stab, seeds, num_walks,
                               num_steps, bits)
     return build_sets_packed_block(seeds, walks, num_walks, num_steps,
@@ -294,23 +308,27 @@ def rows_searchsorted(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def walk_block(indptr: torch.Tensor, indices: torch.Tensor,
                shuffled_indices: torch.Tensor, seeds: torch.Tensor,
-               num_walks: int, num_steps: int, bits: torch.Tensor,
-               first_bits: torch.Tensor = None) -> torch.Tensor:
+               num_walks: int, num_steps: int, key: prng.Key,
+               replacement: bool = False) -> torch.Tensor:
     """Run `num_walks` walks of `num_steps` steps from each seed, reading
-    the CSR arrays at every step.
+    the CSR arrays at every step (the JAX package's `_walk_block`).
 
-    The first hop takes `first_bits[b, m] % deg` (uniform, with
-    replacement: the SUREL-v1 `random_walk`) where `first_bits` [B, M] is
-    given, else the (m % deg)-th entry of the seed's shuffled row (without
-    replacement). Later hops pick `bits[t] % deg` ([num_steps - 1, B, M]
-    values in [0, 2^32), `walk_bits`). Walkers on a degree-0 node stay.
+    With `replacement` the first hop takes bits(fold_in(key, 0x5eed),
+    [B, M])[b, m] % deg (uniform: the SUREL-v1 `random_walk`), else the
+    (m % deg)-th entry of the seed's shuffled row (without replacement).
+    Later hops pick `walk_bits(key)[t] % deg`. Walkers on a degree-0 node
+    stay.
     Returns int64 [B, num_walks, num_steps] node ids.
     """
     last = indices.shape[0] - 1
     seeds = seeds.to(torch.int64)
     start = indptr[seeds]
     deg = indptr[seeds + 1] - start
-    if first_bits is not None:
+    bits = walk_bits(key, seeds.shape[0], num_walks, num_steps,
+                     seeds.device)
+    if replacement:
+        first_bits = prng.bits(prng.fold_in(key, FIRST_HOP_FOLD),
+                               (seeds.shape[0], num_walks), seeds.device)
         offs = first_bits % deg[:, None].clamp(min=1)
         row = indices
     else:
@@ -385,14 +403,15 @@ def build_sets_block(seeds: torch.Tensor, walks: torch.Tensor,
 
 def walk_block_with_rpe(indptr: torch.Tensor, indices: torch.Tensor,
                         shuffled_indices: torch.Tensor, seeds: torch.Tensor,
-                        bits: torch.Tensor, first_bits: torch.Tensor = None,
-                        *, num_walks: int, num_steps: int, bucket: int):
+                        key: prng.Key, *, num_walks: int, num_steps: int,
+                        bucket: int, replacement: bool = True):
     """The SUREL-v1 surface (the C `walk_sampler` and `rpe_encoder`,
-    subg_acc.c:316-389, 249-314): raw walks and each seed's relative
-    positional encoding. Returns (walks [B, M, S+1] with the root at
-    position 0, nodes [B, bucket], counts [B, bucket, S+1], sizes [B])."""
+    subg_acc.c:316-389, 249-314): raw walks from the block `key` and each
+    seed's relative positional encoding. Returns (walks [B, M, S+1] with
+    the root at position 0, nodes [B, bucket], counts [B, bucket, S+1],
+    sizes [B])."""
     steps = walk_block(indptr, indices, shuffled_indices, seeds, num_walks,
-                       num_steps, bits, first_bits)
+                       num_steps, key, replacement)
     root = seeds.to(torch.int64)[:, None, None].expand(*steps.shape[:2], 1)
     nodes, counts, sizes = build_sets_block(seeds, steps, num_walks,
                                             num_steps, bucket)

@@ -35,6 +35,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import (
     JoinedBatch,
@@ -57,15 +58,12 @@ from surel_plus_tpu_torch.train.device import (
     device_mrr,
 )
 
-# the steps' dropout generator's seed, the same on every rank
-DROPOUT_SEED = 0
-
 __all__ = [
     "DistributedKeysHTrainStep", "DistributedKeysScorer",
     "DistributedKeysTrainStep", "DistributedTrainStep", "LocalSpGKeys",
     "ShardedSpG", "ShardedSpGKeys", "dist_gather_rows",
     "dist_gather_rows_a2a", "evaluate_distributed", "make_mesh",
-    "rank_seed", "sample_gsets_sharded", "shard_spg", "shard_spg_keys",
+    "sample_gsets_sharded", "shard_spg", "shard_spg_keys",
 ]
 
 
@@ -304,10 +302,9 @@ class _Step:
     """A distributed train step: this rank's column block of the batch,
     the model's logits on it (`_logits`, the subclass's gathers and
     join), the weighted BCE, the data axis' mean of the gradients, clip,
-    Adam. The dropout masks come from the step's own generator, seeded
-    DROPOUT_SEED on every rank, so that the ranks of one data index draw
-    the same masks (as JAX's replicated rng key) and the replicas stay
-    equal."""
+    Adam. The dropout masks come from the step's `key` (JAX's `rng`
+    argument, the same on every rank), drawn over this rank's column
+    block, as JAX's replicated key draws them inside its shard_map."""
 
     def __init__(self, model, optimizer, mesh: Mesh,
                  grad_clip: Optional[float]):
@@ -315,23 +312,24 @@ class _Step:
         self.optimizer = optimizer
         self.mesh = mesh
         self.grad_clip = grad_clip
-        self.generator = torch.Generator(device=mesh.device)
-        self.generator.manual_seed(DROPOUT_SEED)
 
-    def _logits(self, edges: torch.Tensor) -> torch.Tensor:
+    def _logits(self, edges: torch.Tensor,
+                key: Optional[prng.Key]) -> torch.Tensor:
         raise NotImplementedError
 
-    def __call__(self, edges, labels, weights) -> torch.Tensor:
+    def __call__(self, edges, labels, weights,
+                 key: Optional[prng.Key] = None) -> torch.Tensor:
         """One step on [Q, B] global query row ids with labels and
         weights [B] (B a multiple of the data axis; each data rank takes
-        its contiguous column block). Returns the loss averaged over the
-        data axis, a device scalar (no host sync)."""
+        its contiguous column block) and the dropout `key` (needed when
+        the model drops out). Returns the loss averaged over the data
+        axis, a device scalar (no host sync)."""
         mesh, dev = self.mesh, self.mesh.device
         be = _column_block(edges, mesh, dev).to(torch.int64)
         bl = _column_block(labels, mesh, dev).to(torch.float32)
         bw = _column_block(weights, mesh, dev).to(torch.float32)
         self.model.train()
-        loss = batch_loss(self._logits(be), bl, bw)
+        loss = batch_loss(self._logits(be, key), bl, bw)
         _apply_mean_update(self.model, self.optimizer, loss,
                            mesh.axis("data"), self.grad_clip)
         return mesh.axis("data").pmean(loss.detach().clone())
@@ -349,9 +347,10 @@ class _KeysStep(_Step):
             join, num_walks=sspg.num_walks, num_steps=sspg.num_steps,
             **model.join_outputs(mesh.device))
 
-    def _logits(self, edges: torch.Tensor) -> torch.Tensor:
+    def _logits(self, edges: torch.Tensor,
+                key: Optional[prng.Key]) -> torch.Tensor:
         rows = _gather_keys_rows(self.sspg, edges, self.mesh.axis("graph"))
-        return self.model(self._join(*rows), None, generator=self.generator)
+        return self.model(self._join(*rows), None, key=key)
 
 
 class DistributedKeysTrainStep(_KeysStep):
@@ -499,34 +498,28 @@ class DistributedTrainStep(_Step):
                             torch.stack([ev, cross_v], dim=-1)])
         return JoinedBatch(eidx=eidx, mask=valid, sizes=rows_sizes)
 
-    def _logits(self, edges: torch.Tensor) -> torch.Tensor:
+    def _logits(self, edges: torch.Tensor,
+                key: Optional[prng.Key]) -> torch.Tensor:
         sspg, graph = self.sspg, self.mesh.axis("graph")
         rps = sspg.rows_per_shard
         joined = self._join_rows(
             dist_gather_rows(sspg.nodes, edges, rps, graph),
             dist_gather_rows(sspg.eidx, edges, rps, graph),
             dist_gather_rows(sspg.sizes, edges, rps, graph))
-        return self.model(joined, None, generator=self.generator,
-                          enc_table=sspg.enc)
+        return self.model(joined, None, key=key, enc_table=sspg.enc)
 
 
 # ----------------------------------------------------------------- sampling
-def rank_seed(seed: int, rank: int) -> int:
-    """The generator seed of world rank `rank` for sampler seed `seed`
-    (the torch form of JAX's `fold_in(key, shard)`: one stream a rank)."""
-    return int(np.random.SeedSequence((seed, rank)).generate_state(
-        1, np.uint64)[0])
-
-
 def sample_gsets_sharded(graph, seeds: np.ndarray, num_walks: int,
                          num_steps: int, mesh: Mesh, seed: int = 111413,
                          bucket: Optional[int] = None) -> LocalSpGKeys:
     """Seed-parallel sampling: seeds sharded over the world (rank r walks
     seeds [r*per, (r+1)*per), the last block padded with seed 0), the CSR
-    replicated. Each rank's walk bits come from a generator seeded
-    `rank_seed(seed, rank)`, its first hop from the shared native shuffle
-    of `seed`: `walk.sample_block` over the rank's seed block. Returns the
-    rank's rows below len(seeds) (`shard_spg_keys` takes them)."""
+    replicated: `walk.sample_block` over the rank's seed block with the
+    key `fold_in(prng_key(seed), rank)` and the shared native shuffle of
+    `seed`, the JAX package's `sample_gsets_sharded` rank for rank.
+    Returns the rank's rows below len(seeds) (`shard_spg_keys` takes
+    them)."""
     dev, rank = mesh.device, mesh.rank
     seeds = np.asarray(seeds, dtype=np.int32)
     n = len(seeds)
@@ -538,12 +531,10 @@ def sample_gsets_sharded(graph, seeds: np.ndarray, num_walks: int,
     block[:len(mine)] = mine
     indptr, _ = device_graph(graph, dev)
     etab, stab = walk_tables_for(graph, seed, dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(rank_seed(seed, rank))
     nodes, sizes, hi, lo = walk_ops.sample_block(
         indptr, etab, stab, torch.as_tensor(block).to(dev),
         num_walks=num_walks, num_steps=num_steps, bucket=bucket,
-        generator=gen)
+        key=prng.fold_in(prng.prng_key(seed), rank))
     keep = len(mine)
     return LocalSpGKeys(
         sets=SpGKeys(nodes=nodes[:keep], khi=hi[:keep], klo=lo[:keep],

@@ -28,6 +28,7 @@ import torch
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import HONet, Net
 from surel_plus_tpu_torch.ops.join import join_gathered_hkeys
+from surel_plus_tpu_torch.ops.prng import prng_key
 from surel_plus_tpu_torch.ops.sampler import (
     sample_gsets_device_keys,
     subg_matrix,
@@ -87,7 +88,7 @@ def dryrun_rank(ctx: RankContext) -> Dict[str, float]:
                         aggrs="mean")
     step = DistributedTrainStep(model, opt, mesh, shard_spg(spg, mesh),
                                 grad_clip=GRAD_CLIP)
-    out["loss"] = _finite("table loss", float(step(edges, labels, weights)))
+    out["loss"] = _finite("table loss", float(step(edges, labels, weights, prng_key(1))))
 
     # the production layout: a row-sharded packed-key store
     layout = (NUM_WALKS, 2)
@@ -100,7 +101,8 @@ def dryrun_rank(ctx: RankContext) -> Dict[str, float]:
     kstep = DistributedKeysTrainStep(model_k, opt_k, mesh, sspgk,
                                      grad_clip=GRAD_CLIP)
     out["keys_loss"] = _finite("keys loss",
-                               float(kstep(edges, labels, weights)))
+                               float(kstep(edges, labels, weights,
+                                     prng_key(2))))
 
     # sharded scoring and its metrics
     scorer = DistributedKeysScorer(model_k, mesh, sspgk, batch_size=B)
@@ -126,7 +128,8 @@ def dryrun_rank(ctx: RankContext) -> Dict[str, float]:
                                      shard_spg_keys(spgk_p, mesh),
                                      grad_clip=GRAD_CLIP)
     out["partitioned_loss"] = _finite(
-        "partitioned loss", float(pstep(edges, labels, weights)))
+        "partitioned loss",
+        float(pstep(edges, labels, weights, prng_key(3))))
 
     # the fused route (K1 and K1 bwd on the card, their plain versions on
     # the CPU) inside the sharded step
@@ -134,7 +137,8 @@ def dryrun_rank(ctx: RankContext) -> Dict[str, float]:
     fstep = DistributedKeysTrainStep(model_f, opt_f, mesh, sspgk,
                                      grad_clip=GRAD_CLIP)
     out["fused_loss"] = _finite("fused loss",
-                                float(fstep(edges, labels, weights)))
+                                float(fstep(edges, labels, weights,
+                                     prng_key(4))))
 
     # hyperedges: 3-endpoint gathers -> join_gathered_hkeys -> HONet
     rng = np.random.default_rng(5)
@@ -144,7 +148,8 @@ def dryrun_rank(ctx: RankContext) -> Dict[str, float]:
     hstep = DistributedKeysHTrainStep(honet, opt_h, mesh, sspgk,
                                       grad_clip=GRAD_CLIP)
     out["hyperedge_loss"] = _finite("hyperedge loss",
-                                    float(hstep(hedges, labels, weights)))
+                                    float(hstep(hedges, labels, weights,
+                                          prng_key(6))))
     hscorer = DistributedKeysScorer(honet, mesh, sspgk, batch_size=B,
                                     join_gathered=join_gathered_hkeys)
     pos_h = rng.integers(0, N_NODES, size=(3, N_POS)).astype(np.int32)

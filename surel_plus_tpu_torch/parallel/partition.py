@@ -16,11 +16,13 @@ torch.distributed (port of surel_plus_tpu/parallel/partition.py).
       read on the host), the whole step takes the probe instead.
   The walk state stays on the seed's rank; only int32 ids, uint32 draws
   (as int32 bits) and answers cross.
-* The random bits of the steps after the first hop are drawn at the
-  global [n_pad, M] shape a step (one `walk.walk_bits` call for all the
-  steps, from a generator seeded `seed` on every rank) and sliced by
-  rank, so the sets equal `walk.sample_block` over the whole padded seed
-  block with the same generator, whatever the shard count. The first hop
+* The random bits of the steps after the first hop are the JAX
+  package's: step t's are `bits(split(prng_key(seed), S' - 1)[t],
+  [n_pad, M])`, and rank r draws only its rows [r*per, (r+1)*per) of
+  that draw, through the counter offset (`walk.walk_bits(..., row0)`).
+  So the sets equal `walk.sample_block` over the whole padded seed block
+  with the key `prng_key(seed)`, and JAX's partitioned sets, whatever
+  the shard count. The first hop
   reads the native per-row shuffle (`shuffled_indices_for`), the JAX
   package's. Every sampler also takes given `bits` [S' - 1, n_pad, M]
   (values in [0, 2^32)), so that a test can feed it JAX's.
@@ -45,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from surel_plus_tpu_torch.graph.csr import CSRGraph
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.parallel.dist import LocalSpGKeys
 from surel_plus_tpu_torch.parallel.mesh import (
@@ -426,13 +429,13 @@ def _sample_exchange(pcsr: PartitionedCSR, seeds: np.ndarray,
     seeds_pad = np.zeros(n_pad, np.int32)
     seeds_pad[:n] = seeds
     if bits is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        bits = walk_ops.walk_bits(gen, n_pad, M, S)
+        bits = walk_ops.walk_bits(prng.prng_key(seed), per, M, S, dev,
+                                  row0=r * per)
     elif tuple(bits.shape) != (max(S - 1, 0), n_pad, M):
         raise ValueError(f"bits has shape {tuple(bits.shape)}, expected "
                          f"{(max(S - 1, 0), n_pad, M)}")
-    bits = bits[:, r * per:(r + 1) * per].to(dev, torch.int64)
+    else:
+        bits = bits[:, r * per:(r + 1) * per].to(dev, torch.int64)
     sd = torch.as_tensor(seeds_pad[r * per:(r + 1) * per]).to(dev)
     rps = pcsr.rows_per_shard
     step_fn, rows_fn = _step_fns(routing, rps, capacity_slack)
@@ -470,10 +473,10 @@ def sample_gsets_partitioned(
     frontier exchange (`routing` "probe" or "capacity"). Returns this
     rank's rows (`shard_spg_keys` moves them to their graph shards).
 
-    Equal to `walk.sample_block(..., generator)` over the whole padded
-    seed block with a generator seeded `seed` (the bits drawn at the
-    global shape and sliced by rank), or with the given `bits`
-    [S' - 1, n_pad, M]."""
+    Equal to `walk.sample_block(..., key=prng_key(seed))` over the whole
+    padded seed block (each rank drawing its rows of the global draw), as
+    the JAX package's `sample_gsets_partitioned` is, or walked from the
+    given `bits` [S' - 1, n_pad, M]."""
     if pcsr.num_shards != mesh.world_size:
         raise ValueError(f"{pcsr.num_shards} shards for a world of "
                          f"{mesh.world_size} ranks")

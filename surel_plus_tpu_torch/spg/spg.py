@@ -68,6 +68,21 @@ class SpG:
         return SpGDevice(nodes=t(self.nodes), eidx=t(self.eidx),
                          sizes=t(self.sizes), enc=t(self.enc_normalized()))
 
+    def to_scipy(self, num_nodes: Optional[int] = None):
+        """The reference's CSR form (sampler/random_walks.py:79): row u =
+        S_u, each member's value its 1-based encoding index; a scipy
+        csr_matrix [num_nodes, num_nodes], by default one past the
+        largest seed or member."""
+        import scipy.sparse as sp
+
+        if num_nodes is None:
+            num_nodes = int(max(self.seeds.max(), self.nodes[
+                self.nodes < np.iinfo(np.int32).max].max())) + 1
+        valid = np.arange(self.bucket)[None, :] < self.sizes[:, None]
+        rows = np.repeat(self.seeds, self.sizes.astype(np.int64))
+        return sp.csr_matrix((self.eidx[valid], (rows, self.nodes[valid])),
+                             shape=(num_nodes, num_nodes))
+
 
 @dataclasses.dataclass
 class SpGDevice:

@@ -10,7 +10,12 @@ epoch: each epoch shuffles the query edges with a riffle permutation
 (padded ids weigh 0), then runs a Python loop of steps (join, model,
 weighted BCE, backward, clip + Adam) on the sets' device, and keeps the
 epoch loss and the histogram AUC on the device: nothing in the loop
-waits for the device. `predict` scores query edges batch by batch, with
+waits for the device. The draws follow the JAX package's key tree: `fit`
+splits its key into one key an epoch, an epoch splits its key into the
+permutation's and the dropout's, and each step takes the next dropout
+key (`key, sub = split(key)`); the keys live on the host and the words
+come from the threefry kernel, so a key gives JAX's batch order and
+dropout masks. `predict` scores query edges batch by batch, with
 the tail batch padded with zero edges as in the reference.
 `evaluate_device` scores the valid and test splits with a trainer and
 reduces them to Hits@K, AUC or MRR on the device.
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import gather_join, make_keys_join
 from surel_plus_tpu_torch.spg.spg import SpGDevice, SpGKeys
 
@@ -60,18 +66,18 @@ def _ordered_float_key(x: torch.Tensor) -> torch.Tensor:
     return u ^ flip
 
 
-def riffle_permutation(generator: torch.Generator, rows: int, cols: int,
-                       rounds: int = 2) -> torch.Tensor:
+def riffle_permutation(key: prng.Key, rows: int, cols: int,
+                       rounds: int = 2, device="cpu") -> torch.Tensor:
     """Pseudorandom permutation of [0, rows*cols) as a [rows, cols] int64
-    batch matrix on the generator's device, from row-wise and column-wise
-    sorts of random 32-bit keys (the JAX package's epoch shuffle)."""
-    dev = generator.device
-    idx = torch.arange(rows * cols, device=dev).reshape(rows, cols)
+    batch matrix on `device`: the JAX package's epoch shuffle. Each round
+    splits `key` into (key, k1, k2), sorts every row stably by
+    bits(k1, [rows, cols]) and then every column by bits(k2, ...)."""
+    idx = torch.arange(rows * cols, device=device).reshape(rows, cols)
     for _ in range(rounds):
-        for dim in (1, 0):
-            bits = torch.randint(0, 1 << 32, (rows, cols),
-                                 generator=generator, device=dev)
-            order = torch.sort(bits, dim=dim, stable=True).indices
+        key, k1, k2 = prng.split(key, 3)
+        for k, dim in ((k1, 1), (k2, 0)):
+            order = torch.sort(prng.bits(k, (rows, cols), device), dim=dim,
+                               stable=True).indices
             idx = torch.gather(idx, dim, order)
     return idx
 
@@ -230,22 +236,24 @@ class DeviceTrainer:
         return joined, feat
 
     def _segment(self, edges: torch.Tensor, labels: torch.Tensor,
-                 perm: torch.Tensor, generator: torch.Generator,
+                 perm: torch.Tensor, key: prng.Key,
                  acc: List[torch.Tensor], rows: Optional[tuple] = None
-                 ) -> None:
+                 ) -> prng.Key:
         """The training steps over `edges` in the batches of `perm`
         [nsteps, batch_size] (ids past the edges weigh 0), the joins over
-        `rows`; adds each step's score histograms, weighted loss and weight
-        to `acc` [pos_h, neg_h, loss_sum, w_sum] on the device."""
+        `rows`, step by step `key, sub = split(key)` and sub the step's
+        dropout key; adds each step's score histograms, weighted loss and
+        weight to `acc` [pos_h, neg_h, loss_sum, w_sum] on the device.
+        Returns the last `key`."""
         num_edges = edges.shape[1]
         perm = perm.to(edges.device, torch.int64)
         wmat = (perm < num_edges).to(torch.float32)
         perm = torch.clamp(perm, max=num_edges - 1)
         for idx, w in zip(perm, wmat):
             bl = labels[idx]
+            key, sub = prng.split(key)
             joined, feat = self._batch(edges[:, idx], rows)
-            logits = self.model(joined, feat, generator=generator,
-                                **self.train_kw)
+            logits = self.model(joined, feat, key=sub, **self.train_kw)
             loss = batch_loss(logits, bl, w)
             adam_step(self.model, self.optimizer, loss,
                       self.config.grad_clip)
@@ -255,6 +263,7 @@ class DeviceTrainer:
                 acc[1] += score_histogram(preds, w * (1.0 - bl), AUC_BINS)
                 acc[2] += loss * w.sum()
                 acc[3] += w.sum()
+        return key
 
     @staticmethod
     def _new_acc(device) -> List[torch.Tensor]:
@@ -269,34 +278,35 @@ class DeviceTrainer:
                 device_auc_hist(acc[0], acc[1]))
 
     def train_epoch(self, edges: torch.Tensor, labels: torch.Tensor,
-                    generator: torch.Generator,
-                    perm: Optional[torch.Tensor] = None):
+                    key: prng.Key, perm: Optional[torch.Tensor] = None):
         """One epoch over [Q, E] query edges with labels [E] float32, on
-        the sets' device. `generator` (on that device) draws the batch
-        permutation, unless `perm` [nsteps, batch_size] is given, and the
-        dropout masks. Returns (mean loss, histogram AUC) as device
-        scalars."""
+        the sets' device, from the epoch `key` as JAX's epoch body takes
+        it: kperm, kdrop = split(key); kperm draws the batch permutation
+        (`riffle_permutation`) unless `perm` [nsteps, batch_size] is
+        given, kdrop the steps' dropout keys. Returns (mean loss,
+        histogram AUC) as device scalars."""
         bs = self.config.batch_size
+        kperm, kdrop = prng.split(key)
         if perm is None:
-            perm = riffle_permutation(generator, -(-edges.shape[1] // bs),
-                                      bs)
+            perm = riffle_permutation(kperm, -(-edges.shape[1] // bs), bs,
+                                      device=edges.device)
         self.model.train()
         acc = self._new_acc(edges.device)
-        self._segment(edges, labels, perm, generator, acc)
+        self._segment(edges, labels, perm, kdrop, acc)
         return self._epoch_result(acc)
 
-    def fit(self, edges, labels, n_epochs: int,
-            generator: torch.Generator,
+    def fit(self, edges, labels, n_epochs: int, key: prng.Key,
             perms: Optional[Sequence[torch.Tensor]] = None):
-        """`n_epochs` epochs of `train_epoch`; `perms` optionally gives
+        """`n_epochs` epochs of `train_epoch`, epoch e from
+        split(key, n_epochs)[e] (JAX's `fit`); `perms` optionally gives
         each epoch's batch permutation. Returns (losses [n_epochs],
         aucs [n_epochs]) as device tensors."""
         dev = self.sets.nodes.device
         edges = torch.as_tensor(edges).to(dev, torch.int64)
         labels = torch.as_tensor(labels).to(dev, torch.float32)
         losses, aucs = zip(*(self.train_epoch(
-            edges, labels, generator, None if perms is None else perms[e])
-            for e in range(n_epochs)))
+            edges, labels, k, None if perms is None else perms[e])
+            for e, k in enumerate(prng.split(key, n_epochs))))
         return torch.stack(losses), torch.stack(aucs)
 
     @torch.inference_mode()
@@ -348,16 +358,19 @@ class DeviceTrainer:
                              f"wider than the last class {prev}")
         return out
 
-    def fit_balanced(self, edges, labels, n_epochs: int,
-                     generator: torch.Generator, classes: Sequence[int],
+    def fit_balanced(self, edges, labels, n_epochs: int, key: prng.Key,
+                     classes: Sequence[int],
                      perms: Optional[Sequence[Sequence[torch.Tensor]]] = None):
         """`n_epochs` epochs over the queries grouped by
-        `partition_by_width`: each epoch runs the classes in order, each a
+        `partition_by_width`, epoch e from split(key, n_epochs)[e] as in
+        JAX's balanced fit: each epoch runs the classes in order, each a
         segment over the row tiles cut to its width with its own batch
-        permutation, drawn in class order from `generator` unless
-        `perms[epoch][class]` gives it; the epoch's loss and AUC histogram
-        are shared across classes. Returns (losses [n_epochs], aucs
-        [n_epochs]) as device tensors and the partition."""
+        permutation, `riffle_permutation(fold_in(epoch key, class))`
+        unless `perms[epoch][class]` gives it; the steps' dropout keys
+        run on from the epoch key through the classes. The epoch's loss
+        and AUC histogram are shared across classes. Returns (losses
+        [n_epochs], aucs [n_epochs]) as device tensors and the
+        partition."""
         dev = self.sets.nodes.device
         groups = self.partition_by_width(edges, classes)
         edges = torch.as_tensor(edges).to(dev, torch.int64)
@@ -370,16 +383,18 @@ class DeviceTrainer:
                 segments.append((ci, edges[:, idx], labels[idx],
                                  self._rows_at(width)))
         losses, aucs = [], []
-        for epoch in range(n_epochs):
+        for epoch, ekey in enumerate(prng.split(key, n_epochs)):
             self.model.train()
             acc = self._new_acc(dev)
+            kdrop = ekey
             for ci, e_c, l_c, rows in segments:
                 if perms is None:
-                    perm = riffle_permutation(generator,
-                                              -(-e_c.shape[1] // bs), bs)
+                    perm = riffle_permutation(prng.fold_in(ekey, ci),
+                                              -(-e_c.shape[1] // bs), bs,
+                                              device=dev)
                 else:
                     perm = perms[epoch][ci]
-                self._segment(e_c, l_c, perm, generator, acc, rows)
+                kdrop = self._segment(e_c, l_c, perm, kdrop, acc, rows)
             loss, auc = self._epoch_result(acc)
             losses.append(loss)
             aucs.append(auc)

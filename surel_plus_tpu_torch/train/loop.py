@@ -6,7 +6,9 @@ and runs the reference's training semantics (train.py:114-317) from the
 host: each epoch's batch order is a permutation drawn from the caller's
 numpy Generator (`rng.permutation(E)`, the JAX package's draw for draw),
 every batch has the static batch size (the tail padded with row 0 and
-weighted 0), and each step's loss and predictions are read back, so the
+weighted 0), each step's dropout key the next of the epoch's dropout key
+(`key, sub = split(key)`, the JAX package's), and each step's loss and
+predictions are read back, so the
 epoch's ROC-AUC is exact, on the host (`metrics.roc_auc`). A step is the
 join on the device, the model, the weighted BCE, the gradients clipped
 by their global norm and Adam, as `DeviceTrainer`'s. `predict` scores
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from surel_plus_tpu_torch.ops import metrics as metrics_ops
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import gather_join
 from surel_plus_tpu_torch.spg.spg import SpGDevice
 from surel_plus_tpu_torch.train.device import (
@@ -78,13 +81,13 @@ class LinkPredictor:
         self.model.reset_parameters(generator)
         self.optimizer = new_optimizer(self.model, self.config)
 
-    def _logits(self, edges: torch.Tensor, generator=None,
+    def _logits(self, edges: torch.Tensor, key: Optional[prng.Key] = None,
                 **embed) -> torch.Tensor:
         joined = self.join_fn(self.dev.nodes, self.dev.eidx, self.dev.sizes,
                               edges)
         feat = self.feature[edges] if self.feature is not None else None
-        return self.model(joined, feat, generator=generator,
-                          enc_table=self.dev.enc, **embed)
+        return self.model(joined, feat, key=key, enc_table=self.dev.enc,
+                          **embed)
 
     def _padded(self, edges: np.ndarray, sel: np.ndarray) -> torch.Tensor:
         """The batch of `edges` [Q, E] at `sel`, padded to the batch size
@@ -97,11 +100,12 @@ class LinkPredictor:
 
     def train_epoch(self, edges: np.ndarray, labels: np.ndarray,
                     rng: np.random.Generator,
-                    generator: Optional[torch.Generator] = None
+                    dropout_key: Optional[prng.Key] = None
                     ) -> Tuple[float, float]:
         """One epoch over [Q, E] host edges with [E] labels, in the order
-        of `rng.permutation(E)`; `generator` (on the device) draws the
-        dropout masks. Returns (mean loss, ROC-AUC) as floats."""
+        of `rng.permutation(E)`; a step's dropout key is `sub` of
+        `dropout_key, sub = split(dropout_key)` (needed when the model
+        drops out). Returns (mean loss, ROC-AUC) as floats."""
         bs = self.config.batch_size
         E = edges.shape[1]
         perm = rng.permutation(E)
@@ -116,7 +120,10 @@ class LinkPredictor:
             w[:n] = 1.0
             bl = np.zeros(bs, np.float32)
             bl[:n] = labels[sel]
-            logits = self._logits(self._padded(edges, sel), generator,
+            sub = None
+            if dropout_key is not None:
+                dropout_key, sub = prng.split(dropout_key)
+            logits = self._logits(self._padded(edges, sel), sub,
                                   embed_mode="direct")
             loss = batch_loss(logits, torch.as_tensor(bl).to(self.device),
                               torch.as_tensor(w).to(self.device))
@@ -146,8 +153,8 @@ class LinkPredictor:
 
 
 def train_epoch(predictor: LinkPredictor, edges, labels, rng,
-                generator=None) -> Tuple[float, float]:
-    return predictor.train_epoch(edges, labels, rng, generator)
+                dropout_key=None) -> Tuple[float, float]:
+    return predictor.train_epoch(edges, labels, rng, dropout_key)
 
 
 def evaluate(predictor: LinkPredictor, inf_edge: Dict, metric: str,

@@ -1,5 +1,5 @@
-"""Checkpoints: the model's parameters, the optimizer's state, the epoch
-and the state of the generators the training loop draws from (port of
+"""Checkpoints: the model's parameters, the optimizer's state, the epoch,
+the epoch key and the numpy generator's state (port of
 surel_plus_tpu/utils/checkpoint.py).
 
 The reference saves `{state_dict, optimizer, epoch}` on early stop and
@@ -11,10 +11,11 @@ generator's state dict: no module or closure is pickled, and
 `load_checkpoint` reads it with `weights_only=True`.
 
 The CLIs' state: `params` (the Net's or HONet's `state_dict`),
-`opt_state` (the Adam optimizer's `state_dict`), `epoch`, `gen` (the
-torch epoch generator's state: batch permutations and dropout masks)
-and `rng` (the numpy generator's `bit_generator.state`: the host
-engine's permutations).
+`opt_state` (the Adam optimizer's `state_dict`), `epoch`, `key` (the
+epoch key as JAX stores it, two uint32 words, a torch.uint32 tensor
+here: the next blocks' batch permutations and dropout masks, so a JAX
+checkpoint's key resumes with JAX's draws) and `rng` (the numpy
+generator's `bit_generator.state`: the host engine's permutations).
 """
 
 from __future__ import annotations

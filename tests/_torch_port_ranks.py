@@ -19,6 +19,7 @@ import torch
 
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import HONet, Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import join_gathered_hkeys
 from surel_plus_tpu_torch.ops.sampler import device_graph, walk_tables_for
@@ -162,20 +163,20 @@ def dist_cases(ctx):
         local = pdist.sample_gsets_sharded(g, inp["seeds"], nw, ns, mesh,
                                            seed=3)
         res["sharded"] = (local.start, local.num_rows, _np_sets(local.sets))
-        # the same rank's block through sample_block, from the same stream
+        # the same rank's block through sample_block, from the JAX
+        # package's rank key fold_in(PRNGKey(3), rank)
         per = -(-len(inp["seeds"]) // mesh.world_size)
         block = np.zeros(per, np.int32)
         mine = inp["seeds"][ctx.rank * per:(ctx.rank + 1) * per]
         block[:len(mine)] = mine
         indptr, _ = device_graph(g, dev)
         etab, stab = walk_tables_for(g, 3, dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(pdist.rank_seed(3, ctx.rank))
+        key = prng.fold_in(prng.prng_key(3), ctx.rank)
         res["sharded_ref"] = [x[:len(mine)].numpy() for x in
                               walk_ops.sample_block(
                                   indptr, etab, stab, torch.as_tensor(block),
                                   num_walks=nw, num_steps=ns,
-                                  bucket=nw * ns + 1, generator=gen)]
+                                  bucket=nw * ns + 1, key=key)]
         res["sharded_rows"] = _np_sets(_rows_of(
             pdist.shard_spg_keys(local, mesh)))
     return out
@@ -190,7 +191,7 @@ def partition_cases(ctx):
     """The partitioned samplers in every configuration the tests hold to
     JAX: given JAX's bits, both routings over the edge tables and the
     bare exchange, a forced overflow, the grouped sampler (group 1, 2,
-    4); unfed (the port's own generator); and the partitioned sets
+    4); unfed (the port's own draw of JAX's bits); and the partitioned sets
     through shard_spg_keys into a keys step."""
     inp = _inputs(ctx)
     dev = ctx.device

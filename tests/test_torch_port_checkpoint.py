@@ -2,15 +2,16 @@
 `--resume`, `--inf_only --load_model` and `--use_pretrain`:
 
 - save and load round-trip every field of the CLI's state: the Net's
-  parameters, Adam's state, the epoch, a CPU and a CUDA torch
-  generator's state (the CUDA one stands in as a byte tensor where this
-  build cannot make a CUDA generator) and the numpy generator's state;
-  a file holding another object is refused (`weights_only`);
+  parameters, Adam's state, the epoch, the epoch key (JAX's two uint32
+  words) and the numpy generator's state; a file holding another object
+  is refused (`weights_only`);
 - a resumed run is exact: a straight 4-epoch run (`--eval_steps 2`,
   dropout 0.1) writes `latest_0` at epoch 2, and a `--resume latest_0`
   run of the same configuration ends with parameters, Adam's state and
   the last epoch's loss and AUC bitwise equal, on the device engine, on
-  the host engine and on the device engine over the DEG sets;
+  the host engine and on the device engine over the DEG sets; its key
+  is the one the JAX CLI holds at that point (PRNGKey(seed + 1000)
+  split once a block);
 - `--inf_only --load_model latest_0` gives the straight run's epoch-2
   evaluation exactly;
 - the early-stop checkpoint `{stamp}_0` of both CLIs (as the JAX
@@ -19,7 +20,9 @@
 - a checkpoint the JAX CLI wrote (device engine on the CPU, synth-collab)
   read with orbax, its parameters turned by `params_from_flax`: the
   port's `evaluate_device` over JAX's sets gives the JAX run's
-  evaluation at that epoch within 1e-4 (both Nets in float32);
+  evaluation at that epoch within 1e-4 (both Nets in float32), and its
+  key resumes in the port: the port's next epoch draws the batch order
+  JAX's next epoch draws;
 - `--use_pretrain` feeds the trainer the matrix the JAX CLI feeds its
   own, from a `pretrain_embedding.pt` in the working directory.
 """
@@ -32,6 +35,7 @@ import os
 import pickle
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -49,12 +53,15 @@ from surel_plus_tpu_torch.cli import main as cli
 from surel_plus_tpu_torch.cli import main_horder
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.spg import SpGKeys
 from surel_plus_tpu_torch.train import LinkPredictor, TrainConfig
+from surel_plus_tpu_torch.train import device as tdevice
 from surel_plus_tpu_torch.train.device import (
     DeviceTrainer,
     evaluate_device,
     new_optimizer,
+    riffle_permutation,
     trainer_from_keys,
 )
 from surel_plus_tpu_torch.utils import config as tconfig
@@ -142,16 +149,11 @@ def test_round_trip_keeps_every_field(tmp_path):
     opt = new_optimizer(net, TrainConfig())
     sum((p * p).sum() for p in net.parameters()).backward()
     opt.step()
-    gen = torch.Generator().manual_seed(5)
-    torch.rand(3, generator=gen)
-    try:
-        cuda_state = torch.Generator(device="cuda").get_state()
-    except RuntimeError:    # a CPU build: a CUDA generator's 16 bytes
-        cuda_state = torch.arange(16, dtype=torch.uint8)
+    key = prng.split(prng.prng_key(1005))[0]
     rng = np.random.default_rng(7)
     rng.permutation(9)
     state = {"params": net.state_dict(), "opt_state": opt.state_dict(),
-             "epoch": 2, "gen": gen.get_state(), "gen_cuda": cuda_state,
+             "epoch": 2, "key": torch.from_numpy(prng.key_words(key)),
              "rng": rng.bit_generator.state}
     path = save_checkpoint(state, str(tmp_path / "model" / "latest_0"))
     assert path == str(tmp_path / "model" / "latest_0")
@@ -164,12 +166,8 @@ def test_round_trip_keeps_every_field(tmp_path):
     for p in net.parameters():
         for k, v in opt.state[p].items():
             assert torch.equal(opt2.state[p][k], v)
-    assert torch.equal(got["gen"], gen.get_state())
-    assert torch.equal(got["gen_cuda"], cuda_state)
-    gen2 = torch.Generator()
-    gen2.set_state(got["gen"])
-    assert torch.equal(torch.rand(4, generator=gen2),
-                       torch.rand(4, generator=gen))
+    assert got["key"].dtype == torch.uint32
+    assert prng.as_key(got["key"]) == key and max(key) >= 1 << 31
     rng2 = np.random.default_rng()
     rng2.bit_generator.state = got["rng"]
     assert rng2.integers(1 << 40) == rng.integers(1 << 40)
@@ -186,7 +184,13 @@ class _Opaque:
 def test_resume_is_exact(straight):
     cfg, out, seen, final = straight
     path = f"{cfg.log_dir}/{cfg.dataset}/model/latest_0"
-    assert load_checkpoint(path)["epoch"] == 2
+    state = load_checkpoint(path)
+    assert state["epoch"] == 2
+    # the JAX CLI's key after its two blocks (epoch 0, epochs 1-2)
+    want = jax.random.PRNGKey(cfg.seed + 1000)
+    for _ in range(2):
+        want = jax.random.split(want)[0]
+    np.testing.assert_array_equal(state["key"].numpy(), np.asarray(want))
     with _epoch_results() as resumed_seen:
         resumed = cli.run_experiment(dataclasses.replace(cfg, resume=path),
                                      device="cpu")
@@ -285,6 +289,28 @@ def test_jax_written_checkpoint(tmp_path, monkeypatch):
         assert got[k][0] == 0
         for i in (1, 2):
             assert abs(got[k][i] - w[i]) <= 1e-4, (k, i, got[k], w)
+
+    # the checkpoint's key resumes in the port: JAX's next block would
+    # fit one epoch from split(key)[1], and the port's fit from the same
+    # words draws the same batch order
+    jsub = jax.random.split(jnp.asarray(state["key"], jnp.uint32))[1]
+    kperm = jax.random.split(jax.random.split(jsub, 1)[0])[0]
+    n_edges, bs = 300, jcfg.batch_size
+    want_perm = np.asarray(jdevice.riffle_permutation(
+        kperm, -(-n_edges // bs), bs))
+    drawn = []
+
+    def spy(*a, **kw):
+        drawn.append(riffle_permutation(*a, **kw))
+        return drawn[-1]
+
+    monkeypatch.setattr(tdevice, "riffle_permutation", spy)
+    _, sub = prng.split(prng.as_key(state["key"]))
+    edges = np.random.default_rng(3).integers(
+        0, g_inf.num_nodes, size=(2, n_edges))
+    scorer.fit(edges, np.ones(n_edges, np.float32), 1, sub)
+    assert len(drawn) == 1
+    np.testing.assert_array_equal(drawn[0].numpy(), want_perm)
 
 
 class _Captured(Exception):

@@ -19,8 +19,12 @@ host modules under it, each against the JAX package:
   scores within rtol 1e-4 (the routes sum in other orders), each result
   within 1e-6 when fed JAX's own scores (a float32 mean over another
   order), and end to end within one rank flip (1 / #positives);
-- `run_experiment` and `main` on the CPU at a toy size, and `ogbl-*`
-  datasets (a download) raising (the host engine, balanced batching and
+- `from_ogb` on a stub `ogb.linkproppred` (torch tensors with and
+  without x, edge_weight and source_node; nothing is downloaded) field
+  by field JAX's, `ogbl-*` datasets routed through it, and both raising
+  ImportError where `ogb` is missing;
+- `run_experiment` and `main` on the CPU at a toy size (the host engine,
+  balanced batching and
   the scalar encoders: tests/test_torch_port_host_engine.py; MAG:
   tests/test_torch_port_hetero.py; checkpoints, --resume, --inf_only and
   --use_pretrain: tests/test_torch_port_checkpoint.py).
@@ -32,12 +36,15 @@ import importlib.util
 import logging
 import math
 import os
+import sys
+import types
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from surel_plus_tpu.cli import main as jcli
 from surel_plus_tpu.graph import datasets as jds
 from surel_plus_tpu.graph.csr import CSRGraph as JaxCSRGraph
 from surel_plus_tpu.graph.negative import negative_sampling as jax_negatives
@@ -53,6 +60,7 @@ from surel_plus_tpu.utils.logger import ResultLogger as JaxResultLogger
 from surel_plus_tpu.utils.seeding import set_random_seed as jax_seed
 from surel_plus_tpu_torch.cli import main as cli
 from surel_plus_tpu_torch.convert import params_from_flax
+from surel_plus_tpu_torch.graph import datasets as tds
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.graph.csr import CSRGraph
 from surel_plus_tpu_torch.graph.negative import negative_sampling
@@ -508,8 +516,84 @@ def test_main_without_a_device_raises(monkeypatch):
 
 @pytest.mark.parametrize("extra", [["--dataset", "ogbl-collab"]],
                          ids=["ogbl"])
-def test_unported_options_raise(tmp_path, extra):
+def test_unported_options_raise(tmp_path, monkeypatch, extra):
+    """Without the `ogb` package an `ogbl-*` dataset raises ImportError in
+    both CLIs (the import in from_ogb)."""
+    monkeypatch.setitem(sys.modules, "ogb", None)
     cfg = _config(tconfig, ["--dataset", "synth-collab", "--log_dir",
                             str(tmp_path), *extra])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ImportError):
         cli.run_experiment(cfg, device="cpu")
+    with pytest.raises(ImportError):
+        jcli.load_raw(_config(jconfig, ["--dataset", "ogbl-collab"]))
+
+
+class _StubLinkDataset:
+    """`ogb.linkproppred.PygLinkPropPredDataset` as from_ogb reads it: one
+    graph (a dict of torch tensors) and the edge split."""
+
+    graph: dict = {}
+    split: dict = {}
+
+    def __init__(self, name):
+        self.name = name
+
+    def __getitem__(self, i):
+        assert i == 0
+        return self.graph
+
+    def get_edge_split(self):
+        return self.split
+
+
+def _stub_ogb(monkeypatch, graph, split):
+    ogb = types.ModuleType("ogb")
+    lp = types.ModuleType("ogb.linkproppred")
+    lp.PygLinkPropPredDataset = type("PygLinkPropPredDataset",
+                                     (_StubLinkDataset,),
+                                     dict(graph=graph, split=split))
+    ogb.linkproppred = lp
+    monkeypatch.setitem(sys.modules, "ogb", ogb)
+    monkeypatch.setitem(sys.modules, "ogb.linkproppred", lp)
+
+
+@pytest.mark.parametrize("x,weight,directed", [
+    (True, True, False), (False, False, False), (False, True, True)])
+def test_from_ogb_matches_jax(monkeypatch, x, weight, directed):
+    g = torch.Generator().manual_seed(4)
+    edge_index = torch.randint(0, 40, (2, 90), generator=g)
+    graph = {"edge_index": edge_index}
+    if x:
+        graph["x"] = torch.randn(45, 3, generator=g)
+    if weight:
+        graph["edge_weight"] = torch.rand(90, 1, generator=g)
+    if directed:
+        split = {s: {"source_node": torch.randint(0, 40, (n,), generator=g),
+                     "target_node": torch.randint(0, 40, (n,), generator=g)}
+                 for s, n in (("train", 30), ("valid", 6), ("test", 6))}
+        for s in ("valid", "test"):
+            split[s]["target_node_neg"] = torch.randint(
+                0, 40, (6, 5), generator=g)
+    else:
+        split = {s: {"edge": torch.randint(0, 40, (n, 2), generator=g)}
+                 for s, n in (("train", 30), ("valid", 6), ("test", 6))}
+        for s in ("valid", "test"):
+            split[s]["edge_neg"] = torch.randint(0, 40, (8, 2), generator=g)
+    _stub_ogb(monkeypatch, graph, split)
+    got, want = tds.from_ogb("ogbl-stub"), jds.from_ogb("ogbl-stub")
+    routed = cli.load_raw(_config(tconfig, ["--dataset", "ogbl-collab"]))
+    for raw in (got, routed):
+        assert raw.num_nodes == want.num_nodes == (45 if x else 40)
+        assert raw.directed == want.directed == directed
+        for k in ("edge_index", "x", "edge_weight"):
+            a, b = getattr(raw, k), getattr(want, k)
+            assert (a is None) == (b is None) == (
+                {"x": not x, "edge_weight": not weight}.get(k, False)), k
+            if b is not None:
+                assert a.dtype == b.dtype and a.shape == b.shape, k
+                np.testing.assert_array_equal(a, b, err_msg=k)
+        assert sorted(raw.split_edge) == sorted(want.split_edge)
+        for s, d in want.split_edge.items():
+            assert sorted(raw.split_edge[s]) == sorted(d)
+            for k, v in d.items():
+                np.testing.assert_array_equal(raw.split_edge[s][k], v)

@@ -41,6 +41,7 @@ from surel_plus_tpu.train import TrainConfig as JaxTrainConfig
 from surel_plus_tpu.train.device import trainer_from_keys as jax_trainer
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import join_gathered_keys, make_keys_join
 from surel_plus_tpu_torch.ops.kernels.cross_lookup import (
     cross_lookup_pair,
@@ -455,5 +456,5 @@ def test_trainer_with_pallas_join_factory_matches_jax(sampled, aggrs,
     assert got.shape == (E,)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     losses, _ = tr.fit(edges, (rng.random(E) < 0.5).astype(np.float32), 1,
-                       torch.Generator())
+                       prng.prng_key(0))
     assert bool(torch.isfinite(losses).all())

@@ -50,7 +50,6 @@ from surel_plus_tpu.ops.walk import enc_field_layout
 from surel_plus_tpu.train import TrainConfig as JaxTrainConfig
 from surel_plus_tpu.train.device import DeviceTrainer as JaxDeviceTrainer
 from surel_plus_tpu.train.device import evaluate_device as jax_evaluate
-from surel_plus_tpu.train.device import riffle_permutation as jax_riffle
 from surel_plus_tpu.train.device import trainer_from_keys as jax_trainer
 from surel_plus_tpu_torch.cli import main_horder as cli
 from surel_plus_tpu_torch.convert import params_from_flax
@@ -59,6 +58,7 @@ from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
 from surel_plus_tpu_torch.models import HONet
 from surel_plus_tpu_torch.models.honet import group_set_sums
 from surel_plus_tpu_torch.ops import join as join_ops
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import fused_key_hidden_sum
 from surel_plus_tpu_torch.ops.merge_net import merge_pairs
 from surel_plus_tpu_torch.spg import SpGDevice, SpGKeys
@@ -426,7 +426,7 @@ def test_table_trainer_matches_jax(table_sets):
     got = tr.predict(he)
     assert got.shape == (20,)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
-    losses, aucs = tr.fit(he, torch.ones(20), 1, torch.Generator())
+    losses, aucs = tr.fit(he, torch.ones(20), 1, prng.prng_key(0))
     assert bool(torch.isfinite(losses).all()) and aucs.shape == (1,)
 
 
@@ -449,8 +449,8 @@ def test_honet_raises_on_what_it_cannot_read(model_case):
 @pytest.fixture(scope="module")
 def train_case(model_case):
     """The JAX trainer's 2-epoch fit of an unfused HONet (dropout 0) over
-    21 hyperedges in batches of 8, its parameters before and after, and
-    each epoch's permutation."""
+    21 hyperedges in batches of 8 from the key PRNGKey(5), its
+    parameters before and after."""
     nw, ns = 8, 3
     g = jax_rmat_graph(300, 2400, seed=4)
     spgk = sample_gsets_device_keys(g, np.arange(300, dtype=np.int32),
@@ -468,15 +468,12 @@ def train_case(model_case):
     key = jax.random.PRNGKey(5)
     p1, _, losses, aucs = jtr.fit(p0, opt, jnp.asarray(edges),
                                   jnp.asarray(labels), key, 2)
-    perms = [torch.as_tensor(np.array(jax_riffle(jax.random.split(k)[0],
-                                                 3, 8)))
-             for k in jax.random.split(key, 2)]
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
     tspgk = SpGKeys(nodes=_c(spgk.nodes), khi=_c(spgk.khi),
                     klo=_c(spgk.klo), sizes=_c(spgk.sizes), num_walks=nw,
                     num_steps=ns)
     return (tspgk, edges, labels, jax.tree.map(np.asarray, p0), flat(p1),
-            np.asarray(losses), np.asarray(aucs), perms)
+            np.asarray(losses), np.asarray(aucs), prng.as_key(key))
 
 
 @pytest.mark.parametrize("route", ["fused", "unfused"])
@@ -512,17 +509,17 @@ def test_train_step_matches_jax(model_case, route):
 @pytest.mark.parametrize("route", ["fused", "unfused"])
 def test_fit_matches_jax(train_case, route):
     """trainer_from_keys(HONet, ..., join_factory=make_keys_hjoin).fit over
-    2 epochs against JAX's, the same batch order, on column-major
-    hyperedges; then predict and evaluate_device run on [3, E] splits."""
-    tspgk, edges, labels, p0, want, losses, aucs, perms = train_case
+    2 epochs against JAX's from JAX's key (so JAX's batch order), on
+    column-major hyperedges; then predict and evaluate_device run on
+    [3, E] splits."""
+    tspgk, edges, labels, p0, want, losses, aucs, key = train_case
     net = HONet(4, H, dropout=0.0, fused_hidden=route == "fused",
                 device="cpu")
     net.load_state_dict(params_from_flax(p0))
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=8, lr=1e-2),
                            join_factory=join_ops.make_keys_hjoin)
     assert net.key_layout == (8, 3)
-    got_losses, got_aucs = tr.fit(edges, labels, 2, torch.Generator(),
-                                  perms=perms)
+    got_losses, got_aucs = tr.fit(edges, labels, 2, key)
     np.testing.assert_allclose(got_losses.numpy(), losses, rtol=1e-5)
     np.testing.assert_allclose(got_aucs.numpy(), aucs, atol=1e-6)
     state0 = params_from_flax(p0)
@@ -736,7 +733,12 @@ def test_main_without_a_device_raises(monkeypatch):
 
 @pytest.mark.parametrize("extra", [["--resume", "ckpt"]], ids=["resume"])
 def test_unported_options_raise(tmp_path, extra):
-    cfg = _config(["--dataset", "synth-tags", "--log_dir", str(tmp_path),
-                   *extra])
-    with pytest.raises(NotImplementedError):
-        cli.run_experiment(cfg, device="cpu")
+    """--resume is ignored, as the JAX package's main_horder ignores it:
+    the run equals the run without the flag."""
+    runs = [cli.run_experiment(_config(
+        ["--dataset", "synth-tags", *TOY, "--log_dir",
+         str(tmp_path / str(i)), *flags]), device="cpu")
+        for i, flags in enumerate(([], extra))]
+    assert runs[1]["best"] == runs[0]["best"]
+    for k, v in runs[0]["trainer"].model.state_dict().items():
+        assert torch.equal(runs[1]["trainer"].model.state_dict()[k], v), k

@@ -46,7 +46,6 @@ from surel_plus_tpu.train import LinkPredictor as JaxLinkPredictor
 from surel_plus_tpu.train import TrainConfig as JaxTrainConfig
 from surel_plus_tpu.train import evaluate as jax_evaluate
 from surel_plus_tpu.train.device import DeviceTrainer as JaxDeviceTrainer
-from surel_plus_tpu.train.device import riffle_permutation as jax_riffle
 from surel_plus_tpu.train.scalar import (
     ScalarLinkPredictor as JaxScalarLinkPredictor,
 )
@@ -56,7 +55,7 @@ from surel_plus_tpu_torch.cli import main_horder as hcli
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import HONet, Net
-from surel_plus_tpu_torch.ops import encoders, metrics
+from surel_plus_tpu_torch.ops import encoders, metrics, prng
 from surel_plus_tpu_torch.ops.join import hgather_join
 from surel_plus_tpu_torch.spg import SpG, SpGDevice
 from surel_plus_tpu_torch.train import LinkPredictor, TrainConfig, evaluate
@@ -196,7 +195,8 @@ def test_host_epoch_matches_jax(host_sets, kind, aggrs):
     for _ in range(2):
         params, opt_state, jloss, jauc = jp.train_epoch(
             params, opt_state, edges, labels, jrng, key)
-        tloss, tauc = tp.train_epoch(edges, labels, trng)
+        tloss, tauc = tp.train_epoch(edges, labels, trng,
+                                     prng.as_key(key))
         np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
         np.testing.assert_allclose(tauc, jauc, rtol=0, atol=1e-6)
     assert isinstance(tloss, float) and isinstance(tauc, float)
@@ -275,10 +275,11 @@ def test_predict_balanced_equals_predict(table_sets, aggrs):
 
 @pytest.mark.parametrize("aggrs", ["lstm", "mean"])
 def test_fit_balanced_matches_jax(table_sets, aggrs):
-    """JAX's fit_balanced for 2 epochs against the port's with JAX's
-    per-class permutations (riffle_permutation(fold_in(epoch key, class)))
-    from JAX's initial weights, dropout 0; the lstm on its fused route
-    (JAX's folded scan, the port's K5 pair in plain versions)."""
+    """JAX's fit_balanced for 2 epochs against the port's from JAX's key,
+    so that the port draws JAX's per-class permutations
+    (riffle_permutation(fold_in(epoch key, class))), from JAX's initial
+    weights, dropout 0; the lstm on its fused route (JAX's folded scan,
+    the port's K5 pair in plain versions)."""
     jdev, tdev, edges, classes = table_sets
     fused = True if aggrs == "lstm" else None
     labels = (np.random.default_rng(37).random(edges.shape[1]) < 0.5
@@ -290,16 +291,12 @@ def test_fit_balanced_matches_jax(table_sets, aggrs):
     key = jax.random.PRNGKey(8)
     params, _, losses, aucs, groups = jtr.fit_balanced(
         params0, opt_state, edges, labels, key, 2, classes)
-    perms = [[torch.as_tensor(np.array(jax_riffle(
-        jax.random.fold_in(k, ci), -(-len(sel) // BS), BS)))
-        for ci, (_, sel) in enumerate(groups)]
-        for k in jax.random.split(key, 2)]
     net = Net(4, H, aggrs=aggrs, dropout=0.0, fused_hidden=fused,
               device="cpu")
     net.load_state_dict(_flat(params0))
     tr = DeviceTrainer(net, tdev, TrainConfig(batch_size=BS, lr=LR))
     got_losses, got_aucs, got_groups = tr.fit_balanced(
-        edges, labels, 2, torch.Generator(), classes, perms=perms)
+        edges, labels, 2, prng.as_key(key), classes)
     assert [len(s) for _, s in got_groups] == [len(s) for _, s in groups]
     np.testing.assert_allclose(got_losses.numpy(), np.asarray(losses),
                                rtol=1e-5)
@@ -323,11 +320,11 @@ def test_fit_balanced_one_class_equals_fit(table_sets):
                   generator=torch.Generator().manual_seed(2))
         tr = DeviceTrainer(net, tdev, TrainConfig(batch_size=BS, lr=LR))
         if balanced:
-            res = tr.fit_balanced(edges, labels, 2, torch.Generator(),
+            res = tr.fit_balanced(edges, labels, 2, prng.prng_key(0),
                                   (tdev.nodes.shape[1],),
                                   perms=[[p] for p in perms])[:2]
         else:
-            res = tr.fit(edges, labels, 2, torch.Generator(), perms=perms)
+            res = tr.fit(edges, labels, 2, prng.prng_key(0), perms=perms)
         out.append((res, net.state_dict()))
     (fit_res, fit_state), (bal_res, bal_state) = out
     for a, b in zip(fit_res, bal_res):

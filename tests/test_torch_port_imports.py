@@ -29,6 +29,8 @@ sys.meta_path.insert(0, Refuse())
 import surel_plus_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     surel_plus_tpu_torch.__path__, "surel_plus_tpu_torch.")]
+assert {{"surel_plus_tpu_torch.ops.prng",
+         "surel_plus_tpu_torch.ops.kernels.threefry"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -12,9 +12,12 @@ under it (`ops/walk.py`: `rows_searchsorted`, `walk_block`,
   loop's join;
 - `rows_searchsorted` and `walk_join` exactly JAX's on the same rows,
   walks and queries;
-- the walk fed JAX's random bits (with and without replacement) exactly
-  JAX's walk, and the sets built from the same walks exactly JAX's
+- the walk from JAX's key (with and without replacement) exactly JAX's
+  walk, and the sets built from the same walks exactly JAX's
   `_build_sets_block` (bucket whole and cut);
+- `walk_sampler` (with and without replacement, over several blocks and
+  a partial last one), `np_sampling` and `batch_sampler` on an RMAT
+  graph exactly JAX's from the same seed (the same key tree);
 - whole calls on the RNG-free directed chain of
   tests/test_reference_golden.py (every walk is the path i, i+1, ...):
   `walk_sampler`, `rw_matrix`'s matrix and `batch_sampler` exactly
@@ -33,6 +36,7 @@ from surel_plus_tpu.ops import legacy as jlegacy
 from surel_plus_tpu.ops import walk as jwalk
 from surel_plus_tpu_torch.graph import rmat_graph, ring_of_cliques
 from surel_plus_tpu_torch.graph.csr import CSRGraph
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as twalk
 from surel_plus_tpu_torch.ops.legacy import (
     batch_sampler,
@@ -200,20 +204,6 @@ def _jax_graph(g):
     return JaxCSRGraph(indptr=g.indptr, indices=g.indices)
 
 
-def _jax_bits(key, b, num_walks, num_steps, replacement):
-    """The random words JAX's `_walk_block` draws from `key`."""
-    first = (np.asarray(jax.random.bits(jax.random.fold_in(key, 0x5eed),
-                                        (b, num_walks), dtype=jnp.uint32))
-             if replacement else None)
-    steps = [np.asarray(jax.random.bits(k, (b, num_walks),
-                                        dtype=jnp.uint32))
-             for k in jax.random.split(key, num_steps - 1)]
-    t = lambda x: torch.as_tensor(x.astype(np.int64))
-    bits = (t(np.stack(steps)) if steps
-            else torch.zeros(0, b, num_walks, dtype=torch.int64))
-    return bits, (None if first is None else t(first))
-
-
 @pytest.mark.parametrize("replacement", [True, False])
 @pytest.mark.parametrize("num_steps", [1, 3])
 def test_walk_with_jax_bits_matches_jax(g, replacement, num_steps):
@@ -226,11 +216,38 @@ def test_walk_with_jax_bits_matches_jax(g, replacement, num_steps):
     want = np.asarray(jwalk._walk_block(
         jnp.asarray(g.indptr), jnp.asarray(g.indices), jnp.asarray(shuffled),
         jnp.asarray(seeds), M, num_steps, key, replacement=replacement))
-    bits, first = _jax_bits(key, len(seeds), M, num_steps, replacement)
     t = lambda x: torch.as_tensor(x, dtype=torch.int64)
     got = twalk.walk_block(t(g.indptr), t(g.indices), t(shuffled), t(seeds),
-                           M, num_steps, bits, first)
+                           M, num_steps, prng.as_key(key), replacement)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("replacement", [True, False])
+@pytest.mark.parametrize("seed", [0, 111413])
+def test_walk_sampler_matches_jax(g, replacement, seed):
+    """The whole legacy sampler from one seed, in blocks of 48 seeds (a
+    partial last block), and np_sampling and batch_sampler, exactly
+    JAX's."""
+    jg = _jax_graph(g)
+    seeds = np.concatenate([np.arange(100), [199, 0, 7]]).astype(np.int32)
+    got = walk_sampler(g, seeds, num_walks=M, num_steps=3,
+                       replacement=replacement, seed=seed, block_size=48,
+                       device="cpu")
+    want = jlegacy.walk_sampler(jg, seeds, num_walks=M, num_steps=3,
+                                replacement=replacement, seed=seed,
+                                block_size=48)
+    np.testing.assert_array_equal(got[0], want[0])
+    for x, y in zip(got[1], want[1]):
+        np.testing.assert_array_equal(x, y)
+    if replacement:
+        for x, y in zip(np_sampling(g, seeds, 48, M, 3, seed, device="cpu"),
+                        jlegacy.np_sampling(jg, seeds, 48, M, 3, seed)):
+            np.testing.assert_array_equal(x, y)
+    else:
+        q = seeds[:9]
+        for x, y in zip(batch_sampler(g, q, M, 3, seed, device="cpu"),
+                        jlegacy.batch_sampler(jg, q, M, 3, seed)):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.parametrize("bucket", [None, 7])

@@ -43,6 +43,7 @@ from surel_plus_tpu.ops.sampler import sample_gsets_device_keys
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
 from surel_plus_tpu_torch.models.layers import LSTMAggregation
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import join_gathered_keys
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import NEG, u_core_rows
 from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
@@ -467,7 +468,7 @@ def test_fused_lstm_net_raises_under_grad_and_unfused_trains(joins):
     trainer = trainer_from_keys(net, tspgk, TrainConfig(batch_size=4))
     edges = torch.as_tensor(np.random.default_rng(6).integers(
         0, tspgk.nodes.shape[0], size=(2, 8)))
-    losses, _ = trainer.fit(edges, torch.ones(8), 1, torch.Generator())
+    losses, _ = trainer.fit(edges, torch.ones(8), 1, prng.prng_key(0))
     assert bool(torch.isfinite(losses).all())
     assert all(not torch.equal(v, start[k])
                for k, v in net.state_dict().items())

@@ -10,8 +10,9 @@ capacity routing, over the edge tables and the bare exchange, a forced
 overflow (capacity slack 0.05, so the probe answers every step) and the
 grouped sampler at group sizes 1, 2 and 4; each rank's rows must equal
 JAX's partitioned sampler's (on four virtual devices) exactly. Unfed,
-the port's sampler must equal its own `sample_block` over the whole
-padded seed block from a generator seeded the same. The partitioned sets
+the port draws the same bits itself (each rank its rows of the global
+draw of `prng_key(seed)`'s step keys), and its sets must equal JAX's
+partitioned sets exactly too. The partitioned sets
 then move to their graph shards and feed one keys step, held to JAX's
 step on JAX's sets (loss rtol 1e-5, gradients and parameters as in
 tests/test_torch_port_dist.py). Two processes joined over tcp://
@@ -40,7 +41,9 @@ from surel_plus_tpu.parallel import dist as jdist
 from surel_plus_tpu.parallel import partition as jpart
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.graph import rmat_graph
-from surel_plus_tpu_torch.ops.sampler import sample_gsets_device_keys
+from surel_plus_tpu_torch.ops import prng
+from surel_plus_tpu_torch.ops import walk as walk_ops
+from surel_plus_tpu_torch.ops.sampler import device_graph, walk_tables_for
 from surel_plus_tpu_torch.parallel import partition as tpart
 from surel_plus_tpu_torch.parallel.launch import run_ranks
 from _torch_port_ranks import assert_step
@@ -203,17 +206,26 @@ def test_grouped_with_jax_bits_matches_jax(run, group):
 
 
 def test_unfed_matches_the_ports_sample_block(run):
-    """Unfed, the bits come from a generator seeded `seed` at the global
-    shape: the port's one-block sampler over the padded seeds."""
-    inputs, results, _, _, _ = run
+    """Unfed, each rank draws its rows of JAX's global draw itself (the
+    counter offset): the sets equal JAX's partitioned sets, and the
+    port's `sample_block` over the whole padded seed block with the key
+    prng_key(seed)."""
+    inputs, results, jsets, _, _ = run
+    got = _whole(results, lambda r: r["unfed"])
+    _assert_sets(got, jsets, "unfed")
     n_pad = len(inputs["bits"][0])
     pad = np.zeros(n_pad, np.int32)
     pad[:N_SEEDS] = inputs["seeds"]
-    want = sample_gsets_device_keys(rmat_graph(*GRAPH), pad, M, S,
-                                    seed=SEED, block_size=n_pad,
-                                    device="cpu")
-    want = {k: getattr(want, k)[:N_SEEDS].numpy() for k in KEYS}
-    _assert_sets(_whole(results, lambda r: r["unfed"]), want, "unfed")
+    g = rmat_graph(*GRAPH)
+    indptr, _ = device_graph(g, "cpu")
+    etab, stab = walk_tables_for(g, SEED, "cpu")
+    want = walk_ops.sample_block(indptr, etab, stab, torch.as_tensor(pad),
+                                 num_walks=M, num_steps=S,
+                                 bucket=M * S + 1,
+                                 key=prng.prng_key(SEED))
+    want = dict(zip(("nodes", "sizes", "khi", "klo"),
+                    (x[:N_SEEDS].numpy() for x in want)))
+    _assert_sets(got, want, "unfed against sample_block")
 
 
 def test_partitioned_sets_feed_the_step(run):

@@ -1,6 +1,13 @@
 """PyTorch port, sampling: graph construction, the edge-table walk and the
-packed set builder held to the JAX package exactly; the port's own
-generator held to the sampler invariants of tests/test_sampler.py."""
+packed set builder held to the JAX package exactly; the samplers' sets
+from one seed held to JAX's bit for bit (the same threefry key tree:
+`sample_gsets_device_keys`, `sample_gsets_device`, `sample_gsets`,
+`subg_matrix_device_keys`, over several blocks with a partial last one,
+on an RMAT graph and on one with degree-0 seeds, in the lo-only and the
+lead-in-hi layout); `SpG.to_scipy` held to JAX's on those sets; and the
+sampler invariants of tests/test_sampler.py. The device sampler's
+normalized encoding table is held to 1 ulp: JAX's jitted division turns
+into a multiply by the reciprocal."""
 
 import dataclasses
 
@@ -13,10 +20,12 @@ import torch
 from surel_plus_tpu.graph.csr import csr_from_edges as jax_csr_from_edges
 from surel_plus_tpu.graph.synthetic import ring_of_cliques
 from surel_plus_tpu.graph.synthetic import rmat_graph as jax_rmat_graph
+from surel_plus_tpu.ops import sampler as jsampler
 from surel_plus_tpu.ops import walk as jwalk
 from surel_plus_tpu.ops.sampler import device_graph as jax_device_graph
 from surel_plus_tpu_torch.graph import csr_from_edges, rmat_graph
 from surel_plus_tpu_torch.graph.csr import CSRGraph
+from surel_plus_tpu_torch.ops import sampler as tsampler
 from surel_plus_tpu_torch.ops import walk as twalk
 from surel_plus_tpu_torch.ops.sampler import (
     sample_gsets_device_keys,
@@ -167,3 +176,64 @@ def test_isolated_node_convention():
     assert int(s.sizes[0]) == 1
     assert int(s.nodes[0, 0]) == iso
     assert np.all(_fields(s)[0, 0] == 8)
+
+
+# the exact-sets cases: (graph, (M, S')), each at two seeds, in blocks of
+# 64 seeds (a partial last block)
+SET_GRAPHS = ("rmat", "degree0")
+SET_LAYOUTS = {"lo_only": (4, 3), "lead_in_hi": (200, 4)}
+SET_BLOCK = 64
+
+
+def _set_graph(kind):
+    """(port graph, JAX graph, seeds): rmat_graph(200, 1000, seed=0), or a
+    graph whose last 20 of 220 nodes have no edge, seeds among them."""
+    if kind == "rmat":
+        return (rmat_graph(200, 1000, seed=0),
+                jax_rmat_graph(200, 1000, seed=0),
+                np.arange(200, dtype=np.int32))
+    edges = np.random.default_rng(5).integers(0, 200, size=(800, 2))
+    seeds = np.concatenate([np.arange(150), np.arange(200, 220)])
+    return (csr_from_edges(edges, num_nodes=220),
+            jax_csr_from_edges(edges, num_nodes=220, prefer_native=False),
+            seeds.astype(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 111413])
+@pytest.mark.parametrize("layout", sorted(SET_LAYOUTS))
+@pytest.mark.parametrize("kind", SET_GRAPHS)
+def test_samplers_match_jax_exactly(kind, layout, seed):
+    nw, ns = SET_LAYOUTS[layout]
+    g, jg, seeds = _set_graph(kind)
+    if kind == "degree0":
+        assert np.all(g.degrees()[seeds[-20:]] == 0)
+    kw = dict(seed=seed, block_size=SET_BLOCK)
+    want = jsampler.sample_gsets_device_keys(jg, seeds, nw, ns, **kw)
+    got = tsampler.sample_gsets_device_keys(g, seeds, nw, ns, device="cpu",
+                                            **kw)
+    for k in ("nodes", "khi", "klo", "sizes"):
+        np.testing.assert_array_equal(_bits_np(getattr(got, k)),
+                                      _bits_np(getattr(want, k)), err_msg=k)
+    want = jsampler.subg_matrix_device_keys(jg, seeds, nw, ns + 1, **kw)
+    got = tsampler.subg_matrix_device_keys(g, seeds, nw, ns + 1,
+                                           device="cpu", **kw)
+    for k in ("nodes", "khi", "klo", "sizes"):
+        np.testing.assert_array_equal(_bits_np(getattr(got, k)),
+                                      _bits_np(getattr(want, k)), err_msg=k)
+    want = jsampler.sample_gsets(jg, seeds, nw, ns, **kw)
+    got = tsampler.sample_gsets(g, seeds, nw, ns, device="cpu", **kw)
+    for k in ("nodes", "eidx", "sizes", "enc", "seeds"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)
+    assert (got.to_scipy() != want.to_scipy()).nnz == 0
+    assert (got.to_scipy(250) != want.to_scipy(250)).nnz == 0
+    (want, wu), (got, gu) = (
+        jsampler.sample_gsets_device(jg, seeds, nw, ns, **kw),
+        tsampler.sample_gsets_device(g, seeds, nw, ns, device="cpu", **kw))
+    assert gu == wu
+    for k in ("nodes", "eidx", "sizes"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(want, k)),
+                                      err_msg=k)
+    np.testing.assert_array_almost_equal_nulp(got.enc.numpy(),
+                                              np.asarray(want.enc), nulp=1)

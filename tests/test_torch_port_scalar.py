@@ -42,10 +42,10 @@ from surel_plus_tpu.ops import ppr as jax_ppr
 from surel_plus_tpu.ops.ppr_device import ppr_topk_device as jax_ppr_device
 from surel_plus_tpu.train import TrainConfig as JaxTrainConfig
 from surel_plus_tpu.train.device import DeviceTrainer as JaxDeviceTrainer
-from surel_plus_tpu.train.device import riffle_permutation as jax_riffle
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.graph import ring_of_cliques, rmat_graph
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import encoders, ppr
 from surel_plus_tpu_torch.ops.ppr_device import ppr_topk_device
 from surel_plus_tpu_torch.spg import SpGDevice
@@ -418,7 +418,8 @@ def test_scalar_train_step_matches_jax(scalar_case, aggrs):
 @pytest.mark.parametrize("aggrs", AGGRS)
 def test_scalar_fit_matches_jax(scalar_case, aggrs):
     """JAX's DeviceTrainer.fit over the scalar sets for EPOCHS epochs
-    against the port's with JAX's riffle permutations, dropout 0."""
+    against the port's from JAX's key (so JAX's riffle permutations),
+    dropout 0."""
     sspg, port_sspg, _, _, _ = scalar_case
     fused = True if aggrs == "lstm" else None
     rng = np.random.default_rng(29)
@@ -434,10 +435,6 @@ def test_scalar_fit_matches_jax(scalar_case, aggrs):
     params, _, losses, aucs = jtr.fit(params0, opt_state,
                                       jnp.asarray(edges),
                                       jnp.asarray(labels), key, EPOCHS)
-    nsteps = -(-E // BS)
-    perms = [torch.as_tensor(np.array(jax_riffle(
-        jax.random.split(k)[0], nsteps, BS)))
-        for k in jax.random.split(key, EPOCHS)]
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
     state0, want = flat(params0), flat(params)
     net = Net(1, H, aggrs=aggrs, dropout=0.0, fused_hidden=fused,
@@ -446,8 +443,7 @@ def test_scalar_fit_matches_jax(scalar_case, aggrs):
     tr = scalar_trainer_from_spg(net, port_sspg,
                                  TrainConfig(batch_size=BS, lr=LR),
                                  device="cpu")
-    got_losses, got_aucs = tr.fit(edges, labels, EPOCHS, torch.Generator(),
-                                  perms=perms)
+    got_losses, got_aucs = tr.fit(edges, labels, EPOCHS, prng.as_key(key))
     np.testing.assert_allclose(got_losses.numpy(), np.asarray(losses),
                                rtol=1e-5)
     np.testing.assert_allclose(got_aucs.numpy(), np.asarray(aucs),
@@ -457,7 +453,7 @@ def test_scalar_fit_matches_jax(scalar_case, aggrs):
     assert moved > 3 * LR                    # the fit did train
     got = net.state_dict()
     for k, v in want.items():
-        atol = 2 * LR * EPOCHS * nsteps if k == GATE_BIAS else 1e-5
+        atol = 2 * LR * EPOCHS * -(-E // BS) if k == GATE_BIAS else 1e-5
         np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-4,
                                    atol=atol, err_msg=k)
 

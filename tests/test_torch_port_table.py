@@ -50,10 +50,10 @@ from surel_plus_tpu.ops.sampler import (
 )
 from surel_plus_tpu.train import TrainConfig as JaxTrainConfig
 from surel_plus_tpu.train.device import DeviceTrainer as JaxDeviceTrainer
-from surel_plus_tpu.train.device import riffle_permutation as jax_riffle
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import gather_join, unpack_key_features
 from surel_plus_tpu_torch.ops.kernels.lstm import (
     lstm_final_hidden,
@@ -384,7 +384,7 @@ def test_table_lstm_raises_in_training_and_unfused_trains(net_case):
         grads[fused] = {n: p.grad for n, p in net.named_parameters()}
         start = {k: v.clone() for k, v in net.state_dict().items()}
         losses, _ = DeviceTrainer(net, tdev, TrainConfig(batch_size=4)).fit(
-            edges, ones, 1, torch.Generator())
+            edges, ones, 1, prng.prng_key(0))
         assert bool(torch.isfinite(losses).all())
         assert all(not torch.equal(v, start[k])
                    for k, v in net.state_dict().items())
@@ -470,18 +470,13 @@ def test_table_fit_matches_jax(net_case, aggrs):
     params, _, losses, aucs = jtr.fit(params0, opt_state,
                                       jnp.asarray(edges),
                                       jnp.asarray(labels), key, EPOCHS)
-    nsteps = -(-E // BS)
-    perms = [torch.as_tensor(np.array(jax_riffle(
-        jax.random.split(k)[0], nsteps, BS)))
-        for k in jax.random.split(key, EPOCHS)]
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
     state0, want = flat(params0), flat(params)
     net = Net(4, H, aggrs=aggrs, dropout=0.0, fused_hidden=fused,
               device="cpu")
     net.load_state_dict(state0)
     tr = DeviceTrainer(net, _tdev(jdev), TrainConfig(batch_size=BS, lr=LR))
-    got_losses, got_aucs = tr.fit(edges, labels, EPOCHS, torch.Generator(),
-                                  perms=perms)
+    got_losses, got_aucs = tr.fit(edges, labels, EPOCHS, prng.as_key(key))
     np.testing.assert_allclose(got_losses.numpy(), np.asarray(losses),
                                rtol=1e-5)
     np.testing.assert_allclose(got_aucs.numpy(), np.asarray(aucs),
@@ -492,6 +487,6 @@ def test_table_fit_matches_jax(net_case, aggrs):
     got = net.state_dict()
     fit_atol = 1e-4 if aggrs == "lstm" else 1e-5
     for k, v in want.items():
-        atol = 2 * LR * EPOCHS * nsteps if k == GATE_BIAS else fit_atol
+        atol = 2 * LR * EPOCHS * -(-E // BS) if k == GATE_BIAS else fit_atol
         np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-4,
                                    atol=atol, err_msg=k)

@@ -46,6 +46,7 @@ from surel_plus_tpu.train.device import score_histogram as jax_histogram
 from surel_plus_tpu.train.device import trainer_from_keys as jax_trainer
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import make_keys_join
 from surel_plus_tpu_torch.spg import SpGKeys
 from surel_plus_tpu_torch.train import TrainConfig
@@ -201,16 +202,16 @@ def test_clip_adam_matches_optax(steps):
                                    rtol=1e-6, atol=1e-9, err_msg=k)
 
 
-@pytest.mark.parametrize("rows,cols", [(1, 7), (5, 8), (33, 4)])
+@pytest.mark.parametrize("rows,cols", [(1, 7), (5, 8), (33, 4), (6, 6)])
 def test_riffle_permutation_is_a_permutation(rows, cols):
-    gen = torch.Generator().manual_seed(rows)
-    perm = riffle_permutation(gen, rows, cols)
+    perm = riffle_permutation(prng.prng_key(rows), rows, cols)
     assert perm.shape == (rows, cols) and perm.dtype == torch.int64
     assert torch.equal(torch.sort(perm.reshape(-1)).values,
                        torch.arange(rows * cols))
-    again = riffle_permutation(torch.Generator().manual_seed(rows), rows,
-                               cols)
+    again = riffle_permutation(prng.prng_key(rows), rows, cols)
     assert torch.equal(perm, again)
+    want = np.asarray(jax_riffle(jax.random.PRNGKey(rows), rows, cols))
+    np.testing.assert_array_equal(perm.numpy(), want)
 
 
 def test_epoch_metrics_match_jax_on_ties():
@@ -240,9 +241,9 @@ def test_epoch_metrics_match_jax_on_ties():
 
 @pytest.fixture(scope="module", params=AGGRS)
 def jax_fit(sampled, request):
-    """JAX trainer_from_keys(...).fit over EPOCHS epochs of E queries, with
-    the aggregator, the parameters before and after and each epoch's
-    permutation."""
+    """JAX trainer_from_keys(...).fit over EPOCHS epochs of E queries from
+    the key PRNGKey(5), with the aggregator and the parameters before and
+    after."""
     nw, ns, spgk, tspgk = sampled
     aggrs = request.param
     rng = np.random.default_rng(33)
@@ -256,25 +257,21 @@ def jax_fit(sampled, request):
     params, _, losses, aucs = jtr.fit(params0, opt_state,
                                       jnp.asarray(edges),
                                       jnp.asarray(labels), key, EPOCHS)
-    nsteps = -(-E // BS)
-    perms = [torch.as_tensor(np.array(jax_riffle(
-        jax.random.split(k)[0], nsteps, BS)))
-        for k in jax.random.split(key, EPOCHS)]
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
     return (aggrs, edges, labels, flat(params0), flat(params),
-            np.asarray(losses), np.asarray(aucs), perms)
+            np.asarray(losses), np.asarray(aucs), prng.as_key(key))
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_fit_matches_jax(sampled, jax_fit, route):
     nw, ns, spgk, tspgk = sampled
-    aggrs, edges, labels, state0, want, losses, aucs, perms = jax_fit
+    aggrs, edges, labels, state0, want, losses, aucs, key = jax_fit
     net = Net(ns + 1, H, aggrs=aggrs, dropout=0.0,
               fused_hidden=ROUTES[route], device="cpu")
     net.load_state_dict(state0)
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS, lr=LR))
-    got_losses, got_aucs = tr.fit(edges, labels, EPOCHS,
-                                  torch.Generator(), perms=perms)
+    # JAX's key: the port draws JAX's batch order itself
+    got_losses, got_aucs = tr.fit(edges, labels, EPOCHS, key)
     assert net.training
     assert got_losses.shape == (EPOCHS,) and got_aucs.shape == (EPOCHS,)
     np.testing.assert_allclose(got_losses.numpy(), losses, rtol=1e-5)
@@ -293,8 +290,8 @@ def test_fit_matches_jax(sampled, jax_fit, route):
 
 
 def test_fit_draws_its_own_permutation_and_dropout(sampled):
-    """Without injected permutations the fit shuffles from the generator,
-    and dropout draws from it too: the same seed gives the same fit."""
+    """Without injected permutations the fit shuffles from its key, and
+    dropout draws from it too: the same key gives the same fit."""
     nw, ns, spgk, tspgk = sampled
     rng = np.random.default_rng(34)
     edges = torch.as_tensor(rng.integers(0, N, size=(2, E)))
@@ -304,8 +301,7 @@ def test_fit_draws_its_own_permutation_and_dropout(sampled):
         net = Net(ns + 1, H, dropout=0.5, device="cpu",
                   generator=torch.Generator().manual_seed(1))
         tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS))
-        losses, aucs = tr.fit(edges, labels, 2,
-                              torch.Generator().manual_seed(2))
+        losses, aucs = tr.fit(edges, labels, 2, prng.prng_key(2))
         assert torch.isfinite(losses).all()
         assert ((aucs >= 0) & (aucs <= 1)).all()
         runs.append((losses, net.state_dict()))
@@ -321,7 +317,7 @@ def test_init_redraws_weights_and_resets_adam(sampled):
     seeded = lambda: torch.Generator().manual_seed(7)
     net = Net(ns + 1, H, device="cpu", generator=seeded())
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS))
-    tr.fit(edges, torch.ones(E), 1, torch.Generator())
+    tr.fit(edges, torch.ones(E), 1, prng.prng_key(0))
     assert tr.optimizer.state
     tr.init(seeded())
     assert not tr.optimizer.state
