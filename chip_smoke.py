@@ -103,9 +103,19 @@ NVIDIA GPU. Run from the repository root:
    tensor rate (`k1_tc_ms`), beside the first version's fp32 bound; K1
    bwd's and K7 bwd's bounds also with their dU contraction at the TF32
    tensor rate; and prints the phase's peak device memory.
-3. Drives the serving path at the bench width: an RMAT graph of 250k
+3. Draws the weights from JAX's key tree on the card (`init_from_key`):
+   Net(96, bf16) mean, attn and lstm, HONet(96) and the LSTM's
+   torch_init uniform from prng_key(0), each against the port's CPU
+   init from the same key (the tests hold that to flax's `init`): every
+   xavier parameter's truncation uniforms bit for bit, every parameter
+   within 4 ulp, no xavier weight beyond 2.2737 of its sigma; per model
+   the bit-equal share, the largest |w| / sigma and the K8 launches of
+   the init (counted as the `init_from_key` path, one a drawn
+   parameter). Every model below is drawn so, each trainer's `init`
+   from a key.
+   Then drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
-   S'=3), `Net(96, mean, bfloat16)` from a seeded generator, `predict` on
+   S'=3), `Net(96, mean, bfloat16)` from prng_key(0), `predict` on
    32 x 4096 query edges, then the MRR of 4096 sources against 1000
    negatives each. Checks the sets' invariants, the fused route's logits
    against the plain route's (unfused, over the feature pairs) on one
@@ -117,29 +127,30 @@ NVIDIA GPU. Run from the repository root:
    labels, lr 1e-3, grad_clip 1.0, one cold 8-epoch fit (which must make
    no synchronizing CUDA call) and a timed one. Checks the fused route's
    parameter gradients against the plain route's on one batch at the
-   initial weights (fp32 within 1e-3, bf16 with all-one labels and bf16
-   with a random cotangent on the scorer's input within 5e-2, of each
-   tensor's largest gradient), the fit's losses and AUCs,
+   initial weights (fp32 with random labels within 1e-3, bf16 with
+   all-one labels and bf16 with a random cotangent on the scorer's input
+   within 5e-2, of each tensor's largest gradient; the two loss
+   gradients less the queries whose scorer relu decisions the routes
+   part within rounding of 0, at most 4 in fp32 and half the batch in
+   bf16, check_train_routes says why), the fit's losses and AUCs,
    that the parameters moved, and a few training steps on the card
    against the port's CPU path on 256 queries (fp32, dropout 0, the same
    permutation; parameters at rtol 1e-4, atol 1e-5). Profiles a few
    train steps.
    Then the attention path, bench.py:203-234 on the same sets:
-   `Net(96, attn, dropout 0.1, bfloat16)` from a seeded generator,
+   `Net(96, attn, dropout 0.1, bfloat16)` from prng_key(0),
    `predict` on the 32 x 4096 edges, a cold 4-epoch fit (no synchronizing
    call), a timed 4-epoch fit, a timed `predict`, and the same route,
-   gradient and card-vs-CPU checks, except that the bf16 gradient with
-   all-one labels is printed but not held (check_train_routes says
-   why). The attention gate's bias has a gradient of 0 up to rounding
+   gradient and card-vs-CPU checks. The attention gate's bias has a
+   gradient of 0 up to rounding
    (the softmax does not move when all gates of a set do), so that
    tensor is held to absolute bounds (GATE_BIAS_*). Profiles a few
    attention predict batches and train steps.
    Then the LSTM paths, bench.py:206-231 on the same sets:
-   `Net(96, lstm, dropout 0.1, bfloat16)` from a seeded generator, a
+   `Net(96, lstm, dropout 0.1, bfloat16)` from prng_key(0), a
    cold and a timed `predict` on the 32 x 4096 edges, the route checks,
    a cold 4-epoch fit (no synchronizing call), a timed 4-epoch fit, a
-   timed `predict`, the same route, gradient (the bf16 gradient with
-   all-one labels held, unlike attn's) and card-vs-CPU checks, and
+   timed `predict`, the same route, gradient and card-vs-CPU checks, and
    profiles of a few predict batches and train steps.
    Then the encoding-table path on the same graph: `sample_gsets_device`
    (M=100, S'=3) cold (a fresh row shuffle) and warm with the keys
@@ -185,8 +196,8 @@ NVIDIA GPU. Run from the repository root:
    pairs, its 75.5 GB stash split into row groups), each with its peak
    device memory (below the card's) and the rows of a stash group.
    Then HONet, the hyperedge path (bench.py:274-307, `honet_path`), on
-   the main path's sets: `HONet(96, dropout 0.1)` from a seeded
-   generator through `trainer_from_keys` over the hyperedge join
+   the main path's sets: `HONet(96, dropout 0.1)` from prng_key(0)
+   through `trainer_from_keys` over the hyperedge join
    (`make_keys_hjoin`, its feature pairs left out on the fused route),
    `predict` over 65,536 random hyperedges, the fused route (K1 as two
    Q=2 launches over the halves of the join's [B, 4L] cross plane)
@@ -343,6 +354,7 @@ from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.graph.datasets import synthetic_hetero_data
 from surel_plus_tpu_torch.models import HONet, Net
 from surel_plus_tpu_torch.models.honet import group_set_sums
+from surel_plus_tpu_torch.models.layers import LSTMAggregation
 from surel_plus_tpu_torch.ops import join as join_ops
 from surel_plus_tpu_torch.ops import legacy
 from surel_plus_tpu_torch.ops import ppr as ppr_ops
@@ -410,6 +422,12 @@ K1B_TOL = 1e-4          # of each dU row's largest magnitude
 ROUTE_TOL = 5e-2
 GRAD_ROUTE_TOL = {"float32": 1e-3, "bfloat16": ROUTE_TOL}   # of tensor max
 CPU_TOL = 1e-4
+# `held_route_grads`: the most queries of a batch of BATCH whose scorer
+# relu decisions two routes may part, and the band of 0, as a share of
+# the largest pre-activation, in which a parted decision counts as
+# rounding's (the routes' logits limits)
+PARTED_QUERIES = {"float32": 4, "bfloat16": BATCH // 2}
+PARTED_BAND = {"float32": CPU_TOL, "bfloat16": ROUTE_TOL}
 CPU_TRAIN_RTOL, CPU_TRAIN_ATOL = 1e-4, 1e-5
 TIMED_ITERS = 20
 # the device wait before timed launches: at most this long, in cycles of a
@@ -606,7 +624,8 @@ KERNELS = {
         replaces="surel_plus_tpu/ops/walk.py:183"),
 }
 # the kernels each main path must launch
-PATHS = {"serve": ("hidden_sum_fwd", "merge_pairs", "threefry_bits"),
+PATHS = {"init_from_key": ("threefry_bits",),
+         "serve": ("hidden_sum_fwd", "merge_pairs", "threefry_bits"),
          "train": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs",
                    "threefry_bits"),
          "attn_serve": ("attn_pool_fwd", "merge_pairs"),
@@ -2666,7 +2685,8 @@ def feature_route(spgk, rows, kcross_al, gen):
     the hidden layer over them and the pair sum, in bf16 (the bench
     Net's dtype), with W1 and b1 that require a gradient. Returns the
     route and its backward for a cotangent g."""
-    pe = make_net("mean", dtype="bfloat16", generator=gen).pe_embedding
+    pe = make_net("mean", dtype="bfloat16",
+                  key=prng.prng_key(2)).pe_embedding
     hi, lo = spgk.khi[rows], spgk.klo[rows]
     params = list(pe.fc0.parameters())
 
@@ -2914,6 +2934,83 @@ def threefry_vs_plain(g) -> dict:
                 bound=(t[by] * 1e3, by))
 
 
+INIT_ULP = 4                         # the card's weights against the CPU's
+# the largest |w| / sigma of flax's xavier_normal: 2 / 0.87962566
+TRUNC_SIGMAS = 2.2737
+
+
+def float_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two float32 tensors in units in the last
+    place (the monotone integer order of their bit patterns)."""
+    def order(x):
+        i = x.detach().float().cpu().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((order(a) - order(b)).abs().max())
+
+
+def init_from_key(label, launches) -> None:
+    """The weights' initialisation from JAX's key tree on the card:
+    Net(96, bf16) mean, attn and lstm, HONet(96) and the LSTM's
+    torch_init, from prng_key(0), each against the port's CPU init from
+    the same key (the tests hold that to flax's `init`): every xavier
+    parameter's truncation uniforms (`prng.uniform` at its key and the
+    truncation's bounds) bit for bit, every parameter within INIT_ULP,
+    every xavier weight within TRUNC_SIGMAS of its sigma; per model the
+    bit-equal share, the largest |w| / sigma and the K8 launches the init
+    takes (one a drawn parameter). The keys, shapes and bounds are the
+    models' own `draws()`, the list `reset_parameters` draws."""
+    key = prng.prng_key(0)
+
+    def lstm_torch_init(device):
+        m = LSTMAggregation(HIDDEN, torch_init=True).to(device)
+        m.reset_parameters(key)
+        return m
+
+    models = {f"Net(96, {x}, bf16)": functools.partial(
+        make_net, x, dtype="bfloat16", key=key) for x in ("mean", "attn",
+                                                         "lstm")}
+    models["HONet(96)"] = functools.partial(HONet, NUM_STEPS + 1, HIDDEN,
+                                            key=key)
+    models["LSTMAggregation(96, torch_init)"] = lstm_torch_init
+    zero_counts()
+    t0 = time.perf_counter()
+    cards, k8 = {}, {}
+    for name, make in models.items():
+        before = threefry.KERNEL.launches
+        cards[name] = make(device=DEVICE)
+        sync()
+        k8[name] = threefry.KERNEL.launches - before
+    # the launches of the inits alone, before the comparisons' draws
+    launches["init_from_key"] = counts()
+    say(f"init_from_key: the {len(models)} inits on the card "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, make in models.items():
+        card, cpu = cards[name], make(device="cpu")
+        got, want = card.state_dict(), cpu.state_dict()
+        require(sorted(got) == sorted(want), f"{name}: trees differ")
+        ulp = max(float_ulps(got[k], want[k]) for k in want)
+        equal = sum(int((got[k].cpu() == want[k]).sum()) for k in want)
+        total = sum(v.numel() for v in want.values())
+        draws = [d for d in card.draws() if d.init != "zeros"]
+        uniform_same = all(torch.equal(
+            prng.uniform(d.key(key), d.shape, DEVICE, *d.bounds()).cpu(),
+            prng.uniform(d.key(key), d.shape, "cpu", *d.bounds()))
+            for d in draws)
+        top = max((float(d.param.detach().abs().max())
+                   / (2.0 / sum(d.shape)) ** 0.5
+                   for d in draws if d.init == "xavier"), default=0.0)
+        say(f"init_from_key {name}: {total} parameters, bit-equal to the "
+            f"CPU's {equal / total:.6f}, at most {ulp} ulp; uniforms bit "
+            f"for bit {uniform_same}; largest xavier |w| / sigma "
+            f"{top:.4f}; K8 launches {k8[name]}")
+        require(uniform_same, f"{name}: the card's uniforms differ")
+        require(ulp <= INIT_ULP, f"{name}: {ulp} ulp from the CPU's init")
+        require(top <= TRUNC_SIGMAS, f"{name}: a weight at {top} sigma")
+        require(k8[name] == len(draws), f"{name}: {k8[name]} K8 launches "
+                                        f"for {len(draws)} drawn parameters")
+    say(f"init_from_key: {time.perf_counter() - t0:.2f} s [{label}]")
+
+
 def kernels_vs_plain(g, gsets):
     gen = torch.Generator().manual_seed(1)
     stats = {"threefry_bits": threefry_vs_plain(g)}
@@ -3006,10 +3103,11 @@ def check_sets(spgk: SpGKeys, seeds: torch.Tensor) -> None:
 
 
 def make_net(aggrs: str, device=None, input_dim=NUM_STEPS + 1,
-             **kw) -> Net:
+             key=prng.prng_key(0), **kw) -> Net:
     """A Net at the bench width (4 encoding columns, or `input_dim`;
-    hidden 96), on the card unless `device` says otherwise."""
-    return Net(input_dim, HIDDEN, aggrs=aggrs,
+    hidden 96), on the card unless `device` says otherwise, drawn from
+    `key` (prng_key(0) unless given)."""
+    return Net(input_dim, HIDDEN, aggrs=aggrs, key=key,
                device=DEVICE if device is None else device, **kw)
 
 
@@ -3060,7 +3158,7 @@ def serve_path(g, label):
     check_sets(spgk, torch.arange(g.num_nodes, device=DEVICE))
 
     net = make_net("mean", dropout=0.1, dtype="bfloat16",
-                   generator=torch.Generator().manual_seed(0))
+                   key=prng.prng_key(0))
     trainer = trainer_from_keys(net, spgk, TrainConfig(batch_size=BATCH))
     rng = np.random.default_rng(0)
     edges = torch.as_tensor(rng.integers(
@@ -3229,7 +3327,7 @@ def train_setup(sets, aggrs: str, fused_hidden=None):
     net = make_net(aggrs, dropout=0.1, dtype="bfloat16",
                    fused_hidden=fused_hidden,
                    input_dim=1 if scalar_sets(sets) else NUM_STEPS + 1,
-                   generator=torch.Generator().manual_seed(0))
+                   key=prng.prng_key(0))
     trainer = trainer_for(net, sets, TrainConfig(
         batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
     rng = np.random.default_rng(0)
@@ -3289,14 +3387,16 @@ def fit_timed(trainer, edges, labels, key, epochs, label) -> None:
 
 
 def route_grads(sets, net, be, dtype, fused, labels=None, cot=None,
-                pairs=True):
+                pairs=True, weights=None, seen=None):
     """(loss, {name: gradient}) of one batch `be` on one route of a copy
     of `net` over `sets` (SpGKeys or SpGDevice), joined and fed as its
     trainer does, with a fixed dropout mask: of the BCE loss with
-    `labels`, or, with `cot` [B, 2 H], of sum(cot * the scorer's input),
-    which leaves the scorer (MergeLayer) out of the gradient. The unfused
-    route over SpGKeys reads the feature pairs, or with `pairs` False the
-    aligned keys (K7)."""
+    `labels` (each query weighted by `weights`, or 1), or, with `cot`
+    [B, 2 H], of sum(cot * the scorer's input), which leaves the scorer
+    (MergeLayer) out of the gradient. The unfused route over SpGKeys
+    reads the feature pairs, or with `pairs` False the aligned keys (K7).
+    A list `seen` receives the scorer's first-layer pre-activations
+    [B, H] and the logits [B], in float32."""
     m = make_net(net.aggrs, dropout=0.1, dtype=dtype, fused_hidden=fused,
                  input_dim=in_dim(net))
     m.load_state_dict(net.state_dict())
@@ -3304,19 +3404,71 @@ def route_grads(sets, net, be, dtype, fused, labels=None, cot=None,
     trainer = trainer_for(m, sets, TrainConfig(batch_size=BATCH),
                           join_factory=pair_join if keys_pairs else None)
     joined, _ = trainer._batch(be)
-    seen = []
+    inputs = []
     hook = m.affinity_score.register_forward_pre_hook(
-        lambda mod, args: seen.append(torch.cat(args[0], dim=-1)))
+        lambda mod, args: inputs.append(torch.cat(args[0], dim=-1)))
     logits = m.train()(joined, key=prng.prng_key(3), **trainer.train_kw)
     hook.remove()
+    if seen is not None:
+        fc0 = m.affinity_score.fc0
+        with torch.no_grad():
+            seen.append((torch.nn.functional.linear(
+                inputs[0].to(m.dtype), fc0.weight.to(m.dtype),
+                fc0.bias.to(m.dtype)).float(), logits.detach().float()))
     if cot is None:
-        loss = batch_loss(logits, labels,
-                          torch.ones(be.shape[1], device=DEVICE))
+        loss = batch_loss(logits, labels, torch.ones(
+            be.shape[1], device=DEVICE) if weights is None else weights)
     else:
-        loss = (seen[0] * cot).sum() / be.shape[1]
+        loss = (inputs[0] * cot).sum() / be.shape[1]
     loss.backward()
     return float(loss.detach()), {k: p.grad for k, p in m.named_parameters()
                                   if p.grad is not None}
+
+
+def held_route_grads(sets, net, be, dtype, labels, pairs=True):
+    """The fused and the plain route's (loss, gradients) in `dtype` with
+    `labels`, as `route_grads`, less the queries whose scorer relu
+    decisions the two routes part (weight 0 in both routes). A query's
+    gradient carries a decision's whole term, so one parted decision
+    moves a gradient that the labels cancel, or a unit whose
+    pre-activations crowd 0, by percents: flax's weights from prng_key(0)
+    on an H100 (`results/torch_h100/init_flip_probe.py`): the lstm Net's
+    fp32 routes part one decision, at 6.5e-11 against 0.111 at most, and
+    it moves the scorer's bias gradient by 1.3% (3.6e-6 without it); the
+    mean Net's bf16 routes part 14% of one unit's decisions and move its
+    all-one-labels gradient by 22% (`init_route_probe.py`). Required, so
+    that a fault cannot hide among those queries: every parted
+    pre-activation within PARTED_BAND[dtype] of the largest |pre| of 0
+    on both routes, those queries' logits within the same share (the
+    routes' logits limit) of each other, and at most
+    PARTED_QUERIES[dtype] of them. `results/torch_h100/
+    init_parted_probe.py` runs this at keys 0-3."""
+    seen = []
+    runs = [route_grads(sets, net, be, dtype, fused, labels=labels,
+                        pairs=pairs, seen=seen) for fused in (True, False)]
+    (pf, lf), (pp, lp) = seen
+    part = (pf > 0) != (pp > 0)
+    queries = part.any(dim=1)
+    n, tol = int(queries.sum()), PARTED_BAND[dtype]
+    top = float(torch.maximum(pf.abs().max(), pp.abs().max()))
+    worst = float(torch.maximum(pf[part].abs().max(), pp[part].abs().max())
+                  ) if n else 0.0
+    logits = float((lf[queries] - lp[queries]).abs().max()) if n else 0.0
+    ok = (worst <= tol * top and n <= PARTED_QUERIES[dtype]
+          and torch.allclose(lf[queries], lp[queries], rtol=tol, atol=tol))
+    say(f"the {dtype} routes ({net.aggrs}) part {int(part.sum())} of the "
+        f"scorer's relu decisions, in {n} queries (at most "
+        f"{PARTED_QUERIES[dtype]}); largest parted |pre-activation| "
+        f"{worst:.3e} against {top:.3e} at most (band {tol}); those "
+        f"queries' logits apart by {logits:.3e} at most (rtol = atol = "
+        f"{tol}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"the {dtype} routes ({net.aggrs}) part the scorer's relu "
+                f"decisions beyond rounding ({n} queries)")
+    if not n:
+        return runs
+    keep = (~queries).float()
+    return [route_grads(sets, net, be, dtype, fused, labels=labels,
+                        pairs=pairs, weights=keep) for fused in (True, False)]
 
 
 def rel_err(x, y) -> float:
@@ -3364,21 +3516,15 @@ def check_train_routes(sets, net, edges, labels) -> None:
     cancel, and the two bf16 routes round the logits apart by about
     1e-3, systematically, which is no longer small against that sum; so
     bfloat16 uses labels of all ones, a cotangent that does not cancel
-    across the batch.
-
-    For the attention Net that bf16 loss gradient is printed but not
-    held: the bf16 scorer's relu decisions flip between the two routes'
-    roundings. On an H100 at the bench batch, `affinity_score.fc0.bias`,
-    whose gradient depends on the route only through those decisions and
-    the logits, moved by 6.4% of its largest entry where the logits moved
-    by 1.2% of theirs, and the plain route was the closer to the fp32
-    gradient; both distances are printed. The LSTM Net's is held: its
-    routes' logits differ by about 3e-4 in bf16, against 2.4e-3 for the
-    attention Net's, and on an H100 at the bench batch its worst tensor
-    (`aggr.wh`) moved by 1.6% of its largest entry. What is also held in
-    bf16, for every aggregator, is the gradient of a fixed random
-    cotangent on the scorer's input: every parameter upstream of the
-    scorer, through the kernels, without the scorer's relus.
+    across the batch. Both leave out the queries whose scorer relu
+    decisions the two routes part (`held_route_grads` says why and
+    bounds them): in bf16 they part where a unit's pre-activations crowd
+    0, and at flax's initial weights the mean Net's bf16 plain route then
+    lies further from the float32 gradient than the fused one does (both
+    distances are printed, over every query). What is also held in bf16
+    for every aggregator is the gradient of a fixed random cotangent on
+    the scorer's input: every parameter upstream of the scorer, through
+    the kernels, without the scorer's relus.
 
     The attention gate's bias has a gradient of 0 up to rounding (a shift
     of every gate of a set leaves the softmax as it is): a share of its
@@ -3386,26 +3532,26 @@ def check_train_routes(sets, net, edges, labels) -> None:
     GATE_BIAS_GRAD_ATOL instead."""
     be = edges[:, :BATCH]
     ones = torch.ones(BATCH, device=DEVICE)
-    grads = lambda dtype, **kw: [route_grads(sets, net, be, dtype, fused,
-                                             **kw) for fused in (True, False)]
     tol32, tol16 = GRAD_ROUTE_TOL["float32"], GRAD_ROUTE_TOL["bfloat16"]
-    compare_grads("float32, random labels", net,
-                  grads("float32", labels=labels[:BATCH]), tol32)
-    pair = grads("bfloat16", labels=ones)
-    compare_grads("bfloat16, all-one labels", net, pair, tol16,
-                  held=net.aggrs != "attn")
-    if net.aggrs == "attn":
-        ref = route_grads(sets, net, be, "float32", False, labels=ones)[1]
-        dist = {k: (rel_err(pair[0][1][k], ref[k]),
-                    rel_err(pair[1][1][k], ref[k]))
-                for k in ref if k != GATE_BIAS}
-        dist = {k: (float(f"{a:.2e}"), float(f"{b:.2e}"))
-                for k, (a, b) in dist.items()}
-        say(f"  distance to the fp32 plain gradient (fused, plain): {dist}")
+    compare_grads("float32, random labels", net, held_route_grads(
+        sets, net, be, "float32", labels[:BATCH]), tol32)
+    compare_grads("bfloat16, all-one labels", net, held_route_grads(
+        sets, net, be, "bfloat16", ones), tol16)
+    ref = route_grads(sets, net, be, "float32", False, labels=ones)[1]
+    dist = {}
+    for fused in (True, False):
+        got = route_grads(sets, net, be, "bfloat16", fused, labels=ones)[1]
+        for k in ref:
+            if k != GATE_BIAS:
+                dist.setdefault(k, []).append(
+                    float(f"{rel_err(got[k], ref[k]):.2e}"))
+    say(f"  every query's bf16 distance to the fp32 plain gradient "
+        f"(fused, plain): { {k: tuple(v) for k, v in dist.items()} }")
     cot = torch.randn(BATCH, 2 * HIDDEN,
                       generator=torch.Generator().manual_seed(5)).to(DEVICE)
     compare_grads("bfloat16, random cotangent on the scorer's input", net,
-                  grads("bfloat16", cot=cot), tol16)
+                  [route_grads(sets, net, be, "bfloat16", fused, cot=cot)
+                   for fused in (True, False)], tol16)
 
 
 def check_train_cpu(sets, net, edges, labels, fused_hidden=None) -> None:
@@ -3562,7 +3708,7 @@ def table_path(g, spgk: SpGKeys, edges, labels, label,
     `launches`. Returns the table sets."""
     dev = table_sets(g, spgk, label)
     nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
-                        generator=torch.Generator().manual_seed(0))
+                        key=prng.prng_key(0))
             for a in ("mean", "attn", "lstm")}
     serve = {a: DeviceTrainer(n, dev, TrainConfig(batch_size=BATCH))
              for a, n in nets.items()}
@@ -3613,7 +3759,7 @@ def keys_pallas_path(spgk: SpGKeys, edges, label, launches, gsets) -> None:
     pallas = lambda m, s: make_keys_join(m, s, impl="pallas")
     cfg = TrainConfig(batch_size=BATCH)
     nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
-                        generator=torch.Generator().manual_seed(0))
+                        key=prng.prng_key(0))
             for a in ("mean", "lstm")}
     serve = {a: trainer_from_keys(n, spgk, cfg, join_factory=pallas)
              for a, n in nets.items()}
@@ -3658,7 +3804,7 @@ def keys_pallas_path(spgk: SpGKeys, edges, label, launches, gsets) -> None:
             and torch.equal(jp.eidx, jm.eidx)
             and torch.equal(jp.mask, jm.mask))
     gnet = Net(GEN_STEPS + 1, HIDDEN, aggrs="lstm", dropout=0.1,
-               dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+               dtype="bfloat16", key=prng.prng_key(0),
                device=DEVICE)
     n = grows.shape[1]
     gtrainer = trainer_from_keys(gnet, gspgk, TrainConfig(batch_size=n),
@@ -3691,7 +3837,7 @@ def wide_lstm_fits(spw: SpGKeys, gsets, label) -> None:
             (f"general M={GEN_WALKS} S'={GEN_STEPS}", gsets[0], GEN_STEPS,
              2)):
         net = Net(nsteps + 1, HIDDEN, aggrs="lstm", dropout=0.1,
-                  dtype="bfloat16", generator=torch.Generator().manual_seed(0),
+                  dtype="bfloat16", key=prng.prng_key(0),
                   device=DEVICE)
         trainer = trainer_from_keys(net, sets, TrainConfig(
             batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP))
@@ -3775,7 +3921,7 @@ def unfused_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
     The launch counts go into `launches`."""
     cfg = TrainConfig(batch_size=BATCH)
     nets = {a: make_net(a, dropout=0.1, dtype="bfloat16", fused_hidden=False,
-                        generator=torch.Generator().manual_seed(0))
+                        key=prng.prng_key(0))
             for a in ("mean", "attn", "lstm")}
     serve = {a: trainer_from_keys(n, spgk, cfg) for a, n in nets.items()}
     zero_counts()
@@ -3795,8 +3941,8 @@ def unfused_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
         trainer, _, _, key = train_setup(spgk, aggrs, fused_hidden=False)
         m = trainer.model
         be = edges[:, :BATCH]
-        pair = [route_grads(spgk, m, be, "float32", fused, pairs=False,
-                            labels=labels[:BATCH]) for fused in (True, False)]
+        pair = held_route_grads(spgk, m, be, "float32", labels[:BATCH],
+                                pairs=False)
         compare_grads("float32, random labels, the plain route on K7 (the "
                       "hidden rows from the keys)", m, pair,
                       GRAD_ROUTE_TOL["float32"])
@@ -4176,10 +4322,12 @@ def cli_kernels(row, trainer, edges) -> None:
 
 
 # ------------------------------------------------------------ HONet
-def make_honet(sets: SpGKeys, device=None, **kw) -> HONet:
+def make_honet(sets: SpGKeys, device=None, key=prng.prng_key(0),
+               **kw) -> HONet:
     """HONet at the bench width (hidden 96) over `sets`' encodings, on the
-    card unless `device` says otherwise."""
-    return HONet(sets.num_steps + 1, HIDDEN,
+    card unless `device` says otherwise, drawn from `key` (prng_key(0)
+    unless given)."""
+    return HONet(sets.num_steps + 1, HIDDEN, key=key,
                  device=DEVICE if device is None else device, **kw)
 
 
@@ -4196,7 +4344,7 @@ def honet_setup(sets: SpGKeys, batch: int, n_edges: int, seed: int = 0):
     random 0/1 labels, and the key of the permutations and dropout
     masks."""
     net = make_honet(sets, dropout=0.1,
-                     generator=torch.Generator().manual_seed(0))
+                     key=prng.prng_key(0))
     trainer = honet_trainer(net, sets, TrainConfig(
         batch_size=batch, lr=LR, grad_clip=GRAD_CLIP))
     rng = np.random.default_rng(seed)
@@ -4756,7 +4904,7 @@ def balanced_path(spgk: SpGKeys, edges, labels, label, launches) -> None:
                            | {bucket}))
     cfg = TrainConfig(batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP)
     nets = {a: make_net(a, dropout=0.1, dtype="bfloat16",
-                        generator=torch.Generator().manual_seed(0))
+                        key=prng.prng_key(0))
             for a in ("mean", "attn")}
     trainers = {a: trainer_from_keys(n, spgk, cfg) for a, n in nets.items()}
     groups = trainers["mean"].partition_by_width(e_h, classes)
@@ -4866,12 +5014,12 @@ def host_engine_path(dev: SpGDevice, edges, labels, label, launches) -> None:
     e_h, l_h = edges.cpu().numpy(), labels.cpu().numpy()
     cfg = TrainConfig(batch_size=BATCH, lr=LR, grad_clip=GRAD_CLIP)
     net = make_net("mean", dropout=0.1,
-                   generator=torch.Generator().manual_seed(0))
+                   key=prng.prng_key(0))
     state = {k: v.clone() for k, v in net.state_dict().items()}
     host = LinkPredictor(net, dev, cfg, device=DEVICE)
     host.train_epoch(e_h[:, :BATCH], l_h[:BATCH], np.random.default_rng(1),
                      prng.prng_key(1))
-    host.init(torch.Generator().manual_seed(0))     # the weights of `state`
+    host.init(prng.prng_key(0))     # the weights of `state`
     zero_counts()
     sync()
     t0 = time.perf_counter()
@@ -5096,7 +5244,7 @@ def multi_device_rank(ctx) -> dict:
     def net(aggrs="mean", dtype="float32", dropout=0.0, cls=Net):
         kw = dict(aggrs=aggrs, dtype=dtype) if cls is Net else {}
         m = cls(S + 1, H, dropout=dropout, key_layout=(M, S),
-                generator=torch.Generator().manual_seed(0), device=dev,
+                key=prng.prng_key(0), device=dev,
                 **kw)
         return m, torch.optim.Adam(m.parameters(), lr=cfg["lr"], eps=1e-8)
 
@@ -5340,6 +5488,7 @@ def main() -> int:
 
     # phase 3: the main paths, counting launches
     launches = {}
+    init_from_key(label, launches)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     spgk, net, edges = serve_path(g, label)

@@ -5,7 +5,8 @@
 # through the port's higher-order CLI. Run from anywhere:
 #
 #   bash results/torch_h100/run_matrix.sh [ROW[@SEED] ...]  (default: the 7
-#   rows of the JAX matrix; collabs_mean_ppr and the _x2 rows by name)
+#   rows of the JAX matrix; collabs_mean_ppr, the _x2 and the later
+#   re-runs' rows by name)
 #
 # Writes, per row, results/torch_h100/<row>.out (stdout: the best (valid,
 # test) per run), <row>.err (stderr) and <row>.log (the run's log file,
@@ -52,10 +53,21 @@ declare -A ARGS=(
   [collabs_attn_threefry]="--dataset fixture-collabs --aggrs attn --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 6 --batch_size 4096"
   [cites_mean_threefry]="--dataset fixture-cites --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 16 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096"
   [tags_honet_threefry]="--dataset npz:surel_plus_tpu/data/fixtures/tags_fixture.npz --num_walks 50 --num_steps 3 --k 10 --epochs 12 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --valid_perc 25"
+  # the seven rows re-run once the port drew its initial weights as
+  # flax's init does from JAX's key tree (--seed 0: the weights JAX's rows
+  # start from), named only on the command line: keyinit
+  [collabs_mean_keyinit]="--dataset fixture-collabs --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --seed 0"
+  [collabs_attn_keyinit]="--dataset fixture-collabs --aggrs attn --num_walks 50 --num_steps 3 --k 10 --epochs 20 --eval_steps 2 --early_stop 10 --runs 6 --batch_size 4096 --seed 0"
+  [collabs_lstm_keyinit]="--dataset fixture-collabs --aggrs lstm --num_walks 20 --num_steps 3 --k 5 --epochs 12 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 1024 --seed 0"
+  [collab_mean_keyinit]="--dataset fixture-collab --aggrs mean --num_walks 200 --num_steps 3 --k 10 --epochs 30 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --seed 0"
+  [collab_attn_keyinit]="--dataset fixture-collab --aggrs attn --num_walks 200 --num_steps 3 --k 10 --epochs 30 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --seed 0"
+  [cites_mean_keyinit]="--dataset fixture-cites --aggrs mean --num_walks 50 --num_steps 3 --k 10 --epochs 16 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --seed 0"
+  [tags_honet_keyinit]="--dataset npz:surel_plus_tpu/data/fixtures/tags_fixture.npz --num_walks 50 --num_steps 3 --k 10 --epochs 12 --eval_steps 2 --early_stop 10 --runs 3 --batch_size 4096 --valid_perc 25 --seed 0"
 )
 # the CLI of each row: link prediction, or higher-order prediction
 declare -A CLI=([tags_honet]=surel_plus_tpu_torch.cli.main_horder
-                [tags_honet_threefry]=surel_plus_tpu_torch.cli.main_horder)
+                [tags_honet_threefry]=surel_plus_tpu_torch.cli.main_horder
+                [tags_honet_keyinit]=surel_plus_tpu_torch.cli.main_horder)
 ROWS=("$@")
 [ ${#ROWS[@]} -eq 0 ] && ROWS=(collabs_mean collabs_attn collabs_lstm collab_mean collab_attn cites_mean tags_honet)
 

@@ -108,10 +108,10 @@ def main():
             for run in range(args.runs):
                 net = Net(cfg.num_steps, cfg.hidden_channels,
                           dropout=cfg.dropout, aggrs=cfg.aggrs,
-                          dtype="bfloat16", device="cpu")
+                          dtype="bfloat16", key=None, device="cpu")
                 trainer = trainer_from_keys(net, xk, tcfg)
                 scorer = trainer_from_keys(net, zk, tcfg)
-                trainer.init(torch.Generator().manual_seed(run))
+                trainer.init(prng_key(run))
                 trainer.fit(edges, labels, args.epochs,
                             prng_key(1000 + run))
                 res.append(100 * test_metric(scorer, inf_edge,

@@ -14,7 +14,8 @@ The sets, by `--sencoder`: LP, the landing-count sets of random walks;
 PPR, SPD or DEG, the top-k PPR sets of the host push with their scalar
 encoding (`_scalar_pipeline`; `--save_ppr` / `--load_ppr` keep the
 inference graph's matrix in `{dataset}_z_{alpha}_{topk}_{eps}.npz`).
-The engines, by `--engine`: device (and auto), `DeviceTrainer.fit`
+The engines, by `--engine` (auto: device on the card, host on the CPU,
+as the JAX CLI picks by its backend): device, `DeviceTrainer.fit`
 between `evaluate_device` calls, the Net in bfloat16, over packed-key
 sets (LP) or ScalarSpG (the scalar encoders); `--balance_widths`
 trains with `fit_balanced` over the given width classes, completed by
@@ -30,10 +31,9 @@ Usage:
 
 It runs on the CUDA device. `SUREL_PLATFORM=cpu` runs it on the CPU, the
 kernels' plain versions in their place; without that variable and with no
-CUDA device it raises. The JAX package's `--engine auto` takes its host
-engine on a CPU backend; here `--engine auto` is the device engine on
-every device, so on the CPU it runs the device engine's code on CPU
-tensors.
+CUDA device it raises. `--engine auto` takes the host engine on the CPU,
+as the JAX package's does on a CPU backend; `--engine device` runs the
+device engine's code on CPU tensors.
 
 Checkpoints (`utils/checkpoint.py`), at the JAX CLI's moments: before
 each evaluation `{log_dir}/{dataset}/model/latest_{run}` (parameters,
@@ -52,8 +52,9 @@ The draws are the JAX CLI's: the sets from `--seed`'s key tree
 (`ops/sampler.py`), run r's epochs from `prng_key(seed + 1000 + r)`,
 split once an evaluation block (`key, sub = split(key)`, sub the block's
 `fit` key, or split again into one dropout key an epoch on the host
-engine). Only the weights' initialisation keeps a torch generator
-(seeded `seed + r`): flax's initialisers do not carry over bit for bit.
+engine). Run r's weights are flax's `init(prng_key(seed + r))` of the
+JAX Net (`trainer.init`), so one seed starts both CLIs from the same
+weights.
 """
 
 from __future__ import annotations
@@ -242,6 +243,14 @@ def node_features(cfg: ExperimentConfig, ds):
     return feature
 
 
+def device_engine(engine: str, device: torch.device) -> bool:
+    """Whether `--engine` runs the device engine on `device`: "device"
+    does, "auto" does on the card and not on the CPU (the JAX CLI's
+    choice on a CPU backend)."""
+    return engine == "device" or (engine == "auto"
+                                  and torch.device(device).type != "cpu")
+
+
 def run_experiment(cfg: ExperimentConfig, logger=None,
                    device="cuda") -> Dict:
     """Returns {'best': [(valid, test) per run, None for a resumed run
@@ -274,16 +283,17 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                        epochs=cfg.epochs, eval_steps=cfg.eval_steps,
                        early_stop=cfg.early_stop, seed=cfg.seed)
     bucket = cfg.bucket if cfg.bucket and cfg.bucket > 0 else None
-    use_device_engine = cfg.engine in ("auto", "device")
+    use_device_engine = device_engine(cfg.engine, device)
     scalar = cfg.sencoder != "LP"
     fused = {"auto": None, "on": True, "off": False}[cfg.fused_hidden]
-    # the device engine computes in bfloat16, the host engine in float32
+    # the device engine computes in bfloat16, the host engine in float32;
+    # undrawn: each run's `trainer.init` draws the weights
     model = Net(input_dim=1 if scalar else cfg.num_steps,
                 hidden_dim=cfg.hidden_channels, out_dim=1, x_dim=x_dim,
                 dropout=cfg.dropout, use_feature=cfg.use_raw,
                 aggrs=cfg.aggrs,
                 dtype="bfloat16" if use_device_engine else "float32",
-                fused_hidden=fused, device=device)
+                fused_hidden=fused, key=None, device=device)
     feat_dev = (None if feature is None else
                 torch.as_tensor(feature, dtype=torch.float32).to(device))
     seeds = lambda G: np.arange(G.num_nodes, dtype=np.int32)
@@ -365,9 +375,8 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     stamp = time.strftime("%m%d%y_%H%M%S")
     model_dir = f"{cfg.log_dir}/{cfg.dataset}/model"
     for run in range(cfg.runs):
-        # the weights from the run's own generator; the epochs' draws from
-        # the JAX CLI's key tree
-        trainer.init(torch.Generator().manual_seed(cfg.seed + run))
+        # the weights and the epochs' draws from the JAX CLI's key tree
+        trainer.init(prng.prng_key(cfg.seed + run))
         key = prng.prng_key(cfg.seed + 1000 + run)
         epoch = 0
         if cfg.resume and run == 0:

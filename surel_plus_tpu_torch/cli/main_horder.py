@@ -9,7 +9,8 @@ graph, then per run trains between evaluations (MRR), stops early on the
 validation MRR (`ResultLogger`) and logs each run's statistics. The epoch
 blocks are the JAX CLI's: epoch 0 alone, then `eval_steps` epochs a block
 (the last one shorter), an evaluation after each block. The engines, by
-`--engine`: device (and auto), packed-key sets, `DeviceTrainer.fit` over
+`--engine` (auto: device on the card, host on the CPU, as the JAX CLI
+picks by its backend): device, packed-key sets, `DeviceTrainer.fit` over
 the hyperedge keys join (`make_keys_hjoin`) and `evaluate_device`; host,
 encoding-table sets (`subg_matrix`), `LinkPredictor` over
 `hgather_join` (its epochs ordered by the seed's numpy Generator) and
@@ -34,8 +35,8 @@ evaluates once and returns {'results': ...}.
 `--resume` is ignored, as the JAX package's higher-order CLI ignores it
 (it has no mid-training resume). The draws are the JAX CLI's: the sets
 from `--seed`'s key tree, run r's epochs from `prng_key(seed + 1000 +
-r)`, split once an evaluation block; the weights' initialisation keeps
-a torch generator (seeded `seed + r`).
+r)`, split once an evaluation block, run r's weights from
+`prng_key(seed + r)` (flax's `init` of the JAX HONet).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from surel_plus_tpu_torch.cli.main import platform_device
+from surel_plus_tpu_torch.cli.main import device_engine, platform_device
 from surel_plus_tpu_torch.graph.datasets import (
     DEHyperDataset,
     synthetic_hyper_data,
@@ -128,13 +129,15 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
 
     prep_start = time.time()
     fused = {"auto": None, "on": True, "off": False}[cfg.fused_hidden]
+    # undrawn: each run's `trainer.init` draws the weights
     model = HONet(input_dim=cfg.num_steps, hidden_dim=cfg.hidden_channels,
-                  dropout=cfg.dropout, fused_hidden=fused, device=device)
+                  dropout=cfg.dropout, fused_hidden=fused, key=None,
+                  device=device)
     tcfg = TrainConfig(batch_size=cfg.batch_size, lr=cfg.lr,
                        epochs=cfg.epochs, eval_steps=cfg.eval_steps,
                        early_stop=cfg.early_stop, seed=cfg.seed)
     seeds = np.arange(G_enc.num_nodes, dtype=np.int32)
-    use_device_engine = cfg.engine in ("auto", "device")
+    use_device_engine = device_engine(cfg.engine, device)
     if use_device_engine:
         spgk = subg_matrix_device_keys(
             G_enc, seeds, num_walks=cfg.num_walks, num_steps=cfg.num_steps,
@@ -197,7 +200,7 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                         early_stop=cfg.early_stop)
     stamp = time.strftime("%m%d%y_%H%M%S")
     for run in range(cfg.runs):
-        trainer.init(torch.Generator().manual_seed(cfg.seed + run))
+        trainer.init(prng.prng_key(cfg.seed + run))
         key = prng.prng_key(cfg.seed + 1000 + run)
         epoch = 0
         while epoch < cfg.epochs:

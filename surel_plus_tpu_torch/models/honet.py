@@ -28,11 +28,12 @@ pairs (eager PyTorch does no dead-code elimination).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from surel_plus_tpu_torch.models import init
 from surel_plus_tpu_torch.models.layers import MergeLayer, MLP2, masked_mean
 from surel_plus_tpu_torch.models.net import key_u_ext, table_hsum
 from surel_plus_tpu_torch.ops import prng
@@ -72,32 +73,40 @@ def group_set_sums(joined: JoinedBatch, u_ext: torch.Tensor,
 class HONet(nn.Module):
     """Scores hyperedge queries from a hyperedge join; returns logits [B].
 
-    input_dim: encoding columns (num_steps + 1). Weights are xavier-normal
-    from `generator` (biases zero), made on the CPU and then moved to
-    `device`. key_layout: (num_walks, num_steps) of the packed keys, needed
-    by the fused route (trainer_from_keys fills it in)."""
+    input_dim: encoding columns (num_steps + 1). The weights are flax's
+    `init(key)` of the JAX HONet, drawn on `device` (`key` None: NaN
+    parameters, undrawn, as for Net). key_layout:
+    (num_walks, num_steps) of the packed keys, needed by the fused route
+    (trainer_from_keys fills it in)."""
 
     def __init__(self, input_dim: int, hidden_dim: int = 96,
                  out_dim: int = 1, dropout: float = 0.1,
                  fused_hidden: Optional[bool] = None,
                  key_layout: Optional[Tuple[int, int]] = None,
-                 generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 *, key: Optional[prng.Key], device="cuda"):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.fused_hidden = fused_hidden
         self.key_layout = key_layout
-        self.pe_embedding = MLP2(input_dim, hidden_dim, hidden_dim)
-        self.affinity_score = MergeLayer(4 * hidden_dim, hidden_dim, out_dim,
-                                         dropout)
-        self.reset_parameters(generator)
-        self.to(device)
+        with torch.device("meta"):          # storage comes with `device`
+            self.pe_embedding = MLP2(input_dim, hidden_dim, hidden_dim)
+            self.affinity_score = MergeLayer(4 * hidden_dim, hidden_dim,
+                                             out_dim, dropout)
+        self.to_empty(device=device)
+        if key is None:
+            with torch.no_grad():
+                for p in self.parameters():
+                    p.fill_(float("nan"))
+        else:
+            self.reset_parameters(key)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None
-                         ) -> None:
-        """Xavier-normal weights from the CPU `generator`, zero biases."""
-        for m in self.children():
-            m.reset_parameters(generator)
+    def draws(self) -> List[init.Draw]:
+        """The JAX HONet's `init(key)` (pe_embedding, affinity_score)."""
+        return [d for name, m in self.named_children()
+                for d in m.draws((name,))]
+
+    def reset_parameters(self, key: prng.Key) -> None:
+        init.reset(self.draws(), key)
 
     def fused_on(self, device: torch.device) -> bool:
         """Whether forward takes the fused route for tensors on `device`."""

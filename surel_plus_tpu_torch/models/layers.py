@@ -3,18 +3,20 @@ MergeLayer, masked_mean, AttentionAggregation, LSTMAggregation).
 
 Parameters stay float32; `dtype` is the compute precision of the hot
 layers (bfloat16 at the bench width), applied by casting at call time as
-flax's `Dense(dtype=...)` does.
+flax's `Dense(dtype=...)` does. Each module's `draws(path)` lists its
+parameters as flax's `init` draws those of the JAX module at scope
+`path`, and `reset_parameters(key, path)` draws them under `key`
+(`models/init.py`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
-
-import math
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from surel_plus_tpu_torch.models import init
 from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.kernels.attn_pool import fused_attn_pool
 from surel_plus_tpu_torch.ops.kernels.lstm import lstm_final_hidden
@@ -22,18 +24,6 @@ from surel_plus_tpu_torch.ops.kernels.lstm_keys import (
     lstm_from_keys,
     lstm_scan_plain,
 )
-
-
-def xavier_normal_(weight: torch.Tensor,
-                   generator: Optional[torch.Generator] = None) -> None:
-    """flax's xavier_normal: N(0, 2 / (fan_in + fan_out)), drawn on the
-    CPU from `generator` (a CPU generator or None) and copied to the
-    weight's device, so one seed gives the same weights everywhere."""
-    fan_out, fan_in = weight.shape
-    w = torch.empty(weight.shape).normal_(
-        0.0, math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
-    with torch.no_grad():
-        weight.copy_(w)
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
@@ -54,10 +44,13 @@ class MLP2(nn.Module):
         self.fc1 = nn.Linear(hidden_dim, out_dim)
         self.dtype = dtype
 
-    def reset_parameters(self, generator=None) -> None:
-        for layer in (self.fc0, self.fc1):
-            xavier_normal_(layer.weight, generator)
-            nn.init.zeros_(layer.bias)
+    def draws(self, path: init.Path = ()) -> List[init.Draw]:
+        """fc0 and fc1 as flax's Dense_0 and Dense_1 under `path`."""
+        return (init.dense_draws(self.fc0, (*path, "Dense_0"))
+                + init.dense_draws(self.fc1, (*path, "Dense_1")))
+
+    def reset_parameters(self, key: prng.Key, path: init.Path = ()) -> None:
+        init.reset(self.draws(path), key)
 
     def forward(self, x):
         return self.project(self.hidden(x))
@@ -103,10 +96,13 @@ class MergeLayer(nn.Module):
         self.dropout = dropout
         self.dtype = dtype
 
-    def reset_parameters(self, generator=None) -> None:
-        for layer in (self.fc0, self.fc1):
-            xavier_normal_(layer.weight, generator)
-            nn.init.zeros_(layer.bias)
+    def draws(self, path: init.Path = ()) -> List[init.Draw]:
+        """fc0 and fc1 as flax's Dense_0 and Dense_1 under `path`."""
+        return (init.dense_draws(self.fc0, (*path, "Dense_0"))
+                + init.dense_draws(self.fc1, (*path, "Dense_1")))
+
+    def reset_parameters(self, key: prng.Key, path: init.Path = ()) -> None:
+        init.reset(self.draws(path), key)
 
     def forward(self, xs: Sequence[torch.Tensor],
                 key: Optional[prng.Key] = None) -> torch.Tensor:
@@ -158,10 +154,13 @@ class AttentionAggregation(nn.Module):
         self.gate_nn = nn.Linear(hidden_dim, 1)
         self.value_nn = nn.Linear(hidden_dim, hidden_dim)
 
-    def reset_parameters(self, generator=None) -> None:
-        for layer in (self.gate_nn, self.value_nn):
-            xavier_normal_(layer.weight, generator)
-            nn.init.zeros_(layer.bias)
+    def draws(self, path: init.Path = ()) -> List[init.Draw]:
+        """The gate and value Linears as flax's Dense_0 and Dense_1."""
+        return (init.dense_draws(self.gate_nn, (*path, "Dense_0"))
+                + init.dense_draws(self.value_nn, (*path, "Dense_1")))
+
+    def reset_parameters(self, key: prng.Key, path: init.Path = ()) -> None:
+        init.reset(self.draws(path), key)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x [..., L, h], mask bool [..., L] -> [..., h] float32."""
@@ -220,9 +219,9 @@ class LSTMAggregation(nn.Module):
 
     Initialization: xavier-normal wi and wh with a zero bh, or with
     `torch_init` torch's nn.LSTM uniform U(-1/sqrt(H), 1/sqrt(H)) on all
-    three, drawn on the CPU. The JAX module's `unroll` and `chunk` tune
-    its `lax.scan` and its rematerialization; eager PyTorch has neither,
-    so they have no counterpart here."""
+    three, each from its flax key (`reset_parameters`). The JAX module's
+    `unroll` and `chunk` tune its `lax.scan` and its rematerialization;
+    eager PyTorch has neither, so they have no counterpart here."""
 
     def __init__(self, hidden_dim: int, torch_init: bool = False):
         super().__init__()
@@ -233,17 +232,19 @@ class LSTMAggregation(nn.Module):
         self.wh = nn.Parameter(torch.empty(hidden_dim, h4))
         self.bh = nn.Parameter(torch.empty(h4))
 
-    def reset_parameters(self, generator=None) -> None:
+    def draws(self, path: init.Path = ()) -> List[init.Draw]:
+        """wi, wh and bh as flax's params 1, 2 and 3 of the scope `path`:
+        uniform with `torch_init`, else xavier and zeros."""
         if self.torch_init:
-            bound = self.hidden_dim ** -0.5
-            with torch.no_grad():
-                for p in (self.wi, self.wh, self.bh):
-                    p.copy_(torch.empty(p.shape).uniform_(
-                        -bound, bound, generator=generator))
-            return
-        xavier_normal_(self.wi, generator)
-        xavier_normal_(self.wh, generator)
-        nn.init.zeros_(self.bh)
+            bound = float(self.hidden_dim) ** -0.5
+            return [init.Draw(p, path, c, "uniform", bound=bound)
+                    for c, p in enumerate((self.wi, self.wh, self.bh), 1)]
+        return [init.Draw(self.wi, path, 1, "xavier"),
+                init.Draw(self.wh, path, 2, "xavier"),
+                init.Draw(self.bh, path, 3, "zeros")]
+
+    def reset_parameters(self, key: prng.Key, path: init.Path = ()) -> None:
+        init.reset(self.draws(path), key)
 
     def forward(self, x: Optional[torch.Tensor], mask: torch.Tensor,
                 fold=None, keys=None,

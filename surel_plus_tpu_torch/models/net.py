@@ -64,11 +64,12 @@ join builds only those (eager PyTorch does no dead-code elimination).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from surel_plus_tpu_torch.models import init
 from surel_plus_tpu_torch.models.layers import (
     AttentionAggregation,
     LSTMAggregation,
@@ -128,10 +129,13 @@ class Net(nn.Module):
     aggrs: "mean", "attn" or "lstm"; any other raises ValueError.
     input_dim: encoding columns (num_steps + 1). dtype: compute precision
     of the hot layers ("float32" or "bfloat16"); parameters stay float32.
-    Weights are xavier-normal from `generator` (biases zero), made on the
-    CPU and then moved to `device`, so one seed gives the same weights on
-    every device. key_layout: (num_walks, num_steps) of the packed keys,
-    needed by the fused keys route (trainer_from_keys fills it in).
+    The weights are flax's `init(key)` of the JAX Net (`reset_parameters`),
+    drawn on `device`; one key gives the same weights on every device.
+    `key` must be given, as flax's `init` takes one: None builds without
+    drawing (NaN parameters until `reset_parameters` or a trainer's
+    `init` draws them).
+    key_layout: (num_walks, num_steps) of the packed keys, needed by the
+    fused keys route (trainer_from_keys fills it in).
     embed_mode: "table" or "direct", how an encoding-table join's hidden
     rows are formed (same parameters either way).
     """
@@ -143,8 +147,7 @@ class Net(nn.Module):
                  fused_hidden: Optional[bool] = None,
                  key_layout: Optional[Tuple[int, int]] = None,
                  embed_mode: str = "table",
-                 generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 *, key: Optional[prng.Key], device="cuda"):
         super().__init__()
         if aggrs not in ("mean", "attn", "lstm"):
             raise ValueError(f"unknown aggregator {aggrs!r}")
@@ -157,27 +160,37 @@ class Net(nn.Module):
         self.fused_hidden = fused_hidden
         self.key_layout = key_layout
         self.use_feature = use_feature
-        self.pe_embedding = MLP2(input_dim, hidden_dim, hidden_dim,
-                                 self.dtype)
-        if aggrs == "attn":
-            self.aggr = AttentionAggregation(hidden_dim)
-        elif aggrs == "lstm":
-            self.aggr = LSTMAggregation(hidden_dim)
-        width = hidden_dim
-        if use_feature:
-            self.feature_embedding = MLP2(x_dim, hidden_dim, hidden_dim,
-                                          self.dtype)
-            width += hidden_dim
-        self.affinity_score = MergeLayer(2 * width, hidden_dim, out_dim,
-                                         dropout, self.dtype)
-        self.reset_parameters(generator)
-        self.to(device)
+        with torch.device("meta"):          # storage comes with `device`
+            self.pe_embedding = MLP2(input_dim, hidden_dim, hidden_dim,
+                                     self.dtype)
+            if aggrs == "attn":
+                self.aggr = AttentionAggregation(hidden_dim)
+            elif aggrs == "lstm":
+                self.aggr = LSTMAggregation(hidden_dim)
+            width = hidden_dim
+            if use_feature:
+                self.feature_embedding = MLP2(x_dim, hidden_dim, hidden_dim,
+                                              self.dtype)
+                width += hidden_dim
+            self.affinity_score = MergeLayer(2 * width, hidden_dim, out_dim,
+                                             dropout, self.dtype)
+        self.to_empty(device=device)
+        if key is None:
+            with torch.no_grad():
+                for p in self.parameters():
+                    p.fill_(float("nan"))
+        else:
+            self.reset_parameters(key)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None
-                         ) -> None:
-        """Xavier-normal weights from the CPU `generator`, zero biases."""
-        for m in self.children():
-            m.reset_parameters(generator)
+    def draws(self) -> List[init.Draw]:
+        """The JAX Net's `init(key)`: every submodule at its flax scope
+        (pe_embedding, aggr, feature_embedding, affinity_score), so every
+        route's parameters are the one tree flax makes."""
+        return [d for name, m in self.named_children()
+                for d in m.draws((name,))]
+
+    def reset_parameters(self, key: prng.Key) -> None:
+        init.reset(self.draws(), key)
 
     def fused_on(self, device: torch.device) -> bool:
         """Whether forward takes the fused route for tensors on `device`."""

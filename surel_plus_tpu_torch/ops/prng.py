@@ -20,7 +20,13 @@ never sets it), and only that layout:
 - bits(k, shape)[i] = w0 ^ w1 of threefry2x32(k; (i >> 32, i & mask)) at
   flat index i, so a block of rows of a larger draw is the same draw at
   an offset (`offset`);
-- uniform(k, shape) = bitcast((bits >> 9) | 0x3f800000) - 1 in float32;
+- uniform(k, shape, minval, maxval) = max(minval, f * (maxval - minval)
+  + minval) in float32, f = bitcast((bits >> 9) | 0x3f800000) - 1, the
+  product and the sum rounded once, as XLA's CPU backend fuses them;
+- truncated_normal(k, lower, upper, shape) = sqrt(2) erf_inv(uniform(k,
+  shape, erf(lower / sqrt(2)), erf(upper / sqrt(2)))) clipped to the
+  open interval, erf and erf_inv as XLA computes them in float32
+  (`ops/special.py`), so the draw is JAX's bit for bit;
 - bernoulli(k, p, shape) = uniform(k, shape) < p;
 - fold_in_static(k, names): flax's `_fold_in_static` (the rng of a module
   scope), with its name separator off (flax_fix_rng_separator, False in
@@ -32,12 +38,14 @@ port does not implement it.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from surel_plus_tpu_torch.ops import special
 from surel_plus_tpu_torch.ops.kernels.threefry import (
     MASK,
     threefry2x32,
@@ -113,11 +121,47 @@ def bits(key: Key, shape, device, offset: int = 0) -> torch.Tensor:
     return threefry_bits(k0, k1, int(offset), out)
 
 
-def uniform(key: Key, shape, device) -> torch.Tensor:
-    """`jax.random.uniform(key, shape)`: float32 in [0, 1) from the high
-    23 bits of each word."""
+def uniform(key: Key, shape, device, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`: float32
+    in [minval, maxval) from the high 23 bits of each word; the bounds
+    rounded to float32, f * (maxval - minval) + minval rounded once (the
+    fused multiply-add XLA's CPU backend makes of it)."""
     b = bits(key, shape, device)
-    return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return f                            # f * 1 + 0 is f, exactly
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, special.fma(f, hi - lo, lo))
+
+
+@functools.lru_cache(maxsize=None)
+def truncation(lower: float, upper: float) -> Tuple[float, ...]:
+    """erf(lower / sqrt(2)), erf(upper / sqrt(2)) and the clip bounds
+    nextafter(lower, +inf), nextafter(upper, -inf), in float32 as
+    `jax.random.truncated_normal` computes them (on the host)."""
+    sqrt2 = torch.tensor(float(np.float32(np.sqrt(2))))
+    lo, hi = (torch.tensor(float(x), dtype=torch.float32)
+              for x in (lower, upper))
+    a = special.erf(special.div(lo, sqrt2)).item()
+    b = special.erf(special.div(hi, sqrt2)).item()
+    inf = torch.tensor(np.inf, dtype=torch.float32)
+    return (a, b, torch.nextafter(lo, inf).item(),
+            torch.nextafter(hi, -inf).item())
+
+
+def truncated_normal(key: Key, lower: float, upper: float, shape,
+                     device) -> torch.Tensor:
+    """`jax.random.truncated_normal(key, lower, upper, shape)` in float32:
+    a normal truncated to (lower, upper), as JAX draws it bit for bit
+    (the words from K8 on a CUDA device, the transform elementwise on the
+    same device)."""
+    a, b, lo, hi = truncation(float(lower), float(upper))
+    u = uniform(key, shape, device, a, b)
+    sqrt2 = torch.full((), float(np.float32(np.sqrt(2))),
+                       dtype=torch.float32, device=device)
+    return (sqrt2 * special.erf_inv(u)).clamp(lo, hi)
 
 
 def bernoulli(key: Key, p: float, shape, device) -> torch.Tensor:

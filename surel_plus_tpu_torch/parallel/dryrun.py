@@ -55,9 +55,10 @@ N_POS, K_NEG = 16, 4
 
 
 def _fresh(cls, dev, **kw):
-    """A model with the dry run's weights (seed 0, the same on every
-    rank) and its Adam."""
-    model = cls(generator=torch.Generator().manual_seed(0), device=dev, **kw)
+    """A model with the dry run's weights (flax's init from prng_key(0),
+    as the JAX package's dry run draws them; the same on every rank) and
+    its Adam."""
+    model = cls(key=prng_key(0), device=dev, **kw)
     return model, torch.optim.Adam(model.parameters(), lr=LR, eps=1e-8)
 
 

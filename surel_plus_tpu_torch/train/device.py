@@ -218,9 +218,10 @@ class DeviceTrainer:
         self.optimizer = new_optimizer(model, config)
         self._sizes_h = None
 
-    def init(self, generator: Optional[torch.Generator] = None) -> None:
-        """Fresh weights from the CPU `generator` and fresh Adam state."""
-        self.model.reset_parameters(generator)
+    def init(self, key: prng.Key) -> None:
+        """The weights flax's `init(key)` gives the JAX model (drawn on the
+        model's device) and fresh Adam state."""
+        self.model.reset_parameters(key)
         self.optimizer = new_optimizer(self.model, self.config)
 
     def _rows_at(self, width: Optional[int]) -> tuple:

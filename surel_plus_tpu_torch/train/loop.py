@@ -76,9 +76,10 @@ class LinkPredictor:
             np.asarray(feature), dtype=torch.float32).to(self.device))
         self.optimizer = new_optimizer(model, config)
 
-    def init(self, generator: Optional[torch.Generator] = None) -> None:
-        """Fresh weights from the CPU `generator` and fresh Adam state."""
-        self.model.reset_parameters(generator)
+    def init(self, key: prng.Key) -> None:
+        """The weights flax's `init(key)` gives the JAX model (drawn on the
+        model's device) and fresh Adam state."""
+        self.model.reset_parameters(key)
         self.optimizer = new_optimizer(self.model, self.config)
 
     def _logits(self, edges: torch.Tensor, key: Optional[prng.Key] = None,

@@ -87,7 +87,7 @@ def _stepped(loss, model, opt):
 def _model(cls, state, dev, lr=1e-2, **kw):
     """A model with the given weights on `dev`, and its Adam (optax's
     eps)."""
-    m = cls(device=dev, **kw)
+    m = cls(key=None, device=dev, **kw)
     m.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
     return m, torch.optim.Adam(m.parameters(), lr=lr, eps=1e-8)
 

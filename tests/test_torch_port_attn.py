@@ -37,6 +37,7 @@ from surel_plus_tpu.ops.pallas.hidden_sum_kernel import (
 from surel_plus_tpu.ops.sampler import sample_gsets_device_keys
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import join_gathered_keys
 from surel_plus_tpu_torch.ops.kernels.attn_pool import (
     attn_slots_plain,
@@ -255,7 +256,8 @@ def test_attn_net_logits_match_jax(joins, dtype):
     tol = 1e-4 if dtype == "float32" else 3e-2
     for fused in (True, False):
         net = Net(ns + 1, NET_H, aggrs="attn", dropout=0.0, dtype=dtype,
-                  key_layout=(nw, ns), fused_hidden=fused, device="cpu")
+                  key_layout=(nw, ns), fused_hidden=fused,
+                  key=prng.prng_key(0), device="cpu")
         net.load_state_dict(state)
         joined = join_gathered_keys(*rows, nw, ns,
                                     **net.join_outputs(torch.device("cpu")))
@@ -273,7 +275,7 @@ def test_fused_attn_route_reads_only_the_aligned_keys(joins):
     cpu = torch.device("cpu")
     net = Net(ns + 1, NET_H, aggrs="attn", key_layout=(nw, ns),
               fused_hidden=True, device="cpu",
-              generator=torch.Generator().manual_seed(0))
+              key=prng.prng_key(0))
     assert net.join_outputs(cpu) == dict(aligned=True, features=False)
     lean = join_gathered_keys(*rows, nw, ns, **net.join_outputs(cpu))
     full = join_gathered_keys(*rows, nw, ns)
@@ -288,8 +290,9 @@ def test_fused_attn_route_reads_only_the_aligned_keys(joins):
     net.pe_embedding.hidden = no_hidden
     with torch.no_grad():
         assert torch.isfinite(net.eval()(lean)).all()
-    mean = Net(ns + 1, NET_H, fused_hidden=True, device="cpu")
+    mean = Net(ns + 1, NET_H, fused_hidden=True,
+               key=prng.prng_key(0), device="cpu")
     assert mean.join_outputs(cpu) == dict(aligned=False)
     unfused = Net(ns + 1, NET_H, aggrs="attn", fused_hidden=False,
-                  device="cpu")
+                  key=prng.prng_key(0), device="cpu")
     assert unfused.join_outputs(cpu) == dict(aligned=True, features=True)

@@ -74,7 +74,7 @@ from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 TOY = dict(dataset="synth-collab", synth_nodes=300, synth_edges=1500,
            num_walks=8, num_steps=3, batch_size=128, epochs=4,
            eval_steps=2, runs=1, hidden_channels=16, dropout=0.1,
-           early_stop=-1)
+           early_stop=-1, engine="device")
 # the straight run's cases: both engines, and the scalar sets
 CASES = {"device": {}, "host": dict(engine="host"),
          "device_deg": dict(sencoder="DEG", topk=20)}
@@ -145,7 +145,7 @@ def straight(request, tmp_path_factory):
 
 
 def test_round_trip_keeps_every_field(tmp_path):
-    net = Net(3, 16, dropout=0.1, device="cpu")
+    net = Net(3, 16, dropout=0.1, key=prng.prng_key(0), device="cpu")
     opt = new_optimizer(net, TrainConfig())
     sum((p * p).sum() for p in net.parameters()).backward()
     opt.step()
@@ -232,7 +232,8 @@ def test_horder_checkpoint_and_inf_only(tmp_path):
     cfg = tconfig.ExperimentConfig(
         dataset="synth-tags", synth_nodes=150, synth_edges=500, num_walks=8,
         num_steps=3, batch_size=128, epochs=8, eval_steps=1, early_stop=1,
-        runs=1, hidden_channels=16, log_dir=str(tmp_path), k=5)
+        runs=1, hidden_channels=16, log_dir=str(tmp_path), k=5,
+        engine="device")
     out = main_horder.run_experiment(cfg, device="cpu")
     evals = out["results"].results[0]
     assert len(evals) < cfg.epochs
@@ -276,7 +277,7 @@ def test_jax_written_checkpoint(tmp_path, monkeypatch):
                     sizes=c(keys.sizes), num_walks=keys.num_walks,
                     num_steps=keys.num_steps)
     net = Net(jcfg.num_steps, jcfg.hidden_channels, dropout=0.0,
-              device="cpu")
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(jax.tree.map(np.asarray,
                                                       state["params"])))
     scorer = trainer_from_keys(net, tkeys,

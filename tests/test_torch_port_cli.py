@@ -67,6 +67,7 @@ from surel_plus_tpu_torch.graph.negative import negative_sampling
 from surel_plus_tpu_torch.graph.splits import get_pos_neg_edges
 from surel_plus_tpu_torch.models import Net
 from surel_plus_tpu_torch.ops import join as join_ops
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import sampler as tsampler
 from surel_plus_tpu_torch.ops.merge_net import merge_pairs
 from surel_plus_tpu_torch.spg import SpGKeys
@@ -397,7 +398,8 @@ def scorers():
     tspgk = SpGKeys(nodes=c(spgk.nodes), khi=c(spgk.khi), klo=c(spgk.klo),
                     sizes=c(spgk.sizes), num_walks=spgk.num_walks,
                     num_steps=spgk.num_steps)
-    net = Net(NUM_STEPS, H, dropout=0.0, fused_hidden=False, device="cpu")
+    net = Net(NUM_STEPS, H, dropout=0.0, fused_hidden=False,
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     return jtr, params, trainer_from_keys(net, tspgk,
                                           TrainConfig(batch_size=BS))
@@ -464,7 +466,9 @@ def test_evaluate_device_matches_jax(scorers, metric):
 
 # (g) the CLI on the CPU
 
-TOY = ["--synth_nodes", "2000", "--synth_edges", "12000", "--num_walks",
+# the device engine, which `--engine auto` takes on the card
+TOY = ["--engine", "device", "--synth_nodes", "2000", "--synth_edges",
+       "12000", "--num_walks",
        "10", "--num_steps", "3", "--epochs", "2", "--eval_steps", "1",
        "--batch_size", "512"]
 

@@ -420,7 +420,7 @@ def test_fused_net_over_pallas_join_matches_jax(sampled, aggrs,
     want = np.asarray(jnet.apply(params, jnp.zeros((1, 1), jnp.float32),
                                  jj))
     net = Net(ns + 1, H, aggrs=aggrs, dropout=0.0, key_layout=(nw, ns),
-              fused_hidden=True, device="cpu")
+              fused_hidden=True, key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(params))
     t = _tspgk(spgk, nw, ns)
     joined = make_keys_join(nw, ns, impl="pallas")(
@@ -446,7 +446,8 @@ def test_trainer_with_pallas_join_factory_matches_jax(sampled, aggrs,
                       join_factory=factory)
     params, _ = jtr.init(jax.random.PRNGKey(7), edges[:, :BS])
     want = np.asarray(jtr.predict(params, edges))
-    net = Net(ns + 1, H, aggrs=aggrs, fused_hidden=True, device="cpu")
+    net = Net(ns + 1, H, aggrs=aggrs, fused_hidden=True,
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     tr = trainer_from_keys(net, _tspgk(spgk, nw, ns),
                            TrainConfig(batch_size=BS),

@@ -21,6 +21,7 @@ from surel_plus_tpu.train.device import device_mrr as jax_mrr
 from surel_plus_tpu.train.device import trainer_from_keys as jax_trainer
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.spg import SpGKeys
 from surel_plus_tpu_torch.train import TrainConfig
 from surel_plus_tpu_torch.train.device import (
@@ -57,7 +58,8 @@ def scored(request):
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
 def test_predict_matches_jax(scored, fused):
     ns, tspgk, edges, state, want = scored
-    net = Net(ns + 1, H, dropout=0.0, fused_hidden=fused, device="cpu")
+    net = Net(ns + 1, H, dropout=0.0, fused_hidden=fused,
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(state)
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS))
     got = tr.predict(edges)

@@ -198,7 +198,7 @@ def test_horder_reads_the_reference_pickle(tmp_path, monkeypatch):
                tmp_path / "dataset" / "sgrl" / "tags-toy.pl")
     monkeypatch.chdir(tmp_path)
     argv = ["--dataset", "tags-toy", "--log_dir", str(tmp_path / "logs"),
-            "--valid_perc", "50", *TOY]
+            "--valid_perc", "50", "--engine", "device", *TOY]
     parse = lambda pkg: pkg.config_from_args(_parser(pkg).parse_args(argv))
     got = main_horder.load_hyper(parse(tconfig))
     want = jhorder.load_hyper(parse(jconfig))

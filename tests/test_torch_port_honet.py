@@ -257,7 +257,7 @@ def model_case():
 
 def _port_honet(params, fused, nw, ns):
     net = HONet(ns + 1, H, dropout=0.0, fused_hidden=fused,
-                key_layout=(nw, ns), device="cpu")
+                key_layout=(nw, ns), key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(params))
     return net
 
@@ -265,7 +265,7 @@ def _port_honet(params, fused, nw, ns):
 def test_params_from_flax_maps_honet(model_case):
     *_, params, _ = model_case
     state = params_from_flax(params)
-    net = HONet(4, H, device="cpu")
+    net = HONet(4, H, key=prng.prng_key(0), device="cpu")
     assert set(state) == set(net.state_dict())
     assert state["affinity_score.fc0.weight"].shape == (H, 4 * H)
     net.load_state_dict(state)
@@ -332,7 +332,7 @@ def test_set_sum_forms_agree(sampled):
     name, nw, ns, spgk, tspgk = sampled
     edges = torch.as_tensor(_hedges(57))
     net = HONet(ns + 1, H, key_layout=(nw, ns), device="cpu",
-                generator=torch.Generator().manual_seed(3))
+                key=prng.prng_key(3))
     if name == "general":
         tj = join_ops.make_keys_hjoin(nw, ns, features=False)(
             *_trows(tspgk), edges)
@@ -402,7 +402,7 @@ def test_honet_table_route_matches_jax(table_sets, embed_mode):
     want = _jax_loss_grads(jnet, params, jdev.enc, jj)
     tj = join_ops.hgather_join(tdev.nodes, tdev.eidx, tdev.sizes,
                                torch.as_tensor(he))
-    net = HONet(4, H, dropout=0.0, device="cpu")
+    net = HONet(4, H, dropout=0.0, key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(params))
     _assert_close(_port_loss_grads(net, tj, enc_table=tdev.enc,
                                    embed_mode=embed_mode), want)
@@ -419,7 +419,7 @@ def test_table_trainer_matches_jax(table_sets):
                            join_fn=jjoin.hgather_join)
     params, _ = jtr.init(jax.random.PRNGKey(3), he[:, :8])
     want = np.asarray(jtr.predict(params, he))
-    net = HONet(4, H, dropout=0.0, device="cpu")
+    net = HONet(4, H, dropout=0.0, key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     tr = DeviceTrainer(net, tdev, TrainConfig(batch_size=8),
                        join=join_ops.hgather_join)
@@ -437,11 +437,13 @@ def test_honet_raises_on_what_it_cannot_read(model_case):
         net(tj._replace(eidx=None))
     with pytest.raises(ValueError, match="raw node features"):
         net(tj, torch.zeros(3, NQ, 2))
-    net = HONet(ns + 1, H, fused_hidden=True, device="cpu")
+    net = HONet(ns + 1, H, fused_hidden=True,
+                key=prng.prng_key(0), device="cpu")
     with pytest.raises(ValueError, match="key_layout"):
         net(tj)
     assert net.join_outputs(CPU) == {"features": False}
-    assert HONet(ns + 1, H, device="cpu").join_outputs(CPU) == {
+    assert HONet(ns + 1, H,
+                 key=prng.prng_key(0), device="cpu").join_outputs(CPU) == {
         "features": True}
 
 
@@ -514,7 +516,7 @@ def test_fit_matches_jax(train_case, route):
     [3, E] splits."""
     tspgk, edges, labels, p0, want, losses, aucs, key = train_case
     net = HONet(4, H, dropout=0.0, fused_hidden=route == "fused",
-                device="cpu")
+                key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(p0))
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=8, lr=1e-2),
                            join_factory=join_ops.make_keys_hjoin)
@@ -658,7 +660,9 @@ def test_cli_data_prep_matches_jax(valid_perc):
 
 
 # ------------------------------------------------------------ the CLI
-TOY = ["--synth_nodes", "300", "--synth_edges", "400", "--num_walks", "10",
+# the device engine, which `--engine auto` takes on the card
+TOY = ["--engine", "device", "--synth_nodes", "300", "--synth_edges", "400",
+       "--num_walks", "10",
        "--num_steps", "3", "--epochs", "4", "--eval_steps", "2",
        "--batch_size", "512"]
 

@@ -155,16 +155,18 @@ def _host_case(host_sets, kind, aggrs):
         jp = JaxLinkPredictor(JaxHONet(input_dim=4, hidden_dim=H,
                                        dropout=0.0), jspg, jcfg,
                               join_fn=jax_hgather_join)
-        net = HONet(4, H, dropout=0.0, device="cpu")
+        net = HONet(4, H, dropout=0.0, key=prng.prng_key(0), device="cpu")
     elif kind == "table":
         jp = JaxLinkPredictor(JaxNet(input_dim=4, hidden_dim=H, aggrs=aggrs,
                                      dropout=0.0), jspg, jcfg)
-        net = Net(4, H, aggrs=aggrs, dropout=0.0, device="cpu")
+        net = Net(4, H, aggrs=aggrs, dropout=0.0,
+                  key=prng.prng_key(0), device="cpu")
     else:
         jp = JaxScalarLinkPredictor(JaxNet(input_dim=1, hidden_dim=H,
                                            aggrs=aggrs, dropout=0.0),
                                     jss, jcfg)
-        net = Net(1, H, aggrs=aggrs, dropout=0.0, device="cpu")
+        net = Net(1, H, aggrs=aggrs, dropout=0.0,
+                  key=prng.prng_key(0), device="cpu")
     params, opt_state = jp.init(jax.random.PRNGKey(2), edges[:, :BS])
     net.load_state_dict(_flat(params))
     if kind == "scalar":
@@ -247,7 +249,7 @@ def test_partition_by_width_matches_jax(table_sets):
     jdev, tdev, edges, classes = table_sets
     jtr = JaxDeviceTrainer(JaxNet(input_dim=4, hidden_dim=H), jdev,
                            JaxTrainConfig(batch_size=BS))
-    tr = DeviceTrainer(Net(4, H, device="cpu"), tdev,
+    tr = DeviceTrainer(Net(4, H, key=prng.prng_key(0), device="cpu"), tdev,
                        TrainConfig(batch_size=BS))
     want = jtr.partition_by_width(edges, classes)
     for got in (tr.partition_by_width(edges, classes),
@@ -265,7 +267,7 @@ def test_partition_by_width_matches_jax(table_sets):
 def test_predict_balanced_equals_predict(table_sets, aggrs):
     _, tdev, edges, classes = table_sets
     net = Net(4, H, aggrs=aggrs, device="cpu",
-              generator=torch.Generator().manual_seed(1))
+              key=prng.prng_key(1))
     tr = DeviceTrainer(net, tdev, TrainConfig(batch_size=BS))
     want = tr.predict(edges)
     got = tr.predict_balanced(edges, classes)
@@ -292,7 +294,7 @@ def test_fit_balanced_matches_jax(table_sets, aggrs):
     params, _, losses, aucs, groups = jtr.fit_balanced(
         params0, opt_state, edges, labels, key, 2, classes)
     net = Net(4, H, aggrs=aggrs, dropout=0.0, fused_hidden=fused,
-              device="cpu")
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(_flat(params0))
     tr = DeviceTrainer(net, tdev, TrainConfig(batch_size=BS, lr=LR))
     got_losses, got_aucs, got_groups = tr.fit_balanced(
@@ -317,7 +319,7 @@ def test_fit_balanced_one_class_equals_fit(table_sets):
     out = []
     for balanced in (False, True):
         net = Net(4, H, dropout=0.0, device="cpu",
-                  generator=torch.Generator().manual_seed(2))
+                  key=prng.prng_key(2))
         tr = DeviceTrainer(net, tdev, TrainConfig(batch_size=BS, lr=LR))
         if balanced:
             res = tr.fit_balanced(edges, labels, 2, prng.prng_key(0),
@@ -370,7 +372,7 @@ TOY = ["--dataset", "synth-collab", "--synth_nodes", "600", "--synth_edges",
        "--eval_steps", "1", "--batch_size", "256", "--topk", "16"]
 # the LP rows; the scalar encoders' rows: tests/test_torch_port_scalar.py
 CLI_CASES = {"host_lp": ["--engine", "host"],
-             "balanced": ["--balance_widths", "8,16"]}
+             "balanced": ["--engine", "device", "--balance_widths", "8,16"]}
 
 
 def run_toy_cli(tmp_path, extra):
@@ -408,6 +410,27 @@ def test_horder_host_engine_on_the_cpu(tmp_path):
     assert all(math.isfinite(x) and 0.0 < x <= 1.0 for x in best)
     assert isinstance(out["trainer"], LinkPredictor)
     assert out["edges"].shape[0] == 3
+
+
+@pytest.mark.parametrize("horder", [False, True], ids=["main", "horder"])
+def test_auto_engine_on_the_cpu_is_the_host_engine(tmp_path, horder):
+    """`--engine auto` (the default) on the CPU takes the host engine in
+    both CLIs, as the JAX package's CLIs do on a CPU backend; the device
+    engine is `--engine device` there (and auto's choice on the card)."""
+    argv = ["--synth_nodes", "300", "--synth_edges", "1200", "--num_walks",
+            "8", "--num_steps", "3", "--epochs", "1", "--eval_steps", "1",
+            "--batch_size", "256", "--log_dir", str(tmp_path)]
+    pkg = hcli if horder else cli
+    cfg = _config(tconfig, ["--dataset", "synth-tags" if horder
+                            else "synth-collab", *argv])
+    assert cfg.engine == "auto"
+    assert not cli.device_engine("auto", torch.device("cpu"))
+    assert cli.device_engine("auto", torch.device("cuda"))
+    assert cli.device_engine("device", torch.device("cpu"))
+    out = pkg.run_experiment(cfg, device="cpu")
+    assert isinstance(out["trainer"], LinkPredictor)
+    if not horder:
+        assert out["trainer"].model.dtype == torch.float32
 
 
 def test_width_classes_complete_the_bucket():

@@ -30,7 +30,9 @@ import surel_plus_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     surel_plus_tpu_torch.__path__, "surel_plus_tpu_torch.")]
 assert {{"surel_plus_tpu_torch.ops.prng",
-         "surel_plus_tpu_torch.ops.kernels.threefry"}} <= set(names), names
+         "surel_plus_tpu_torch.ops.kernels.threefry",
+         "surel_plus_tpu_torch.ops.special",
+         "surel_plus_tpu_torch.models.init"}} <= set(names), names
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -305,7 +305,7 @@ def test_lstm_aggregation_matches_jax_scan(fold):
 
 
 def test_lstm_aggregation_init():
-    gen = lambda: torch.Generator().manual_seed(0)
+    gen = lambda: prng.prng_key(0)
     a, b = LSTMAggregation(H), LSTMAggregation(H)
     a.reset_parameters(gen())
     b.reset_parameters(gen())
@@ -369,7 +369,8 @@ def _port_net(joins, dtype, fused, queries=None):
     batch (of its first `queries` queries)."""
     nw, ns, _, rows, params, _ = joins
     net = Net(ns + 1, NET_H, aggrs="lstm", dropout=0.0, dtype=dtype,
-              key_layout=(nw, ns), fused_hidden=fused, device="cpu")
+              key_layout=(nw, ns), fused_hidden=fused,
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(params))
     rows = [x[:, :queries] for x in rows]
     joined = join_gathered_keys(*rows, nw, ns,
@@ -407,7 +408,7 @@ def test_fused_lstm_route_reads_only_the_aligned_keys(joins):
     cpu = torch.device("cpu")
     net = Net(ns + 1, NET_H, aggrs="lstm", key_layout=(nw, ns),
               fused_hidden=True, device="cpu",
-              generator=torch.Generator().manual_seed(0))
+              key=prng.prng_key(0))
     assert net.join_outputs(cpu) == dict(aligned=True, features=False)
     lean = join_gathered_keys(*rows, nw, ns, **net.join_outputs(cpu))
     assert lean.eidx is None and lean.kcross_al is not None
@@ -419,7 +420,7 @@ def test_fused_lstm_route_reads_only_the_aligned_keys(joins):
     with torch.no_grad():
         assert torch.isfinite(net.eval()(lean)).all()
     unfused = Net(ns + 1, NET_H, aggrs="lstm", fused_hidden=False,
-                  device="cpu")
+                  key=prng.prng_key(0), device="cpu")
     assert unfused.join_outputs(cpu) == dict(aligned=True, features=True)
 
 

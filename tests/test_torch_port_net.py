@@ -18,6 +18,7 @@ from surel_plus_tpu.ops.join import make_keys_join as jax_make_keys_join
 from surel_plus_tpu.ops.sampler import sample_gsets_device_keys
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import make_keys_join
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -56,7 +57,8 @@ def _pair(nw, ns, dtype, jj, **kw):
 
     def port(fused):
         net = Net(ns + 1, H, dropout=0.0, dtype=dtype, key_layout=(nw, ns),
-                  fused_hidden=fused, device="cpu", **kw)
+                  fused_hidden=fused, key=prng.prng_key(0), device="cpu",
+                  **kw)
         net.load_state_dict(state)
         return net.eval()
 
@@ -92,8 +94,8 @@ def test_net_with_features_matches_jax(joined):
 
 
 def test_seeded_init_is_reproducible_and_shaped():
-    a = Net(4, H, generator=torch.Generator().manual_seed(0), device="cpu")
-    b = Net(4, H, generator=torch.Generator().manual_seed(0), device="cpu")
+    a = Net(4, H, key=prng.prng_key(0), device="cpu")
+    b = Net(4, H, key=prng.prng_key(0), device="cpu")
     for (k, x), (_, y) in zip(a.state_dict().items(),
                               b.state_dict().items()):
         assert torch.equal(x, y), k
@@ -105,7 +107,7 @@ def test_seeded_init_is_reproducible_and_shaped():
 @pytest.mark.parametrize("aggrs", ["sum"])
 def test_unported_aggregators_raise(aggrs):
     with pytest.raises(ValueError, match="unknown aggregator"):
-        Net(4, H, aggrs=aggrs, device="cpu")
+        Net(4, H, aggrs=aggrs, key=prng.prng_key(0), device="cpu")
 
 
 def test_params_from_flax_rejects_unported_modules():

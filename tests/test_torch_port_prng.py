@@ -266,7 +266,7 @@ def test_merge_layer_drops_what_flax_drops(sets):
     want = np.asarray(jnet.apply(params, enc, jj, train=True,
                                  rngs={"dropout": key}))
     net = Net(4, H, dropout=0.5, key_layout=(8, 3), fused_hidden=False,
-              device="cpu")
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     e = np.random.default_rng(2).integers(0, 120, size=(2, 12))
     tj = join_ops.make_keys_join(8, 3, **net.join_outputs(
@@ -329,8 +329,9 @@ def test_fit_with_dropout_matches_jax(sets, model):
     p1, _, losses, aucs = jtr.fit(p0, opt, jnp.asarray(edges),
                                   jnp.asarray(labels), key, 2)
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
-    net = (HONet(4, H, dropout=0.1, device="cpu") if hyper
-           else Net(4, H, dropout=0.1, device="cpu"))
+    net = (HONet(4, H, dropout=0.1,
+                 key=prng.prng_key(0), device="cpu") if hyper
+           else Net(4, H, dropout=0.1, key=prng.prng_key(0), device="cpu"))
     net.load_state_dict(flat(p0))
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS, lr=LR),
                            **(dict(join_factory=join_ops.make_keys_hjoin)

@@ -334,7 +334,8 @@ def test_gather_join_scalar_matches_jax(scalar_case):
 
 
 def _port_net(params, aggrs, **kw):
-    net = Net(1, H, aggrs=aggrs, dropout=0.0, device="cpu", **kw)
+    net = Net(1, H, aggrs=aggrs, dropout=0.0,
+              key=prng.prng_key(0), device="cpu", **kw)
     net.load_state_dict(params_from_flax(params))
     return net
 
@@ -438,7 +439,7 @@ def test_scalar_fit_matches_jax(scalar_case, aggrs):
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
     state0, want = flat(params0), flat(params)
     net = Net(1, H, aggrs=aggrs, dropout=0.0, fused_hidden=fused,
-              device="cpu")
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(state0)
     tr = scalar_trainer_from_spg(net, port_sspg,
                                  TrainConfig(batch_size=BS, lr=LR),
@@ -460,10 +461,10 @@ def test_scalar_fit_matches_jax(scalar_case, aggrs):
 
 # ------------------------------------------------------------ the CLI
 SCALAR_CLI = {"host_spd": ["--engine", "host", "--sencoder", "SPD"],
-              "device_ppr": ["--sencoder", "PPR"],
-              "device_deg": ["--sencoder", "DEG"],
-              "balanced_ppr": ["--sencoder", "PPR", "--balance_widths",
-                               "4,8"]}
+              "device_ppr": ["--engine", "device", "--sencoder", "PPR"],
+              "device_deg": ["--engine", "device", "--sencoder", "DEG"],
+              "balanced_ppr": ["--engine", "device", "--sencoder", "PPR",
+                               "--balance_widths", "4,8"]}
 
 
 @pytest.mark.parametrize("case", sorted(SCALAR_CLI))

@@ -42,6 +42,7 @@ from surel_plus_tpu.ops.sampler import sample_gsets_device_keys
 from surel_plus_tpu.ops.walk import enc_field_layout
 from surel_plus_tpu_torch.convert import params_from_flax
 from surel_plus_tpu_torch.models import Net
+from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import make_keys_join
 from surel_plus_tpu_torch.ops.kernels.hidden_sum import (
     NEG,
@@ -263,7 +264,8 @@ def _keys_route(sampled, aggrs, params, dtype="float32"):
     feature pairs: the route that forms hsum from the keys."""
     nw, ns, _, rows = sampled
     net = Net(ns + 1, NET_H, aggrs=aggrs, dropout=0.0, dtype=dtype,
-              key_layout=(nw, ns), fused_hidden=False, device="cpu")
+              key_layout=(nw, ns), fused_hidden=False,
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(params))
     joined = make_keys_join(nw, ns, aligned=True, features=False)(*rows)
     assert joined.eidx is None and joined.kcross_al is not None
@@ -319,12 +321,13 @@ def test_join_outputs_of_the_unfused_route(aggrs):
     on CUDA (K7 forms the hidden rows) and for the feature pairs on the
     CPU (the JAX package's XLA route); the default route is the unfused
     one on the CPU and the fused one on CUDA."""
-    net = Net(4, NET_H, aggrs=aggrs, fused_hidden=False, device="cpu")
+    net = Net(4, NET_H, aggrs=aggrs, fused_hidden=False,
+              key=prng.prng_key(0), device="cpu")
     assert net.join_outputs(torch.device("cuda")) == dict(aligned=True,
                                                           features=False)
     assert net.join_outputs(torch.device("cpu")) == dict(aligned=True,
                                                          features=True)
-    default = Net(4, NET_H, aggrs=aggrs, device="cpu")
+    default = Net(4, NET_H, aggrs=aggrs, key=prng.prng_key(0), device="cpu")
     assert default.join_outputs(torch.device("cpu")) == dict(aligned=True,
                                                              features=True)
     assert default.fused_on(torch.device("cuda"))
@@ -338,7 +341,7 @@ def test_keys_route_equals_feature_route(sampled):
     nw, ns, _, rows = sampled
     net = Net(ns + 1, NET_H, aggrs="attn", dropout=0.0, fused_hidden=False,
               key_layout=(nw, ns), device="cpu",
-              generator=torch.Generator().manual_seed(0)).eval()
+              key=prng.prng_key(0)).eval()
     pairs = make_keys_join(nw, ns, aligned=True, features=True)(*rows)
     keys = make_keys_join(nw, ns, aligned=True, features=False)(*rows)
     with torch.no_grad():

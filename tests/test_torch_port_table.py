@@ -320,7 +320,8 @@ def net_case():
 
 
 def _port_net(params, aggrs, **kw):
-    net = Net(4, H, aggrs=aggrs, dropout=0.0, device="cpu", **kw)
+    net = Net(4, H, aggrs=aggrs, dropout=0.0,
+              key=prng.prng_key(0), device="cpu", **kw)
     net.load_state_dict(params_from_flax(params))
     return net
 
@@ -473,7 +474,7 @@ def test_table_fit_matches_jax(net_case, aggrs):
     flat = lambda p: params_from_flax(jax.tree.map(np.asarray, p))
     state0, want = flat(params0), flat(params)
     net = Net(4, H, aggrs=aggrs, dropout=0.0, fused_hidden=fused,
-              device="cpu")
+              key=prng.prng_key(0), device="cpu")
     net.load_state_dict(state0)
     tr = DeviceTrainer(net, _tdev(jdev), TrainConfig(batch_size=BS, lr=LR))
     got_losses, got_aucs = tr.fit(edges, labels, EPOCHS, prng.as_key(key))

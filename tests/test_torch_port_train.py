@@ -133,7 +133,7 @@ def test_train_step_loss_and_grads_match_jax(sampled, step_batch, route,
     want = params_from_flax(jax.tree.map(np.asarray, want_grads))
 
     net = Net(ns + 1, H, aggrs=aggrs, dropout=0.0, key_layout=(nw, ns),
-              fused_hidden=fused, device="cpu")
+              fused_hidden=fused, key=prng.prng_key(0), device="cpu")
     net.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     tj = make_keys_join(nw, ns, **net.join_outputs(torch.device("cpu")))(
         tspgk.nodes, tspgk.khi, tspgk.klo, tspgk.sizes,
@@ -267,7 +267,7 @@ def test_fit_matches_jax(sampled, jax_fit, route):
     nw, ns, spgk, tspgk = sampled
     aggrs, edges, labels, state0, want, losses, aucs, key = jax_fit
     net = Net(ns + 1, H, aggrs=aggrs, dropout=0.0,
-              fused_hidden=ROUTES[route], device="cpu")
+              fused_hidden=ROUTES[route], key=prng.prng_key(0), device="cpu")
     net.load_state_dict(state0)
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS, lr=LR))
     # JAX's key: the port draws JAX's batch order itself
@@ -299,7 +299,7 @@ def test_fit_draws_its_own_permutation_and_dropout(sampled):
     runs = []
     for _ in range(2):
         net = Net(ns + 1, H, dropout=0.5, device="cpu",
-                  generator=torch.Generator().manual_seed(1))
+                  key=prng.prng_key(1))
         tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS))
         losses, aucs = tr.fit(edges, labels, 2, prng.prng_key(2))
         assert torch.isfinite(losses).all()
@@ -314,13 +314,13 @@ def test_init_redraws_weights_and_resets_adam(sampled):
     nw, ns, spgk, tspgk = sampled
     edges = torch.as_tensor(np.random.default_rng(35).integers(
         0, N, size=(2, E)))
-    seeded = lambda: torch.Generator().manual_seed(7)
-    net = Net(ns + 1, H, device="cpu", generator=seeded())
+    seeded = lambda: prng.prng_key(7)
+    net = Net(ns + 1, H, device="cpu", key=seeded())
     tr = trainer_from_keys(net, tspgk, TrainConfig(batch_size=BS))
     tr.fit(edges, torch.ones(E), 1, prng.prng_key(0))
     assert tr.optimizer.state
     tr.init(seeded())
     assert not tr.optimizer.state
-    fresh = Net(ns + 1, H, device="cpu", generator=seeded()).state_dict()
+    fresh = Net(ns + 1, H, device="cpu", key=seeded()).state_dict()
     for k, v in net.state_dict().items():
         assert torch.equal(v, fresh[k]), k
