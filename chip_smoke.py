@@ -115,7 +115,9 @@ NVIDIA GPU. Run from the repository root:
    from a key.
    Then drives the serving path at the bench width: an RMAT graph of 250k
    nodes and 2.5M generated edges, `sample_gsets_device_keys` (M=100,
-   S'=3), `Net(96, mean, bfloat16)` from prng_key(0), `predict` on
+   S'=3; cold on a fresh graph object, the upload, shuffle and int32
+   edge-table build timed apart on another, then warm),
+   `Net(96, mean, bfloat16)` from prng_key(0), `predict` on
    32 x 4096 query edges, then the MRR of 4096 sources against 1000
    negatives each. Checks the sets' invariants, the fused route's logits
    against the plain route's (unfused, over the feature pairs) on one
@@ -310,7 +312,15 @@ NVIDIA GPU. Run from the repository root:
    candidates (pairs/s). The ranks' launch counts are summed into the
    `multi_device*` paths. Then `dryrun_multichip` at world 1 over NCCL,
    and over NCCL across min(4, cards) cards where the machine has more
-   than one.
+   than one. Last, the large-graph path (`scale_path`):
+   `cli/scale_demo.py`'s device stages at a cut graph (R-MAT pairs of
+   2,000,000 nodes and 24,000,000 draws, the native ingest, the upload,
+   shuffle and int32 edge tables timed apart, cold and warm sampling of
+   262,144 sets at M=50, S'=3, bucket 128, a cold and a timed 4-epoch fit
+   of `Net(96, mean, bf16)` over 65,536 queries), each stage's seconds
+   and peak device memory; the walk graph must take 32 B a directed edge
+   plus indptr, and the card's sets must equal the CPU port's on the
+   first 4,096 seeds.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the run's total
@@ -348,7 +358,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np
 import torch
 
-from surel_plus_tpu_torch.cli import main_horder
+from surel_plus_tpu_torch.cli import main_horder, scale_demo
 from surel_plus_tpu_torch.cli.main import run_experiment
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.graph.datasets import synthetic_hetero_data
@@ -390,6 +400,7 @@ from surel_plus_tpu_torch.ops.sampler import (
     device_graph,
     sample_gsets_device,
     sample_gsets_device_keys,
+    shuffled_indices_for,
     walk_tables_for,
 )
 from surel_plus_tpu_torch.spg import SpGDevice, SpGKeys
@@ -517,6 +528,14 @@ MAG_DATA = dict(num_authors=100_000, num_papers=150_000,
 MAG_QUERIES = 4096
 CLI_MAG = dict(relation="cite", num_walks=100, num_steps=4, aggrs="mean",
                hidden_channels=96, k=10, batch_size=4096)
+# the large-graph path (`cli/scale_demo.py`'s device stages) at a cut
+# graph: R-MAT pairs of 2,000,000 nodes, 24,000,000 draws (about 48M
+# directed edges), a set for each of the first 262,144 nodes at M=50,
+# S'=3, bucket 128, Net(96, mean, bf16) 4 epochs over 65,536 queries; the
+# card's warm sets held to the CPU's for the first SCALE_CPU_SEEDS seeds
+SCALE = dict(n=2_000_000, draws=24_000_000, seeds=262_144, queries=65_536,
+             walks=50, steps=3, bucket=128)
+SCALE_CPU_SEEDS = 4096
 # the legacy walk API over the bench graph: walk_sampler at M=100, S'=3,
 # rw_matrix at M=200, num_steps 4 (walks of 3 steps), batch_sampler and
 # walk_join, each over LEGACY_SEEDS seeds
@@ -690,7 +709,9 @@ PATHS = {"init_from_key": ("threefry_bits",),
                                "merge_pairs"),
          "multi_device_honet": ("hidden_sum_fwd", "hidden_sum_bwd",
                                 "merge_pairs"),
-         "multi_device_serve": ("hidden_sum_fwd", "merge_pairs")}
+         "multi_device_serve": ("hidden_sum_fwd", "merge_pairs"),
+         "scale": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs",
+                   "threefry_bits")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
@@ -3079,11 +3100,16 @@ def kernels_vs_plain(g, gsets):
 
 
 # --------------------------------------------------------------- phase 3
-def check_sets(spgk: SpGKeys, seeds: torch.Tensor) -> None:
-    """The sampler's invariants (tests/test_sampler.py) on the card."""
+def check_sets(spgk: SpGKeys, seeds: torch.Tensor,
+               cut: bool = False) -> None:
+    """The sampler's invariants (tests/test_sampler.py) on the card. With
+    `cut` (a bucket below the visits), a full row may have lost its root
+    and some counts to the bucket (it keeps the smallest ids), so the
+    root and the walk mass are checked on the other rows."""
     nodes, sizes = spgk.nodes, spgk.sizes.to(torch.int64)
     L = nodes.shape[1]
     valid = torch.arange(L, device=nodes.device)[None, :] < sizes[:, None]
+    whole = sizes < L if cut else torch.ones_like(sizes, dtype=torch.bool)
     require(bool((sizes >= 1).all()), "a set without its root")
     require(bool((nodes[~valid] == walk_ops.INT32_MAX).all()),
             "padding is not INT32_MAX")
@@ -3094,11 +3120,14 @@ def check_sets(spgk: SpGKeys, seeds: torch.Tensor) -> None:
                                                         spgk.num_steps)
     lo = walk_ops.u32(spgk.klo)
     root = ((lo >> lead_bit) & 1).bool() & valid
-    require(bool((root.sum(dim=1) == 1).all()), "not one root per set")
-    require(bool((nodes[root] == seeds).all()), "root is not the seed")
+    nroots = root.sum(dim=1)
+    require(bool(((nroots == 1) | (~whole & (nroots == 0))).all()),
+            "not one root per set")
+    require(bool((nodes[root] == seeds[nroots == 1]).all()),
+            "root is not the seed")
     for j in range(1, spgk.num_steps + 1):
         col = ((lo >> starts[j]) & ((1 << shift) - 1)) * valid
-        require(bool((col.sum(dim=1) == spgk.num_walks).all()),
+        require(bool((col.sum(dim=1) == spgk.num_walks)[whole].all()),
                 f"step {j} does not conserve the walk mass")
 
 
@@ -3140,21 +3169,37 @@ def timed_predict(trainer, edges, label, what):
 
 def serve_path(g, label):
     seeds_np = np.arange(g.num_nodes)
+    # the cold call on a fresh graph object (`g` has its device arrays
+    # cached already): the upload, the first-hop shuffle (seed 0) and the
+    # int32 edge tables, each timed, then the walks alone
+    fresh = dataclasses.replace(g)
+    parts = {}
+    for what, fn in (
+            ("upload", lambda: device_graph(fresh, DEVICE)),
+            ("shuffle", lambda: shuffled_indices_for(fresh, 0, DEVICE)),
+            ("tables", lambda: walk_tables_for(fresh, 0, DEVICE)),
+            ("walks", lambda: sample_gsets_device_keys(
+                fresh, seeds_np, NUM_WALKS, NUM_STEPS, seed=0,
+                block_size=SAMPLE_BLOCK, device=DEVICE))):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        parts[what] = time.perf_counter() - t0
+    cold = sum(parts.values())
     t0 = time.perf_counter()
-    spgk = sample_gsets_device_keys(g, seeds_np, NUM_WALKS, NUM_STEPS,
-                                    seed=0, block_size=SAMPLE_BLOCK,
-                                    device=DEVICE)
-    sync()
-    cold = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    spgk = sample_gsets_device_keys(g, seeds_np, NUM_WALKS, NUM_STEPS,
+    spgk = sample_gsets_device_keys(fresh, seeds_np, NUM_WALKS, NUM_STEPS,
                                     seed=1, shuffle_seed=0,
                                     block_size=SAMPLE_BLOCK, device=DEVICE)
     sync()
     warm = time.perf_counter() - t0
+    del fresh
     say(f"sampling: {g.num_nodes} sets, L={spgk.nodes.shape[1]}, cold "
-        f"{cold:.3f} s (shuffle + tables), warm {warm:.3f} s -> "
-        f"{g.num_nodes / warm:.1f} sets/s [{label}]")
+        f"{cold:.3f} s on a fresh graph object (upload "
+        f"{parts['upload']:.4f} s, shuffle {parts['shuffle']:.4f} s, int32 "
+        f"tables {parts['tables']:.4f} s, the walks {parts['walks']:.4f} "
+        f"s), warm {warm:.3f} s -> {g.num_nodes / warm:.1f} sets/s "
+        f"[{label}]")
     check_sets(spgk, torch.arange(g.num_nodes, device=DEVICE))
 
     net = make_net("mean", dropout=0.1, dtype="bfloat16",
@@ -5442,6 +5487,53 @@ def multi_device_path(label, launches) -> None:
             f"more than one card (this one has {cards})")
 
 
+def scale_path(label, launches) -> None:
+    """The large-graph path's device stages (`scale_demo.run_device`) at
+    SCALE, its launches counted as the `scale` path: the walk graph on
+    the card in int32 words (32 B a directed edge, plus indptr), the
+    sets' invariants, the card's warm sets equal to the CPU port's for
+    the first SCALE_CPU_SEEDS seeds (a draw depends only on its flat
+    index), finite losses; prints each stage's seconds and peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = scale_demo.run_device(**SCALE, device=DEVICE,
+                                log=lambda msg: say(f"scale {msg}"))
+    launches["scale"] = counts()
+    wall = time.perf_counter() - t0
+    g, gb, warm = res["graph"], res["graph_bytes"], res["sets"]["warm"]
+    say(f"scale: the walk graph on the card {gb['total']:,} B = "
+        f"{gb['per_edge']:.2f} B x {g.num_edges:,} directed edges + indptr "
+        f"{gb['indptr']:,} B [{label}]")
+    require(gb["per_edge"] == 32 and gb["indptr"] == 4 * (g.num_nodes + 1),
+            f"scale: the walk graph takes {gb['per_edge']} B a directed "
+            f"edge and {gb['indptr']} B of indptr, not int32 words")
+    check_sets(warm, torch.arange(SCALE["seeds"], device=DEVICE), cut=True)
+    t1 = time.perf_counter()
+    cpu = sample_gsets_device_keys(
+        g, np.arange(SCALE_CPU_SEEDS), SCALE["walks"], SCALE["steps"],
+        seed=1, shuffle_seed=0, bucket=SCALE["bucket"], device="cpu")
+    same = all(torch.equal(getattr(warm, k)[:SCALE_CPU_SEEDS].cpu(),
+                           getattr(cpu, k)) for k in MD_KEYS)
+    require(same, f"scale: the card's sets differ from the CPU's on the "
+                  f"first {SCALE_CPU_SEEDS} seeds")
+    require(all(bool(torch.isfinite(res[k]).all())
+                for k in ("losses_cold", "losses_warm")),
+            "scale: a loss is not finite")
+    for name, row in res["stages"].items():
+        say(f"scale stage {name}: {row['s']:.3f} s, peak device "
+            f"{row['peak_gb']:.3f} GB, live {row['live_gb']:.3f} GB, host "
+            f"RSS {row['rss_gb']:.2f} GB")
+    say(f"scale: warm sampling {res['sets_per_s']:.1f} sets/s, training "
+        f"{res['queries_per_s']:.1f} q/s; the phase {wall:.1f} s (the CPU's "
+        f"sets {time.perf_counter() - t1:.1f} s) [{label}]")
+    say(f"launches on the scale path: {launches['scale']}")
+    del res, g, warm, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def counts():
     return {name: k["kernel"].launches for name, k in KERNELS.items()}
 
@@ -5592,6 +5684,8 @@ def main() -> int:
     legacy_path(g, label)
     # the multi-device path: four ranks on the card, then the dry runs
     multi_device_path(label, launches)
+    # the large-graph path at a cut graph
+    scale_path(label, launches)
 
     # phase 4
     for path, names in PATHS.items():

@@ -1,7 +1,8 @@
 """Immutable CSR graph container (port of surel_plus_tpu/graph/csr.py).
 
 Host arrays are numpy; `to(device)` places (indptr, indices) on a torch
-device. Node ids are int32 on the host, as in the reference.
+device. Node ids and offsets are int32 on the host and on the device, the
+JAX package's words (its `device()`).
 """
 
 from __future__ import annotations
@@ -68,10 +69,27 @@ class CSRGraph:
         )
 
     def to(self, device):
-        """Return (indptr, indices) as int64 torch tensors on `device`
-        (int64 so that they index directly)."""
-        return (torch.as_tensor(self.indptr, dtype=torch.int64).to(device),
-                torch.as_tensor(self.indices, dtype=torch.int64).to(device))
+        """Return (indptr, indices) as int32 torch tensors on `device`, the
+        JAX package's `device()` words, uploaded from the host arrays with
+        no wider copy. Raises ValueError for 2^31 or more directed edges
+        (`check_int32_edges`)."""
+        check_int32_edges(self.num_edges)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+            device) for a in (self.indptr, self.indices))
+
+
+# the most directed edges the int32 device words can offset: JAX's int32
+# starts would wrap past it
+MAX_DEVICE_EDGES = 2**31 - 1
+
+
+def check_int32_edges(num_edges: int) -> None:
+    """Raise ValueError if a graph of `num_edges` directed edges cannot be
+    offset by the device's int32 words."""
+    if num_edges > MAX_DEVICE_EDGES:
+        raise ValueError(
+            f"{num_edges:,} directed edges do not fit the device graph's "
+            f"int32 offsets (at most {MAX_DEVICE_EDGES:,})")
 
 
 # from this edge count on, `csr_from_edges` takes the C++/OpenMP
@@ -117,8 +135,9 @@ def csr_from_edges(
     edges on, the numpy lexsort below that; True or False forces either.
     The native build takes node ids below 2^31 - 1 and at most 2^31 - 1
     entries; other edge lists take the numpy path, as in the JAX package.
+    An int32 edge list reaches the native build without an int64 copy.
     """
-    edges = np.asarray(edges, dtype=np.int64)
+    edges = np.asarray(edges)
     if prefer_native is None:
         prefer_native = len(edges) >= NATIVE_BUILD_THRESHOLD
     if (prefer_native and len(edges) and int(edges.max()) < 2**31 - 1
@@ -130,6 +149,7 @@ def csr_from_edges(
             edges, weights=weights, num_nodes=num_nodes,
             symmetrize=symmetrize, coalesce=coalesce,
             drop_self_loops=drop_self_loops)
+    edges = edges.astype(np.int64, copy=False)
     if edges.ndim != 2 or edges.shape[1] != 2:
         raise ValueError(f"edges must be [E, 2], got {edges.shape}")
     if num_nodes is None:

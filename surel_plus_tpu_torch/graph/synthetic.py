@@ -68,3 +68,50 @@ def ring_of_cliques(num_cliques: int, clique_size: int) -> CSRGraph:
         edges.append((base, nxt))
     return csr_from_edges(np.array(edges, dtype=np.int64),
                           num_nodes=num_cliques * clique_size)
+
+
+def rmat_pairs_chunked(n: int, draws: int, seed: int,
+                       chunk: int = 20_000_000) -> np.ndarray:
+    """Directed R-MAT pairs [E, 2] int32 drawn `chunk` at a time: the JAX
+    package's `scripts/scale_demo.py:rmat_pairs_chunked` (the same draws
+    from `default_rng(seed)`, self-loops dropped, duplicates left for the
+    CSR build's coalesce). The pairs go straight into one [draws, 2]
+    buffer whose unused tail is never touched, and each chunk's work
+    arrays are reused, so the host holds the pairs and about one chunk
+    beyond them."""
+    rng = np.random.default_rng(seed)
+    scale = max(1, int(np.ceil(np.log2(max(n, 2)))))
+    pa, pb, pc = 0.57, 0.76, 0.95
+    out = np.empty((draws, 2), np.int32)
+    width = min(chunk, draws)
+    src, dst = np.empty(width, np.int64), np.empty(width, np.int64)
+    r = np.empty(width)
+    bit, tmp = np.empty(width, bool), np.empty(width, bool)
+    kept = 0
+    for done in range(0, draws, chunk):
+        m = min(chunk, draws - done)
+        s, d, rr, b, t = src[:m], dst[:m], r[:m], bit[:m], tmp[:m]
+        s[:] = 0
+        d[:] = 0
+        for _ in range(scale):
+            rng.random(out=rr)
+            s <<= 1
+            d <<= 1
+            # quadrant: b and d set the destination's bit, c and d the
+            # source's (rmat_graph's choice)
+            np.greater_equal(rr, pa, out=b)
+            np.less(rr, pb, out=t)
+            b &= t
+            np.greater_equal(rr, pc, out=t)
+            b |= t
+            d |= b
+            np.greater_equal(rr, pb, out=b)
+            s |= b
+        s %= n
+        d %= n
+        np.not_equal(s, d, out=b)
+        k = int(np.count_nonzero(b))
+        out[kept:kept + k, 0] = s[b]
+        out[kept:kept + k, 1] = d[b]
+        kept += k
+    return out[:kept]

@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from surel_plus_tpu_torch.graph.csr import CSRGraph
+from surel_plus_tpu_torch.graph.csr import CSRGraph, check_int32_edges
 from surel_plus_tpu_torch.graph.native import shuffle_rows_native
 from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
@@ -52,7 +52,8 @@ def _cache(graph: CSRGraph) -> dict:
 
 
 def device_graph(graph: CSRGraph, device):
-    """(indptr, indices) int64 on `device`, uploaded once per graph."""
+    """(indptr, indices) int32 on `device` (`CSRGraph.to`), uploaded once
+    per graph."""
     device = torch.device(device)
     cache = _cache(graph)
     key = ("csr", str(device))
@@ -65,19 +66,20 @@ def shuffled_indices_for(graph: CSRGraph, seed: int, device):
     """Per-row random permutation of the CSR indices, computed on the host
     by the native per-row Fisher-Yates shuffle (`native.shuffle_rows_native`,
     the JAX package's first-hop source: the same rows for the same seed)
-    and uploaded once per (graph, seed, device)."""
+    and uploaded as int32 once per (graph, seed, device)."""
     device = torch.device(device)
     cache = _cache(graph)
     key = ("shuffle", seed, str(device))
     if key not in cache:
-        shuffled = shuffle_rows_native(graph, seed)
-        cache[key] = torch.as_tensor(shuffled, dtype=torch.int64).to(device)
+        check_int32_edges(graph.num_edges)
+        cache[key] = torch.from_numpy(shuffle_rows_native(graph, seed)).to(
+            device)
     return cache[key]
 
 
 def walk_tables_for(graph: CSRGraph, seed: int, device):
-    """Edge-table pair (`walk.build_walk_tables`), cached per
-    (graph, shuffle seed, device)."""
+    """Edge-table pair (`walk.build_walk_tables`, int32 [E, 3] each),
+    cached per (graph, shuffle seed, device)."""
     device = torch.device(device)
     cache = _cache(graph)
     key = ("walk_tables", seed, str(device))
@@ -86,6 +88,25 @@ def walk_tables_for(graph: CSRGraph, seed: int, device):
         shuffled = shuffled_indices_for(graph, seed, device)
         cache[key] = walk_ops.build_walk_tables(indptr, indices, shuffled)
     return cache[key]
+
+
+def cached_graph_bytes(graph: CSRGraph, device) -> dict:
+    """Device bytes of `graph`'s cached tensors on `device`: by kind, "csr"
+    (indptr and indices), "indptr" (its share of "csr"), "shuffle" and
+    "walk_tables" (summed over the cached shuffle seeds); their "total";
+    and "per_edge", the bytes a directed edge beside indptr."""
+    out = {"csr": 0, "indptr": 0, "shuffle": 0, "walk_tables": 0}
+    for key, val in _cache(graph).items():
+        if key[-1] != str(torch.device(device)):
+            continue
+        tensors = val if isinstance(val, tuple) else (val,)
+        out[key[0]] += sum(t.numel() * t.element_size() for t in tensors)
+        if key[0] == "csr":
+            out["indptr"] += tensors[0].numel() * tensors[0].element_size()
+    out["total"] = out["csr"] + out["shuffle"] + out["walk_tables"]
+    out["per_edge"] = (out["total"] - out["indptr"]) / max(graph.num_edges,
+                                                           1)
+    return out
 
 
 def sample_gsets_device_keys(

@@ -94,17 +94,33 @@ def shuffle_csr_rows(row_ids: torch.Tensor, indices: torch.Tensor,
     return indices[order]
 
 
+# edges a step of the table build gathers: its transient beyond the tables
+TABLE_CHUNK = 1 << 23
+
+
 def build_walk_tables(indptr: torch.Tensor, indices: torch.Tensor,
                       shuffled_indices: torch.Tensor):
-    """Edge tables for the one-gather-per-step walk, int64 [E, 3]:
+    """Edge tables for the one-gather-per-step walk, int32 [E, 3] (the JAX
+    package's words):
 
     etab[j] = (indices[j],  start[indices[j]],  deg[indices[j]])
     stab[j] = (shuffled[j], start[shuffled[j]], deg[shuffled[j]])
+
+    Both are written in place, TABLE_CHUNK edges at a time, so that the
+    build needs the two tables, the [N, 2] (start, deg) rows and one
+    chunk's gather.
     """
-    start_deg = torch.stack([indptr[:-1], indptr[1:] - indptr[:-1]], dim=-1)
-    etab = torch.cat([indices[:, None], start_deg[indices]], dim=1)
-    stab = torch.cat([shuffled_indices[:, None], start_deg[shuffled_indices]],
-                     dim=1)
+    start_deg = torch.stack([indptr[:-1], indptr[1:] - indptr[:-1]],
+                            dim=-1).to(torch.int32)
+    etab = torch.empty(indices.shape[0], 3, dtype=torch.int32,
+                       device=indices.device)
+    stab = torch.empty_like(etab)
+    chunk = TABLE_CHUNK
+    for lo in range(0, indices.shape[0], chunk):
+        for tab, col in ((etab, indices), (stab, shuffled_indices)):
+            ids = col[lo:lo + chunk]
+            tab[lo:lo + chunk, 0] = ids
+            tab[lo:lo + chunk, 1:] = start_deg[ids]
     return etab, stab
 
 

@@ -47,7 +47,7 @@ def test_shuffles_match_jax(graph, seed):
     np.testing.assert_array_equal(native.shuffle_rows_native(g, seed),
                                   jnative.shuffle_rows_native(jg, seed))
     got = shuffled_indices_for(g, seed, "cpu")
-    assert got.dtype == torch.int64
+    assert got.dtype == torch.int32 and want.dtype == np.int32  # JAX's word
     np.testing.assert_array_equal(got.numpy(), want)
     for u in (0, 7, g.num_nodes - 1):
         lo, hi = g.indptr[u], g.indptr[u + 1]
