@@ -2,6 +2,8 @@
 NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only multi_device   # the build, then phase 3's
+                                                # multi-device path alone
 
 1. Builds the thirteen CUDA kernels from `surel_plus_tpu_torch/csrc/` (one
    nvcc per source, started together) and prints the build time, each
@@ -288,9 +290,10 @@ NVIDIA GPU. Run from the repository root:
    their invariants held and `walk_join` on the card equal to its CPU
    result exactly. Then the multi-device path (`multi_device_path`,
    `surel_plus_tpu_torch/parallel/`): four ranks started by
-   `parallel.launch.run_ranks`, sharing the one card over gloo (mesh data
-   2 x graph 2; they share its SMs and exchange through host memory, so
-   the rates measure no scaling). Each rank (`multi_device_rank`) builds
+   `parallel.launch.run_ranks`, mesh data 2 x graph 2, one card each over
+   NCCL on a machine with four cards, else sharing the one card over gloo
+   (they share its SMs and exchange through host memory, so the rates
+   measure no scaling). Each rank (`multi_device_rank`) builds
    the main path's graph, partitions it four ways (`partition_csr`),
    samples every node's set through the frontier exchange
    (`sample_gsets_partitioned`, the probe over the edge tables; sets/s)
@@ -301,7 +304,8 @@ NVIDIA GPU. Run from the repository root:
    psum and the all-to-all row gathers on a batch's ids (equal exactly);
    runs `DistributedKeysTrainStep` with `Net(96, mean, bf16)` at batch
    4096 (2048 a data rank): a cold step, then 16 timed (ms a step, q/s
-   for each rank); the fp32 mean step held to rank 0's single-process
+   for each rank, beside the same steps in one process on rank 0's
+   card); the fp32 mean step held to rank 0's single-process
    `DeviceTrainer` step on the same batch (loss rtol 1e-5, gradients and
    parameters rtol 1e-4 / atol 1e-5, a parameter whose gradient is
    rounding noise within 2 lr), the attn and lstm steps (loss within
@@ -309,7 +313,13 @@ NVIDIA GPU. Run from the repository root:
    and its scorer's scores within 1e-4 of `predict`; the fp32 mean
    Net's `DistributedKeysScorer` within 1e-4 of `predict` on 4096 x 101
    pairs, then `evaluate_distributed`'s MRR over 4096 sources x 1001
-   candidates (pairs/s). The ranks' launch counts are summed into the
+   candidates (pairs/s). Over NCCL each rank also scores the citation2
+   probe's 80,000 x 1001 pairs (`md_citation2`: `cli/probe_mrr_scale.py`'s
+   sets, fp32 Net of prng_key(0) and draws): rank 0 alone on its card,
+   then `evaluate_distributed` on meshes 2 x 2 and 4 x 1 at a scorer
+   batch of 4096 and of 4096 a data rank, every score within 1e-4 of rank
+   0's and each source's rank moving by at most its negatives within 2e-4
+   of its positive. The ranks' launch counts are summed into the
    `multi_device*` paths. Then `dryrun_multichip` at world 1 over NCCL,
    and over NCCL across min(4, cards) cards where the machine has more
    than one. Last, the large-graph path (`scale_path`):
@@ -320,7 +330,11 @@ NVIDIA GPU. Run from the repository root:
    of `Net(96, mean, bf16)` over 65,536 queries), each stage's seconds
    and peak device memory; the walk graph must take 32 B a directed edge
    plus indptr, and the card's sets must equal the CPU port's on the
-   first 4,096 seeds.
+   first 4,096 seeds. Last, the citation2-scale MRR probe
+   (`mrr_scale_path`, `cli/probe_mrr_scale.py` at its defaults: 80,000
+   sources x 1001 candidates = 80,080,000 pairs), its MRR equal to the
+   ranks recomputed on the host, its first batch scored again alone
+   equal to the timed window's.
 4. Requires every kernel of each path to have launched while that path
    ran (the counts are set to 0 just before the path and read just
    after), prints one JSON line describing each kernel, the run's total
@@ -334,6 +348,7 @@ any phase fails.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
 import functools
@@ -358,7 +373,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np
 import torch
 
-from surel_plus_tpu_torch.cli import main_horder, scale_demo
+from surel_plus_tpu_torch.cli import main_horder, probe_mrr_scale, scale_demo
 from surel_plus_tpu_torch.cli.main import run_experiment
 from surel_plus_tpu_torch.graph import rmat_graph
 from surel_plus_tpu_torch.graph.datasets import synthetic_hetero_data
@@ -711,7 +726,8 @@ PATHS = {"init_from_key": ("threefry_bits",),
                                 "merge_pairs"),
          "multi_device_serve": ("hidden_sum_fwd", "merge_pairs"),
          "scale": ("hidden_sum_fwd", "hidden_sum_bwd", "merge_pairs",
-                   "threefry_bits")}
+                   "threefry_bits"),
+         "mrr_scale": ("hidden_sum_fwd", "merge_pairs", "threefry_bits")}
 # the path whose count the kernels line reports
 MAIN_PATH = {"hidden_sum_fwd": "train", "hidden_sum_bwd": "train",
              "merge_pairs": "train", "attn_pool_fwd": "attn_train",
@@ -743,7 +759,8 @@ def card_label() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
+    # a card a line; on one line, "; " between cards
+    return "; ".join(out.stdout.strip().splitlines())
 
 
 def sync() -> None:
@@ -5105,8 +5122,9 @@ def host_engine_path(dev: SpGDevice, edges, labels, label, launches) -> None:
             and 0 < mrr_t <= 1, "the host engine gave bad values")
 
 # ------------------------------------------------------ the multi-device path
-# four ranks share the card over gloo, mesh data 2 x graph 2
-MD_RANKS, MD_GRAPH_AXIS, MD_BACKEND = 4, 2, "gloo"
+# four ranks, mesh data 2 x graph 2: one card each over NCCL where the
+# machine has four, else sharing the one card over gloo (`md_backend`)
+MD_RANKS, MD_GRAPH_AXIS = 4, 2
 MD_STEPS, MD_SEED = 16, 0               # timed steps; the sampler's seed
 MD_TIMEOUT_S = 900
 MD_GATHER_REPS = 10
@@ -5118,17 +5136,37 @@ MD_VALID_SRC, MD_CHECK_NEG = 64, 100
 # its parameter by up to lr either way there
 MD_NOISE_GRAD = 1e-6
 MD_KEYS = ("nodes", "khi", "klo", "sizes")
+# the citation2-scale evaluation across the cards (NCCL only): the probe's
+# pairs (`cli/probe_mrr_scale.py`: its sources, negatives and chunks) on
+# the main path's graph and sets, the fp32 mean Net of prng_key(0), scored
+# by `evaluate_distributed` on each mesh (graph axis 2: JAX's default
+# data 2 x graph 2; graph axis 1: data 4 x graph 1) and by rank 0's
+# one-card `predict`. Scores within CPU_TOL; a source's rank may differ
+# only where one of its negatives lies within MD_NEAR_TIE of its positive.
+MD_C2 = dict(n_src=probe_mrr_scale.N_SRC, k_neg=probe_mrr_scale.K_NEG,
+             chunk=probe_mrr_scale.CHUNK)
+MD_C2_GRAPH_AXES = (2, 1)
+MD_NEAR_TIE = 2e-4
 
 
-def md_config() -> dict:
+def md_backend(cards: int) -> str:
+    """NCCL, one card a rank, where the machine has MD_RANKS cards; else
+    gloo, the ranks sharing the one card."""
+    return "nccl" if cards >= MD_RANKS else "gloo"
+
+
+def md_config(citation2: bool = False) -> dict:
     """The multi-device phase's sizes, written for the ranks: the main
-    path's graph, sets, width and batch."""
+    path's graph, sets, width and batch; with `citation2`, the probe's
+    pairs as well (MD_C2)."""
     return dict(nodes=N_NODES, edges=N_EDGES, walks=NUM_WALKS,
                 steps=NUM_STEPS, hidden=HIDDEN, batch=BATCH, timed=MD_STEPS,
                 n_src=N_SRC, k_neg=K_NEG, valid_src=MD_VALID_SRC,
                 check_neg=MD_CHECK_NEG, graph_axis=MD_GRAPH_AXIS,
                 seed=MD_SEED, lr=LR, grad_clip=GRAD_CLIP,
-                gather_reps=MD_GATHER_REPS)
+                gather_reps=MD_GATHER_REPS,
+                citation2=dict(MD_C2, graph_axes=MD_C2_GRAPH_AXES,
+                               near_tie=MD_NEAR_TIE) if citation2 else None)
 
 
 def md_same_sets(a: SpGKeys, b: SpGKeys, rows=slice(None)) -> bool:
@@ -5199,8 +5237,7 @@ def multi_device_rank(ctx) -> dict:
 
     def wait():
         """The device idle and every rank here."""
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync_dev(dev)
         torch.distributed.barrier()
 
     def timed(fn):
@@ -5311,6 +5348,22 @@ def multi_device_rank(ctx) -> dict:
 
     cfg_single = TrainConfig(batch_size=B, lr=cfg["lr"],
                              grad_clip=cfg["grad_clip"])
+    if lead:
+        # the same Net, batches and steps in one process on rank 0's card:
+        # a cold step over batch 0, then the timed ones over the rest
+        m, _ = net(dtype="bfloat16", dropout=0.1)
+        trainer = trainer_from_keys(m, ref, cfg_single)
+        perms = torch.arange(nb * B, device=dev).reshape(nb, B)
+        trainer.train_epoch(edges, labels, prng.prng_key(0), perm=perms[:1])
+        sync_dev(dev)
+        t0 = time.perf_counter()
+        trainer.train_epoch(edges, labels, prng.prng_key(1), perm=perms[1:])
+        sync_dev(dev)
+        dt = time.perf_counter() - t0
+        out["single_step_ms"] = dt / cfg["timed"] * 1e3
+        out["single_queries_per_s"] = cfg["timed"] * B / dt
+        del trainer, m, perms
+    wait()
     perm = torch.arange(B, device=dev)[None]
 
     def single_step(model, be, bl, join_factory=None):
@@ -5403,34 +5456,172 @@ def multi_device_rank(ctx) -> dict:
     out["pairs_per_s"] = test[0].shape[1] * (k + 1) / t_test
     if dev.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if cfg["citation2"]:
+        out["citation2"] = md_citation2(cfg, mesh, lead, wait)
     return out
 
 
+def sync_dev(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def md_citation2(cfg, mesh, lead: bool, wait) -> dict:
+    """A rank's part of the citation2-scale evaluation: the probe's sets
+    of the main path's graph (`probe_mrr_scale.probe_sets`), the fp32
+    mean Net of prng_key(0) (`probe_trainer`), the probe's pairs
+    (`probe_draws`); rank 0 scores them alone on its card (the one-card
+    rate; the module's chunked `score_pairs`), then every rank scores
+    them through `evaluate_distributed` over a `DistributedKeysScorer` on
+    each mesh of cfg["citation2"]["graph_axes"], the test split's scores
+    recorded as the scorer returns them. Rank 0 holds each mesh's scores
+    to its one-card scores (within CPU_TOL) and each source's rank to its
+    one-card rank, except near ties (a negative within `near_tie` of the
+    positive), a rank moving by at most its near-tied negatives, and the
+    MRRs within the near ties' share. Returns the
+    figures, checks and the scoring's launch counts."""
+    from surel_plus_tpu_torch.parallel import dist as pdist
+    from surel_plus_tpu_torch.parallel.mesh import make_mesh
+
+    c2, dev, B = cfg["citation2"], mesh.device, cfg["batch"]
+    n_src, k = c2["n_src"], c2["k_neg"]
+    out = dict(pairs=n_src * (k + 1), meshes={}, launches={}, checks={})
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, spgk = probe_mrr_scale.probe_sets(cfg["nodes"], cfg["edges"],
+                                         cfg["walks"], cfg["steps"], dev)
+    trainer = probe_mrr_scale.probe_trainer(spgk, B, "float32", dev)
+
+    def draws():
+        _, pos_edges, negatives = probe_mrr_scale.probe_draws(
+            cfg["nodes"], n_src, k, c2["chunk"])
+        return pos_edges, negatives
+
+    pos_edges, negatives = draws()
+    neg_edges = np.concatenate(list(negatives), axis=1)
+    out["setup_s"] = time.perf_counter() - t0
+    wait()
+    if lead:
+        pos_edges_1, negatives_1 = draws()
+        zero_counts()
+        sync_dev(dev)
+        t0 = time.perf_counter()
+        pos1, neg1 = probe_mrr_scale.score_pairs(
+            trainer.predict, pos_edges_1, negatives_1, k)
+        mrr1 = float(device_mrr(pos1, neg1))
+        sync_dev(dev)
+        out["single_s"] = time.perf_counter() - t0
+        out["launches"]["single"] = counts()
+        out["single_mrr"] = mrr1
+        out["single_pairs_per_s"] = out["pairs"] / out["single_s"]
+        rank1 = 1 + (neg1 >= pos1[:, None]).sum(dim=1)
+        # each source's negatives within near_tie of its positive
+        near_count = ((neg1 - pos1[:, None]).abs() <= c2["near_tie"]
+                      ).sum(dim=1)
+        out["near_ties"] = int((near_count > 0).sum())
+        out["near_negatives"] = int(near_count.sum())
+    wait()
+    valid_n = cfg["valid_src"]
+    inf_edge = {"valid": (pos_edges[:, :valid_n], neg_edges[:, :valid_n * k]),
+                "test": (pos_edges, neg_edges)}
+    for axis in c2["graph_axes"]:
+        m = make_mesh(graph_axis=axis, device=dev)
+        sspg = pdist.shard_spg_keys(spgk, m)
+        # the scorer's batch split over the data ranks (B in all, the
+        # steps as many as one card's), and B a data rank
+        for bs in (B, B * m.shape["data"]):
+            name = f"{m.shape['data']}x{m.shape['graph']}_b{bs}"
+            scorer = pdist.DistributedKeysScorer(trainer.model, m, sspg,
+                                                 batch_size=bs)
+            got = []
+
+            def recorded(edges):
+                got.append(scorer(edges))
+                return got[-1]
+
+            wait()
+            zero_counts()
+            res, t_test = pdist.evaluate_distributed(recorded, inf_edge,
+                                                     "MRR")
+            wait()
+            row = dict(mrr=res[2], s=t_test,
+                       pairs_per_s=out["pairs"] / t_test,
+                       shape=dict(m.shape), batch=bs,
+                       rank_batch=scorer.batch_size // m.shape["data"])
+            out["launches"][name] = counts()
+            if lead:
+                row.update(md_c2_compare(got[2], got[3].reshape(-1, k),
+                                         pos1, neg1, rank1, near_count))
+                row["mrr_diff"] = abs(res[2] - mrr1)
+                checks = out["checks"]
+                checks[f"{name}: scores within {CPU_TOL}"] = (
+                    row["max_abs_err"] <= CPU_TOL)
+                checks[f"{name}: ranks equal but near ties"] = (
+                    row["ranks_moved_not_near"] == 0)
+                # a rank moves by at most its source's near-tied negatives
+                checks[f"{name}: |d rank| <= near-tied negatives"] = (
+                    row["rank_excess"] <= 0)
+                checks[f"{name}: |dMRR| <= near ties / sources"] = (
+                    row["mrr_diff"] <= out["near_ties"] / n_src)
+            out["meshes"][name] = row
+            del scorer, got, recorded
+        del sspg
+    if dev.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def md_c2_compare(pos_d, neg_d, pos1, neg1, rank1, near_count) -> dict:
+    """Distributed scores against the one-card ones: the largest score
+    error, the sources whose rank moved (all, and those with no near-tied
+    negative) and the most a rank moved past its source's near-tied
+    negatives."""
+    err = max(float((pos_d - pos1).abs().max()),
+              float((neg_d - neg1).abs().max()))
+    rank_d = 1 + (neg_d >= pos_d[:, None]).sum(dim=1)
+    moved = rank_d != rank1
+    return dict(max_abs_err=err, ranks_moved=int(moved.sum()),
+                ranks_moved_not_near=int((moved & (near_count == 0)).sum()),
+                rank_excess=int(((rank_d - rank1).abs() - near_count).max()))
+
+
 def multi_device_path(label, launches) -> None:
-    """The multi-device phase: MD_RANKS ranks on the one card over gloo
-    (`multi_device_rank` in each, through `run_ranks`; a rank that fails
-    fails the run), their checks and numbers, the launch counts summed
-    over the ranks into `launches`; then the dry run at world 1 over NCCL,
-    and over NCCL across cards where the machine has more than one."""
+    """The multi-device phase: MD_RANKS ranks (`multi_device_rank` in
+    each, through `run_ranks`; a rank that fails fails the run), one card
+    each over NCCL where the machine has MD_RANKS cards, else sharing the
+    one card over gloo (`md_backend`); their checks and numbers beside
+    the one-card single-process step of the same call, the launch counts
+    summed over the ranks into `launches`; over NCCL also the
+    citation2-scale evaluation (`md_citation2`). Then the dry run at world
+    1 over NCCL, and over NCCL across cards where the machine has more
+    than one."""
     from surel_plus_tpu_torch.parallel.dryrun import dryrun_multichip
     from surel_plus_tpu_torch.parallel.launch import run_ranks
 
     gc.collect()
     torch.cuda.empty_cache()
-    say(f"multi-device: {MD_RANKS} ranks over {MD_BACKEND} on one card "
-        f"(mesh data {MD_RANKS // MD_GRAPH_AXIS} x graph {MD_GRAPH_AXIS}): "
-        f"the four ranks share one card's SMs and exchange through host "
-        f"memory, so the rates below measure no scaling [{label}]")
+    cards = torch.cuda.device_count()
+    backend = md_backend(cards)
+    nccl = backend == "nccl"
+    where = (f"one card each ({cards} cards)" if nccl else
+             "one card, shared: the ranks share its SMs and exchange "
+             "through host memory, so the rates below measure no scaling")
+    say(f"multi-device: {MD_RANKS} ranks over {backend} on {where} (mesh "
+        f"data {MD_RANKS // MD_GRAPH_AXIS} x graph {MD_GRAPH_AXIS}) "
+        f"[{label}]")
+    cfg = md_config(citation2=nccl)
     with tempfile.TemporaryDirectory() as payload:
-        torch.save(md_config(), os.path.join(payload, "config.pt"))
+        torch.save(cfg, os.path.join(payload, "config.pt"))
         t0 = time.perf_counter()
-        res = run_ranks("chip_smoke:multi_device_rank", MD_RANKS,
-                        MD_BACKEND, DEVICE, payload, MD_TIMEOUT_S)
+        res = run_ranks("chip_smoke:multi_device_rank", MD_RANKS, backend,
+                        DEVICE, payload, MD_TIMEOUT_S)
         wall = time.perf_counter() - t0
     lead = res[0]
-    say(f"multi-device: {len(res)} ranks done in {wall:.1f} s (processes "
-        f"started, graph, sampling, steps, scoring); mesh {lead['shape']}, "
-        f"devices {sorted({r['device'] for r in res})}")
+    say(f"multi-device: {len(res)} ranks over {backend} done in {wall:.1f} "
+        f"s (processes started, graph, sampling, steps, scoring); mesh "
+        f"{lead['shape']}; devices "
+        + ", ".join(f"rank {r['rank']} {r['device']}" for r in res))
     say(f"multi-device sampling: partitioned (probe, edge tables) "
         f"{N_NODES} sets, M={NUM_WALKS}, S'={NUM_STEPS}, "
         f"{max(r['sample_s'] for r in res):.3f} s -> "
@@ -5439,17 +5630,24 @@ def multi_device_path(label, launches) -> None:
         f"s; grouped (2) {max(r['grouped (2) s'] for r in res):.3f} s; "
         f"rows to their graph shards {max(r['shard_s'] for r in res):.3f} "
         f"s [{label}]")
-    say(f"multi-device row gathers ([2, {BATCH // 2}] ids a data rank, "
-        f"packed rows of {3 * (NUM_WALKS * NUM_STEPS + 1) + 1} int32): "
-        f"psum {np.mean([r['gather psum ms'] for r in res]):.3f} ms, "
-        f"all-to-all {np.mean([r['gather all-to-all ms'] for r in res]):.3f}"
-        f" ms (mean over ranks) [{label}]")
-    say(f"multi-device train (Net(96, mean, bf16), batch {BATCH}, "
-        f"{BATCH // (MD_RANKS // MD_GRAPH_AXIS)} a data rank): cold step "
-        f"{lead['cold_step_s']:.3f} s; {MD_STEPS} steps at "
+    say(f"multi-device row gathers over {backend} ([2, {BATCH // 2}] ids a "
+        f"data rank, packed rows of {3 * (NUM_WALKS * NUM_STEPS + 1) + 1} "
+        f"int32): psum "
+        f"{np.mean([r['gather psum ms'] for r in res]):.3f} ms, all-to-all "
+        f"{np.mean([r['gather all-to-all ms'] for r in res]):.3f} ms (mean "
+        f"over ranks; by rank psum "
+        + ", ".join(f"{r['gather psum ms']:.3f}" for r in res)
+        + ", all-to-all "
+        + ", ".join(f"{r['gather all-to-all ms']:.3f}" for r in res)
+        + f") [{label}]")
+    say(f"multi-device train over {backend} (Net(96, mean, bf16), batch "
+        f"{BATCH}, {BATCH // (MD_RANKS // MD_GRAPH_AXIS)} a data rank): "
+        f"cold step {lead['cold_step_s']:.3f} s; {MD_STEPS} steps at "
         + ", ".join(f"rank {r['rank']} {r['step_ms']:.3f} ms/step "
                     f"({r['queries_per_s']:.1f} q/s)" for r in res)
-        + f" [{label}]")
+        + f"; one card, one process (rank 0's card, the same Net, batches "
+          f"and steps): {lead['single_step_ms']:.3f} ms/step "
+          f"({lead['single_queries_per_s']:.1f} q/s) [{label}]")
     for what in ("mean step", "attn step", "lstm step", "honet step",
                  "honet scores", "scores"):
         say(f"multi-device {what} against the single-process trainer "
@@ -5457,8 +5655,9 @@ def multi_device_path(label, launches) -> None:
     say(f"multi-device MRR: {N_SRC} sources x {K_NEG + 1} candidates, "
         f"evaluate_distributed {lead['mrr']:.6f} (single process "
         f"{lead['single_mrr']:.6f}), test split {lead['mrr_s']:.3f} s -> "
-        f"{lead['pairs_per_s']:.1f} pairs/s; peak device memory a rank "
-        f"{max(r.get('peak_gib', 0.0) for r in res):.2f} GiB [{label}]")
+        f"{lead['pairs_per_s']:.1f} pairs/s; peak device memory by rank "
+        + ", ".join(f"{r.get('peak_gib', 0.0):.2f}" for r in res)
+        + f" GiB [{label}]")
     for r in res:
         for what, ok in r["checks"].items():
             require(ok, f"multi-device rank {r['rank']}: {what} fails")
@@ -5472,11 +5671,12 @@ def multi_device_path(label, launches) -> None:
                           for name in KERNELS}
         say(f"launches on the {path} path (summed over the ranks): "
             f"{launches[path]}")
+    if cfg["citation2"]:
+        md_citation2_report(res, backend, label, launches)
 
     t0 = time.perf_counter()
     dryrun_multichip(1, "nccl", DEVICE)
     say(f"dry run over NCCL, world 1: {time.perf_counter() - t0:.1f} s")
-    cards = torch.cuda.device_count()
     if cards >= 2:
         t0 = time.perf_counter()
         dryrun_multichip(min(4, cards), "nccl", DEVICE)
@@ -5485,6 +5685,55 @@ def multi_device_path(label, launches) -> None:
     else:
         say("the dry run over NCCL across cards waits for a machine with "
             f"more than one card (this one has {cards})")
+
+
+def md_citation2_report(res, backend, label, launches) -> None:
+    """Prints and requires the citation2-scale evaluation of the ranks'
+    results: each mesh's MRR, seconds and pairs/s beside rank 0's one-card
+    figure, the scores' error, the ranks moved and the near ties; K1 and
+    K2 launched in every scoring (its counts summed into
+    `launches["multi_device_citation2_<mesh>"]`, rank 0's one-card
+    scoring's into `..._single`)."""
+    c2 = [r["citation2"] for r in res]
+    lead = c2[0]
+    say(f"citation2-scale MRR over {backend}: {MD_C2['n_src']:,} "
+        f"sources x {MD_C2['k_neg'] + 1} candidates = {lead['pairs']:,} "
+        f"pairs; setup (graph, sets, Net, draws) by rank "
+        + ", ".join(f"{c['setup_s']:.1f}" for c in c2) + " s; one card "
+        f"(rank 0, `predict` in the probe's chunks): MRR "
+        f"{lead['single_mrr']!r} in {lead['single_s']:.3f} s -> "
+        f"{lead['single_pairs_per_s']:.1f} pairs/s; near ties (a negative "
+        f"within {MD_NEAR_TIE} of its positive) {lead['near_ties']} sources, "
+        f"{lead['near_negatives']} negatives [{label}]")
+    for name, row in lead["meshes"].items():
+        say(f"citation2-scale evaluate_distributed, mesh data "
+            f"{row['shape']['data']} x graph {row['shape']['graph']}, "
+            f"scorer batch {row['batch']} ({row['rank_batch']} a data "
+            f"rank): MRR "
+            f"{row['mrr']!r} (|dMRR| {row['mrr_diff']:.3g}, bound "
+            f"{lead['near_ties'] / MD_C2['n_src']:.3g}), test split "
+            f"{row['s']:.3f} s -> {row['pairs_per_s']:.1f} pairs/s "
+            f"({row['pairs_per_s'] / lead['single_pairs_per_s']:.2f}x one "
+            f"card); scores' max abs error {row['max_abs_err']:.3g}; ranks "
+            f"moved {row['ranks_moved']} (outside near ties "
+            f"{row['ranks_moved_not_near']}; the most a rank moved past its "
+            f"near-tied negatives {row['rank_excess']}) [{label}]")
+    say(f"citation2-scale peak device memory by rank "
+        + ", ".join(f"{c.get('peak_gib', 0.0):.2f}" for c in c2)
+        + f" GiB [{label}]")
+    for r in res:
+        for what, ok in r["citation2"]["checks"].items():
+            require(ok, f"citation2-scale rank {r['rank']}: {what} fails")
+    for name in ("single", *lead["meshes"]):
+        path = f"multi_device_citation2_{name}"
+        launches[path] = {k: sum(c["launches"][name][k] for c in c2
+                                 if name in c["launches"])
+                          for k in KERNELS}
+        say(f"launches on the {path} path (summed over the ranks): "
+            f"{launches[path]}")
+        for k in ("hidden_sum_fwd", "merge_pairs"):
+            require(launches[path][k] > 0,
+                    f"kernel {k} never launched on the {path} path")
 
 
 def scale_path(label, launches) -> None:
@@ -5534,6 +5783,52 @@ def scale_path(label, launches) -> None:
     torch.cuda.empty_cache()
 
 
+def mrr_scale_path(label, launches) -> None:
+    """The citation2-scale MRR probe (`probe_mrr_scale.run`) at its full
+    defaults, 80,000 sources x 1001 candidates, its launches counted as
+    the `mrr_scale` path (K1, K2, K8): the pairs' count, finite scores in
+    [0, 1] of the expected shapes, the MRR in (0, 1] and equal to the
+    ranks recomputed on the host from its scores, and the first batch of
+    positives scored again alone equal to the timed window's."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = probe_mrr_scale.run(device=DEVICE,
+                              log=lambda msg: say(f"mrr_scale {msg}"))
+    launches["mrr_scale"] = counts()
+    wall = time.perf_counter() - t0
+    n, k = probe_mrr_scale.N_SRC, probe_mrr_scale.K_NEG
+    pos, neg = res["pos"], res["neg"]
+    require(res["pairs"] == n * (k + 1),
+            f"mrr_scale: {res['pairs']} pairs")
+    require(tuple(pos.shape) == (n,) and tuple(neg.shape) == (n, k),
+            f"mrr_scale: scores {tuple(pos.shape)}, {tuple(neg.shape)}")
+    for name, x in (("positive", pos), ("negative", neg)):
+        require(bool(torch.isfinite(x).all()) and float(x.min()) >= 0
+                and float(x.max()) <= 1,
+                f"mrr_scale: a {name} score is not finite in [0, 1]")
+    pos_h, neg_h = pos.cpu().numpy(), neg.cpu().numpy()
+    host_mrr = float(np.mean(1.0 / (1 + (neg_h >= pos_h[:, None]).sum(1))))
+    require(math.isfinite(res["mrr"]) and 0 < res["mrr"] <= 1
+            and abs(res["mrr"] - host_mrr) <= 1e-6,
+            f"mrr_scale: MRR {res['mrr']} against the host's {host_mrr}")
+    _, pos_edges, _ = probe_mrr_scale.probe_draws(
+        probe_mrr_scale.NUM_NODES, n, k)
+    again = res["trainer"].predict(pos_edges[:, :BATCH])
+    require(torch.equal(again, pos[:BATCH]),
+            "mrr_scale: the first batch scored alone differs from the "
+            "timed window's")
+    say(f"mrr_scale: {res['pairs']:,} pairs, MRR {res['mrr']!r} (host "
+        f"{host_mrr!r}), {res['seconds']:.3f} s -> {res['pairs_per_s']:.1f} "
+        f"pairs/s, peak device {res['peak_gb']:.3f} GB; the phase "
+        f"{wall:.1f} s [{label}]")
+    say(f"launches on the mrr_scale path: {launches['mrr_scale']}")
+    del res, pos, neg, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def counts():
     return {name: k["kernel"].launches for name, k in KERNELS.items()}
 
@@ -5543,7 +5838,24 @@ def zero_counts() -> None:
         k["kernel"].launches = 0
 
 
-def main() -> int:
+def finish(start: float, label: str) -> None:
+    """The run's total seconds, the card's name and power limit, and the
+    result line, last."""
+    say(f"total: {time.perf_counter() - start:.1f} s")
+    say(label)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                             "port on the card.")
+    ap.add_argument("--only", choices=("multi_device",),
+                    help="build the kernels, then run only this phase "
+                         "(multi_device: four ranks, one card each over "
+                         "NCCL where the machine has four)")
+    args = ap.parse_args(argv)
     start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5568,6 +5880,16 @@ def main() -> int:
         for line in logs.get(name, "").splitlines():
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 say(f"  {name}: {line.strip()}")
+
+    if args.only == "multi_device":
+        launches = {}
+        multi_device_path(label, launches)
+        for path in launches:
+            for name in PATHS.get(path, ()):
+                require(launches[path][name] > 0,
+                        f"kernel {name} never launched on the {path} path")
+        finish(start, label)
+        return 0
 
     t0 = time.perf_counter()
     g = rmat_graph(N_NODES, N_EDGES, seed=0)
@@ -5686,6 +6008,8 @@ def main() -> int:
     multi_device_path(label, launches)
     # the large-graph path at a cut graph
     scale_path(label, launches)
+    # the citation2-scale MRR probe, 80,080,000 pairs
+    mrr_scale_path(label, launches)
 
     # phase 4
     for path, names in PATHS.items():
@@ -5706,11 +6030,7 @@ def main() -> int:
             plain_ms=st["plain_ms"], bound_ms=st["bound"][0],
             bound_by=st["bound"][1], library_ms=st["library_ms"]))
     say(json.dumps({"kernels": rows}))
-    say(f"total: {time.perf_counter() - start:.1f} s")
-    say(label)
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    finish(start, label)
     return 0
 
 

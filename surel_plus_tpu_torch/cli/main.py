@@ -436,6 +436,18 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
             "trainer": trainer, "edges": edges_dev}
 
 
+def card_device(device, what: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device where there is none
+    raises (`what` names the caller in the message): entry points never
+    fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on the CUDA device, and there is "
+                           f"none (pass device='cpu', or set "
+                           f"SUREL_PLATFORM=cpu, for a CPU run)")
+    return device
+
+
 def platform_device() -> str:
     """The device `main` runs on: the CPU when SUREL_PLATFORM=cpu, else
     the CUDA device, which must exist."""

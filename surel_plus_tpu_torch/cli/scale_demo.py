@@ -44,7 +44,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from surel_plus_tpu_torch.cli.main import platform_device
+from surel_plus_tpu_torch.cli.main import card_device, platform_device
 from surel_plus_tpu_torch.graph.csr import MAX_DEVICE_EDGES, csr_from_edges
 from surel_plus_tpu_torch.graph.synthetic import (
     rmat_graph,
@@ -94,15 +94,6 @@ def rss_gb() -> float:
             if line.startswith("VmRSS"):
                 return int(line.split()[1]) / 1e6
     return float("nan")
-
-
-def _on_card(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the large-graph path runs on the CUDA device, "
-                           "and there is none (pass device='cpu', or set "
-                           "SUREL_PLATFORM=cpu, for a CPU run)")
-    return device
 
 
 class Stages:
@@ -200,7 +191,7 @@ def run_device(n: int, draws: int, seeds: int, queries: int, walks: int,
     kept), `graph_bytes`, `sets` ("warm"; the cold sets are freed before
     the warm call), the warm sets/s and walked edges/s, the fits' losses
     and the warm fit's queries/s."""
-    dev = _on_card(device)
+    dev = card_device(device, "the large-graph path")
     if 2 * draws > MAX_DEVICE_EDGES:
         # the native build's and the device words' int32 offsets; the
         # numpy build would need about 16 times the pairs' bytes
@@ -271,7 +262,7 @@ def run_1m(device="cuda", log: Callable[[str], None] = print) -> dict:
     its own shuffle, as there), `Net(4, 96, mean, bf16)`, a cold 2-epoch
     fit from prng_key(1) and a timed 4-epoch fit from prng_key(2) over
     32 x 4096 queries. Returns the same kind of dict as `run_device`."""
-    dev = _on_card(device)
+    dev = card_device(device, "the large-graph path")
     st = Stages(dev, log)
     n = N_1M
     res = dict(mode="1m", device=str(dev), n=n)
@@ -351,7 +342,7 @@ def run_partitioned(n: int, draws: int, seeds: int, walks: int, steps: int,
     from surel_plus_tpu_torch.parallel.launch import run_ranks
     from surel_plus_tpu_torch.parallel.partition import partition_csr
 
-    dev = _on_card(device)
+    dev = card_device(device, "the large-graph path")
     st = Stages(dev, log)
     where = ("the CPU" if dev.type == "cpu" else
              f"one card ({torch.cuda.get_device_name(dev)})")

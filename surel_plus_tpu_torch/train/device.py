@@ -419,14 +419,16 @@ class DeviceTrainer:
 
 def trainer_from_keys(model, spgk: SpGKeys, config: TrainConfig,
                       feature: Optional[torch.Tensor] = None,
-                      join_factory: Optional[Callable] = None
-                      ) -> DeviceTrainer:
+                      join_factory: Optional[Callable] = None,
+                      train_embed_mode: str = "table") -> DeviceTrainer:
     """DeviceTrainer over a packed-key SpG: the join unpacks landing-count
     features on the fly. Fills in the model's key_layout when unset.
     `join_factory(num_walks, num_steps)` builds the join (for example
     `lambda m, s: make_keys_join(m, s, impl="pallas")`); by default it is
     `make_keys_join` asked for what the model reads on the sets' device
-    (`Net.join_outputs`)."""
+    (`Net.join_outputs`). `train_embed_mode` is the JAX signature's
+    keyword, passed to the trainer; the keys path reads no encoding
+    table, so it changes nothing there, as in JAX."""
     if getattr(model, "key_layout", False) is None:
         model.key_layout = (spgk.num_walks, spgk.num_steps)
     if join_factory is None:
@@ -434,7 +436,8 @@ def trainer_from_keys(model, spgk: SpGKeys, config: TrainConfig,
                               **model.join_outputs(spgk.nodes.device))
     else:
         join = join_factory(spgk.num_walks, spgk.num_steps)
-    return DeviceTrainer(model, spgk, config, join, feature=feature)
+    return DeviceTrainer(model, spgk, config, join, feature=feature,
+                         train_embed_mode=train_embed_mode)
 
 
 def evaluate_device(trainer: DeviceTrainer,
