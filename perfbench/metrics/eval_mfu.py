@@ -1,0 +1,11 @@
+"""eval_mfu: the scoring window's model FLOPs (perfbench/work.py:
+forward_flops) over the window's seconds and the H100's dense TF32 peak,
+in percent."""
+
+from perfbench import work
+
+
+def read(r):
+    if r.kind != "rank" or not r.flops:
+        return None
+    return 100.0 * r.flops / (r.window_s * work.TF32_FLOPS)
