@@ -273,7 +273,8 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     if cfg.debug:
         capture_stdout(logger)
 
-    data = load_link_data(cfg, rng, logger)
+    with metrics.phase("load"):
+        data = load_link_data(cfg, rng, logger)
     G_obsrv, G_inf = data.graphs["train"], data.graphs["test"]
 
     prep_start = time.time()
@@ -427,9 +428,7 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
     evaluated = [rlog.evaluated(r) for r in range(cfg.runs)]
     if cfg.runs > 1 and all(evaluated):
         rlog.print_statistics(logger=logger)
-    for name, st in metrics.report().items():
-        logger.info("phase %s: %.2fs x%d (%.0f items/s)", name, st.total_s,
-                    st.count, st.items_per_s)
+    metrics.log_report(logger)
     return {"results": rlog,
             "best": [rlog.best(r) if ok else None
                      for r, ok in enumerate(evaluated)],

@@ -124,8 +124,9 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                             args_repr=str(dataclasses.asdict(cfg)))
     cfg.metric = "MRR"  # always MRR (the reference's main_horder.py:69)
 
-    ds = load_hyper(cfg)
-    G_enc = ds.process(logger)
+    with metrics.phase("load"):
+        ds = load_hyper(cfg)
+        G_enc = ds.process(logger)
 
     prep_start = time.time()
     fused = {"auto": None, "on": True, "off": False}[cfg.fused_hidden]
@@ -226,9 +227,7 @@ def run_experiment(cfg: ExperimentConfig, logger=None,
                     f"{cfg.log_dir}/{cfg.dataset}/model/{stamp}_{run}")
                 break
         rlog.print_statistics(run=run, logger=logger)
-    for name, st in metrics.report().items():
-        logger.info("phase %s: %.2fs x%d (%.0f items/s)", name, st.total_s,
-                    st.count, st.items_per_s)
+    metrics.log_report(logger)
     return {"results": rlog,
             "best": [rlog.best(r) for r in range(cfg.runs)],
             "trainer": trainer, "edges": edges_dev}

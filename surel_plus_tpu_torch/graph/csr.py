@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from surel_plus_tpu_torch.utils.profiling import metrics
+
 
 @dataclasses.dataclass(frozen=True)
 class CSRGraph:
@@ -136,8 +138,19 @@ def csr_from_edges(
     The native build takes node ids below 2^31 - 1 and at most 2^31 - 1
     entries; other edge lists take the numpy path, as in the JAX package.
     An int32 edge list reaches the native build without an int64 copy.
+    Timed as the phase "ingest.csr", its items the edge list's edges.
     """
     edges = np.asarray(edges)
+    with metrics.phase("ingest.csr", items=len(edges)):
+        return _build_csr(edges, num_nodes, weights, symmetrize, coalesce,
+                          drop_self_loops, prefer_native)
+
+
+def _build_csr(edges: np.ndarray, num_nodes: Optional[int],
+               weights: Optional[np.ndarray], symmetrize: bool,
+               coalesce: bool, drop_self_loops: bool,
+               prefer_native: Optional[bool]) -> CSRGraph:
+    """`csr_from_edges`' build, untimed."""
     if prefer_native is None:
         prefer_native = len(edges) >= NATIVE_BUILD_THRESHOLD
     if (prefer_native and len(edges) and int(edges.max()) < 2**31 - 1

@@ -35,6 +35,7 @@ from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops import walk as walk_ops
 from surel_plus_tpu_torch.ops.join import unpack_key_features
 from surel_plus_tpu_torch.spg.spg import SpG, SpGDevice, SpGKeys
+from surel_plus_tpu_torch.utils.profiling import metrics, span
 
 log = logging.getLogger(__name__)
 
@@ -58,7 +59,8 @@ def device_graph(graph: CSRGraph, device):
     cache = _cache(graph)
     key = ("csr", str(device))
     if key not in cache:
-        cache[key] = graph.to(device)
+        with metrics.phase("ingest.upload", items=graph.num_edges):
+            cache[key] = graph.to(device)
     return cache[key]
 
 
@@ -72,8 +74,10 @@ def shuffled_indices_for(graph: CSRGraph, seed: int, device):
     key = ("shuffle", seed, str(device))
     if key not in cache:
         check_int32_edges(graph.num_edges)
-        cache[key] = torch.from_numpy(shuffle_rows_native(graph, seed)).to(
-            device)
+        with metrics.phase("ingest.shuffle", items=graph.num_edges):
+            shuffled = shuffle_rows_native(graph, seed)
+        with metrics.phase("ingest.upload", items=graph.num_edges):
+            cache[key] = torch.from_numpy(shuffled).to(device)
     return cache[key]
 
 
@@ -86,7 +90,9 @@ def walk_tables_for(graph: CSRGraph, seed: int, device):
     if key not in cache:
         indptr, indices = device_graph(graph, device)
         shuffled = shuffled_indices_for(graph, seed, device)
-        cache[key] = walk_ops.build_walk_tables(indptr, indices, shuffled)
+        with metrics.phase("ingest.tables", items=graph.num_edges):
+            cache[key] = walk_ops.build_walk_tables(indptr, indices,
+                                                    shuffled)
     return cache[key]
 
 
@@ -137,7 +143,6 @@ def sample_gsets_device_keys(
         bucket = num_walks * num_steps + 1
     walk_ops.enc_field_layout(num_walks, num_steps)  # validate bit budget
 
-    t0 = time.time()
     indptr, _ = device_graph(graph, device)
     sseed = seed if shuffle_seed is None else shuffle_seed
     etab, stab = walk_tables_for(graph, sseed, device)
@@ -148,9 +153,8 @@ def sample_gsets_device_keys(
         num_walks=num_walks, num_steps=num_steps, bucket=bucket,
         key=prng.fold_in(root, b + 1))
         for b, lo in enumerate(range(0, n, block_size))]
-    nodes, sizes, hi, lo = (torch.cat(x) for x in zip(*parts))
-    log.info("sample_gsets_device_keys: n=%d bucket=%d dispatched %.2fs",
-             n, bucket, time.time() - t0)
+    with span("surel.sample.store"):
+        nodes, sizes, hi, lo = (torch.cat(x) for x in zip(*parts))
     return SpGKeys(nodes=nodes, khi=hi, klo=lo, sizes=sizes,
                    num_walks=num_walks, num_steps=num_steps)
 

@@ -21,6 +21,7 @@ import torch
 
 from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.kernels.threefry import threefry_bits
+from surel_plus_tpu_torch.utils.profiling import span
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 U32 = 0xFFFFFFFF
@@ -301,12 +302,14 @@ def sample_block(indptr: torch.Tensor, etab: torch.Tensor,
 
     Returns (nodes [B, bucket], sizes [B], hi [B, bucket], lo [B, bucket]).
     """
-    bits = walk_bits(key, seeds.shape[0], num_walks, num_steps,
-                     seeds.device)
-    walks = walk_block_tables(indptr, etab, stab, seeds, num_walks,
-                              num_steps, bits)
-    return build_sets_packed_block(seeds, walks, num_walks, num_steps,
-                                   bucket)
+    with span("surel.sample.walk"):
+        bits = walk_bits(key, seeds.shape[0], num_walks, num_steps,
+                         seeds.device)
+        walks = walk_block_tables(indptr, etab, stab, seeds, num_walks,
+                                  num_steps, bits)
+    with span("surel.sample.sets"):
+        return build_sets_packed_block(seeds, walks, num_walks, num_steps,
+                                       bucket)
 
 
 # ------------------------------------------------------------ the legacy walk

@@ -50,6 +50,7 @@ from torch.nn import functional as F
 from surel_plus_tpu_torch.ops import prng
 from surel_plus_tpu_torch.ops.join import gather_join, make_keys_join
 from surel_plus_tpu_torch.spg.spg import SpGDevice, SpGKeys
+from surel_plus_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from surel_plus_tpu_torch.train.loop import TrainConfig
@@ -156,11 +157,13 @@ def adam_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
               loss: torch.Tensor, grad_clip: float) -> None:
     """One update: the gradients of `loss`, clipped by their global norm
     (`clip_by_global_norm_`), then the optimizer's step."""
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    clip_by_global_norm_([p.grad for p in model.parameters()
-                          if p.grad is not None], grad_clip)
-    optimizer.step()
+    with span("surel.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("surel.optimizer"):
+        clip_by_global_norm_([p.grad for p in model.parameters()
+                              if p.grad is not None], grad_clip)
+        optimizer.step()
 
 
 def device_hits_at_k(pos: torch.Tensor, neg: torch.Tensor,
@@ -232,7 +235,9 @@ class DeviceTrainer:
         return tuple(t[:, :width] if t.dim() == 2 else t for t in self.rows)
 
     def _batch(self, edges: torch.Tensor, rows: Optional[tuple] = None):
-        joined = self.join(*(self.rows if rows is None else rows), edges)
+        with span("surel.join"):
+            joined = self.join(*(self.rows if rows is None else rows),
+                               edges)
         feat = self.feature[edges] if self.feature is not None else None
         return joined, feat
 
@@ -254,11 +259,12 @@ class DeviceTrainer:
             bl = labels[idx]
             key, sub = prng.split(key)
             joined, feat = self._batch(edges[:, idx], rows)
-            logits = self.model(joined, feat, key=sub, **self.train_kw)
-            loss = batch_loss(logits, bl, w)
+            with span("surel.forward"):
+                logits = self.model(joined, feat, key=sub, **self.train_kw)
+                loss = batch_loss(logits, bl, w)
             adam_step(self.model, self.optimizer, loss,
                       self.config.grad_clip)
-            with torch.no_grad():
+            with span("surel.accumulate"), torch.no_grad():
                 preds = torch.sigmoid(logits)
                 acc[0] += score_histogram(preds, w * bl, AUC_BINS)
                 acc[1] += score_histogram(preds, w * (1.0 - bl), AUC_BINS)
@@ -329,8 +335,9 @@ class DeviceTrainer:
         out = []
         for i in range(0, E + pad, bs):
             joined, feat = self._batch(edges[:, i:i + bs], rows)
-            out.append(torch.sigmoid(self.model(joined, feat,
-                                                **self.predict_kw)))
+            with span("surel.forward"):
+                out.append(torch.sigmoid(self.model(joined, feat,
+                                                    **self.predict_kw)))
         return torch.cat(out)[:E]
 
     # -- balanced batching (JAX device.py:282-504) -------------------------

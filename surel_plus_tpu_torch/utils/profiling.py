@@ -1,7 +1,13 @@
-"""Per-phase wall-clock timing and the profiler trace (port of
-surel_plus_tpu/utils/profiling.py: the `Metrics` registry, and
-`torch_trace` in place of `jax_trace`). A phase that ends on the host's
-clock must wait for the device inside it to count the device's work."""
+"""Per-phase wall-clock timing, the program's profiler spans and the
+profiler trace (port of surel_plus_tpu/utils/profiling.py: the `Metrics`
+registry, and `torch_trace` in place of `jax_trace`).
+
+A span (`span`) is a `torch.profiler.record_function` range while the
+profiler records, and a shared null context otherwise, so a run that is
+not traced pays one branch a span. A phase (`Metrics.phase`) is timed on
+the host's clock, waiting for the device at its start and end, and opens
+its span while the profiler records. `NAMES` lists every span and phase
+the program opens."""
 
 from __future__ import annotations
 
@@ -10,9 +16,64 @@ import dataclasses
 import logging
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Dict, Iterator, Optional
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 log = logging.getLogger(__name__)
+
+# every span and phase the program opens, with what it covers
+NAMES: Dict[str, str] = {
+    # spans of a training step and a scoring batch (train/device.py)
+    "surel.join": "the join of a batch's query edges over the stored sets "
+                  "(`DeviceTrainer._batch`)",
+    "surel.forward": "the model and `batch_loss` in a training step; the "
+                     "model and its sigmoid in a scoring batch",
+    "surel.backward": "`zero_grad` and `loss.backward()` (`adam_step`)",
+    "surel.optimizer": "the global-norm clip and the optimizer's step "
+                       "(`adam_step`)",
+    "surel.accumulate": "a step's score histograms, weighted loss and "
+                        "weight added to the epoch's accumulators",
+    # spans of a sampling pass (ops/walk.py, ops/sampler.py)
+    "surel.sample.walk": "a block's walk draws and walks "
+                         "(`walk_bits`, `walk_block_tables`)",
+    "surel.sample.sets": "a block's dedup sort, prefix sums, compaction and "
+                         "key packing (`build_sets_packed_block`)",
+    "surel.sample.store": "the concatenation of the blocks' sets "
+                          "(`sample_gsets_device_keys`)",
+    # phases of the host ingest, on a cache miss only (items: edges)
+    "ingest.csr": "the CSR build from an edge list (`csr_from_edges`)",
+    "ingest.shuffle": "the native per-row shuffle of the CSR indices "
+                      "(`shuffled_indices_for`)",
+    "ingest.upload": "a graph's CSR or its shuffled indices copied to the "
+                     "device (`device_graph`, `shuffled_indices_for`)",
+    "ingest.tables": "the walk's edge tables built on the device "
+                     "(`walk_tables_for`)",
+    # phases of the CLIs (cli/main.py, cli/main_horder.py)
+    "load": "the dataset loaded, split and made into graphs",
+    "prep": "node features, model and both stores of sets built",
+    "train_epoch": "a block of training epochs up to the next evaluation "
+                   "(items: query edges)",
+    "eval": "an evaluation of the valid and test splits",
+}
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str) -> ContextManager:
+    """A `record_function` range named `name` while torch.profiler
+    records (so the device work issued inside it is attributed to it),
+    else a shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+def _sync() -> None:
+    """Wait for the current CUDA device, where CUDA is initialised."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 @dataclasses.dataclass
@@ -33,9 +94,9 @@ class PhaseStat:
 class Metrics:
     """Process-wide phase timing registry.
 
-    with metrics.phase("sampling", items=num_seeds):
+    with metrics.phase("ingest.csr", items=len(edges)):
         ...
-    metrics.report()  # -> {"sampling": PhaseStat(...), ...}
+    metrics.report()  # -> {"ingest.csr": PhaseStat(...), ...}
     """
 
     def __init__(self):
@@ -43,14 +104,20 @@ class Metrics:
 
     @contextlib.contextmanager
     def phase(self, name: str, items: int = 0) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(name, time.perf_counter() - t0, items)
+        """Time the body on the host's clock from a drained device to a
+        drained device, so the phase counts its own device work and none
+        queued before it; inside `span(name)`."""
+        with span(name):
+            _sync()
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                _sync()
+                self.add(name, time.perf_counter() - t0, items)
 
     def add(self, name: str, seconds: float, items: int = 0) -> None:
-        """Record an externally-timed span under `name`."""
+        """Record an externally-timed phase under `name`."""
         s = self._stats[name]
         s.total_s += seconds
         s.count += 1
@@ -83,8 +150,6 @@ def torch_trace(log_dir: Optional[str]) -> Iterator[None]:
     if not log_dir:
         yield
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

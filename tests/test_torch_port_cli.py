@@ -498,6 +498,7 @@ def test_run_experiment_on_the_cpu(tmp_path, dataset, aggrs, runs):
     text = log_file.read_text()
     assert "Run: 01, Epoch: 01, Loss:" in text
     assert "phase train_epoch" in text and "phase eval" in text
+    assert "phase load" in text and "phase ingest.csr" in text
     assert ("All runs" in text) == (runs > 1)
 
 

@@ -724,6 +724,7 @@ def test_main_on_the_cpu_writes_a_summarizable_log(tmp_path, monkeypatch,
     text = log_file.read_text()
     assert "Run: 01, Epoch: 03, Loss:" in text and "eval MRR:" in text
     assert "phase train_epoch" in text and "hypergraph:" in text
+    assert "phase load" in text
 
 
 def test_main_without_a_device_raises(monkeypatch):
